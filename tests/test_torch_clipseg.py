@@ -1,0 +1,229 @@
+"""The whole serving slice of the port against the JAX package: tiny
+CLIPSeg + CoOp (prompt depth 3, 4 contexts) and the e2e model, the JAX
+`SegmentationTask.init` params carried over by `state_dict_from_jax`, then
+predict_step / eval_step / the serving function on a uint8 batch with prompt
+dedup (`text_index`). Also: the weight mapping covers every leaf both ways
+(tiny and full width), the unported strategies raise, and the port imports
+no JAX."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+pytest.importorskip("flax")
+pytest.importorskip("optax")
+import jax.numpy as jnp  # noqa: E402
+
+from tunevlseg_tpu.models import presets as jpresets  # noqa: E402
+from tunevlseg_tpu.models.clip.config import CLIPSegConfig  # noqa: E402
+from tunevlseg_tpu.ops import metrics as jmetrics  # noqa: E402
+from tunevlseg_tpu.training.optim import merge_params  # noqa: E402
+from tunevlseg_tpu.training.task import SegmentationTask as JTask  # noqa: E402
+from tunevlseg_torch.convert.from_jax import (flatten_params, port_name,  # noqa: E402
+                                              state_dict_from_jax)
+from tunevlseg_torch.models import presets as tpresets  # noqa: E402
+from tunevlseg_torch.models.clipseg.model import CLIPSegForSegmentation  # noqa: E402
+from tunevlseg_torch.models.prompt.learners import CoOpLearner  # noqa: E402
+from tunevlseg_torch.ops import metrics as tmetrics  # noqa: E402
+from tunevlseg_torch.serving import task_predict_fn  # noqa: E402
+from tunevlseg_torch.training.task import SegmentationTask as TTask  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# f32 logits through ~10 layers, summation order differs: 1e-4; the loss and
+# the metric sums are reductions of those logits: 1e-5
+LOGIT_TOL = 1e-4
+LOSS_TOL = 1e-5
+
+
+def _batch(seed=0, b=4, img=64, unique=2):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, 1000, size=(unique, 12)).astype(np.int32)
+    ids[:, 0] = 49406
+    ids[0, 9:] = 49407
+    ids[1:, 7:] = 49407
+    return {"image": rng.integers(0, 256, (b, 3, img, img), dtype=np.uint8),
+            "mask": (rng.random((b, 1, img, img)) > 0.5).astype(np.float32),
+            "input_ids": ids, "attention_mask": (ids != 49407).astype(np.int32),
+            "valid": np.array([1] * (b - 1) + [0], np.float32),
+            "text_index": (np.arange(b) % unique).astype(np.int32)}
+
+
+def _pair(strategy):
+    cfg = CLIPSegConfig.tiny()
+    batch = _batch()
+    jmodel, spec = jpresets.build_clipseg(strategy, prompt_depth=3,
+                                          num_context=4, config=cfg)
+    jtask = JTask(jmodel, spec)
+    state, frozen = jtask.init(jax.random.PRNGKey(0), batch)
+    params = merge_params(state.trainable, frozen["params"])
+    tmodel = tpresets.build_clipseg(strategy, prompt_depth=3, num_context=4,
+                                    config=cfg, seed=1)
+    tmodel.load_state_dict(state_dict_from_jax(params, tmodel))
+    return jtask, state, frozen, params, TTask(tmodel), batch
+
+
+@pytest.mark.parametrize("strategy", ["coop", None])
+def test_serving_slice_matches_jax(strategy):
+    jtask, state, frozen, params, ttask, batch = _pair(strategy)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    want_logits = np.asarray(jtask._forward(params, {}, batch))
+    with torch.no_grad():
+        got_logits = ttask._forward(tbatch).numpy()
+    assert got_logits.shape == (4, 1, 64, 64)
+    np.testing.assert_allclose(got_logits, want_logits, atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+
+    want_probs = np.asarray(jtask.predict_step(state, frozen, batch))
+    got_probs = ttask.predict_step(tbatch)
+    np.testing.assert_allclose(got_probs.numpy(), want_probs, atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    served = task_predict_fn(ttask)(dict(ttask.model.named_parameters()), tbatch)
+    torch.testing.assert_close(served, got_probs, rtol=0, atol=0)
+
+    jstate, jaux = jtask.eval_step(state, frozen, jmetrics.SegMetricState.zeros(),
+                                   batch)
+    tstate, taux = ttask.eval_step(tmetrics.SegMetricState.zeros(), tbatch)
+    for key in ("loss_sum", "n"):
+        np.testing.assert_allclose(taux[key].item(), float(jaux[key]),
+                                   atol=LOSS_TOL, rtol=LOSS_TOL)
+    np.testing.assert_allclose([float(x) for x in tstate],
+                               [float(x) for x in jstate], atol=LOSS_TOL,
+                               rtol=LOSS_TOL)
+    for key, value in tmetrics.compute(tstate).items():
+        np.testing.assert_allclose(value.item(),
+                                   float(jmetrics.compute(jstate)[key]),
+                                   atol=LOSS_TOL, rtol=LOSS_TOL)
+
+
+def test_text_dedup_matches_dense_rows():
+    _, _, _, _, ttask, batch = _pair("coop")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    dense = dict(tbatch)
+    idx = dense.pop("text_index").long()
+    dense["input_ids"] = tbatch["input_ids"][idx]
+    dense["attention_mask"] = tbatch["attention_mask"][idx]
+    torch.testing.assert_close(ttask.predict_step(tbatch),
+                               ttask.predict_step(dense), rtol=0, atol=2e-6)
+
+
+def test_mapping_covers_every_leaf_both_ways():
+    _, _, _, params, ttask, _ = _pair("coop")
+    flat = flatten_params(params)
+    names = {port_name(p)[0] for p in flat}
+    assert names == set(ttask.model.state_dict())
+    assert len(names) == len(flat)
+
+    extra = {**params, "visual_projection": {"kernel": np.zeros((24, 20))}}
+    with pytest.raises(KeyError, match="visual_projection"):
+        state_dict_from_jax(extra, ttask.model)
+    unknown = {**params, "decoder": {**params["decoder"],
+                                     "film_mul": {"mystery": np.zeros(3)}}}
+    with pytest.raises(KeyError, match="no mapping"):
+        state_dict_from_jax(unknown, ttask.model)
+    missing = {k: v for k, v in params.items() if k != "text_projection"}
+    with pytest.raises(KeyError, match="unfilled.*text_projection"):
+        state_dict_from_jax(missing, ttask.model)
+
+
+def test_mapping_matches_full_width_param_set():
+    """rd64 + CoOp(3, 4) at 352²: the JAX tree (shapes only, no compute)
+    holds vision layers 0..9 and no post_layernorm, visual_projection or
+    additive_head; the port builds exactly that set."""
+    jmodel, _ = jpresets.build_clipseg("coop", prompt_depth=3, num_context=4)
+    shapes = jax.eval_shape(
+        jmodel.init, jax.random.PRNGKey(0),
+        jax.ShapeDtypeStruct((1, 77), jnp.int32),
+        jax.ShapeDtypeStruct((2, 3, 352, 352), jnp.float32),
+        jax.ShapeDtypeStruct((1, 77), jnp.int32),
+        text_index=jax.ShapeDtypeStruct((2,), jnp.int32))["params"]
+    with torch.device("meta"):
+        tmodel = CLIPSegForSegmentation(
+            tpresets.clipseg_rd64_config(),
+            CoOpLearner(prompt_depth=3, num_context=4, context_dim=512),
+            additive_mode="unused")
+    want = {}
+    for path, leaf in flatten_params(shapes).items():
+        name, transpose = port_name(path)
+        want[name] = tuple(leaf.shape[::-1] if transpose else leaf.shape)
+    got = {k: tuple(v.shape) for k, v in tmodel.state_dict().items()}
+    assert got == want
+    assert "vision_model.layers.9.mlp.fc2.weight" in got
+    assert not any(k.startswith(("vision_model.layers.10", "visual_projection",
+                                 "vision_model.post_layernorm", "additive_head"))
+                   for k in got)
+
+
+def test_context_vectors_init_overwrites_leading_depths():
+    emb = np.random.default_rng(4).normal(size=(4, 16)).astype(np.float32)
+    learner = CoOpLearner(prompt_depth=3, num_context=4, context_dim=16,
+                          initializer_embeddings=emb)
+    with torch.no_grad():
+        learner.init_weights(torch.Generator().manual_seed(0))
+    ctx = learner().text.detach()
+    assert ctx.shape == (3, 4, 16)
+    np.testing.assert_array_equal(ctx[0].numpy(), emb)
+    assert 0.01 < ctx[1:].std().item() < 0.03      # N(0, 0.02) elsewhere
+
+
+def test_unported_paths_raise():
+    cfg = CLIPSegConfig.tiny()
+    for mode in ("plain", "residual"):
+        with pytest.raises(NotImplementedError, match="Slice B"):
+            CLIPSegForSegmentation(cfg, additive_mode=mode)
+    with pytest.raises(NotImplementedError, match="Slice B"):
+        tpresets.build_clipseg("vpt", config=cfg)
+
+    class ImageConditioned(CoOpLearner):
+        needs_image_features = True
+
+    model = tpresets.build_clipseg("coop", prompt_depth=2, config=cfg)
+    model.learner = ImageConditioned(prompt_depth=2, context_dim=16)
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    args = (batch["input_ids"], batch["image"].float(), batch["attention_mask"])
+    with pytest.raises(ValueError, match="image-conditioned"):
+        model(*args, text_index=batch["text_index"])
+    with pytest.raises(NotImplementedError, match="Slice B"):
+        model(batch["input_ids"][batch["text_index"].long()], *args[1:])
+
+
+def test_port_runs_without_jax():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "regex"):
+            sys.modules[name] = None        # any import of them now fails
+        import torch
+        import tunevlseg_torch
+        for mod in pkgutil.walk_packages(tunevlseg_torch.__path__,
+                                         "tunevlseg_torch."):
+            importlib.import_module(mod.name)
+        import chip_smoke  # noqa: F401
+        from tunevlseg_tpu.models.clip.config import CLIPSegConfig
+        from tunevlseg_torch.models.presets import build_clipseg
+        from tunevlseg_torch.ops.metrics import SegMetricState
+        from tunevlseg_torch.training.task import SegmentationTask
+        model = build_clipseg("coop", prompt_depth=3, num_context=4,
+                              config=CLIPSegConfig.tiny())
+        g = torch.Generator().manual_seed(0)
+        ids = torch.randint(3, 999, (1, 12), generator=g, dtype=torch.int32)
+        batch = {"image": torch.randint(0, 256, (2, 3, 32, 32), generator=g,
+                                        dtype=torch.uint8),
+                 "mask": torch.ones(2, 1, 32, 32), "input_ids": ids,
+                 "text_index": torch.zeros(2, dtype=torch.int32)}
+        task = SegmentationTask(model)
+        probs = task.predict_step(batch)
+        state, aux = task.eval_step(SegMetricState.zeros(), batch)
+        assert probs.shape == (2, 1, 32, 32) and bool(probs.isfinite().all())
+        assert "tunevlseg_tpu.data.tokenizer" not in sys.modules
+        print("no-jax ok", float(aux["loss_sum"]))
+    """)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no-jax ok" in proc.stdout

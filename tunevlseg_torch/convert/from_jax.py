@@ -1,0 +1,80 @@
+"""JAX param tree -> the port's `state_dict`.
+
+The JAX package's parameters (a nested dict of arrays, as `model.init` or
+its checkpoint converters give them) map onto the port's parameter names
+mechanically:
+
+  * path components `layers_3` / `reduces_0` -> `layers.3` / `reduces.0`;
+  * Flax `Dense.kernel` (in, out) -> `weight` (out, in), transposed;
+  * `LayerNorm.scale` -> `weight`; `Embed.embedding` -> `weight`;
+  * everything else (`bias`, ConvTranspose `weight`, `patch_proj` in its
+    channel-major (C*p*p, D) layout, `class_embedding`, `position_embedding`,
+    `context_vectors`, `residual_ratio`) is copied as it is.
+
+Flax creates parameters only for the modules a forward calls, and the port
+builds the same set (see `models/clip/vision.py`): with the early exit there
+are no vision layers past max(extract_layers), no `post_layernorm` and no
+`visual_projection`, and text-only prompting has no `additive_head`. So the
+mapping skips nothing: it raises on a leaf it cannot place and on a port
+parameter it leaves unfilled.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_INDEXED = re.compile(r"(layers|reduces)_(\d+)")
+_RENAMED_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+_COPIED_LEAVES = {"bias", "weight", "class_embedding", "position_embedding",
+                  "patch_proj", "context_vectors", "residual_ratio"}
+
+
+def flatten_params(params: Mapping[str, Any], prefix: tuple = ()) -> dict:
+    """Nested mapping -> {path tuple: leaf}."""
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, Mapping):
+            out.update(flatten_params(value, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = value
+    return out
+
+
+def port_name(path: tuple[str, ...]) -> tuple[str, bool]:
+    """JAX param path -> (port state_dict name, whether to transpose)."""
+    *modules, leaf = path
+    if leaf not in _RENAMED_LEAVES and leaf not in _COPIED_LEAVES:
+        raise KeyError(f"no mapping for JAX leaf {'/'.join(path)}")
+    parts = []
+    for m in modules:
+        match = _INDEXED.fullmatch(m)
+        parts.extend(match.groups() if match else (m,))
+    return ".".join(parts + [_RENAMED_LEAVES.get(leaf, leaf)]), leaf == "kernel"
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        model: nn.Module) -> dict[str, torch.Tensor]:
+    """f32 CPU tensors under `model`'s parameter names, for
+    `model.load_state_dict`. Raises on unmapped leaves, shape mismatches and
+    unfilled port parameters."""
+    expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out = {}
+    for path, leaf in flatten_params(params).items():
+        name, transpose = port_name(path)
+        if name not in expected:
+            raise KeyError(f"JAX leaf {'/'.join(path)} maps to {name!r}, "
+                           "which the port model does not have")
+        arr = np.asarray(leaf, dtype=np.float32)
+        tensor = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
+        if tuple(tensor.shape) != expected[name]:
+            raise ValueError(f"{'/'.join(path)} -> {name}: shape "
+                             f"{tuple(tensor.shape)} != {expected[name]}")
+        out[name] = tensor
+    unfilled = sorted(set(expected) - set(out))
+    if unfilled:
+        raise KeyError(f"port parameters left unfilled: {unfilled}")
+    return out

@@ -1,0 +1,73 @@
+"""Attention dispatch: the plain PyTorch path and kernel K1.
+
+Counterpart of `tunevlseg_tpu/nn/attention.py`. Every attention of the model
+funnels through `dot_product_attention`, which sends unbiased bf16
+self-attention with S >= 256 on a CUDA device to K1
+(`tunevlseg_torch.ops.flash_attention`) and everything else (the text
+tower's causal + padding bias, CPU tensors, f32) to `plain_attention`. The
+gate is a dispatch rule, like the JAX package's TPU-backend test, not a
+fallback: a CUDA call that passes it launches K1 or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tunevlseg_torch.ops.flash_attention import flash_attention
+
+KERNEL_MIN_SEQ = 256
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    kv_valid: Optional[int] = None) -> torch.Tensor:
+    """softmax(q kᵀ / √D + bias) v for (B, S, H, D) inputs, with the JAX
+    package's numerics: f32 accumulation, the scores stored in the input
+    dtype BEFORE the bias add, then an f32 softmax; keys >= kv_valid get
+    exactly zero probability."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    scores = scores.to(q.dtype)
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    scores = scores.float()
+    if kv_valid is not None and kv_valid < k.shape[1]:
+        col = torch.arange(k.shape[1], device=q.device)
+        scores = scores.masked_fill(col >= kv_valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs.float(), v.float()).to(v.dtype)
+
+
+def _kernel_eligible(q: torch.Tensor, k: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> bool:
+    return (q.is_cuda and q.dtype == torch.bfloat16 and bias is None
+            and q.shape[1] == k.shape[1] and q.shape[1] >= KERNEL_MIN_SEQ)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          kv_valid: Optional[int] = None) -> torch.Tensor:
+    """K1 for unbiased bf16 CUDA self-attention at S >= 256, else
+    `plain_attention`. A head dim K1 is not built for raises in K1."""
+    if _kernel_eligible(q, k, bias):
+        return flash_attention(q, k, v, kv_valid=kv_valid)
+    return plain_attention(q, k, v, bias, kv_valid=kv_valid)
+
+
+def causal_bias(seq_len: int, dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """(1, 1, S, S) additive causal mask, dtype-min above the diagonal (HF
+    `_create_4d_causal_attention_mask`)."""
+    full = torch.full((seq_len, seq_len), torch.finfo(dtype).min, dtype=dtype,
+                      device=device)
+    return torch.triu(full, diagonal=1)[None, None]
+
+
+def padding_bias(attention_mask: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, S) {0, 1} keep-mask -> (B, 1, 1, S) additive bias; masked keys get
+    dtype-min (HF `_prepare_4d_attention_mask`)."""
+    neg = torch.finfo(dtype).min
+    bias = (1.0 - attention_mask.to(dtype)) * neg
+    return bias[:, None, None, :]

@@ -1,0 +1,187 @@
+"""Shared transformer building blocks.
+
+Counterpart of `tunevlseg_tpu/nn/layers.py`. Precision follows Flax
+`dtype=<compute>` over f32 parameters: the parameters stay f32 and are cast
+to the compute dtype at use, LayerNorm statistics and its affine run in f32,
+and every block returns the compute dtype. Submodule and parameter names
+follow the JAX param tree (`self_attn.q_proj`, `mlp.fc1`, `layer_norm1`) so
+the weight mapping in `tunevlseg_torch/convert/from_jax.py` is mechanical.
+
+Parameters are allocated uninitialized; `init_params` fills every module
+that defines `init_weights(generator)` from one `torch.Generator`.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tunevlseg_torch.nn.attention import dot_product_attention
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "quick_gelu": quick_gelu,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "relu": F.relu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Flax's `lecun_normal`: truncated normal at ±2 std, rescaled so the
+    variance is 1/fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    for m in module.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(generator)
+
+
+class Dense(nn.Module):
+    """Flax `nn.Dense` semantics with torch's (out, in) weight layout."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """Flax `nn.LayerNorm(dtype=...)`: f32 statistics and affine, output in
+    the compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.dtype)
+
+
+class Embed(nn.Module):
+    """Flax `nn.Embed(dtype=...)`: gather from the f32 table, then cast."""
+
+    def __init__(self, num_embeddings: int, dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_embeddings, dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, self.weight.shape[1] ** -0.5,
+                            generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight).to(self.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with separate q/k/v/out projections (CLIP convention)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"hidden dim {dim} not divisible by heads {num_heads}")
+        self.num_heads = num_heads
+        self.q_proj = Dense(dim, dim, dtype=dtype)
+        self.k_proj = Dense(dim, dim, dtype=dtype)
+        self.v_proj = Dense(dim, dim, dtype=dtype)
+        self.out_proj = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, hidden_states: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None,
+                kv_states: Optional[torch.Tensor] = None,
+                kv_valid: Optional[int] = None) -> torch.Tensor:
+        kv = hidden_states if kv_states is None else kv_states
+
+        def split(x):
+            return x.unflatten(-1, (self.num_heads, -1))
+
+        out = dot_product_attention(split(self.q_proj(hidden_states)),
+                                    split(self.k_proj(kv)),
+                                    split(self.v_proj(kv)),
+                                    bias=attn_bias, kv_valid=kv_valid)
+        return self.out_proj(out.flatten(-2))
+
+
+class TransformerMLP(nn.Module):
+    def __init__(self, dim: int, intermediate_size: int, act: str = "quick_gelu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act = ACT2FN[act]
+        self.fc1 = Dense(dim, intermediate_size, dtype=dtype)
+        self.fc2 = Dense(intermediate_size, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class PreNormEncoderLayer(nn.Module):
+    """Pre-LayerNorm transformer block (CLIP text/vision encoder layer)."""
+
+    def __init__(self, dim: int, num_heads: int, intermediate_size: int,
+                 act: str = "quick_gelu", layer_norm_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layer_norm1 = LayerNorm(dim, layer_norm_eps, dtype)
+        self.self_attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.layer_norm2 = LayerNorm(dim, layer_norm_eps, dtype)
+        self.mlp = TransformerMLP(dim, intermediate_size, act, dtype)
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
+                kv_valid: Optional[int] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), attn_bias, kv_valid=kv_valid)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class PostNormEncoderLayer(nn.Module):
+    """Post-LayerNorm block, the CLIPSeg decoder layer."""
+
+    def __init__(self, dim: int, num_heads: int, intermediate_size: int,
+                 act: str = "relu", layer_norm_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.layer_norm1 = LayerNorm(dim, layer_norm_eps, dtype)
+        self.mlp = TransformerMLP(dim, intermediate_size, act, dtype)
+        self.layer_norm2 = LayerNorm(dim, layer_norm_eps, dtype)
+
+    def forward(self, x: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.layer_norm1(x + self.self_attn(x, attn_bias))
+        return self.layer_norm2(x + self.mlp(x))
