@@ -27,6 +27,7 @@ from tunevlseg_tpu.training.task import SegmentationTask as JTask  # noqa: E402
 from tunevlseg_torch.convert.from_jax import (flatten_params, port_name,  # noqa: E402
                                               state_dict_from_jax)
 from tunevlseg_torch.models import presets as tpresets  # noqa: E402
+from tunevlseg_torch.models.clip import config as tconfig  # noqa: E402
 from tunevlseg_torch.models.clipseg.model import CLIPSegForSegmentation  # noqa: E402
 from tunevlseg_torch.models.prompt.learners import CoOpLearner  # noqa: E402
 from tunevlseg_torch.ops import metrics as tmetrics  # noqa: E402
@@ -55,14 +56,16 @@ def _batch(seed=0, b=4, img=64, unique=2):
 
 def _pair(strategy):
     cfg = CLIPSegConfig.tiny()
+    tcfg = tconfig.CLIPSegConfig.tiny()     # the port's own, same field values
     batch = _batch()
     jmodel, spec = jpresets.build_clipseg(strategy, prompt_depth=3,
                                           num_context=4, config=cfg)
     jtask = JTask(jmodel, spec)
     state, frozen = jtask.init(jax.random.PRNGKey(0), batch)
     params = merge_params(state.trainable, frozen["params"])
-    tmodel = tpresets.build_clipseg(strategy, prompt_depth=3, num_context=4,
-                                    config=cfg, seed=1)
+    tmodel, _ = tpresets.build_clipseg(strategy, prompt_depth=3,
+                                       num_context=4, config=tcfg, seed=1,
+                                       device="cpu")
     tmodel.load_state_dict(state_dict_from_jax(params, tmodel))
     return jtask, state, frozen, params, TTask(tmodel), batch
 
@@ -172,17 +175,18 @@ def test_context_vectors_init_overwrites_leading_depths():
 
 
 def test_unported_paths_raise():
-    cfg = CLIPSegConfig.tiny()
+    cfg = tconfig.CLIPSegConfig.tiny()
     for mode in ("plain", "residual"):
         with pytest.raises(NotImplementedError, match="Slice B"):
             CLIPSegForSegmentation(cfg, additive_mode=mode)
     with pytest.raises(NotImplementedError, match="Slice B"):
-        tpresets.build_clipseg("vpt", config=cfg)
+        tpresets.build_clipseg("vpt", config=cfg, device="cpu")
 
     class ImageConditioned(CoOpLearner):
         needs_image_features = True
 
-    model = tpresets.build_clipseg("coop", prompt_depth=2, config=cfg)
+    model, _ = tpresets.build_clipseg("coop", prompt_depth=2, config=cfg,
+                                      device="cpu")
     model.learner = ImageConditioned(prompt_depth=2, context_dim=16)
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     args = (batch["input_ids"], batch["image"].float(), batch["attention_mask"])
@@ -192,7 +196,24 @@ def test_unported_paths_raise():
         model(batch["input_ids"][batch["text_index"].long()], *args[1:])
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host without CUDA")
+def test_build_defaults_to_the_card_and_never_falls_back_to_the_cpu():
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        tpresets.build_clipseg("coop", config=tconfig.CLIPSegConfig.tiny())
+
+
+def test_port_config_is_its_own_copy_of_the_jax_one():
+    import dataclasses
+    assert tconfig.CLIPSegConfig is not CLIPSegConfig
+    for make in (lambda c: c(), lambda c: c.tiny()):
+        assert (dataclasses.asdict(make(tconfig.CLIPSegConfig))
+                == dataclasses.asdict(make(CLIPSegConfig)))
+
+
 def test_port_runs_without_jax():
+    """Every module of the port and chip_smoke import, and a tiny eval and a
+    tiny train step run, with jax/flax/optax unimportable; afterwards no
+    module of the JAX package has been loaded either."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -203,24 +224,30 @@ def test_port_runs_without_jax():
                                          "tunevlseg_torch."):
             importlib.import_module(mod.name)
         import chip_smoke  # noqa: F401
-        from tunevlseg_tpu.models.clip.config import CLIPSegConfig
+        from tunevlseg_torch.models.clip.config import CLIPSegConfig
         from tunevlseg_torch.models.presets import build_clipseg
         from tunevlseg_torch.ops.metrics import SegMetricState
         from tunevlseg_torch.training.task import SegmentationTask
-        model = build_clipseg("coop", prompt_depth=3, num_context=4,
-                              config=CLIPSegConfig.tiny())
+        model, spec = build_clipseg("coop", prompt_depth=3, num_context=4,
+                                    config=CLIPSegConfig.tiny(), device="cpu")
         g = torch.Generator().manual_seed(0)
         ids = torch.randint(3, 999, (1, 12), generator=g, dtype=torch.int32)
         batch = {"image": torch.randint(0, 256, (2, 3, 32, 32), generator=g,
                                         dtype=torch.uint8),
                  "mask": torch.ones(2, 1, 32, 32), "input_ids": ids,
                  "text_index": torch.zeros(2, dtype=torch.int32)}
-        task = SegmentationTask(model)
+        task = SegmentationTask(model, spec)
         probs = task.predict_step(batch)
         state, aux = task.eval_step(SegMetricState.zeros(), batch)
         assert probs.shape == (2, 1, 32, 32) and bool(probs.isfinite().all())
-        assert "tunevlseg_tpu.data.tokenizer" not in sys.modules
-        print("no-jax ok", float(aux["loss_sum"]))
+        before = model.learner.context_vectors.detach().clone()
+        train_state, metrics = task.train_step(task.init(), batch)
+        assert train_state.step == 1 and bool(metrics["loss"].isfinite())
+        assert not torch.equal(model.learner.context_vectors, before)
+        loaded = [m for m in sys.modules
+                  if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")]
+        assert not loaded, loaded
+        print("no-jax ok", float(aux["loss_sum"]), float(metrics["loss"]))
     """)
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,

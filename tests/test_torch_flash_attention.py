@@ -1,7 +1,8 @@
-"""K1's plain version (tunevlseg_torch/ops/flash_attention.py) against the
-JAX package's Pallas kernel `_forward_batched_heads`, run in interpret mode
-on the CPU as tests/test_flash_attention.py runs it. The CUDA kernel itself
-is checked on the card by tests/test_torch_gpu.py."""
+"""K1's and K2's plain versions (tunevlseg_torch/ops/flash_attention.py)
+against the JAX package's Pallas kernels `_forward_batched_heads` and
+`_backward_batched_heads`, run in interpret mode on the CPU as
+tests/test_flash_attention.py runs them. The CUDA kernels themselves are
+checked on the card by tests/test_torch_gpu.py."""
 import numpy as np
 import pytest
 import torch
@@ -66,3 +67,91 @@ def test_kernel_checks_refuse_cpu_tensors():
     q, k, v = (torch.from_numpy(x).bfloat16() for x in rand_qkv(3, 1, 8, 1, 16, 8))
     with pytest.raises(ValueError, match="CUDA"):
         fa._check_kernel_inputs(q, k, v, None)
+
+
+# --- K2: the plain version of the backward against the Pallas backward -----
+
+def rand_g(seed, b, s, h, d):
+    return np.random.default_rng(seed).normal(size=(b, s, h, d)).astype(np.float32)
+
+
+# f32 at the JAX backward test's own tolerance (tests/test_flash_attention.py,
+# test_pallas_backward_direct): the same formulas, sums taken in another order
+@pytest.mark.parametrize("b,s,h,d,t,kv_valid", [
+    (2, 200, 4, 32, 200, None),   # the JAX test's own shape
+    (1, 485, 3, 64, 485, None),   # vision shape, cut in batch and heads
+    (2, 485, 4, 16, 485, None),   # decoder shape, cut in batch
+    (1, 512, 3, 64, 512, 485),    # padded keys masked by kv_valid
+])
+def test_bwd_ref_matches_pallas_k2(b, s, h, d, t, kv_valid):
+    q, k, v = rand_qkv(4, b, s, h, d, t)
+    g = rand_g(5, b, s, h, d)
+    want = jfa._backward_batched_heads(*(jnp.asarray(x) for x in (q, k, v, g)),
+                                       kv_valid)
+    got = fa.flash_attention_bwd_ref(*(torch.from_numpy(x) for x in (q, k, v, g)),
+                                     kv_valid)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=1e-3, err_msg=name)
+    if kv_valid is not None:
+        # masked keys: exactly zero dk and dv rows, in both packages
+        for a, w in zip(got[1:], want[1:]):
+            assert (a[:, kv_valid:] == 0).all()
+            assert (np.asarray(w)[:, kv_valid:] == 0).all()
+            assert (a[:, :kv_valid] != 0).any()
+
+
+def test_bwd_ref_bf16_matches_pallas_k2():
+    """bf16 at the vision shape: p and ds are rounded to bf16 at the same
+    places in both; atol 5e-2 is the JAX bf16 backward test's own."""
+    q, k, v = rand_qkv(6, 1, 485, 3, 64, 485)
+    g = rand_g(7, 1, 485, 3, 64)
+    want = jfa._backward_batched_heads(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, g)))
+    got = fa.flash_attention_bwd_ref(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v, g)))
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(w, np.float32), atol=5e-2)
+
+
+def test_cpu_bwd_wrapper_takes_plain_version():
+    q, k, v = (torch.from_numpy(x) for x in rand_qkv(8, 1, 40, 2, 32, 40))
+    g = torch.from_numpy(rand_g(9, 1, 40, 2, 32))
+    before = fa.bwd_launch_count()
+    got = fa.flash_attention_bwd(q, k, v, g, kv_valid=30)
+    assert fa.bwd_launch_count() == before
+    for a, w in zip(got, fa.flash_attention_bwd_ref(q, k, v, g, 30)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    # and it is the gradient of the plain forward (f32: 1e-5, summation order)
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_ref(*qkv, 30), qkv, g)
+    for a, w in zip(got, auto):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+def test_plain_attention_grad_matches_xla_vjp():
+    """The CPU model's gradient: autograd through `plain_attention` against
+    jax.vjp of `xla_attention`, with kv_valid (f32, atol 2e-4 rtol 1e-3 as
+    the kernel backward)."""
+    from tunevlseg_tpu.nn.attention import xla_attention
+    from tunevlseg_torch.nn.attention import plain_attention
+    q, k, v = rand_qkv(10, 2, 70, 2, 32, 70)
+    g = rand_g(11, 2, 70, 2, 32)
+    _, vjp = jax.vjp(lambda a, b, c: xla_attention(a, b, c, kv_valid=60),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    qkv = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(plain_attention(*qkv, kv_valid=60), qkv,
+                              torch.from_numpy(g))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=1e-3)
+    assert (got[1][:, 60:] == 0).all() and (got[2][:, 60:] == 0).all()
+
+
+def test_reset_sets_both_launch_counts_to_zero():
+    fa.reset_launch_count()
+    assert fa.launch_count() == 0 and fa.bwd_launch_count() == 0

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from tunevlseg_tpu.models.clip import text as jtext  # noqa: E402
 from tunevlseg_tpu.models.clip import vision as jvision  # noqa: E402
 from tunevlseg_tpu.models.clip.config import CLIPSegConfig  # noqa: E402
+from tunevlseg_torch.models.clip import config as tconfig  # noqa: E402
 from tunevlseg_torch.convert.from_jax import state_dict_from_jax  # noqa: E402
 from tunevlseg_torch.models.clip import text as ttext  # noqa: E402
 from tunevlseg_torch.models.clip import vision as tvision  # noqa: E402
@@ -82,7 +83,9 @@ def test_text_tower_matches_jax(eos_token_id, prompted):
     jm = jtext.CLIPTextTower(cfg)
     params = jm.init(jax.random.PRNGKey(0), *jargs)["params"]
     want_last, want_pooled = jm.apply({"params": params}, *jargs)
-    tm = _load(ttext.CLIPTextTower(cfg), params)
+    # the port's tower takes the port's own config, same field values
+    tcfg = tconfig.CLIPTextConfig(**dataclasses.asdict(cfg))
+    tm = _load(ttext.CLIPTextTower(tcfg), params)
     with torch.no_grad():
         last, pooled = tm(torch.from_numpy(ids), torch.from_numpy(mask),
                           torch.from_numpy(ctx) if prompted else None, depth)
@@ -105,7 +108,8 @@ def test_vision_tower_matches_jax(early_exit):
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(pix), **kw)["params"]
     want_hidden, want_last, want_pooled = jm.apply({"params": params},
                                                    jnp.asarray(pix), **kw)
-    tm = _load(tvision.CLIPVisionTower(vcfg, extract, early_exit), params)
+    tvcfg = tconfig.CLIPVisionConfig(**dataclasses.asdict(vcfg))
+    tm = _load(tvision.CLIPVisionTower(tvcfg, extract, early_exit), params)
     with torch.no_grad():
         hidden, last, pooled = tm(torch.from_numpy(pix))
     assert len(tm.layers) == (3 if early_exit else vcfg.num_layers)

@@ -1,4 +1,4 @@
-"""JAX param tree -> the port's `state_dict`.
+"""JAX param, trainable and gradient trees -> the port's parameter names.
 
 The JAX package's parameters (a nested dict of arrays, as `model.init` or
 its checkpoint converters give them) map onto the port's parameter names
@@ -56,14 +56,18 @@ def port_name(path: tuple[str, ...]) -> tuple[str, bool]:
     return ".".join(parts + [_RENAMED_LEAVES.get(leaf, leaf)]), leaf == "kernel"
 
 
-def state_dict_from_jax(params: Mapping[str, Any],
-                        model: nn.Module) -> dict[str, torch.Tensor]:
-    """f32 CPU tensors under `model`'s parameter names, for
-    `model.load_state_dict`. Raises on unmapped leaves, shape mismatches and
-    unfilled port parameters."""
+def trainable_from_jax(tree: Mapping[str, Any],
+                       model: nn.Module) -> dict[str, torch.Tensor]:
+    """A JAX trainable, gradient or full param tree -> f32 CPU tensors under
+    `model`'s parameter names, with the same transposes as the weights (a
+    gradient has its parameter's layout). `None` leaves (the frozen places
+    of a trainable tree) are skipped. Raises on unmapped leaves and shape
+    mismatches."""
     expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     out = {}
-    for path, leaf in flatten_params(params).items():
+    for path, leaf in flatten_params(tree).items():
+        if leaf is None:
+            continue
         name, transpose = port_name(path)
         if name not in expected:
             raise KeyError(f"JAX leaf {'/'.join(path)} maps to {name!r}, "
@@ -74,7 +78,16 @@ def state_dict_from_jax(params: Mapping[str, Any],
             raise ValueError(f"{'/'.join(path)} -> {name}: shape "
                              f"{tuple(tensor.shape)} != {expected[name]}")
         out[name] = tensor
-    unfilled = sorted(set(expected) - set(out))
+    return out
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        model: nn.Module) -> dict[str, torch.Tensor]:
+    """f32 CPU tensors under `model`'s parameter names, for
+    `model.load_state_dict`. Raises on unmapped leaves, shape mismatches and
+    unfilled port parameters."""
+    out = trainable_from_jax(params, model)
+    unfilled = sorted(set(model.state_dict()) - set(out))
     if unfilled:
         raise KeyError(f"port parameters left unfilled: {unfilled}")
     return out

@@ -32,63 +32,16 @@
 // -Xcompiler -fPIC (see tunevlseg_torch/ops/flash_attention.py). Plain C
 // entry point, loaded with ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_common.cuh"
 
 namespace {
+
+using namespace tvs;
 
 constexpr int kBlockM = 64;  // query rows per block, 16 per warp
 constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ uint32_t pack_f32x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// c += a * b for one m16n8k16 tile: a is 16x16 (row), b is 16x8 (col), f32 accumulators.
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float warp_group4_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float warp_group4_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy 64 rows of D bf16 (row r at src + r * row_stride) into shared memory
-// with row stride D + 8; rows >= valid are zero-filled. The 8-element pad
-// makes the fragment reads below free of bank conflicts.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride, int valid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c * 8) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -117,7 +70,7 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int g = lane / 4;    // fragment row group
   const int tig = lane % 4;  // thread in group
 
-  load_tile<D>(sQ, q + b * q_sb + h * q_sh + m0 * q_ss, q_ss, S - m0);
+  load_tile<D, kBlockM, kThreads>(sQ, q + b * q_sb + h * q_sh + m0 * q_ss, q_ss, S - m0);
   __syncthreads();
 
   // A fragments of this warp's 16 query rows, kept in registers throughout.
@@ -145,8 +98,8 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
   for (int n0 = 0; n0 < t_valid; n0 += kBlockN) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sK, kbase + n0 * k_ss, k_ss, t_valid - n0);
-    load_tile<D>(sV, vbase + n0 * v_ss, v_ss, t_valid - n0);
+    load_tile<D, kBlockM, kThreads>(sK, kbase + n0 * k_ss, k_ss, t_valid - n0);
+    load_tile<D, kBlockM, kThreads>(sV, vbase + n0 * v_ss, v_ss, t_valid - n0);
     __syncthreads();
 
     float s[kScoreTiles][4];
@@ -176,7 +129,7 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       // key 0 is always valid, so the running max is finite after tile 0
-      const float new_max = fmaxf(row_max[r], warp_group4_max(tile_max[r]));
+      const float new_max = fmaxf(row_max[r], group4_max(tile_max[r]));
       corr[r] = exp2f(row_max[r] - new_max);
       row_max[r] = new_max;
       row_sum[r] *= corr[r];
@@ -217,8 +170,8 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     }
   }
 
-  const float denom0 = warp_group4_sum(row_sum[0]);
-  const float denom1 = warp_group4_sum(row_sum[1]);
+  const float denom0 = group4_sum(row_sum[0]);
+  const float denom1 = group4_sum(row_sum[1]);
   const int row_a = m0 + r0;
   const int row_b = row_a + 8;
   __nv_bfloat16* obase = o + b * o_sb + h * o_sh;

@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tunevlseg_tpu.models.clip.config import CLIPTextConfig
+from tunevlseg_torch.models.clip.config import CLIPTextConfig
 from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.layers import Embed, LayerNorm, PreNormEncoderLayer
 

@@ -23,7 +23,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tunevlseg_tpu.models.clip.config import CLIPVisionConfig
+from tunevlseg_torch.models.clip.config import CLIPVisionConfig
 from tunevlseg_torch.nn.layers import LayerNorm, PreNormEncoderLayer, lecun_normal_
 from tunevlseg_torch.ops.image import resize_2d
 

@@ -17,7 +17,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tunevlseg_tpu.models.clip.config import CLIPSegConfig
+from tunevlseg_torch.models.clip.config import CLIPSegConfig
 from tunevlseg_torch.nn.conv import ConvTranspose2d
 from tunevlseg_torch.nn.layers import Dense, PostNormEncoderLayer
 

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from tunevlseg_tpu.models.clip.config import CLIPSegConfig
+from tunevlseg_torch.models.clip.config import CLIPSegConfig
 from tunevlseg_torch.models.clip.text import CLIPTextTower
 from tunevlseg_torch.models.clip.vision import CLIPVisionTower
 from tunevlseg_torch.models.clipseg.decoder import CLIPSegDecoder

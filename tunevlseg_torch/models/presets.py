@@ -12,12 +12,13 @@ from typing import Optional
 
 import torch
 
-from tunevlseg_tpu.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
-                                              CLIPVisionConfig)
+from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
+                                                CLIPVisionConfig)
 from tunevlseg_torch.models.clipseg.model import (CLIPSegForSegmentation,
                                                   strategy_additive_mode)
 from tunevlseg_torch.models.prompt.learners import CoOpLearner
 from tunevlseg_torch.nn.layers import init_params
+from tunevlseg_torch.training.optim import FreezeSpec
 
 
 def clipseg_rd64_config(complex_head: bool = False) -> CLIPSegConfig:
@@ -37,20 +38,27 @@ def clipseg_rd64_config(complex_head: bool = False) -> CLIPSegConfig:
 
 def build_clipseg(strategy: Optional[str] = "coop", prompt_depth: int = 1,
                   num_context: int = 4, config: Optional[CLIPSegConfig] = None,
-                  use_new_last_layer: bool = True,
-                  dtype: torch.dtype = torch.float32, device=None,
-                  seed: int = 0) -> CLIPSegForSegmentation:
-    """Build a CLIPSeg model for a strategy ("coop", or None / "e2e" for the
-    stock model) with seeded random f32 weights on `device`; `dtype` is the
-    compute dtype."""
+                  use_new_last_layer: bool = True, freeze_all: bool = True,
+                  no_freeze_last_layer: bool = False,
+                  freeze_encoder: Optional[bool] = None,
+                  freeze_decoder: bool = False,
+                  dtype: torch.dtype = torch.float32, device="cuda",
+                  seed: int = 0) -> tuple[CLIPSegForSegmentation, FreezeSpec]:
+    """Build the model and its freeze spec for a strategy ("coop", or None /
+    "e2e" for the stock model, a full fine-tune) with seeded random f32
+    weights on `device`; `dtype` is the compute dtype. The model goes to the
+    CUDA card unless the caller names another device (the CPU parity tests
+    pass "cpu"); without a card the default raises, it never falls back to
+    the CPU. The spec is applied by `SegmentationTask.init`."""
     cfg = config or clipseg_rd64_config()
+    e2e = strategy in (None, "e2e")
     learner = None
     if strategy == "coop":
         learner = CoOpLearner(prompt_depth=prompt_depth, num_context=num_context,
                               context_dim=cfg.text.hidden_size, dtype=dtype)
         learner.check_depth(prompt_depth,
                             min(cfg.text.num_layers, cfg.vision.num_layers))
-    elif strategy not in (None, "e2e"):
+    elif not e2e:
         raise NotImplementedError(
             f"strategy {strategy!r} comes with ROADMAP Slice B; the port has "
             "coop and e2e")
@@ -59,4 +67,12 @@ def build_clipseg(strategy: Optional[str] = "coop", prompt_depth: int = 1,
         additive_mode=strategy_additive_mode(strategy, use_new_last_layer),
         dtype=dtype)
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.to(device)
+    spec = FreezeSpec(
+        freeze_all=False if e2e else freeze_all,
+        # zero-shot surface: stock net with frozen CLIP towers, trainable decoder
+        freeze_encoder=bool(freeze_encoder),
+        freeze_decoder=freeze_decoder,
+        no_freeze_last_layer=no_freeze_last_layer,
+        use_new_last_layer=use_new_last_layer and not e2e,
+        complex_head=cfg.complex_transposed_convolution)
+    return model.to(device), spec

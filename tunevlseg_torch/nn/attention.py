@@ -1,4 +1,4 @@
-"""Attention dispatch: the plain PyTorch path and kernel K1.
+"""Attention dispatch: the plain PyTorch path and the kernels K1 and K2.
 
 Counterpart of `tunevlseg_tpu/nn/attention.py`. Every attention of the model
 funnels through `dot_product_attention`, which sends unbiased bf16
@@ -6,7 +6,9 @@ self-attention with S >= 256 on a CUDA device to K1
 (`tunevlseg_torch.ops.flash_attention`) and everything else (the text
 tower's causal + padding bias, CPU tensors, f32) to `plain_attention`. The
 gate is a dispatch rule, like the JAX package's TPU-backend test, not a
-fallback: a CUDA call that passes it launches K1 or raises.
+fallback: a CUDA call that passes it launches K1 or raises. The kernel path
+differentiates: its backward launches K2, the fused attention backward, or
+raises. `plain_attention` is differentiated by autograd as it stands.
 """
 from __future__ import annotations
 
@@ -48,8 +50,9 @@ def _kernel_eligible(q: torch.Tensor, k: torch.Tensor,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           kv_valid: Optional[int] = None) -> torch.Tensor:
-    """K1 for unbiased bf16 CUDA self-attention at S >= 256, else
-    `plain_attention`. A head dim K1 is not built for raises in K1."""
+    """K1 (and K2 for its gradient) for unbiased bf16 CUDA self-attention at
+    S >= 256, else `plain_attention`. A head dim the kernels are not built
+    for raises in K1."""
     if _kernel_eligible(q, k, bias):
         return flash_attention(q, k, v, kv_valid=kv_valid)
     return plain_attention(q, k, v, bias, kv_valid=kv_valid)

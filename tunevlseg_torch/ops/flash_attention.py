@@ -1,15 +1,22 @@
-"""K1, the unbiased self-attention forward, as a hand-written Hopper kernel.
+"""K1 and K2, unbiased self-attention forward and backward, as hand-written
+Hopper kernels.
 
-Counterpart of `tunevlseg_tpu/ops/flash_attention.py:_forward_batched_heads`.
-The CUDA C++ source is `tunevlseg_torch/csrc/flash_attn_fwd.cu`; it is built
-with `nvcc` for `sm_90a` into a plain C shared library at first use (under
-`tunevlseg_torch/_build/`, keyed by a hash of the source and flags) and
-called through `ctypes` on PyTorch's current stream.
+Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
+`_forward_batched_heads`, K2 replaces `_backward_batched_heads`. The CUDA C++
+sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu` and
+`tunevlseg_torch/csrc/flash_attn_bwd.cu` (shared helpers in
+`attn_common.cuh`); both are built with `nvcc` for
+`sm_90a` into plain C shared libraries at first use (one compiler process per
+source, started together; under `tunevlseg_torch/_build/`, keyed by a hash of
+the source and flags) and called through `ctypes` on PyTorch's current
+stream.
 
-`flash_attention` takes the kernel for CUDA tensors and raises on anything
-the kernel does not take; for CPU tensors it runs `flash_attention_ref`, the
-kernel's plain PyTorch version with the same numerics. The gradient (K2) is
-not ported yet: the backward raises.
+`flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
+does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
+backward of the `autograd.Function`. There is no fallback: a CUDA call
+launches the kernels or raises. For CPU tensors the wrappers run
+`flash_attention_ref` and `flash_attention_bwd_ref`, the kernels' plain
+PyTorch versions with the same numerics.
 """
 from __future__ import annotations
 
@@ -24,14 +31,17 @@ from typing import Optional
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "flash_attn_fwd.cu"
+_SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
+            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu"}
+_HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by both sources
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Optional[dict[str, ctypes.CDLL]] = None
 _launches = 0
+_bwd_launches = 0
 
 
 def launch_count() -> int:
@@ -39,9 +49,16 @@ def launch_count() -> int:
     return _launches
 
 
+def bwd_launch_count() -> int:
+    """Number of K2 launches since the last `reset_launch_count`."""
+    return _bwd_launches
+
+
 def reset_launch_count() -> None:
-    global _launches
+    """Set the K1 and the K2 launch counts to 0."""
+    global _launches, _bwd_launches
     _launches = 0
+    _bwd_launches = 0
 
 
 def _nvcc() -> str:
@@ -52,40 +69,55 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()
+def library_path(kernel: str = "fwd") -> Path:
+    """Where the built library of a kernel ("fwd" is K1, "bwd" is K2) lives
+    for its current source and flags."""
+    source = _SOURCES[kernel]
+    digest = hashlib.sha256(source.read_bytes() + _HEADER.read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"flash_attn_fwd-{digest}.so"
+    return _BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def load_library() -> ctypes.CDLL:
-    """Build K1 from source if needed and load it. A failed build raises;
-    the compiler's output (with `ptxas -v` register and spill counts) is kept
-    beside the library as `<name>.log`."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
-    if not out.exists():
+def load_library() -> dict[str, ctypes.CDLL]:
+    """Build K1 and K2 from source where needed (the compilers run side by
+    side) and load them; returns {"fwd": lib, "bwd": lib}. A failed build
+    raises; each compiler's output (with `ptxas -v` register and spill
+    counts) is kept beside its library as `<name>.log`."""
+    global _libs
+    if _libs is not None:
+        return _libs
+    builds = []
+    for kernel, source in _SOURCES.items():
+        out = library_path(kernel)
+        if out.exists():
+            continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)]
+        builds.append((source, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for source, out, tmp, cmd, proc in builds:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout + stderr)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-                f"{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.tvs_flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+            failures.append(f"nvcc failed ({proc.returncode}) building "
+                            f"{source}:\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    libs = {kernel: ctypes.CDLL(str(library_path(kernel))) for kernel in _SOURCES}
+    fwd = libs["fwd"].tvs_flash_attn_fwd
+    fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    bwd = libs["bwd"].tvs_flash_attn_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    _libs = libs
+    return libs
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,65 +137,135 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / denom).transpose(1, 2).to(q.dtype)
 
 
-def _check_kernel_inputs(q, k, v, kv_valid) -> int:
-    """Raise on anything K1 does not take; return the valid key count."""
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            g: torch.Tensor, kv_valid: Optional[int] = None):
+    """Plain PyTorch version of K2 with the kernel's numerics, from q, k, v
+    and the output gradient g alone: p = softmax(q kᵀ / √D) recomputed in
+    f32 (keys >= kv_valid at -inf), dv = pᵀ g, dp = g vᵀ, δ = Σⱼ p·dp,
+    ds = p (dp - δ) / √D, dq = ds k, dk = dsᵀ q. p and ds are rounded to the
+    input dtype as operands of their products, every product accumulates in
+    f32, and g is cast to q's dtype first. Masked keys get exactly zero dk
+    and dv rows. (B, S, H, D) in; returns (dq, dk, dv) in the input dtypes."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    t = k.shape[1] if kv_valid is None else kv_valid
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.to(q.dtype).float()
+    scores = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    col = torch.arange(k.shape[1], device=q.device)
+    scores = scores.masked_fill(col >= t, float("-inf"))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhst,bshd->bthd", p.to(q.dtype).float(), gf)
+    dp = torch.einsum("bshd,bthd->bhst", gf, vf)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf)
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
+    """Raise on anything K1 and K2 do not take; return the valid key count."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
-            raise ValueError(f"K1 needs CUDA tensors; {name} is on {x.device}")
+            raise ValueError(f"{kernel} needs CUDA tensors; {name} is on {x.device}")
         if x.dtype != torch.bfloat16:
-            raise ValueError(f"K1 takes bfloat16; {name} is {x.dtype}")
+            raise ValueError(f"{kernel} takes bfloat16; {name} is {x.dtype}")
         if x.dim() != 4:
-            raise ValueError(f"K1 takes (B, S, H, D); {name} has shape "
+            raise ValueError(f"{kernel} takes (B, S, H, D); {name} has shape "
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
-            raise ValueError(f"K1 takes contiguous inputs; {name} is not")
+            raise ValueError(f"{kernel} takes contiguous inputs; {name} is not")
         if x.data_ptr() % 16:
-            raise ValueError(f"K1 needs 16-byte aligned inputs; {name} is not")
+            raise ValueError(f"{kernel} needs 16-byte aligned inputs; {name} is not")
         if x.device != q.device:
             raise ValueError("q, k and v must be on one device")
     b, s, h, d = q.shape
     t = k.shape[1]
     if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"K1 takes head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+        raise ValueError(f"{kernel} takes head dims {SUPPORTED_HEAD_DIMS}, got {d}")
     if k.shape != (b, t, h, d) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not (0 < b <= 65535 and 0 < h <= 65535 and s > 0 and t > 0):
-        raise ValueError(f"K1 grid out of range for shape {tuple(q.shape)}")
+        raise ValueError(f"{kernel} grid out of range for shape {tuple(q.shape)}")
     t_valid = t if kv_valid is None else int(kv_valid)
     if not 1 <= t_valid <= t:
         raise ValueError(f"kv_valid={kv_valid} must lie in [1, {t}]")
     return t_valid
 
 
+def _seq_strides(*tensors) -> ctypes.Array:
+    """(batch, seq, head) strides in elements of each (B, S, H, D) tensor."""
+    values = [x.stride(i) for x in tensors for i in range(3)]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 def _launch(q, k, v, t_valid) -> torch.Tensor:
     global _launches
-    lib = load_library()
+    lib = load_library()["fwd"]
     o = torch.empty_like(q)
     b, s, h, d = q.shape
-    strides = (ctypes.c_longlong * 12)(
-        *(x.stride(i) for x in (q, k, v, o) for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.tvs_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), b, s, h, d, t_valid,
-                                     strides, stream)
+                                     _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     _launches += 1
     return o
 
 
-class _FlashAttentionFwd(torch.autograd.Function):
+def _kernel_readable(g: torch.Tensor) -> bool:
+    """Whether K2 can read a gradient in place: unit stride on D and every
+    row 16-byte aligned (it reads rows in 16-byte chunks through strides)."""
+    return (g.stride(3) == 1 and g.data_ptr() % 16 == 0
+            and all(g.stride(i) % 8 == 0 for i in range(3)))
+
+
+def _launch_bwd(q, k, v, g, t_valid):
+    global _bwd_launches
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"K2: gradient {tuple(g.shape)} on {g.device} does not "
+                         f"match q {tuple(q.shape)} on {q.device}")
+    g = g.to(q.dtype)
+    if not _kernel_readable(g):
+        g = g.contiguous()       # a copy K2's caller pays for: rare layouts only
+    lib = load_library()["bwd"]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    b, s, h, d = q.shape
+    # per-row log-sum-exp and delta, written by K2's first pass for its second
+    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.tvs_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), b, s, k.shape[1], h, d, t_valid,
+            _seq_strides(q, k, v, g, dq, dk, dv), stream)
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+    _bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. q, k and v are kept for the backward only
+    when one of them needs a gradient (a frozen tower saves nothing)."""
+
     @staticmethod
     def forward(ctx, q, k, v, t_valid):
+        ctx.t_valid = t_valid
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v)
         return _launch(q, k, v, t_valid)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the attention backward is kernel K2, not ported yet "
-            "(ROADMAP Queue 2, K2: _backward_batched_heads)")
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, grad, ctx.t_valid)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,10 +274,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ / √D) v for (B, S, H, D) inputs, keys >= kv_valid masked.
 
     CUDA tensors go through K1 (bf16, D in {16, 32, 64}, contiguous, no
-    bias) or raise; CPU tensors take `flash_attention_ref`."""
+    bias) or raise, and differentiate through K2; CPU tensors take
+    `flash_attention_ref`."""
     if bias is not None:
         raise ValueError("K1 takes no bias; biased attention is plain_attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kv_valid)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid)
-    return _FlashAttentionFwd.apply(q, k, v, t_valid)
+    return _FlashAttention.apply(q, k, v, t_valid)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, kv_valid: Optional[int] = None):
+    """(dq, dk, dv) of `flash_attention(q, k, v, kv_valid)` for the output
+    gradient g, from q, k, v and g alone.
+
+    CUDA tensors go through K2 (the same inputs K1 takes; g may be a strided
+    view) or raise; CPU tensors take `flash_attention_bwd_ref`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, g, kv_valid)
+    t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="K2")
+    return _launch_bwd(q, k, v, g, t_valid)

@@ -1,0 +1,298 @@
+"""Optimizer construction: the trainable/frozen partition, the decay and
+no-decay groups, and the host-side learning-rate schedulers.
+
+Counterpart of `tunevlseg_tpu/training/optim.py`:
+  * `FreezeSpec`: the learnability flags (freeze_all / freeze_encoder /
+    freeze_decoder / no_freeze_last_layer / use_new_last_layer, plus the
+    always-trainable context learner). `path_trainable` is a pure function
+    of a JAX-style parameter path, the same for all three model families;
+  * the GPT-style decay split: Dense and convolution weights and the vision
+    patch projection decay; biases, embedding tables, norm weights and bare
+    parameters do not;
+  * AdamW (decoupled decay, torch semantics) or SGD with momentum, with a
+    global-norm clip in front, and a learning rate that can be changed
+    between steps;
+  * `ReduceLROnPlateau` and `CosineAnnealingLR`, driven from the host.
+
+Frozen parameters get `requires_grad=False`: autograd builds no graph for
+them and the optimizer holds no state for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable, Optional
+
+import torch
+from torch import nn
+
+from tunevlseg_torch.nn.conv import ConvTranspose2d
+from tunevlseg_torch.nn.layers import Dense
+
+
+# ---------------------------------------------------------------------------
+# partitioning
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FreezeSpec:
+    """Which parameters train."""
+
+    freeze_all: bool = True
+    freeze_encoder: bool = False
+    freeze_decoder: bool = False
+    no_freeze_last_layer: bool = False
+    use_new_last_layer: bool = False
+    complex_head: bool = False
+    family: str = "clipseg"  # "clipseg" | "cris" | "trans_segmentor"
+    always_trainable: tuple = ()  # top-level param keys trained regardless
+
+    def _last_layer_paths(self) -> tuple[tuple[str, ...], ...]:
+        if self.family == "cris":
+            # unfreeze proj.txt + proj.vis[-1]
+            return (("proj", "txt"), ("proj", "vis_4"))
+        return ((("decoder", "head_up2") if self.complex_head
+                 else ("decoder", "head_up")),)
+
+    def path_trainable(self, path: tuple[str, ...]) -> bool:
+        top = path[0]
+        if top == "learner" or top in self.always_trainable:
+            return True
+        if self.family == "trans_segmentor":
+            # encoders (+ pretrained projections) gate on freeze_encoder;
+            # decoder/upsampler always train
+            if top in ("text_model", "vision_model", "text_projection",
+                       "visual_projection"):
+                return not self.freeze_encoder
+            return True
+        if top in ("additive_head", "additive_conv1", "additive_conv2",
+                   "residual_ratio"):
+            # exist only when use_new_last_layer; trainable then
+            return True
+        if self.freeze_all:
+            if self.no_freeze_last_layer and not self.use_new_last_layer:
+                return any(path[:len(p)] == p
+                           for p in self._last_layer_paths())
+            return False
+        if self.family == "cris":
+            # CRIS e2e: backbone frozen by freeze_encoder; head trains
+            if top in ("visual", "text"):
+                return not self.freeze_encoder
+            return True
+        if top == "decoder":
+            return not self.freeze_decoder
+        return not self.freeze_encoder  # towers + projections ("clip")
+
+
+def param_path(name: str) -> tuple[str, ...]:
+    """A port parameter name as the JAX-style path `FreezeSpec` reads:
+    'decoder.layers.2.mlp.fc1.weight' -> ('decoder', 'layers_2', 'mlp',
+    'fc1', 'weight')."""
+    path: list[str] = []
+    for part in name.split("."):
+        if part.isdigit() and path:
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(part)
+    return tuple(path)
+
+
+def apply_freeze(model: nn.Module, spec: FreezeSpec) -> list[str]:
+    """Set `requires_grad` on every parameter of `model` as `spec` says;
+    returns the names of the trainable ones."""
+    trainable = []
+    for name, p in model.named_parameters():
+        keep = spec.path_trainable(param_path(name))
+        p.requires_grad_(keep)
+        if keep:
+            trainable.append(name)
+    return trainable
+
+
+def count_params(params: Iterable[torch.Tensor]) -> int:
+    return sum(p.numel() for p in params if p is not None)
+
+
+# ---------------------------------------------------------------------------
+# decay / no-decay groups
+# ---------------------------------------------------------------------------
+
+def decay_label(module: nn.Module, leaf: str) -> str:
+    """'decay' or 'no_decay' for the parameter `leaf` that `module` owns.
+
+    The label goes by the owning module's type, since Dense, LayerNorm and
+    Embed all call their parameter `weight` here: Dense and ConvTranspose2d
+    weights and the vision tower's `patch_proj` (a convolution in the
+    reference) decay; biases, LayerNorm and Embed weights and bare
+    parameters (class/position embeddings, context vectors, residual_ratio)
+    do not."""
+    if leaf == "patch_proj" or (leaf == "weight" and isinstance(
+            module, (Dense, ConvTranspose2d))):
+        return "decay"
+    return "no_decay"
+
+
+def decay_labels(model: nn.Module) -> dict[str, str]:
+    """{parameter name: 'decay' | 'no_decay'} for every parameter of `model`."""
+    return {f"{prefix}.{leaf}" if prefix else leaf: decay_label(module, leaf)
+            for prefix, module in model.named_modules()
+            for leaf, _ in module.named_parameters(recurse=False)}
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+    """Scale `grads` in place by max_norm / max(norm, max_norm), norm the
+    global l2 norm (optax.clip_by_global_norm; torch's clip_grad_norm_ adds
+    1e-6 to the norm instead). No host sync."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    factor = max_norm / torch.clamp(norm, min=max_norm)
+    torch._foreach_mul_(grads, factor)
+
+
+class ClippedOptimizer:
+    """A torch optimizer with the global-norm clip in front of it, over the
+    trainable parameters of one model. `step()` clips the gradients that are
+    there and applies the update; a trainable parameter that nothing read
+    has no gradient and keeps its value."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 grad_clip_norm: Optional[float] = None):
+        self.optimizer = optimizer
+        self.grad_clip_norm = grad_clip_norm
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def params(self) -> list[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        if self.grad_clip_norm is not None:
+            clip_by_global_norm_(
+                [p.grad for p in self.params() if p.grad is not None],
+                self.grad_clip_norm)
+        self.optimizer.step()
+
+
+def make_optimizer(
+    model: nn.Module,
+    learning_rate: float,
+    weight_decay: float = 0.0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    optimizer: str = "adamw",
+    grad_clip_norm: Optional[float] = None,
+) -> ClippedOptimizer:
+    """AdamW over the parameters of `model` that require a gradient, with the
+    two-group decay policy (`weight_decay <= 0` builds one group), or SGD
+    with momentum 0.9; `grad_clip_norm` puts optax's global-norm clip in
+    front. The learning rate lives in the param groups, where
+    `set_learning_rate` changes it between steps."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    if optimizer == "adamw":
+        if weight_decay <= 0:
+            groups = [{"params": [p for _, p in named], "weight_decay": 0.0}]
+        else:
+            labels = decay_labels(model)
+            groups = [
+                {"params": [p for n, p in named if labels[n] == "decay"],
+                 "weight_decay": weight_decay},
+                {"params": [p for n, p in named if labels[n] == "no_decay"],
+                 "weight_decay": 0.0}]
+        opt = torch.optim.AdamW([g for g in groups if g["params"]],
+                                lr=learning_rate, betas=(b1, b2), eps=eps)
+    elif optimizer == "sgd":
+        opt = torch.optim.SGD([p for _, p in named], lr=learning_rate,
+                              momentum=0.9)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer}")
+    return ClippedOptimizer(opt, grad_clip_norm)
+
+
+def set_learning_rate(optimizer, lr: float) -> None:
+    """Set the learning rate of every param group, in place."""
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+def get_learning_rate(optimizer) -> float:
+    return float(optimizer.param_groups[0]["lr"])
+
+
+# ---------------------------------------------------------------------------
+# host-side schedulers
+# ---------------------------------------------------------------------------
+
+class ReduceLROnPlateau:
+    """torch.optim.lr_scheduler.ReduceLROnPlateau semantics (the reference's
+    default scheduler, monitor val_loss, interval epoch)."""
+
+    def __init__(self, factor: float = 0.2, patience: int = 5,
+                 mode: str = "min", threshold: float = 1e-4,
+                 threshold_mode: str = "rel", min_lr: float = 0.0,
+                 cooldown: int = 0):
+        self.factor = factor
+        self.patience = patience
+        self.mode = mode
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.min_lr = min_lr
+        self.cooldown = cooldown
+        self.best: Optional[float] = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+
+    def _is_better(self, current: float, best: float) -> bool:
+        # torch rel mode is multiplicative on the SIGNED best: min compares
+        # against best*(1-threshold), max against best*(1+threshold), which
+        # differs from best -/+ threshold*abs(best) when best < 0
+        if self.threshold_mode == "rel":
+            if self.mode == "min":
+                return current < best * (1.0 - self.threshold)
+            return current > best * (1.0 + self.threshold)
+        if self.mode == "min":
+            return current < best - self.threshold
+        return current > best + self.threshold
+
+    def step(self, metric: float, current_lr: float) -> float:
+        """Feed the monitored metric; returns the (possibly reduced) lr."""
+        if self.best is None or self._is_better(metric, self.best):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+            return max(current_lr * self.factor, self.min_lr)
+        return current_lr
+
+
+class CosineAnnealingLR:
+    """torch CosineAnnealingLR (per-step when interval='step')."""
+
+    def __init__(self, base_lr: float, t_max: float, eta_min: float = 0.0):
+        self.base_lr = base_lr
+        self.t_max = t_max
+        self.eta_min = eta_min
+
+    def lr_at(self, step: int) -> float:
+        return self.eta_min + 0.5 * (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * step / self.t_max))
+
+
+SCHEDULER_REGISTRY = {
+    "plateau": ReduceLROnPlateau,
+    "cosine": CosineAnnealingLR,
+    "none": None,
+}

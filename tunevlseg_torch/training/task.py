@@ -1,7 +1,7 @@
-"""The segmentation task, inference half.
+"""The segmentation task: train, eval and predict steps.
 
-Counterpart of `tunevlseg_tpu/training/task.py:SegmentationTask` for
-prediction and evaluation. The batch contract is the JAX package's:
+Counterpart of `tunevlseg_tpu/training/task.py:SegmentationTask`. The batch
+contract is the JAX package's:
 
     batch = {"image": (B, C, H, W) uint8 or f32, "mask": (B, 1, H, W) f32,
              "input_ids": (B, L) or (U, L) int, "attention_mask": same,
@@ -9,28 +9,76 @@ prediction and evaluation. The batch contract is the JAX package's:
 
 uint8 images are ImageNet-normalised on the device. The model holds its own
 weights (`torch.func.functional_call` swaps in others; see
-`tunevlseg_torch/serving.py`). The train step comes with the K2 port.
+`tunevlseg_torch/serving.py`), and the steps run where those weights are.
+`init` applies the freeze spec (frozen parameters get `requires_grad=False`,
+so autograd builds no graph for them and the optimizer holds no state for
+them) and builds the optimizer; `train_step` is forward, loss with `valid`
+masking, backward, global-norm clip and the optimizer update, and it updates
+the model's weights IN PLACE. Samples with `valid == 0` contribute a
+constant term to the loss and nothing to the step metrics.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from tunevlseg_torch.ops import losses as losses_lib
 from tunevlseg_torch.ops import metrics as metrics_lib
+from tunevlseg_torch.training import optim as optim_lib
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count and the optimizer (its moments and learning rate); the
+    weights live in the model."""
+    step: int
+    optimizer: optim_lib.ClippedOptimizer
 
 
 @dataclasses.dataclass
 class SegmentationTask:
     model: nn.Module
+    freeze_spec: optim_lib.FreezeSpec = optim_lib.FreezeSpec()
     loss_fn: Callable = losses_lib.dice_ce_loss
     loss_kwargs: dict = dataclasses.field(default_factory=dict)
     threshold: float = 0.5
+    learning_rate: float = 2e-4
+    weight_decay: float = 0.0
+    grad_clip_norm: Optional[float] = None
+    # options of the JAX task that later slices port; asking for one raises
+    accumulate_grad_batches: int = 1
+    remat: bool = False
+    mutable_collections: tuple = ()
     # (mean, std) for the device-side normalisation of uint8 image batches
     image_stats: tuple = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+    def __post_init__(self):
+        if self.accumulate_grad_batches > 1:
+            raise NotImplementedError(
+                "accumulate_grad_batches > 1 comes with ROADMAP Slice G")
+        if self.remat:
+            raise NotImplementedError(
+                "remat=True (nn/remat.py -> torch.utils.checkpoint) comes "
+                "with ROADMAP Slice G")
+        if self.mutable_collections:
+            raise NotImplementedError(
+                "mutable_collections (BatchNorm statistics of e2e CRIS) "
+                "come with ROADMAP Slice C")
+
+    # -- init ---------------------------------------------------------------
+
+    def init(self) -> TrainState:
+        """Apply the freeze spec to the model and build the optimizer over
+        what is left trainable."""
+        optim_lib.apply_freeze(self.model, self.freeze_spec)
+        return TrainState(0, optim_lib.make_optimizer(
+            self.model, self.learning_rate, self.weight_decay,
+            grad_clip_norm=self.grad_clip_norm))
+
+    # -- steps --------------------------------------------------------------
 
     def _prep_image(self, image: torch.Tensor) -> torch.Tensor:
         if image.dtype != torch.uint8:
@@ -50,6 +98,52 @@ class SegmentationTask:
     def _forward(self, batch: dict) -> torch.Tensor:
         args, kwargs = self.model_inputs(batch)
         return self.model(*args, **kwargs)
+
+    def _loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, logits); with `valid`, padded samples are zeroed on both
+        sides so that they contribute a constant (matching) term."""
+        logits = self._forward(batch)
+        mask = batch["mask"]
+        valid = batch.get("valid")
+        if valid is not None:
+            v = valid.reshape(-1, 1, 1, 1).to(logits.dtype)
+            logits = logits * v + (1 - v) * 0.0
+            mask = mask * v
+        return self.loss_fn(logits, mask, **self.loss_kwargs), logits
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One optimizer update on `batch`. Returns (new state, {"loss",
+        "dice", "iou"}) with the metrics as device tensors; nothing in the
+        step waits for the device."""
+        opt = state.optimizer
+        opt.zero_grad()
+        with torch.enable_grad():
+            loss, logits = self._loss(batch)
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            # padded samples have zeroed logits -> sigmoid 0.5; `valid`
+            # excludes them from the step metrics
+            probs = torch.sigmoid(logits.detach().float())
+            valid = batch.get("valid")
+            step_metrics = {
+                "loss": loss.detach(),
+                "dice": metrics_lib.dice_score(probs, batch["mask"],
+                                               self.threshold, valid=valid),
+                "iou": metrics_lib.iou_score(probs, batch["mask"],
+                                             self.threshold, valid=valid),
+            }
+        return TrainState(state.step + 1, opt), step_metrics
+
+    def compile_steps(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the steps run eagerly; mesh shardings (GSPMD) are not ported, "
+            "data parallel over GPUs comes with ROADMAP Slice G")
+
+    def compile_train_multistep(self, *args, **kwargs):
+        raise NotImplementedError(
+            "steps-per-execution comes with the training loop, ROADMAP "
+            "Queue 1 item 3 (Loop and CLI)")
 
     @torch.no_grad()
     def predict_step(self, batch: dict) -> torch.Tensor:
