@@ -212,8 +212,9 @@ def test_port_config_is_its_own_copy_of_the_jax_one():
 
 def test_port_runs_without_jax():
     """Every module of the port and chip_smoke import, and a tiny eval and a
-    tiny train step run, with jax/flax/optax unimportable; afterwards no
-    module of the JAX package has been loaded either."""
+    tiny train step of CLIPSeg and of CRIS run, with jax/flax/optax
+    unimportable; afterwards no module of the JAX package has been loaded
+    either."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -244,10 +245,34 @@ def test_port_runs_without_jax():
         train_state, metrics = task.train_step(task.init(), batch)
         assert train_state.step == 1 and bool(metrics["loss"].isfinite())
         assert not torch.equal(model.learner.context_vectors, before)
+
+        from tunevlseg_torch.models.cris.model import CRISConfig
+        from tunevlseg_torch.models.presets import build_cris
+        from tunevlseg_torch.serving import task_predict_fn
+        for name in ("tunevlseg_torch.models.cris.resnet",
+                     "tunevlseg_torch.models.cris.layers",
+                     "tunevlseg_torch.models.cris.model"):
+            assert name in sys.modules, name
+        cris, cspec = build_cris("coop", prompt_depth=2, num_context=4,
+                                 config=CRISConfig.tiny(dropout=0.2, img_size=32),
+                                 device="cpu")
+        ctask = SegmentationTask(cris, cspec)
+        cprobs = ctask.predict_step(batch)
+        cstate, caux = ctask.eval_step(SegMetricState.zeros(), batch)
+        assert cprobs.shape == (2, 1, 32, 32) and bool(cprobs.isfinite().all())
+        served = task_predict_fn(ctask)(dict(cris.state_dict()), batch)
+        assert torch.equal(served, cprobs)
+        before = cris.learner.context_vectors.detach().clone()
+        stats = cris.visual.bn1.running_var.clone()
+        train_state, cmetrics = ctask.train_step(ctask.init(), batch)
+        assert train_state.step == 1 and bool(cmetrics["loss"].isfinite())
+        assert not torch.equal(cris.learner.context_vectors, before)
+        assert torch.equal(cris.visual.bn1.running_var, stats)
         loaded = [m for m in sys.modules
                   if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")]
         assert not loaded, loaded
-        print("no-jax ok", float(aux["loss_sum"]), float(metrics["loss"]))
+        print("no-jax ok", float(aux["loss_sum"]), float(metrics["loss"]),
+              float(caux["loss_sum"]), float(cmetrics["loss"]))
     """)
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 and the port's serving and training paths on a CUDA GPU. These tests need the
-card (a CUDA kernel has no CPU mode) and skip elsewhere; they import no JAX.
+"""Kernels K1, K2 and K3 and the port's serving and training paths on a CUDA
+GPU. These tests need the card (a CUDA kernel has no CPU mode) and skip
+elsewhere; they import no JAX.
 On the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_*.py
@@ -224,16 +225,172 @@ def test_small_model_train_step_kernel_path_matches_plain_path(cuda, strategy,
 
 
 def test_gate_routes_only_unbiased_long_bf16(cuda):
+    """K1 takes unbiased bf16 self-attention at S >= 256 and nothing else; a
+    bias or S != T goes to K3 at any length; f32 and short unbiased
+    self-attention stay on the plain path."""
     q, k, v = _qkv(cuda, 2, 256, 2, 32)
-    before = fa.launch_count()
+    before, before3 = fa.launch_count(), fa.bias_launch_count()
     attention.dot_product_attention(q, k, v)
     assert fa.launch_count() == before + 1
     short = _qkv(cuda, 2, 255, 2, 32)
     attention.dot_product_attention(*short)
-    attention.dot_product_attention(q, k, v, bias=torch.zeros(1, 1, 256, 256,
-                                                               device=cuda))
     attention.dot_product_attention(*(x.float() for x in (q, k, v)))
-    assert fa.launch_count() == before + 1
+    assert (fa.launch_count(), fa.bias_launch_count()) == (before + 1, before3)
+    bias = torch.zeros(1, 1, 256, 256, device=cuda)
+    attention.dot_product_attention(q, k, v, bias=bias)
+    attention.dot_product_attention(*short, bias=bias[..., :255, :255])
+    attention.dot_product_attention(short[0], k, v)              # S != T
+    assert (fa.launch_count(), fa.bias_launch_count()) == (before + 1, before3 + 3)
+    # a head dim the kernels are not built for: K3's gate leaves it plain
+    odd = _qkv(cuda, 2, 40, 2, 24, t=77)
+    attention.dot_product_attention(*odd, bias=torch.zeros(2, 1, 1, 77, device=cuda))
+    assert fa.bias_launch_count() == before3 + 3
+
+
+F32_MIN = torch.finfo(torch.float32).min
+
+
+def _key_pad(cuda, b, t, first_pad):
+    bias = torch.zeros(b, 1, 1, t, device=cuda)
+    for i in range(b):
+        bias[i, ..., first_pad - i % 7:] = F32_MIN
+    return bias
+
+
+def _causal(cuda, s):
+    return torch.triu(torch.full((s, s), F32_MIN, device=cuda), 1)[None, None]
+
+
+@pytest.mark.parametrize("label,shape,t,kv_valid", [
+    ("text U=1", (1, 77, 8, 64), 77, None),
+    ("text U=64", (64, 77, 8, 64), 77, None),
+    ("cris cross", (64, 676, 8, 64), 77, None),
+    ("cross d32 kv_valid", (3, 70, 2, 32), 130, 99),
+    ("full bias d16", (2, 100, 4, 16), 50, 45),
+    ("no bias S != T", (3, 70, 2, 32), 130, None),
+])
+def test_k3_matches_plain_version(cuda, label, shape, t, kv_valid):
+    b, s, h, d = shape
+    q, k, v = _qkv(cuda, *shape, t=t)
+    if label.startswith("text"):
+        bias = _causal(cuda, s) + _key_pad(cuda, b, t, 14)   # holds -inf too
+        assert bool(bias.isneginf().any())
+    elif label.startswith("full"):
+        bias = torch.randn(b, h, s, t, device=cuda)
+    elif label.startswith("no bias"):
+        bias = None
+    else:
+        bias = _key_pad(cuda, b, t, 14)
+    before = fa.bias_launch_count()
+    out = fa.biased_attention(q, k, v, bias, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert fa.bias_launch_count() == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(out.isfinite().all())
+    ref = fa.biased_attention_ref(q, k, v, bias, kv_valid=kv_valid)
+    assert (out.float() - ref.float()).abs().max().item() <= KERNEL_TOL
+    if bias is not None:
+        # an expanded view of the same bias reads the same memory: stride 0
+        full = bias.expand(b, h, s, t)
+        again = fa.biased_attention(q, k, v, full, kv_valid=kv_valid)
+        assert torch.equal(again, out)
+
+
+def test_k3_backward_recomputes_on_the_plain_path(cuda):
+    """K3 has no backward kernel, as its TPU counterpart: the gradient is
+    autograd through `plain_attention`, and the forward still launches K3."""
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, 2, 77, 8, 64))
+    bias = _causal(cuda, 77) + _key_pad(cuda, 2, 77, 20)
+    k2, k3 = fa.bwd_launch_count(), fa.bias_launch_count()
+    out = attention.dot_product_attention(q, k, v, bias=bias)
+    g = _qkv(cuda, 2, 77, 8, 64, seed=3)[0]
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (fa.bwd_launch_count(), fa.bias_launch_count()) == (k2, k3 + 1)
+    qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention.plain_attention(*qkv, bias), qkv, g)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
+
+
+def test_k3_raises_on_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 2, 40, 2, 32, t=77)
+    bias = torch.zeros(2, 1, 1, 77, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fa.biased_attention(q, k, v, bias.bfloat16())
+    with pytest.raises(ValueError, match="broadcast"):
+        fa.biased_attention(q, k, v, bias[..., :70])
+    with pytest.raises(ValueError, match="no gradient"):
+        fa.biased_attention(q, k, v, bias.clone().requires_grad_())
+    with pytest.raises(ValueError, match="bias on"):
+        fa.biased_attention(q, k, v, bias.cpu())
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.biased_attention(q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.biased_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, bias)
+    q48, k48, v48 = _qkv(cuda, 2, 40, 2, 48, t=77)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.biased_attention(q48, k48, v48, bias)
+
+
+def test_small_cris_kernel_path_matches_plain_path(cuda):
+    """A narrow CRIS + CoOp in bf16 at 480^2 (a 30 x 30 decoder map: 900
+    tokens; decoder and text heads of 16 dims; the attention pool's 225
+    tokens stay under K1's gate): 2 decoder layers launch K1
+    and, in the train step, K2; 3 text layers and 2 cross-attentions launch
+    K3; probabilities, loss and the context gradient agree with the all-plain
+    path, and frozen tensors and BatchNorm buffers stay as they were."""
+    from unittest import mock
+
+    from tunevlseg_torch.models.cris.model import CRISConfig
+    from tunevlseg_torch.models.presets import build_cris
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    cfg = CRISConfig.tiny(img_size=480, embed_dim=32, transformer_width=32,
+                          fpn_in=(128, 256, 32), vis_dim=32, fpn_out=(16, 32, 32),
+                          dropout=0.1)
+    model, spec = build_cris("coop", prompt_depth=2, num_context=4, config=cfg,
+                             dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(3, 999, (1, 77), generator=g, dtype=torch.int32)
+    ids[:, 0], ids[:, 9], ids[:, 10:] = 49406, 49407, 0
+    batch = {"image": torch.randint(0, 256, (2, 3, 480, 480), generator=g,
+                                    dtype=torch.uint8),
+             "mask": (torch.rand(2, 1, 480, 480, generator=g) > 0.5).float(),
+             "input_ids": ids, "attention_mask": (ids != 0).int(),
+             "text_index": torch.zeros(2, dtype=torch.int32)}
+    batch = {k: x.to(cuda) for k, x in batch.items()}
+    task = SegmentationTask(model, spec, learning_rate=1e-3)
+    plain = mock.patch.object(attention, "_kernel_eligible", lambda *a: "")
+
+    def counts():
+        return fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count()
+
+    before = counts()
+    probs = task.predict_step(batch)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 0, 5)
+    with plain:
+        assert (probs - task.predict_step(batch)).abs().max().item() <= 2e-2
+    assert probs.shape == (2, 1, 480, 480) and bool(probs.isfinite().all())
+
+    start = {k: x.detach().clone() for k, x in model.state_dict().items()}
+
+    def step():
+        model.load_state_dict(start)
+        _, metrics = task.train_step(task.init(), batch)
+        return metrics["loss"].item(), model.learner.context_vectors.grad.float().clone()
+
+    before = counts()
+    loss_k, grad_k = step()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2, 5)
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    frozen += [n for n, _ in model.named_buffers()]
+    now = model.state_dict()
+    assert all(torch.equal(now[n], start[n]) for n in frozen) and len(frozen) > 100
+    with plain:
+        loss_p, grad_p = step()
+    assert abs(loss_k - loss_p) <= 2e-2
+    assert (grad_k - grad_p).abs().max().item() <= 0.1 * grad_p.abs().max().item()
 
 
 def test_gate_raises_on_head_dim_k1_lacks(cuda):

@@ -145,7 +145,7 @@ def test_bicubic_resize_matches_jax(grid):
     src, dst = grid
     img = _rng(5).normal(size=(6, src, src)).astype(np.float32)
     want = jimage.resize_2d(jnp.asarray(img), (dst, dst), "bicubic")
-    got = timage.resize_2d(torch.from_numpy(img), (dst, dst))
+    got = timage.resize_2d(torch.from_numpy(img), (dst, dst), "bicubic")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
 

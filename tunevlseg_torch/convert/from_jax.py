@@ -4,33 +4,40 @@ The JAX package's parameters (a nested dict of arrays, as `model.init` or
 its checkpoint converters give them) map onto the port's parameter names
 mechanically:
 
-  * path components `layers_3` / `reduces_0` -> `layers.3` / `reduces.0`;
+  * path components `layers_3` / `reduces_0` / `resblocks_3` / `layer2_1`
+    -> `layers.3` / `reduces.0` / `resblocks.3` / `layer2.1`;
   * Flax `Dense.kernel` (in, out) -> `weight` (out, in), transposed;
   * `LayerNorm.scale` -> `weight`; `Embed.embedding` -> `weight`;
-  * everything else (`bias`, ConvTranspose `weight`, `patch_proj` in its
-    channel-major (C*p*p, D) layout, `class_embedding`, `position_embedding`,
-    `context_vectors`, `residual_ratio`) is copied as it is.
+  * everything else (`bias`, convolution `weight` in OIHW, ConvTranspose
+    `weight`, BatchNorm `weight` / `bias`, `patch_proj` in its channel-major
+    (C*p*p, D) layout, `class_embedding`, `position_embedding`,
+    `positional_embedding`, `text_projection`, `context_vectors`,
+    `residual_ratio`) is copied as it is;
+  * the `batch_stats` collection (`running_mean`, `running_var` of every
+    BatchNorm, under the same module paths) fills the port's buffers.
 
 Flax creates parameters only for the modules a forward calls, and the port
 builds the same set (see `models/clip/vision.py`): with the early exit there
 are no vision layers past max(extract_layers), no `post_layernorm` and no
 `visual_projection`, and text-only prompting has no `additive_head`. So the
 mapping skips nothing: it raises on a leaf it cannot place and on a port
-parameter it leaves unfilled.
+parameter or buffer it leaves unfilled.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-_INDEXED = re.compile(r"(layers|reduces)_(\d+)")
+_INDEXED = re.compile(r"(layers|reduces|resblocks|layer\d+)_(\d+)")
 _RENAMED_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _COPIED_LEAVES = {"bias", "weight", "class_embedding", "position_embedding",
-                  "patch_proj", "context_vectors", "residual_ratio"}
+                  "positional_embedding", "text_projection", "patch_proj",
+                  "context_vectors", "residual_ratio", "running_mean",
+                  "running_var"}
 
 
 def flatten_params(params: Mapping[str, Any], prefix: tuple = ()) -> dict:
@@ -81,12 +88,20 @@ def trainable_from_jax(tree: Mapping[str, Any],
     return out
 
 
-def state_dict_from_jax(params: Mapping[str, Any],
-                        model: nn.Module) -> dict[str, torch.Tensor]:
-    """f32 CPU tensors under `model`'s parameter names, for
-    `model.load_state_dict`. Raises on unmapped leaves, shape mismatches and
-    unfilled port parameters."""
+def state_dict_from_jax(params: Mapping[str, Any], model: nn.Module,
+                        batch_stats: Optional[Mapping[str, Any]] = None
+                        ) -> dict[str, torch.Tensor]:
+    """f32 CPU tensors under `model`'s parameter and buffer names, for
+    `model.load_state_dict`; `batch_stats` is the JAX collection of that name
+    (the BatchNorm running statistics). Raises on unmapped leaves, shape
+    mismatches and unfilled port parameters or buffers."""
     out = trainable_from_jax(params, model)
+    if batch_stats:
+        stats = trainable_from_jax(batch_stats, model)
+        clash = sorted(set(stats) & set(out))
+        if clash:
+            raise KeyError(f"batch_stats leaves name parameters: {clash}")
+        out.update(stats)
     unfilled = sorted(set(model.state_dict()) - set(out))
     if unfilled:
         raise KeyError(f"port parameters left unfilled: {unfilled}")

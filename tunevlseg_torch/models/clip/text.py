@@ -13,8 +13,9 @@ Counterpart of `tunevlseg_tpu/models/clip/text.py` (HF
   * final LayerNorm, then EOS pooling at min(argmax + n_ctx, max_pos - 1),
     with the `eos_token_id == 2` legacy branch (argmax over the ids).
 
-The text tower's 77 (+ctx, clipped to 77) tokens carry a bias, so its
-attention stays on the plain path.
+The text tower's 77 (+ctx, clipped to 77) tokens carry a causal + padding
+bias: on a CUDA device in bf16 its attention goes to kernel K3
+(`nn/attention.py`), elsewhere to the plain path.
 """
 from __future__ import annotations
 

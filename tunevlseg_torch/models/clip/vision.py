@@ -79,7 +79,7 @@ class CLIPVisionTower(nn.Module):
         grid = c.image_size // p
         if (gh, gw) != (grid, grid):
             patch_pos = pos[1:].reshape(grid, grid, -1).permute(2, 0, 1)
-            patch_pos = resize_2d(patch_pos, (gh, gw))
+            patch_pos = resize_2d(patch_pos, (gh, gw), "bicubic")
             patch_pos = patch_pos.permute(1, 2, 0).reshape(gh * gw, -1)
             pos = torch.cat([pos[:1], patch_pos], dim=0)
         return embeds + pos[None].to(self.dtype)

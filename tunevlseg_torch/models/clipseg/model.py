@@ -58,9 +58,13 @@ class CLIPSegForSegmentation(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                text_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                text_index: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """input_ids (B, L), or (U, L) with text_index (B,) into its rows;
-        pixel_values (B, C, H, W). Returns logits (B, 1, H, W)."""
+        pixel_values (B, C, H, W). Returns logits (B, 1, H, W).
+        `deterministic` and `generator` are the train step's dropout
+        arguments; this model has no dropout and reads neither."""
         c = self.config
         b, _, h, w = pixel_values.shape
         learner = self.learner

@@ -1,7 +1,8 @@
 """Named model presets.
 
-Counterpart of `tunevlseg_tpu/models/presets.py` for the CLIPSeg family. The
-flagship model is CLIPSeg ViT-B/16 ("CIDAS/clipseg-rd64") with CoOp prompts.
+Counterpart of `tunevlseg_tpu/models/presets.py` for the CLIPSeg and CRIS
+families. The flagship model is CLIPSeg ViT-B/16 ("CIDAS/clipseg-rd64") with
+CoOp prompts; CRIS is CLIP RN50 with the FPN / decoder / projector head.
 Weights are random, drawn from one seeded `torch.Generator` on the CPU (so a
 seed gives the same weights on every device), until converted weights are
 loaded over them (`tunevlseg_torch/convert/from_jax.py`).
@@ -16,6 +17,7 @@ from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
                                                 CLIPVisionConfig)
 from tunevlseg_torch.models.clipseg.model import (CLIPSegForSegmentation,
                                                   strategy_additive_mode)
+from tunevlseg_torch.models.cris.model import CRISConfig, CRISForSegmentation
 from tunevlseg_torch.models.prompt.learners import CoOpLearner
 from tunevlseg_torch.nn.layers import init_params
 from tunevlseg_torch.training.optim import FreezeSpec
@@ -76,3 +78,52 @@ def build_clipseg(strategy: Optional[str] = "coop", prompt_depth: int = 1,
         use_new_last_layer=use_new_last_layer and not e2e,
         complex_head=cfg.complex_transposed_convolution)
     return model.to(device), spec
+
+
+def cris_rn50_config(img_size: int = 416) -> CRISConfig:
+    """The canonical CRIS recipe: CLIP RN50 + FPN / decoder / projector head."""
+    return CRISConfig(img_size=img_size)
+
+
+def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
+               num_context: int = 4, config: Optional[CRISConfig] = None,
+               use_new_last_layer: bool = True, freeze_all: bool = True,
+               no_freeze_last_layer: bool = False,
+               freeze_encoder: Optional[bool] = None,
+               dtype: torch.dtype = torch.float32, device="cuda",
+               seed: int = 0) -> tuple[CRISForSegmentation, FreezeSpec]:
+    """CRIS with CoOp prompts ("coop") or the stock model (None / "e2e"),
+    with seeded random f32 weights on `device`, and its freeze spec. The
+    device rule is `build_clipseg`'s: the CUDA card unless the caller names
+    another device, and no fallback to the CPU. The learner's context width
+    is the text transformer's width. The e2e model serves and evaluates; its
+    train step needs BatchNorm batch statistics and raises (ROADMAP Slice C),
+    and so does "cocoop" (Slice B)."""
+    cfg = config or cris_rn50_config()
+    e2e = strategy in (None, "e2e")
+    learner = None
+    if strategy == "coop":
+        learner = CoOpLearner(prompt_depth=prompt_depth, num_context=num_context,
+                              context_dim=cfg.transformer_width, dtype=dtype)
+        learner.check_depth(prompt_depth, cfg.transformer_layers)
+    elif strategy == "cocoop":
+        raise NotImplementedError(
+            "CoCoOp on CRIS comes with ROADMAP Slice B; the port has coop and e2e")
+    elif not e2e:
+        raise ValueError(f"CRIS supports coop/cocoop, got {strategy}")
+    model = CRISForSegmentation(
+        cfg, learner=learner,
+        additive_mode="residual" if use_new_last_layer and not e2e else "none",
+        bn_train=e2e, dtype=dtype)
+    init_params(model, torch.Generator().manual_seed(seed))
+    spec = FreezeSpec(
+        freeze_all=False if e2e else freeze_all,
+        # CRIS default: frozen CLIP towers in the e2e fine-tune
+        freeze_encoder=e2e if freeze_encoder is None else freeze_encoder,
+        no_freeze_last_layer=no_freeze_last_layer,
+        use_new_last_layer=use_new_last_layer and not e2e,
+        family="cris")
+    # the backbone's convolution weights channels-last, as it stores its
+    # tensors (models/cris/resnet.py); shapes and state_dict names stay
+    model.to(device).visual.to(memory_format=torch.channels_last)
+    return model, spec

@@ -1,14 +1,18 @@
-"""Attention dispatch: the plain PyTorch path and the kernels K1 and K2.
+"""Attention dispatch: the plain PyTorch path and the kernels K1, K2 and K3.
 
 Counterpart of `tunevlseg_tpu/nn/attention.py`. Every attention of the model
-funnels through `dot_product_attention`, which sends unbiased bf16
-self-attention with S >= 256 on a CUDA device to K1
-(`tunevlseg_torch.ops.flash_attention`) and everything else (the text
-tower's causal + padding bias, CPU tensors, f32) to `plain_attention`. The
-gate is a dispatch rule, like the JAX package's TPU-backend test, not a
-fallback: a CUDA call that passes it launches K1 or raises. The kernel path
-differentiates: its backward launches K2, the fused attention backward, or
-raises. `plain_attention` is differentiated by autograd as it stands.
+funnels through `dot_product_attention`. On a CUDA device in bf16 it sends
+  * unbiased self-attention (S == T) with S >= 256 to K1, whose backward
+    launches K2, the fused attention backward;
+  * attention with a bias or with S != T, at a head dim the kernels are built
+    for, to K3 at any length (its users are short: the text towers' causal +
+    padding attention, the CRIS decoder's cross-attention into the text),
+    whose backward recomputes through `plain_attention`;
+and everything else (CPU tensors, f32, short unbiased self-attention) to
+`plain_attention`, which autograd differentiates as it stands. The gate is a
+dispatch rule, like the JAX package's TPU-backend test, not a fallback: a
+CUDA call that passes it launches its kernel
+(`tunevlseg_torch.ops.flash_attention`) or raises.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ from typing import Optional
 
 import torch
 
-from tunevlseg_torch.ops.flash_attention import flash_attention
+from tunevlseg_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
+                                                 biased_attention,
+                                                 flash_attention)
 
 KERNEL_MIN_SEQ = 256
 
@@ -42,19 +48,26 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _kernel_eligible(q: torch.Tensor, k: torch.Tensor,
-                     bias: Optional[torch.Tensor]) -> bool:
-    return (q.is_cuda and q.dtype == torch.bfloat16 and bias is None
-            and q.shape[1] == k.shape[1] and q.shape[1] >= KERNEL_MIN_SEQ)
+                     bias: Optional[torch.Tensor]) -> str:
+    """The kernel a call goes to, "K1" or "K3", or "" for the plain path."""
+    if not (q.is_cuda and q.dtype == torch.bfloat16):
+        return ""
+    if bias is not None or q.shape[1] != k.shape[1]:
+        return "K3" if q.shape[-1] in SUPPORTED_HEAD_DIMS else ""
+    return "K1" if q.shape[1] >= KERNEL_MIN_SEQ else ""
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           kv_valid: Optional[int] = None) -> torch.Tensor:
     """K1 (and K2 for its gradient) for unbiased bf16 CUDA self-attention at
-    S >= 256, else `plain_attention`. A head dim the kernels are not built
-    for raises in K1."""
-    if _kernel_eligible(q, k, bias):
+    S >= 256, K3 for bf16 CUDA attention with a bias or S != T, else
+    `plain_attention`. A head dim the kernels are not built for raises in K1."""
+    kernel = _kernel_eligible(q, k, bias)
+    if kernel == "K1":
         return flash_attention(q, k, v, kv_valid=kv_valid)
+    if kernel == "K3":
+        return biased_attention(q, k, v, bias, kv_valid=kv_valid)
     return plain_attention(q, k, v, bias, kv_valid=kv_valid)
 
 

@@ -1,22 +1,25 @@
-"""K1 and K2, unbiased self-attention forward and backward, as hand-written
-Hopper kernels.
+"""K1, K2 and K3: unbiased self-attention forward and backward, and the
+biased / cross-attention forward, as hand-written Hopper kernels.
 
 Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
-`_forward_batched_heads`, K2 replaces `_backward_batched_heads`. The CUDA C++
-sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu` and
-`tunevlseg_torch/csrc/flash_attn_bwd.cu` (shared helpers in
-`attn_common.cuh`); both are built with `nvcc` for
-`sm_90a` into plain C shared libraries at first use (one compiler process per
-source, started together; under `tunevlseg_torch/_build/`, keyed by a hash of
-the source and flags) and called through `ctypes` on PyTorch's current
-stream.
+`_forward_batched_heads`, K2 replaces `_backward_batched_heads`, K3 replaces
+`_forward`. The CUDA C++ sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu`,
+`flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (shared helpers in
+`attn_common.cuh`); all are built with `nvcc` for `sm_90a` into plain C
+shared libraries at first use (one compiler process per source, started
+together; under `tunevlseg_torch/_build/`, keyed by a hash of the source and
+flags) and called through `ctypes` on PyTorch's current stream.
 
 `flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
 does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
-backward of the `autograd.Function`. There is no fallback: a CUDA call
-launches the kernels or raises. For CPU tensors the wrappers run
-`flash_attention_ref` and `flash_attention_bwd_ref`, the kernels' plain
-PyTorch versions with the same numerics.
+backward of the `autograd.Function`. `biased_attention` takes K3 for CUDA
+tensors: an optional f32 bias broadcastable to (B, H, S, T), read in place
+through its strides, and S != T allowed; like the TPU kernel it has no
+backward kernel, its gradient recomputes through `nn.attention.plain_attention`.
+There is no fallback: a CUDA call launches the kernels or raises. For CPU
+tensors the wrappers run `flash_attention_ref`, `flash_attention_bwd_ref` and
+`biased_attention_ref`, the kernels' plain PyTorch versions with the same
+numerics.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
-            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu"}
-_HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by both sources
+            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu",
+            "bias": _PKG / "csrc" / "flash_attn_bias_fwd.cu"}
+_HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by every source
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +46,7 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64)
 _libs: Optional[dict[str, ctypes.CDLL]] = None
 _launches = 0
 _bwd_launches = 0
+_bias_launches = 0
 
 
 def launch_count() -> int:
@@ -54,11 +59,17 @@ def bwd_launch_count() -> int:
     return _bwd_launches
 
 
+def bias_launch_count() -> int:
+    """Number of K3 launches since the last `reset_launch_count`."""
+    return _bias_launches
+
+
 def reset_launch_count() -> None:
-    """Set the K1 and the K2 launch counts to 0."""
-    global _launches, _bwd_launches
+    """Set the K1, K2 and K3 launch counts to 0."""
+    global _launches, _bwd_launches, _bias_launches
     _launches = 0
     _bwd_launches = 0
+    _bias_launches = 0
 
 
 def _nvcc() -> str:
@@ -70,8 +81,8 @@ def _nvcc() -> str:
 
 
 def library_path(kernel: str = "fwd") -> Path:
-    """Where the built library of a kernel ("fwd" is K1, "bwd" is K2) lives
-    for its current source and flags."""
+    """Where the built library of a kernel ("fwd" is K1, "bwd" is K2, "bias"
+    is K3) lives for its current source and flags."""
     source = _SOURCES[kernel]
     digest = hashlib.sha256(source.read_bytes() + _HEADER.read_bytes()
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -79,8 +90,9 @@ def library_path(kernel: str = "fwd") -> Path:
 
 
 def load_library() -> dict[str, ctypes.CDLL]:
-    """Build K1 and K2 from source where needed (the compilers run side by
-    side) and load them; returns {"fwd": lib, "bwd": lib}. A failed build
+    """Build K1, K2 and K3 from source where needed (the compilers run side
+    by side) and load them; returns {"fwd": lib, "bwd": lib, "bias": lib}. A
+    failed build
     raises; each compiler's output (with `ptxas -v` register and spill
     counts) is kept beside its library as `<name>.log`."""
     global _libs
@@ -116,25 +128,46 @@ def load_library() -> dict[str, ctypes.CDLL]:
     bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     bwd.restype = ctypes.c_int
+    biased = libs["bias"].tvs_biased_attn_fwd
+    biased.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                       + [ctypes.c_void_p])
+    biased.restype = ctypes.c_int
     _libs = libs
     return libs
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version of K1 with the kernel's numerics: f32 scores and
-    softmax, p cast to v's dtype for the PV product (f32 accumulation), the
-    denominator the f32 sum of the unrounded p. Keys at index >= kv_valid get
-    exactly zero probability. (B, S, H, D) in and out."""
+def biased_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K3 with the kernel's numerics: f32 scores,
+    the bias (broadcastable to (B, H, S, T)) added in f32, f32 softmax, p
+    cast to v's dtype for the PV product (f32 accumulation), the denominator
+    the f32 sum of the unrounded p. Keys at index >= kv_valid get exactly
+    zero probability. q (B, S, H, D), k and v (B, T, H, D); (B, S, H, D) out.
+    Unlike `nn.attention.plain_attention` it does not round the scores to the
+    input dtype before the bias add."""
     d = q.shape[-1]
     t = k.shape[1] if kv_valid is None else kv_valid
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * d ** -0.5
+    if bias is not None:
+        scores = scores + bias.float()
     col = torch.arange(k.shape[1], device=q.device)
     scores = scores.masked_fill(col >= t, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhst,bthd->bhsd", p.to(v.dtype).float(), v.float())
     return (out / denom).transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1 with the kernel's numerics, which are
+    K3's without a bias: f32 scores and softmax, p cast to v's dtype for the
+    PV product (f32 accumulation), the denominator the f32 sum of the
+    unrounded p. Keys at index >= kv_valid get exactly zero probability.
+    (B, S, H, D) in and out."""
+    return biased_attention_ref(q, k, v, None, kv_valid)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,7 +198,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
-    """Raise on anything K1 and K2 do not take; return the valid key count."""
+    """Raise on anything the kernels do not take; return the valid key count."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"{kernel} needs CUDA tensors; {name} is on {x.device}")
@@ -277,7 +310,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias) or raise, and differentiate through K2; CPU tensors take
     `flash_attention_ref`."""
     if bias is not None:
-        raise ValueError("K1 takes no bias; biased attention is plain_attention")
+        raise ValueError("K1 takes no bias; biased attention is K3, "
+                         "biased_attention")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kv_valid)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid)
@@ -295,3 +329,81 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_ref(q, k, v, g, kv_valid)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="K2")
     return _launch_bwd(q, k, v, g, t_valid)
+
+
+def _bias_strides(bias: torch.Tensor, q: torch.Tensor, t: int) -> ctypes.Array:
+    """Raise on a bias K3 does not take; return its (batch, head, query, key)
+    strides in elements, 0 on every dimension it broadcasts over."""
+    b, s, h, _ = q.shape
+    if bias.device != q.device:
+        raise ValueError(f"K3: bias on {bias.device}, q on {q.device}")
+    if bias.dtype != torch.float32:
+        raise ValueError(f"K3 takes a float32 bias, got {bias.dtype}")
+    full = (b, h, s, t)
+    if bias.dim() != 4 or any(n not in (1, m) for n, m in zip(bias.shape, full)):
+        raise ValueError(f"K3: bias {tuple(bias.shape)} does not broadcast to "
+                         f"(B, H, S, T) = {full}")
+    values = [0 if n == 1 else bias.stride(i) for i, n in enumerate(bias.shape)]
+    return (ctypes.c_longlong * 4)(*values)
+
+
+def _launch_biased(q, k, v, bias, t_valid) -> torch.Tensor:
+    global _bias_launches
+    bias_strides = None if bias is None else _bias_strides(bias, q, k.shape[1])
+    lib = load_library()["bias"]
+    o = torch.empty_like(q)
+    b, s, h, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.tvs_biased_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), o.data_ptr(), b, s, h, d,
+            t_valid, _seq_strides(q, k, v, o), bias_strides, stream)
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {err}")
+    _bias_launches += 1
+    return o
+
+
+class _BiasedAttention(torch.autograd.Function):
+    """K3 forward (its plain version for CPU tensors); the backward recomputes
+    through `plain_attention`, as the TPU kernel's does through the plain JAX
+    attention. q, k, v and the bias are kept only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_valid):
+        ctx.kv_valid = kv_valid
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cpu":
+            return biased_attention_ref(q, k, v, bias, kv_valid)
+        return _launch_biased(q, k, v, bias, k.shape[1] if kv_valid is None
+                              else kv_valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from tunevlseg_torch.nn.attention import plain_attention
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = plain_attention(*qkv, bias, kv_valid=ctx.kv_valid)
+        dq, dk, dv = torch.autograd.grad(out, qkv, grad.to(out.dtype))
+        return dq, dk, dv, None, None
+
+
+def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     kv_valid: Optional[int] = None) -> torch.Tensor:
+    """softmax(q kᵀ / √D + bias) v for q (B, S, H, D) and k, v (B, T, H, D),
+    keys >= kv_valid masked; `bias` is None or f32, broadcastable to
+    (B, H, S, T), and takes no gradient.
+
+    CUDA tensors go through K3 (bf16, D in {16, 32, 64}, contiguous q, k, v;
+    the bias through its own strides) or raise; CPU tensors take
+    `biased_attention_ref`. The gradient recomputes through
+    `plain_attention` on either device."""
+    if bias is not None and bias.requires_grad:
+        raise ValueError("K3 gives the bias no gradient")
+    if q.device.type != "cpu":
+        _check_kernel_inputs(q, k, v, kv_valid, kernel="K3")
+    return _BiasedAttention.apply(q, k, v, bias, kv_valid)

@@ -1,23 +1,98 @@
-"""Image resampling.
+"""Image resampling as two matrix products.
 
-Counterpart of `tunevlseg_tpu/ops/image.py:resize_2d`, whose resize matrices
-reproduce torch's `F.interpolate` (cubic A = -0.75, half-pixel centres,
-clamped taps) as matmuls for the TPU. The port calls `F.interpolate` itself,
-in f32. Only the bicubic mode is on the ported path (the vision
-position-embedding resize); bilinear and nearest come with their users.
+Counterpart of `tunevlseg_tpu/ops/image.py:resize_2d` and `upsample_scale`.
+With static sizes, `F.interpolate(mode="bilinear" / "bicubic" / "nearest")`
+is a separable linear map with known sample positions, so a resize is
+
+    out = W_rows @ img @ W_cols^T
+
+with row-stochastic matrices that reproduce torch's numerics: the half-pixel
+coordinate transform (or `align_corners`), the cubic kernel with A = -0.75,
+and clamped (replicated) border taps. The port keeps this formulation rather
+than calling `F.interpolate`: the products run in f32 like the JAX package's,
+forward and backward are plain GEMMs (deterministic, where the interpolation
+kernels' backward adds with atomics), and on an H100 the f32 bilinear
+`F.interpolate` kernel took 44% of a CRIS forward (PERF.md).
+
+Users: the vision position-embedding resizes (bicubic), the CRIS neck's and
+projector's bilinear upsamples, the CRIS final bicubic `align_corners=True`
+upsample and the additive head's bilinear resize.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
-import torch.nn.functional as F
+
+RESIZE_METHODS = ("bilinear", "bicubic", "nearest")
 
 
-def resize_2d(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Bicubic resize of the trailing two axes of `img` (..., H, W) ->
-    (..., H', W'), computed in f32, returned in `img`'s dtype."""
-    if tuple(img.shape[-2:]) == tuple(out_hw):
+def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    x = np.abs(x)
+    x2, x3 = x * x, x * x * x
+    return np.where(
+        x <= 1.0, (a + 2.0) * x3 - (a + 3.0) * x2 + 1.0,
+        np.where(x < 2.0, a * x3 - 5.0 * a * x2 + 8.0 * a * x - 4.0 * a, 0.0))
+
+
+def resize_matrix(in_size: int, out_size: int, mode: str,
+                  align_corners: bool = False, out_pad: int = 0) -> np.ndarray:
+    """(out_size + 2 * out_pad, in_size) row-stochastic interpolation matrix;
+    `out_pad` repeats the first and the last row, which replicate-pads the
+    output inside the same product."""
+    if mode not in RESIZE_METHODS:
+        raise ValueError(f"unknown resize mode: {mode}")
+    if align_corners and out_size > 1:
+        src = np.arange(out_size, dtype=np.float64) * ((in_size - 1) / (out_size - 1))
+    else:
+        src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size) - 0.5
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.arange(out_size)
+    base = np.floor(src).astype(np.int64)
+    frac = src - base
+    if mode == "bilinear":
+        taps = ((base, 1.0 - frac), (base + 1, frac))
+    elif mode == "bicubic":
+        taps = [(base + off, _cubic_kernel(frac - off)) for off in range(-1, 3)]
+    else:   # torch "nearest": floor(dst * scale), no half-pixel shift
+        taps = ((np.floor(rows * (in_size / out_size)).astype(np.int64), 1.0),)
+    for tap, weight in taps:
+        np.add.at(w, (rows, np.clip(tap, 0, in_size - 1)), weight)
+    if out_pad:
+        w = np.concatenate([np.repeat(w[:1], out_pad, 0), w,
+                            np.repeat(w[-1:], out_pad, 0)])
+    return w.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=128)
+def _matrix_on(device: torch.device, *key) -> torch.Tensor:
+    """The resize matrix of `key` as an f32 tensor on `device`, built once."""
+    return torch.from_numpy(resize_matrix(*key)).to(device)
+
+
+def resize_2d(img: torch.Tensor, out_hw: tuple[int, int],
+              method: str = "bilinear", align_corners: bool = False,
+              out_pad: int = 0) -> torch.Tensor:
+    """Resize the trailing two axes of `img` (..., H, W) -> (..., H', W') with
+    the numerics of `F.interpolate(mode=method, align_corners=align_corners)`
+    (no antialiasing), as two f32 matrix products, returned in `img`'s dtype.
+    `out_pad=p` replicate-pads the result by p on each side of H and W
+    (-> H'+2p, W'+2p) inside the same products: what a "same" replicate
+    convolution of kernel 2p+1 would pad itself."""
+    h_in, w_in = img.shape[-2:]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out) and not out_pad:
         return img
-    lead = img.shape[:-2]
-    x = img.float().reshape(1, -1, *img.shape[-2:])
-    x = F.interpolate(x, size=tuple(out_hw), mode="bicubic", align_corners=False)
-    return x.reshape(*lead, *out_hw).to(img.dtype)
+    wr = _matrix_on(img.device, h_in, h_out, method, align_corners, out_pad)
+    wc = _matrix_on(img.device, w_in, w_out, method, align_corners, out_pad)
+    # columns first: one GEMM on the small input, then one batched product
+    x = torch.matmul(img.float(), wc.T)
+    return torch.matmul(wr, x).to(img.dtype)
+
+
+def upsample_scale(img: torch.Tensor, scale: int,
+                   method: str = "bilinear") -> torch.Tensor:
+    """`nn.Upsample(scale_factor=scale, mode=method)` on (..., H, W)."""
+    h, w = img.shape[-2:]
+    return resize_2d(img, (h * scale, w * scale), method)

@@ -26,7 +26,7 @@ from typing import Iterable, Optional
 import torch
 from torch import nn
 
-from tunevlseg_torch.nn.conv import ConvTranspose2d
+from tunevlseg_torch.nn.conv import Conv2d, ConvTranspose2d
 from tunevlseg_torch.nn.layers import Dense
 
 
@@ -120,14 +120,14 @@ def count_params(params: Iterable[torch.Tensor]) -> int:
 def decay_label(module: nn.Module, leaf: str) -> str:
     """'decay' or 'no_decay' for the parameter `leaf` that `module` owns.
 
-    The label goes by the owning module's type, since Dense, LayerNorm and
-    Embed all call their parameter `weight` here: Dense and ConvTranspose2d
-    weights and the vision tower's `patch_proj` (a convolution in the
-    reference) decay; biases, LayerNorm and Embed weights and bare
-    parameters (class/position embeddings, context vectors, residual_ratio)
-    do not."""
+    The label goes by the owning module's type, since Dense, LayerNorm,
+    BatchNorm and Embed all call their parameter `weight` here: Dense,
+    Conv2d and ConvTranspose2d weights and the vision tower's `patch_proj`
+    (a convolution in the reference) decay; biases, LayerNorm, BatchNorm and
+    Embed weights and bare parameters (class/position embeddings, the text
+    projection, context vectors, residual_ratio) do not."""
     if leaf == "patch_proj" or (leaf == "weight" and isinstance(
-            module, (Dense, ConvTranspose2d))):
+            module, (Dense, Conv2d, ConvTranspose2d))):
         return "decay"
     return "no_decay"
 

@@ -16,6 +16,14 @@ them) and builds the optimizer; `train_step` is forward, loss with `valid`
 masking, backward, global-norm clip and the optimizer update, and it updates
 the model's weights IN PLACE. Samples with `valid == 0` contribute a
 constant term to the loss and nothing to the step metrics.
+
+Dropout (the CRIS decoder's) is on in `train_step` only. Its masks come from
+a `torch.Generator` on the model's device that is seeded anew each step from
+(`seed`, step), as the JAX task folds the step into its key: two runs of the
+same step draw the same masks, the next step draws others. Eval, predict and
+serving apply no dropout. BatchNorm layers never look at
+`nn.Module.training`: a frozen backbone normalises with its running
+statistics in a train step too.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ class SegmentationTask:
     learning_rate: float = 2e-4
     weight_decay: float = 0.0
     grad_clip_norm: Optional[float] = None
+    seed: int = 0     # of the dropout masks, with the step
     # options of the JAX task that later slices port; asking for one raises
     accumulate_grad_batches: int = 1
     remat: bool = False
@@ -65,8 +74,8 @@ class SegmentationTask:
                 "with ROADMAP Slice G")
         if self.mutable_collections:
             raise NotImplementedError(
-                "mutable_collections (BatchNorm statistics of e2e CRIS) "
-                "come with ROADMAP Slice C")
+                "mutable_collections (BatchNorm batch statistics of the e2e "
+                "CRIS train step) come with the rest of ROADMAP Slice C")
 
     # -- init ---------------------------------------------------------------
 
@@ -95,14 +104,24 @@ class SegmentationTask:
         return (batch["input_ids"], self._prep_image(batch["image"]),
                 batch.get("attention_mask")), kwargs
 
-    def _forward(self, batch: dict) -> torch.Tensor:
-        args, kwargs = self.model_inputs(batch)
-        return self.model(*args, **kwargs)
+    def _forward(self, batch: dict, **kwargs) -> torch.Tensor:
+        args, model_kwargs = self.model_inputs(batch)
+        return self.model(*args, **model_kwargs, **kwargs)
 
-    def _loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """(loss, logits); with `valid`, padded samples are zeroed on both
-        sides so that they contribute a constant (matching) term."""
-        logits = self._forward(batch)
+    def dropout_generator(self, step: int) -> torch.Generator:
+        """The generator of one train step's dropout masks, on the model's
+        device, a function of (seed, step) alone."""
+        device = next(self.model.parameters()).device
+        gen = torch.Generator(device=device)
+        gen.manual_seed((self.seed * 1_000_003 + step) % 2 ** 63)
+        return gen
+
+    def _loss(self, batch: dict, step: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, logits) of a train step (dropout on, masks of `step`); with
+        `valid`, padded samples are zeroed on both sides so that they
+        contribute a constant (matching) term."""
+        logits = self._forward(batch, deterministic=False,
+                               generator=self.dropout_generator(step))
         mask = batch["mask"]
         valid = batch.get("valid")
         if valid is not None:
@@ -118,7 +137,7 @@ class SegmentationTask:
         opt = state.optimizer
         opt.zero_grad()
         with torch.enable_grad():
-            loss, logits = self._loss(batch)
+            loss, logits = self._loss(batch, state.step)
         loss.backward()
         opt.step()
         with torch.no_grad():
