@@ -6,9 +6,10 @@
 Phases, each printing its numbers on lines of its own:
   1. device: the CUDA card's name, the device count, and nvidia-smi's name
      and power limit (exits nonzero without a CUDA device);
-  2. build: kernels K1 (csrc/flash_attn_fwd.cu), K2 (csrc/flash_attn_bwd.cu)
-     and K3 (csrc/flash_attn_bias_fwd.cu) built from source side by side,
-     timed, with the registers and spills `ptxas -v` reports;
+  2. build: kernels K1 (csrc/flash_attn_fwd.cu), K2 (csrc/flash_attn_bwd.cu),
+     K3 (csrc/flash_attn_bias_fwd.cu) and K4 (csrc/conv_flat.cu) built from
+     source side by side, timed, with the registers and spills `ptxas -v`
+     reports;
   3. kernel vs plain: K1 against `flash_attention_ref` and K2 against
      `flash_attention_bwd_ref` at the CLIPSeg vision and decoder shapes, a
      kv_valid case (masked dk/dv rows exactly zero), the two batch-16 shapes
@@ -46,9 +47,32 @@ Phases, each printing its numbers on lines of its own:
      loss, the context vectors and the additive head change, every frozen
      tensor and every BatchNorm buffer stays bit-identical, and the first
      step's loss and gradients agree with the plain path.
+ 10. kernel vs plain, K4: the flat convolution against `conv_flat_ref` at the
+     RN50's own shapes at b64 and 416^2 (stem, stage 1, 2 and 4, 3x3 and 1x1,
+     with and without affine, ReLU and residual, and the dx form with the
+     flipped weight): max abs error against the stated bound, guard and ring
+     rows exactly zero, times from CUDA events, the bound from the pixel
+     work, and `F.conv2d` in bf16 channels-last beside it (the convolution
+     alone: the epilogue is not in it); then the backward of the
+     `autograd.Function` (dx, dW, d_scale, d_offset, d_residual) against
+     autograd through the plain version;
+ 11. serve, CRIS flat: the same CRIS model built with `layout="flat"`: the
+     b64 dedup request and b1; 3 K1, 15 K3 and 54 K4 launches per forward,
+     and the probabilities against the same weights on `layout="nchw"`;
+ 12. train, CRIS flat CoOp: 2 warm-up + 3 timed b64 steps: 3 K1, 3 K2, 15 K3
+     and 54 K4 forward launches per step and no K4 dx launch (the backbone
+     is frozen), frozen tensors and BatchNorm buffers bit-identical;
+ 13. train, CRIS e2e, at b16 with `mutable_collections=("batch_stats",)`:
+     (a) the default (towers frozen, "nchw"): the loss falls, the FPN's and
+     the projector's running statistics move in the train state, the
+     backbone's do not; (b) the full fine-tune on `layout="flat"`: 54 K4
+     forward and 54 K4 dx launches per step, backbone convolution weights and
+     BatchNorm weight / bias change, the first step's loss against the same
+     step on `layout="nchw"`, and every gradient of the backbone for a fixed
+     cotangent on its pyramid against `layout="nchw"`.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
-b64 and b1 forwards.
+b64 and b1 forwards, on both layouts.
 The second-to-last line is a JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero.
@@ -81,18 +105,51 @@ PROB_MEAN_TOL = 2e-3
 LOSS_TOL = 2e-2
 GRAD_REL_TOL = 0.1
 GRAD_COS_MIN = 0.99
-# launches per forward or step, as (K1, K2, K3).
+# launches per forward or step, as (K1, K2, K3, K4 forward, K4 dx).
 # CLIPSeg: K1 in 10 vision layers + 3 decoder blocks; K3 in the 12 text
 # layers (causal + padding bias); K2 for the decoder blocks, and for the
 # vision layers too when they train (the frozen vision tower needs none)
-CLIPSEG_SERVE = (13, 0, 12)
-CLIPSEG_COOP_STEP = (13, 3, 12)
-CLIPSEG_E2E_STEP = (13, 13, 12)
+CLIPSEG_SERVE = (13, 0, 12, 0, 0)
+CLIPSEG_COOP_STEP = (13, 3, 12, 0, 0)
+CLIPSEG_E2E_STEP = (13, 13, 12, 0, 0)
 # CRIS: K1 (K2) in the 3 decoder self-attentions over 676 tokens; K3 in the
 # 12 text layers and the 3 cross-attentions into the text; the RN50
 # attention pool has 169 tokens, under the gate's 256: plain
-CRIS_SERVE = (3, 0, 15)
-CRIS_COOP_STEP = (3, 3, 15)
+CRIS_SERVE = (3, 0, 15, 0, 0)
+CRIS_COOP_STEP = (3, 3, 15, 0, 0)
+# CRIS with layout="flat": K4 in the RN50's 2 stem convolutions, 3 per
+# bottleneck in 16 bottlenecks and 4 downsample convolutions = 54; K4 again
+# for dx of each of them when the backbone trains (conv1 in front of the stem
+# trains too, so even the first flat convolution's input wants a gradient)
+RN50_FLAT_CONVS = 2 + 3 * 16 + 4
+CRIS_FLAT_SERVE = (3, 0, 15, RN50_FLAT_CONVS, 0)
+CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0)
+CRIS_E2E_STEP = (3, 3, 15, 0, 0)
+CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS)
+# K4 against its plain version, bf16 outputs: the same bf16 operands, f32
+# accumulation in another order, one rounding: one bf16 ulp (2^-8) of the
+# largest |reference|, 5e-3 with slack. Gradients of the Function against
+# autograd through the plain version (dy*scale rounded to bf16 for dx, bf16
+# operands in the dW products): 1e-2 of the largest entry.
+K4_REL_TOL = 5e-3
+K4_GRAD_REL_TOL = 1e-2
+# flat against nchw on the same weights, probabilities: the folded affine
+# rounds to bf16 once per convolution where cuDNN + BatchNorm round twice,
+# through 54 convolutions (predicted max ~2e-2, mean ~1e-3)
+FLAT_PROB_MAX_TOL = 5e-2
+FLAT_PROB_MEAN_TOL = 5e-3
+# flat against nchw, gradients of the backbone for one fixed cotangent on its
+# pyramid (two bf16 evaluations of 54 convolutions that round at different
+# places: measured cosine >= 0.994, max diff <= 0.16 of the largest entry)
+FLAT_GRAD_COS_MIN = 0.99
+FLAT_GRAD_REL_TOL = 0.25
+# flat against nchw, first e2e step of the whole randomly initialised model:
+# its head under train-mode BatchNorm amplifies the 1-2% by which the two
+# pyramids differ (loss 2.00 vs 1.94 measured; the same model's loss moves by
+# 0.013 between the kernel and the plain attention path), and the gradients
+# it sends back decorrelate with it, so the step's loss is held to 0.15 and
+# the step's backbone gradients are printed, not held to a bound
+E2E_FLAT_LOSS_TOL = 0.15
 IMG, BATCH, SEQ = 352, 64, 77
 CRIS_IMG = 416
 E2E_BATCH = 16
@@ -113,8 +170,16 @@ def fail(msg: str) -> None:
 
 
 def counts(fa) -> tuple:
-    """(K1, K2, K3) launches since the last reset."""
-    return fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count()
+    """(K1, K2, K3, K4 forward, K4 dx) launches since the last reset."""
+    from tunevlseg_torch.ops import conv_flat as cf
+    return (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count(),
+            cf.launch_count(), cf.dx_launch_count())
+
+
+def reset_counts(fa) -> None:
+    from tunevlseg_torch.ops import conv_flat as cf
+    fa.reset_launch_count()
+    cf.reset_launch_count()
 
 
 def minus(after: tuple, before: tuple) -> tuple:
@@ -150,14 +215,16 @@ def phase_device():
     return name, count
 
 
-def phase_build(fa):
+def phase_build():
+    from tunevlseg_torch.ops import build
+    kernels = (("fwd", "K1"), ("bwd", "K2"), ("bias", "K3"), ("conv", "K4"))
     t0 = time.perf_counter()
-    fa.load_library()
+    build.load_libraries()
     secs = time.perf_counter() - t0
-    print(f"build: K1, K2 and K3 {secs:.2f} s -> "
-          + ", ".join(fa.library_path(k).name for k in ("fwd", "bwd", "bias")))
-    for kernel, label in (("fwd", "K1"), ("bwd", "K2"), ("bias", "K3")):
-        log = fa.library_path(kernel).with_suffix(".log").read_text()
+    print(f"build: K1, K2, K3 and K4 {secs:.2f} s -> "
+          + ", ".join(build.library_path(k).name for k, _ in kernels))
+    for kernel, label in kernels:
+        log = build.library_path(kernel).with_suffix(".log").read_text()
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {label} ptxas {line.strip()}")
@@ -407,7 +474,7 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
                    per_forward: tuple, reps: int = 5):
     """Warm up, then `reps` timed forwards of each (label, request, batch)
     with the launch counts set to 0 just before and read just after; checks
-    the per-forward (K1, K2, K3) launches and the probabilities. Returns (the
+    the per-forward (K1, K2, K3, K4, K4 dx) launches and the probabilities. Returns (the
     first request's probabilities, the counts)."""
     import torch
     for _, req, _ in requests:          # warm-up: cuBLAS/cuDNN handles, allocator
@@ -415,7 +482,7 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
     torch.cuda.synchronize()
     first_probs = None
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_count()
+    reset_counts(fa)
     for label, req, batch in requests:
         times = []
         for _ in range(reps):
@@ -426,7 +493,7 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
             times.append(time.perf_counter() - t)
             grew = minus(counts(fa), before)
             if grew != per_forward:
-                fail(f"{tag} {label}: one forward launched (K1, K2, K3) = {grew}, "
+                fail(f"{tag} {label}: one forward launched (K1, K2, K3, K4, K4 dx) = {grew}, "
                      f"expected {per_forward}")
         check_probs(f"{tag} {label}", probs, batch, img)
         if first_probs is None:
@@ -439,11 +506,11 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
     launches = counts(fa)
     peak = torch.cuda.max_memory_allocated()
     forwards = len(requests) * reps
-    print(f"{tag}: (K1, K2, K3) launches in the main path {launches} "
+    print(f"{tag}: (K1, K2, K3, K4, K4 dx) launches in the main path {launches} "
           f"({forwards} forwards x {per_forward})")
     print(f"{tag}: peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
     if launches != tuple(forwards * n for n in per_forward):
-        fail(f"{tag}: (K1, K2, K3) launched {launches} times in the main path")
+        fail(f"{tag}: (K1, K2, K3, K4, K4 dx) launched {launches} times in the main path")
     return first_probs, launches
 
 
@@ -577,7 +644,7 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_count()
+    reset_counts(fa)
     times = []
     for _ in range(steps):
         before = counts(fa)
@@ -588,7 +655,7 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
         losses.append(metrics["loss"])
         grew = minus(counts(fa), before)
         if grew != per_step:
-            fail(f"{label}: one step launched (K1, K2, K3) = {grew}, expected "
+            fail(f"{label}: one step launched (K1, K2, K3, K4, K4 dx) = {grew}, expected "
                  f"{per_step}")
     launches = counts(fa)
     peak = torch.cuda.max_memory_allocated()
@@ -600,14 +667,15 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
     print(f"{label}: step time median {med * 1e3:.3f} ms over {steps} "
           f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"{1 / med:.2f} steps/s, {n / med:.1f} images/s at batch {n}")
-    print(f"{label}: (K1, K2, K3) launches {launches} in {steps} steps; peak "
+    print(f"{label}: (K1, K2, K3, K4, K4 dx) launches {launches} in {steps} steps; peak "
           f"device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
     print(f"{label}: loss per step (warm-up first) "
           + " ".join(f"{x:.5f}" for x in losses))
     return state, losses, launches
 
 
-def build_task(family: str, strategy: str, learning_rate: float):
+def build_task(family: str, strategy: str, learning_rate: float,
+               build_kwargs: dict = None, task_kwargs: dict = None):
     import torch
     from tunevlseg_torch.models.presets import build_clipseg, build_cris
     from tunevlseg_torch.training.optim import count_params
@@ -615,11 +683,13 @@ def build_task(family: str, strategy: str, learning_rate: float):
     t0 = time.perf_counter()
     build = {"CLIPSeg rd64": build_clipseg, "CRIS RN50": build_cris}[family]
     model, spec = build(strategy, prompt_depth=3, num_context=4,
-                        dtype=torch.bfloat16, device="cuda", seed=0)
-    task = SegmentationTask(model, spec, learning_rate=learning_rate)
+                        dtype=torch.bfloat16, device="cuda", seed=0,
+                        **(build_kwargs or {}))
+    task = SegmentationTask(model, spec, learning_rate=learning_rate,
+                            **(task_kwargs or {}))
     state = task.init()
     trainable = count_params(p for p in model.parameters() if p.requires_grad)
-    print(f"train {strategy}: {family}, bf16 compute over f32 weights, "
+    print(f"train {strategy}: {family} {build_kwargs or ''}, bf16 compute over f32 weights, "
           f"{count_params(model.parameters())} params, {trainable} trainable, "
           f"lr {learning_rate}, built in {time.perf_counter() - t0:.1f} s")
     return task, state
@@ -755,6 +825,416 @@ def phase_train_cris(fa, profile: bool):
     return launches
 
 
+# --- K4, the flat convolution, and the CRIS paths that run on it -------------
+
+# label, H = W, the stage's planes (they size the spec), C, Cout, k, ReLU,
+# affine, residual, dx form: the RN50's own shapes at 416^2
+K4_CASES = (
+    ("stem 3x3 32->64 208^2", 208, 32, 32, 64, 3, True, True, False, False),
+    ("stage1 3x3 64->64 104^2", 104, 64, 64, 64, 3, True, True, False, False),
+    ("stage1 1x1 64->256 104^2 +res", 104, 64, 64, 256, 1, True, True, True, False),
+    ("stage2 3x3 128->128 104^2", 104, 128, 128, 128, 3, True, True, False, False),
+    ("stage2 3x3 128->128 52^2", 52, 128, 128, 128, 3, True, True, False, False),
+    ("stage4 3x3 512->512 13^2", 13, 512, 512, 512, 3, True, True, False, False),
+    ("stage4 1x1 512->2048 13^2 +res", 13, 512, 512, 2048, 1, True, True, True, False),
+    ("stage3 3x3 256->256 26^2 no affine no relu", 26, 256, 256, 256, 3, False,
+     False, False, False),
+    ("stage1 3x3 64->64 104^2 dx form", 104, 64, 64, 64, 3, False, False, False, True),
+)
+K4_MAIN = "stage1 3x3 64->64 104^2"
+
+
+def conv_bound(b, hw, k, c, cout, residual: bool):
+    """(bound_ms, bound_by, flops) of a k x k convolution from its pixel work,
+    whatever implements it: 2*B*H*W*k*k*C*Cout operations over the bf16
+    tensor-core rate against the bytes of the unpadded input, output,
+    residual and weight over the memory rate."""
+    flops = 2 * b * hw * hw * k * k * c * cout
+    nbytes = 2 * (b * hw * hw * (c + cout * (2 if residual else 1))
+                  + k * k * c * cout)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            flops)
+
+
+def flat_case(cf, gen, b, hw, planes, c, cout, k, affine, residual, dx_form):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    spec = cf.make_flat_spec(hw, hw, 1, max_k2c=9 * planes, itemsize=2)
+    x = cf.flat_begin(rnd(b, hw, hw, c).bfloat16(), spec)
+    weight = rnd(cout, c, k, k) * (k * k * c) ** -0.5
+    if dx_form:     # what the backward hands the kernel: W'[t'] = W[k*k-1-t']^T
+        weight = weight.flip(2, 3).transpose(0, 1).contiguous()
+    scale = rnd(cout).abs() + 0.5 if affine else None
+    offset = rnd(cout) * 0.1 if affine else None
+    res = cf.flat_begin(rnd(b, hw, hw, cout).bfloat16(), spec) if residual else None
+    return spec, x, weight, scale, offset, res
+
+
+def plain_conv_flat(cf, spec, relu, x, weight, scale, offset, res):
+    """`conv_flat_ref` on the arguments `conv_flat` takes."""
+    import torch
+    cout, c, k, _ = weight.shape
+    w_mat = weight.permute(2, 3, 1, 0).reshape(k * k * c, cout)
+    ones = torch.ones(cout, device=x.device)
+    return cf.conv_flat_ref(spec, relu, x, w_mat, ones if scale is None else scale,
+                            ones * 0 if offset is None else offset, res)
+
+
+def phase_kernels_k4(cf):
+    """K4 against its plain version at the RN50's shapes, `F.conv2d` beside
+    it; returns {label: numbers}."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    results = {}
+    for label, hw, planes, c, cout, k, relu, affine, residual, dx_form in K4_CASES:
+        spec, x, weight, scale, offset, res = flat_case(
+            cf, gen, BATCH, hw, planes, c, cout, k, affine, residual, dx_form)
+        before = cf.launch_count()
+        out = cf.conv_flat(x, spec, weight, scale, offset, relu, res)
+        torch.cuda.synchronize()
+        if cf.launch_count() != before + 1:
+            fail(f"K4 {label}: the wrapper did not count its launch")
+        if out.shape != (BATCH, spec.rows, cout) or out.dtype != torch.bfloat16:
+            fail(f"K4 {label}: output is {tuple(out.shape)} {out.dtype}")
+        ref = plain_conv_flat(cf, spec, relu, x, weight, scale, offset, res)
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        if not err <= K4_REL_TOL * top:
+            fail(f"K4 {label}: max abs error {err} > {K4_REL_TOL} x {top}")
+        valid = cf._valid_rows(spec, x.device)
+        if not bool((out[:, ~valid] == 0).all()):
+            fail(f"K4 {label}: guard or ring rows are not exactly zero")
+        del ref
+        ms = cuda_time_ms(
+            lambda: cf.conv_flat(x, spec, weight, scale, offset, relu, res), 20)
+        plain_ms = cuda_time_ms(lambda: plain_conv_flat(
+            cf, spec, relu, x, weight, scale, offset, res), 2, warmup=1)
+        # one PyTorch call for the convolution alone, on the unpadded pixels
+        x_nchw = cf.flat_end(x, spec).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        w_cl = weight.bfloat16().contiguous(memory_format=torch.channels_last)
+        lib_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_cl, padding=k // 2), 20)
+        bound_ms, bound_by, flops = conv_bound(BATCH, hw, k, c, cout, residual)
+        print(f"kernel K4 {label} x{tuple(x.shape)} (b{BATCH}, {hw}^2 pixels in "
+              f"{spec.rows} rows, guard {spec.mb}) C {c} Cout {cout} k {k}: "
+              f"max_abs_err {err:.6g} (bound {K4_REL_TOL} x largest |reference| "
+              f"{top:.4g}), {int((~valid).sum())} guard and ring rows exactly 0, "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.3f} ms, F.conv2d bf16 channels-last (the convolution "
+              f"alone, no epilogue) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({100 * bound_ms / ms:.1f}% reached)")
+        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms}
+        del out, x, res, x_nchw
+    return results
+
+
+def phase_kernel_k4_backward(cf):
+    """The backward of the `autograd.Function` at the e2e step's stage-1 3x3
+    shape (b16, 104^2, 64 -> 64, affine, residual, ReLU): dx (a K4 launch),
+    dW, d_scale, d_offset and d_residual against autograd through the plain
+    version (without its ReLU, the ReLU state taken from the kernel's output,
+    so that a pre-activation within rounding of 0 cannot flip one element's
+    whole gradient). Returns the numbers of the backward."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, hw, c, cout, k = E2E_BATCH, 104, 64, 64, 3
+    spec, x, weight, scale, offset, res = flat_case(
+        cf, gen, b, hw, 64, c, cout, k, True, True, False)
+    names = ("dx", "dW", "d_scale", "d_offset", "d_residual")
+    leaves = [t.clone().requires_grad_() for t in (x, weight, scale, offset, res)]
+    fwd, dxs = cf.launch_count(), cf.dx_launch_count()
+    out = cf.conv_flat(leaves[0], spec, *leaves[1:4], True, leaves[4])
+    g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    if (cf.launch_count(), cf.dx_launch_count()) != (fwd + 1, dxs + 1):
+        fail("K4 backward: expected one forward and one dx launch")
+    ref_leaves = [t.clone().requires_grad_() for t in (x, weight, scale, offset, res)]
+    pre = plain_conv_flat(cf, spec, False, *ref_leaves)
+    want = torch.autograd.grad(pre.float(), ref_leaves, g.float() * (out > 0))
+    valid = cf._valid_rows(spec, x.device)
+    if not bool((got[0][:, ~valid] == 0).all()):
+        fail("K4 backward: dx is not exactly zero on guard and ring rows")
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        a, w = a.float(), w.float()
+        if name == "dx":    # the contract: the plain products' ring cotangent is dropped
+            a, w = a[:, valid], w[:, valid]
+        top = w.abs().max().item()
+        errs[name] = (a - w).abs().max().item() / top
+        if not errs[name] <= K4_GRAD_REL_TOL:
+            fail(f"K4 backward: {name} differs by {errs[name]} of its largest "
+                 f"entry {top} (bound {K4_GRAD_REL_TOL})")
+    del pre, want, ref_leaves
+    ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10)
+    # with x alone wanting a gradient the backward is the mask, the scale and
+    # one K4 launch (what it computes is fixed when the forward runs)
+    x_only = x.clone().requires_grad_()
+    out_x = cf.conv_flat(x_only, spec, weight, scale, offset, True, res)
+    dx_ms = cuda_time_ms(lambda: torch.autograd.grad(out_x, x_only, g,
+                                                     retain_graph=True), 10)
+    x_nchw = cf.flat_end(x, spec).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    w_cl = weight.bfloat16().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    y = F.conv2d(x_nchw, w_cl, padding=1)
+    gy = torch.randn_like(y)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(y, (x_nchw, w_cl), gy,
+                                                      retain_graph=True), 10)
+    bound_ms, bound_by, flops = conv_bound(b, hw, k, c, cout, True)
+    print(f"kernel K4 backward b{b} {hw}^2 {c}->{cout} k{k} affine + residual + "
+          "ReLU: " + ", ".join(f"{n} {errs[n]:.3g}" for n in names)
+          + f" of the largest entry (bound {K4_GRAD_REL_TOL}), dx exactly 0 on "
+          f"guard and ring rows; all five gradients {ms:.4f} ms, dx alone (mask, "
+          f"scale, one K4 launch) {dx_ms:.4f} ms, F.conv2d backward (dgrad + "
+          f"wgrad, no epilogue) {lib_ms:.4f} ms; the dx convolution's bound "
+          f"{bound_ms:.4f} ms by {bound_by}")
+    return {"backward_ms": ms, "dx_ms": dx_ms, "library_backward_ms": lib_ms,
+            "max_rel_err": max(errs.values())}
+
+
+def switch_layout(model, layout: str):
+    """A context in which the CRIS backbone of `model` runs on `layout`: the
+    parameters and buffers are the same for both, only the path differs."""
+    from unittest import mock
+    return mock.patch.object(model.visual, "layout", layout)
+
+
+def phase_serve_cris_flat(fa, profile: bool):
+    """CRIS RN50 + CoOp with `layout="flat"`: the RN50's stem tail and four
+    stages through K4. The b64 dedup request and b1, and the first against
+    the same weights on the cuDNN path."""
+    import torch
+
+    from tunevlseg_torch.models.presets import build_cris
+    from tunevlseg_torch.serving import task_predict_fn
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    t0 = time.perf_counter()
+    model, _ = build_cris("coop", prompt_depth=3, num_context=4, layout="flat",
+                          dtype=torch.bfloat16, device="cuda", seed=0)
+    params = dict(model.state_dict())
+    predict = task_predict_fn(SegmentationTask(model))
+    print(f"serve cris flat: CRIS RN50 + CoOp(depth 3, n_ctx 4) at {CRIS_IMG}^2, "
+          f'layout="flat", stages {model.visual.flat_stages}, built in '
+          f"{time.perf_counter() - t0:.1f} s")
+    requests = three_requests(6, CRIS_IMG, 0)
+    requests = [requests[0], requests[2]]
+    probs, launches = serve_requests(fa, "serve cris flat", predict, params,
+                                     requests, CRIS_IMG, CRIS_FLAT_SERVE)
+    with switch_layout(model, "nchw"):
+        before = counts(fa)
+        nchw = predict(params, requests[0][1])
+        torch.cuda.synchronize()
+        grew = minus(counts(fa), before)
+        if grew != CRIS_SERVE:
+            fail(f"serve cris flat: the nchw reference launched {grew}")
+        walls = []
+        for _ in range(5):
+            t = time.perf_counter()
+            predict(params, requests[0][1])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+    diff = (probs - nchw).abs()
+    dmax, dmean = diff.max().item(), diff.mean().item()
+    print(f'serve cris flat: layout="flat" vs "nchw" on the same weights, b64 '
+          f"dedup probabilities: max abs diff {dmax:.6g} (bound "
+          f"{FLAT_PROB_MAX_TOL}), mean {dmean:.6g} (bound {FLAT_PROB_MEAN_TOL}); "
+          f'the "nchw" forward in the same call: median '
+          f"{statistics.median(walls) * 1e3:.3f} ms")
+    if not (dmax <= FLAT_PROB_MAX_TOL and dmean <= FLAT_PROB_MEAN_TOL):
+        fail("serve cris flat: the two layouts disagree beyond the stated bounds")
+    if profile:
+        req = requests[0][1]
+        profile_calls("serve cris flat b64 dedup", lambda: predict(params, req))
+        with switch_layout(model, "nchw"):
+            profile_calls("serve cris nchw b64 dedup (same model)",
+                          lambda: predict(params, req))
+    return launches
+
+
+def phase_train_cris_flat(fa):
+    """CoOp steps of CRIS RN50 on the flat layout: the frozen backbone runs
+    K4 forward only (no input of it wants a gradient, so nothing is saved
+    and no dx is launched)."""
+    import torch
+
+    task, state = build_task("CRIS RN50", "coop", 2e-4,
+                             build_kwargs={"layout": "flat"})
+    model = task.model
+    batch = make_train_batch(BATCH, text_dedup=1, seed=7, img=CRIS_IMG, pad_id=0)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    state, _, launches = timed_steps(fa, task, state, batch, "train cris flat",
+                                     warmup=2, steps=3,
+                                     per_step=CRIS_FLAT_COOP_STEP)
+    now = model.state_dict()
+    for name in trainable:
+        if torch.equal(now[name], start[name]):
+            fail(f"train cris flat: trainable leaf {name} did not change")
+    for name, value in now.items():
+        if name not in trainable and not torch.equal(value, start[name]):
+            fail(f"train cris flat: frozen tensor or buffer {name} changed")
+    print(f"train cris flat: {len(trainable)} trainable leaves changed; "
+          f"{len(now) - len(trainable)} frozen tensors and BatchNorm buffers "
+          "bit-identical; no K4 dx launch")
+    return launches
+
+
+def backbone_gradients_flat_vs_nchw(task, batch):
+    """Every gradient of the trainable RN50 for one fixed cotangent on its
+    (C3, C4, C5') pyramid, on `layout="flat"` (K4 forward, K4 for dx, dW
+    products) against `layout="nchw"` (cuDNN) from the same weights."""
+    import torch
+    net = task.model.visual
+    image = task._prep_image(batch["image"])
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cots, grads = None, {}
+    for layout in ("flat", "nchw"):
+        with switch_layout(task.model, layout):
+            net.zero_grad(set_to_none=True)
+            feats = net(image)
+            if cots is None:
+                cots = [torch.randn(f.shape, generator=gen, device="cuda")
+                        for f in feats]
+            sum((f.float() * c).sum() for f, c in zip(feats, cots)).backward()
+            grads[layout] = {n: p.grad.float().clone()
+                             for n, p in net.named_parameters()}
+    net.zero_grad(set_to_none=True)
+    worst_cos, worst_rel = (1.0, ""), (0.0, "")
+    for name, want in grads["nchw"].items():
+        if name.endswith("k_proj.bias"):
+            continue        # zero in exact arithmetic, rounding noise here
+        got = grads["flat"][name]
+        cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(),
+                                                    dim=0).item()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        worst_cos, worst_rel = min(worst_cos, (cos, name)), max(worst_rel, (rel, name))
+    print(f"train cris e2e flat: the backbone's {len(grads['nchw'])} gradients for "
+          f'a fixed cotangent on its pyramid, layout "flat" vs "nchw": least '
+          f"cosine {worst_cos[0]:.6f} ({worst_cos[1]}; at least "
+          f"{FLAT_GRAD_COS_MIN}), largest max abs diff {worst_rel[0]:.4g} of its "
+          f"leaf's largest entry ({worst_rel[1]}; bound {FLAT_GRAD_REL_TOL})")
+    if not (worst_cos[0] >= FLAT_GRAD_COS_MIN and worst_rel[0] <= FLAT_GRAD_REL_TOL):
+        fail("train cris e2e flat: the backbone's gradients on the two layouts "
+             "disagree beyond the stated bounds")
+
+
+def phase_train_cris_e2e(fa, profile: bool):
+    """The e2e CRIS train step at b16 with the BatchNorm statistics in the
+    train state: (a) the default, towers frozen, on cuDNN; (b) the full
+    fine-tune on the flat layout, whose backward launches K4 for every dx."""
+    import torch
+
+    mutable = {"mutable_collections": ("batch_stats",)}
+    # seeded random weights under train-mode BatchNorm are touchy: at 1e-5 and
+    # above Adam's first steps overshoot (the loss jumps from 1.9 to 2.5-7 and
+    # comes back), at 3e-6 it falls from the first step on
+    lr = 3e-6
+    batch = make_train_batch(E2E_BATCH, text_dedup=0, seed=8, img=CRIS_IMG, pad_id=0)
+    print(f"train cris e2e: batch {E2E_BATCH} rather than {BATCH}, as the CLIPSeg "
+          "e2e phase, to keep the whole script short")
+
+    # (a) towers frozen, layout nchw
+    task, state = build_task("CRIS RN50", "e2e", lr, task_kwargs=mutable)
+    first = dict(state.model_state)
+    buffers = {k: v.detach().clone() for k, v in task.model.named_buffers()}
+    state, losses, launches_a = timed_steps(fa, task, state, batch,
+                                            "train cris e2e", warmup=2, steps=5,
+                                            per_step=CRIS_E2E_STEP)
+    if not losses[-1] < losses[0]:
+        fail(f"train cris e2e: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    moved = {k for k, v in state.model_state.items() if not torch.equal(v, first[k])}
+    head = {k for k in first if k.startswith(("neck.", "proj."))}
+    if moved != head:
+        fail(f"train cris e2e: running statistics that moved: {len(moved)}, "
+             f"expected the {len(head)} of the FPN and the projector; stray: "
+             f"{sorted(moved ^ head)[:4]}")
+    for name, buf in task.model.named_buffers():
+        if not torch.equal(buf, buffers[name]):
+            fail(f"train cris e2e: the module's buffer {name} was written")
+    print(f"train cris e2e: loss fell {losses[0]:.5f} -> {losses[-1]:.5f} on one "
+          f"fixed batch; {len(moved)} running statistics of the FPN and the "
+          f"projector moved in the train state, the backbone's "
+          f"{len(first) - len(moved)} did not, no module buffer was written")
+    if profile:
+        profile_step("cris e2e", task, state, batch)
+    del task, state
+
+    # (b) full fine-tune, layout flat
+    task, state = build_task("CRIS RN50", "e2e", lr,
+                             build_kwargs={"freeze_encoder": False,
+                                           "layout": "flat"},
+                             task_kwargs=mutable)
+    model = task.model
+    watch = ("visual.conv2.weight", "visual.layer1.0.conv2.weight",
+             "visual.layer3.2.conv3.weight", "visual.layer4.0.downsample_conv.weight",
+             "visual.bn2.weight", "visual.layer2.1.bn2.bias",
+             "visual.layer4.2.bn3.weight")
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+
+    def first_step():
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(start[name])
+        _, metrics = task.train_step(task.init(), batch)
+        return metrics["loss"].item(), {
+            name: dict(model.named_parameters())[name].grad.detach().float().clone()
+            for name in watch}
+
+    before = counts(fa)
+    loss_f, grads_f = first_step()
+    grew = minus(counts(fa), before)
+    if grew != CRIS_E2E_FLAT_STEP:
+        fail(f"train cris e2e flat: the first step launched {grew}, expected "
+             f"{CRIS_E2E_FLAT_STEP}")
+    with switch_layout(model, "nchw"):
+        before = counts(fa)
+        loss_n, grads_n = first_step()
+        if minus(counts(fa), before) != CRIS_E2E_STEP:
+            fail("train cris e2e flat: the nchw reference step launched K4")
+    print(f'train cris e2e flat: first step, layout "flat" vs "nchw" on the same '
+          f"weights: loss {loss_f:.6f} vs {loss_n:.6f} (bound {E2E_FLAT_LOSS_TOL})")
+    for name in watch:
+        top = grads_n[name].abs().max().item()
+        gdiff = (grads_f[name] - grads_n[name]).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            grads_f[name].flatten(), grads_n[name].flatten(), dim=0).item()
+        print(f"train cris e2e flat:   the step's gradient of {name}: max abs "
+              f"diff {gdiff:.6g} against largest entry {top:.6g}, cosine "
+              f"{cos:.6f} (through the head; no bound)")
+    if not abs(loss_f - loss_n) <= E2E_FLAT_LOSS_TOL:
+        fail("train cris e2e flat: the two layouts' first-step losses disagree "
+             "beyond the stated bound")
+    backbone_gradients_flat_vs_nchw(task, batch)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(start[name])
+    state = task.init()
+    state, losses, launches_b = timed_steps(fa, task, state, batch,
+                                            "train cris e2e flat", warmup=1,
+                                            steps=4, per_step=CRIS_E2E_FLAT_STEP)
+    now = dict(model.named_parameters())
+    for name in watch:
+        if torch.equal(now[name], start[name]):
+            fail(f"train cris e2e flat: {name} did not change")
+    print(f"train cris e2e flat: backbone convolution weights and BatchNorm "
+          f"weight / bias changed ({', '.join(watch)}); loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}")
+    if profile:
+        profile_step("cris e2e flat", task, state, batch)
+    return launches_a, launches_b
+
+
 def profile_calls(label: str, fn, n: int = 3, wall: float = None):
     """Device-busy time of `n` calls of `fn` (the sum of kernel durations
     under torch.profiler) against the wall time of a call without the
@@ -813,7 +1293,7 @@ def profile_step(label: str, task, state, batch, steps: int = 5):
         t0 = time.perf_counter()
         opt.zero_grad()
         marks[0].record()
-        loss, _ = task._loss(batch)
+        loss, _ = task._loss(batch, state.step, state.model_state, {})
         marks[1].record()
         loss.backward()
         marks[2].record()
@@ -836,62 +1316,84 @@ def profile_step(label: str, task, state, batch, steps: int = 5):
 
 
 def main() -> None:
+    from tunevlseg_torch.ops import conv_flat as cf
     from tunevlseg_torch.ops import flash_attention as fa
 
     profile = "--profile" in sys.argv[1:]
     name, count = phase_device()
-    phase_build(fa)
+    phase_build()
     k1 = phase_kernels(fa)
     k2 = phase_kernels_bwd(fa)
     k3 = phase_kernels_k3(fa)
     library = phase_yardstick()
+    k4 = phase_kernels_k4(cf)
+    k4_backward = phase_kernel_k4_backward(cf)
     by_path = {"serve": phase_serve(fa),
                "train_coop": phase_train_coop(fa, profile),
                "train_e2e": phase_train_e2e(fa, profile),
                "serve_cris": phase_serve_cris(fa, profile),
-               "train_cris_coop": phase_train_cris(fa, profile)}
+               "train_cris_coop": phase_train_cris(fa, profile),
+               "serve_cris_flat": phase_serve_cris_flat(fa, profile),
+               "train_cris_flat_coop": phase_train_cris_flat(fa)}
+    by_path["train_cris_e2e"], by_path["train_cris_e2e_flat"] = \
+        phase_train_cris_e2e(fa, profile)
 
     for label, (fwd_ms, bwd_ms) in library.items():
         k1[label]["library_ms"], k2[label]["library_ms"] = fwd_ms, bwd_ms
 
-    # the launches are those of the five main paths, each counted from 0; the
-    # times are for K1's and K2's CLIPSeg vision shape and K3's CRIS cross
-    # shape, max_abs_err the largest over every shape checked
-    def entry(index: int, name: str, source: str, replaces: str, numbers: dict,
-              main: str, library_ms: float) -> dict:
+    # the launches are those of the main paths, each counted from 0; the
+    # times are for K1's and K2's CLIPSeg vision shape, K3's CRIS cross shape
+    # and K4's stage-1 3x3 shape, max_abs_err the largest over every shape
+    # checked. K4's launches are its forward and dx launches together.
+    def entry(indices: tuple, name: str, source: str, replaces: str,
+              numbers: dict, main: str, library_ms: float) -> dict:
+        def launched(c):
+            return sum(c[i] for i in indices)
+
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(c[index] for c in by_path.values()),
-                "launches_by_path": {p: c[index] for p, c in by_path.items()},
+                "launches": sum(launched(c) for c in by_path.values()),
+                "launches_by_path": {p: launched(c) for p, c in by_path.items()},
                 **numbers[main], "library_ms": library_ms,
                 "max_abs_err": max(r["max_abs_err"] for r in numbers.values()),
                 "by_shape": numbers}
 
     kernels = [
-        entry(0, "K1 flash_attn_fwd (unbiased self-attention forward)",
+        entry((0,), "K1 flash_attn_fwd (unbiased self-attention forward)",
               "tunevlseg_torch/csrc/flash_attn_fwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:80", k1, "vision",
               library["vision"][0]),
-        entry(1, "K2 flash_attn_bwd (fused self-attention backward)",
+        entry((1,), "K2 flash_attn_bwd (fused self-attention backward)",
               "tunevlseg_torch/csrc/flash_attn_bwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:227", k2, "vision",
               library["vision"][1]),
-        entry(2, "K3 flash_attn_bias_fwd (biased / cross-attention forward)",
+        entry((2,), "K3 flash_attn_bias_fwd (biased / cross-attention forward)",
               "tunevlseg_torch/csrc/flash_attn_bias_fwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:140", k3, "cris cross",
               k3["cris cross"]["library_ms"]),
+        entry((3, 4), "K4 conv_flat (flat guard-banded convolution, forward and "
+              "as its own dx)", "tunevlseg_torch/csrc/conv_flat.cu",
+              "tunevlseg_tpu/ops/conv_pallas.py:262", k4, K4_MAIN,
+              k4[K4_MAIN]["library_ms"]),
     ]
-    # K1 and K3 run on every path, K2 on those that take a gradient
-    for kernel, paths in zip(kernels, (tuple(by_path),
-                                       ("train_coop", "train_e2e",
-                                        "train_cris_coop"), tuple(by_path))):
+    kernels[3]["dx_launches_by_path"] = {p: c[4] for p, c in by_path.items()}
+    kernels[3]["backward"] = k4_backward
+    # K1 and K3 run on every path, K2 on those that take a gradient, K4 on the
+    # flat paths, and as dx where the backbone trains
+    training = tuple(p for p in by_path if p.startswith("train"))
+    flat = tuple(p for p in by_path if "flat" in p)
+    for kernel, paths in zip(kernels, (tuple(by_path), training, tuple(by_path),
+                                       flat)):
         for path in paths:
             if kernel["launches_by_path"][path] <= 0:
                 fail(f"{kernel['name']} was never launched on the {path} path")
-    for path in ("serve", "serve_cris"):
-        if by_path[path][1] != 0:
-            fail(f"{path} launched K2 {by_path[path][1]} times; it takes no "
-                 "gradient")
+    for path, c in by_path.items():
+        if not path.startswith("train") and c[1] != 0:
+            fail(f"{path} launched K2 {c[1]} times; it takes no gradient")
+        if path not in flat and (c[3] or c[4]):
+            fail(f"{path} launched K4; it does not run the flat layout")
+        if (c[4] > 0) != (path == "train_cris_e2e_flat"):
+            fail(f"{path}: {c[4]} K4 dx launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -251,7 +251,9 @@ def test_port_runs_without_jax():
         from tunevlseg_torch.serving import task_predict_fn
         for name in ("tunevlseg_torch.models.cris.resnet",
                      "tunevlseg_torch.models.cris.layers",
-                     "tunevlseg_torch.models.cris.model"):
+                     "tunevlseg_torch.models.cris.model",
+                     "tunevlseg_torch.ops.conv_flat",
+                     "tunevlseg_torch.ops.build"):
             assert name in sys.modules, name
         cris, cspec = build_cris("coop", prompt_depth=2, num_context=4,
                                  config=CRISConfig.tiny(dropout=0.2, img_size=32),
@@ -268,6 +270,27 @@ def test_port_runs_without_jax():
         assert train_state.step == 1 and bool(cmetrics["loss"].isfinite())
         assert not torch.equal(cris.learner.context_vectors, before)
         assert torch.equal(cris.visual.bn1.running_var, stats)
+
+        # the flat backbone serves from the same weights, and the e2e model's
+        # full fine-tune on it takes a step that moves the running statistics
+        # of the head in the state and a backbone convolution's weight
+        flat, _ = build_cris("coop", prompt_depth=2, num_context=4, layout="flat",
+                             config=CRISConfig.tiny(dropout=0.2, img_size=32),
+                             device="cpu")
+        flat.load_state_dict(cris.state_dict())
+        fprobs = SegmentationTask(flat).predict_step(batch)
+        assert (fprobs - ctask.predict_step(batch)).abs().max() < 1e-4
+        e2e, espec = build_cris("e2e", freeze_encoder=False, layout="flat",
+                                config=CRISConfig.tiny(img_size=32), device="cpu")
+        etask = SegmentationTask(e2e, espec, mutable_collections=("batch_stats",))
+        estate = etask.init()
+        weight = e2e.visual.layer1[0].conv2.weight.detach().clone()
+        estate2, emetrics = etask.train_step(estate, batch)
+        assert bool(emetrics["loss"].isfinite())
+        assert not torch.equal(e2e.visual.layer1[0].conv2.weight, weight)
+        key = "neck.aggr.bn.running_mean"
+        assert not torch.equal(estate2.model_state[key], estate.model_state[key])
+        assert torch.equal(e2e.neck.aggr.bn.running_mean, estate.model_state[key])
         loaded = [m for m in sys.modules
                   if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")]
         assert not loaded, loaded

@@ -5,10 +5,17 @@ text transformer) on the JAX module's own `init` weights carried over by
 `state_dict_from_jax`, then the whole model (e2e, CoOp at depth 1 and 3, with
 prompt dedup), the trainable set, one CoOp train step (loss and every
 gradient), the weights after three steps, and the dropout masks' (seed, step)
-rule. Sizes are `CRISConfig.tiny` at 64^2. On the CPU every attention of the
-port takes the plain path."""
+rule; the backbone's flat layout (the flat convolution K4, on the CPU its
+plain version against the JAX package's Pallas kernel in interpret mode or
+its plain reference) alone and in the whole model; BatchNorm batch statistics
+and three e2e train steps (towers frozen, and the full fine-tune on the flat
+layout) with loss, every gradient, weights and running statistics. Sizes are
+`CRISConfig.tiny` at 64^2. On the CPU every attention of the port takes the
+plain path."""
+import contextlib
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -24,10 +31,13 @@ from tunevlseg_tpu.models.cris import layers as jlayers  # noqa: E402
 from tunevlseg_tpu.models.cris import model as jmodel  # noqa: E402
 from tunevlseg_tpu.models.cris import resnet as jresnet  # noqa: E402
 from tunevlseg_tpu.nn import conv as jconv  # noqa: E402
+from tunevlseg_tpu.ops import conv_pallas as jconv_flat  # noqa: E402
 from tunevlseg_tpu.ops import image as jimage  # noqa: E402
 from tunevlseg_tpu.training.optim import merge_params  # noqa: E402
 from tunevlseg_tpu.training.task import SegmentationTask as JTask  # noqa: E402
-from tunevlseg_torch.convert.from_jax import (flatten_params, port_name,  # noqa: E402
+from tunevlseg_torch.convert.from_jax import (flatten_params,  # noqa: E402
+                                              model_state_from_jax,
+                                              model_state_to_jax, port_name,
                                               state_dict_from_jax,
                                               trainable_from_jax)
 from tunevlseg_torch.models import presets as tpresets  # noqa: E402
@@ -63,6 +73,22 @@ def _random_stats(variables, seed=7):
     stats = jax.tree_util.tree_map(
         lambda x: jnp.asarray(rng.uniform(0.5, 1.5, size=x.shape), jnp.float32),
         variables["batch_stats"])
+    return {"params": variables["params"], "batch_stats": stats}
+
+
+def _live_stats(variables, seed=7):
+    """Running statistics that keep a randomly initialised network alive:
+    means in (-0.2, 0.2) and variances in (0.1, 0.3), about what its
+    convolutions put out, so that the ReLUs pass a good part of the signal
+    (with `_random_stats`' means near 1 most of them are shut, and a deep
+    stack then carries constants)."""
+    rng = _rng(seed)
+
+    def draw(path, x):
+        lo, hi = (0.1, 0.3) if path[-1].key == "running_var" else (-0.2, 0.2)
+        return jnp.asarray(rng.uniform(lo, hi, size=x.shape), jnp.float32)
+
+    stats = jax.tree_util.tree_map_with_path(draw, variables["batch_stats"])
     return {"params": variables["params"], "batch_stats": stats}
 
 
@@ -172,8 +198,52 @@ def test_batchnorm_running_statistics_match_jax(cls, shape):
     half = tm(torch.from_numpy(x).bfloat16())
     assert half.dtype == torch.bfloat16
     _close(half.float(), want, 2e-2)
-    with pytest.raises(NotImplementedError, match="Slice C"):
-        getattr(tresnet, cls)(5, use_running_average=False)(torch.from_numpy(x))
+    # the frozen BatchNorm as the flat convolution's (scale, offset)
+    scale, offset = tm.folded_affine()
+    shape = (1, 5) + (1,) * (x.ndim - 2)
+    _close(torch.from_numpy(x) * scale.reshape(shape) + offset.reshape(shape),
+           want, 1e-5)
+    with pytest.raises(AssertionError, match="frozen"):
+        getattr(tresnet, cls)(5, use_running_average=False).folded_affine()
+
+
+@pytest.mark.parametrize("cls,shape", [("BatchNorm2d", (3, 5, 4, 4)),
+                                       ("BatchNorm1d", (6, 5)),
+                                       ("BatchNorm1d", (1, 5))])
+@pytest.mark.parametrize("at_call", [False, True])
+def test_batchnorm_batch_statistics_match_jax(cls, shape, at_call):
+    """`use_running_average=False`, at construction or as the call-time
+    override: batch mean and biased variance in f32, the running statistics
+    moved with momentum 0.1 towards the batch mean and the unbiased variance
+    var * n / max(n - 1, 1) (n = 1: a variance of 0). The port hands the new
+    statistics to `updates` and leaves its buffers alone."""
+    x = _rng(4).normal(size=shape).astype(np.float32)
+    jm = getattr(jresnet, cls)(5, use_running_average=False)
+    variables = _random_stats(jm.init(KEY, jnp.asarray(x)))
+    rng = _rng(5)
+    variables["params"] = {k: jnp.asarray(rng.normal(size=(5,)), jnp.float32)
+                           for k in ("weight", "bias")}
+    want, mutated = jm.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    tm = _load(getattr(tresnet, cls)(5, use_running_average=at_call), variables)
+    before = {k: v.clone() for k, v in tm.named_buffers()}
+    updates = {}
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tm(xt, False, updates) if at_call else tm(xt, updates=updates)
+    _close(got, want, 1e-5)
+    mean, var = updates[tm]
+    _close(mean, mutated["batch_stats"]["running_mean"], 1e-6)
+    _close(var, mutated["batch_stats"]["running_var"], 1e-6)
+    assert not mean.requires_grad and not var.requires_grad
+    for k, v in tm.named_buffers():
+        assert torch.equal(v, before[k]), k
+    # the gradient runs through the batch statistics
+    cot = _rng(6).normal(size=shape).astype(np.float32)
+    jgrad = jax.grad(lambda a: jnp.sum(jm.apply(variables, a, mutable=["batch_stats"])[0]
+                                       * cot))(jnp.asarray(x))
+    got.backward(torch.from_numpy(cot))
+    _close(xt.grad, jgrad, 1e-4)
+    # without `updates` the statistics are used and not reported
+    assert torch.equal(tm(xt, False), got)
 
 
 # --- the towers and the head, module by module -------------------------------
@@ -192,10 +262,54 @@ def test_modified_resnet_matches_jax():
                                              (2, 24, 3, 3)]
     for g, w in zip(got, want):
         _close(g, w)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tresnet.ModifiedResNet(layout="flat", **kw)
     with pytest.raises(ValueError, match="TPU layout experiment"):
         tresnet.ModifiedResNet(layout="nhwc", **kw)
+    with pytest.raises(ValueError, match="frozen BatchNorm"):
+        tresnet.ModifiedResNet(layout="flat", use_running_average=False, **kw)
+
+
+@pytest.mark.parametrize("flat_stages", [("stem", "1", "2", "4"),
+                                         ("stem", "1", "2", "3", "4"), ("3",)])
+def test_modified_resnet_flat_matches_jax_and_nchw(flat_stages, monkeypatch):
+    """`layout="flat"`: the listed stages through the flat convolution (here
+    its plain version; the JAX package runs its Pallas kernel in interpret
+    mode), the rest as before, against the JAX flat backbone and against the
+    port's own "nchw" layout from one `state_dict`."""
+    monkeypatch.setattr(jconv_flat, "_INTERPRET", True)
+    kw = dict(layers=(1, 2, 1, 1), output_dim=24, heads=8, input_resolution=64,
+              width=16)
+    x = _rng(6).normal(size=(2, 3, 64, 64)).astype(np.float32)
+    jm = jresnet.ModifiedResNet(layout="flat", flat_stages=flat_stages, **kw)
+    variables = _live_stats(jm.init(KEY, jnp.asarray(x)))
+    flat = _load(tresnet.ModifiedResNet(layout="flat", flat_stages=flat_stages,
+                                        **kw), variables)
+    nchw = tresnet.ModifiedResNet(**kw)
+    nchw.load_state_dict(flat.state_dict())          # the same names and shapes
+    want = jm.apply(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = flat(torch.from_numpy(x))
+        plain = nchw(torch.from_numpy(x))
+    assert [tuple(g.shape) for g in got] == [(2, 128, 8, 8), (2, 256, 4, 4),
+                                             (2, 24, 2, 2)]
+    for g, w, p in zip(got, want, plain):
+        _close(g, w)
+        _close(g, p)
+        # a live network: a good part of every map is non-zero and it varies
+        assert (g != 0).float().mean().item() > 0.2 and g.std().item() > 0.05
+    # channels-last weights: stage entry reads the NHWC view in place, and
+    # the stage's output is a view of the last flat tensor
+    flat.to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        again = flat(torch.from_numpy(x))
+    for g, a in zip(got, again):
+        _close(a, g, 1e-5)
+    spec = tresnet.make_flat_spec(8, 8, 1)
+    f = tresnet.to_flat(torch.from_numpy(x[:, :, :8, :8]).contiguous(
+        memory_format=torch.channels_last), spec)
+    out = tresnet.from_flat(f, spec)
+    assert out.shape == (2, 3, 8, 8) and out.stride(1) == 1
+    assert out.untyped_storage().data_ptr() == f.untyped_storage().data_ptr()
+    assert torch.equal(out, torch.from_numpy(x[:, :, :8, :8]))
 
 
 def _pyramid(rng, b=2):
@@ -360,7 +474,7 @@ def _batch(seed=0, b=4, unique=2, img=64):
             "text_index": (np.arange(b) % unique).astype(np.int32)}
 
 
-def _pair(strategy, depth, **task_kw):
+def _pair(strategy, depth, stats=_random_stats, **task_kw):
     """The JAX task and the port's on the same weights: JAX `init`, random
     running statistics, carried over by `state_dict_from_jax`."""
     batch = _batch()
@@ -368,7 +482,7 @@ def _pair(strategy, depth, **task_kw):
                                     config=jmodel.CRISConfig.tiny())
     jtask = JTask(jm, jspec, **task_kw)
     jstate, frozen = jtask.init(KEY, batch)
-    frozen = {**frozen, "batch_stats": _random_stats(frozen)["batch_stats"]}
+    frozen = {**frozen, "batch_stats": stats(frozen)["batch_stats"]}
     params = merge_params(jstate.trainable, frozen["params"])
     tm, tspec = tpresets.build_cris(strategy, prompt_depth=depth, num_context=4,
                                     config=tmodel.CRISConfig.tiny(), seed=1,
@@ -403,6 +517,49 @@ def test_cris_slice_matches_jax(strategy, depth):
     # without an attention mask the pad mask is ids == 0: the same here
     no_mask = {k: v for k, v in tbatch.items() if k != "attention_mask"}
     torch.testing.assert_close(ttask.predict_step(no_mask), probs, rtol=0, atol=0)
+
+
+@contextlib.contextmanager
+def _jax_flat_backbone(value="1"):
+    """The JAX package reads TUNEVLSEG_PALLAS_CONV when a model is traced."""
+    old = os.environ.get("TUNEVLSEG_PALLAS_CONV")
+    os.environ["TUNEVLSEG_PALLAS_CONV"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TUNEVLSEG_PALLAS_CONV"]
+        else:
+            os.environ["TUNEVLSEG_PALLAS_CONV"] = old
+
+
+@pytest.mark.parametrize("pconv,flat_stages", [
+    ("1", ("stem", "1", "2", "3", "4")), ("stem,1,2,4", ("stem", "1", "2", "4"))])
+def test_cris_coop_flat_layout_matches_jax(pconv, flat_stages, monkeypatch):
+    """The whole CoOp model with the backbone on the flat layout, against the
+    JAX model under TUNEVLSEG_PALLAS_CONV (its plain reference on the CPU),
+    and against the port's "nchw" model on the same weights."""
+    monkeypatch.setenv("TUNEVLSEG_PALLAS_CONV", pconv)
+    jtask, jstate, frozen, params, ttask, batch = _pair("coop", 3, stats=_live_stats)
+    tflat, _ = tpresets.build_cris("coop", prompt_depth=3, num_context=4,
+                                   config=tmodel.CRISConfig.tiny(), layout="flat",
+                                   flat_stages=flat_stages, device="cpu")
+    assert tflat.visual.layout == "flat"
+    assert ttask.model.visual.layout == "nchw"          # the default
+    tflat.load_state_dict(ttask.model.state_dict())
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    want = jtask.predict_step(jstate, frozen, batch)
+    got = TTask(tflat).predict_step(tbatch)
+    _close(got, want)
+    _close(got, ttask.predict_step(tbatch))
+    # the backbone is alive and its pyramid reaches the output
+    with torch.no_grad():
+        c3, c4, c5 = tflat.visual(ttask._prep_image(tbatch["image"]))
+    for g in (c3, c4, c5):
+        assert (g != 0).float().mean().item() > 0.2 and g.std().item() > 0.05
+    assert got.std().item() > 1e-3
+    served = task_predict_fn(TTask(tflat))(dict(tflat.state_dict()), tbatch)
+    torch.testing.assert_close(served, got, rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("strategy,kw", [
@@ -553,15 +710,223 @@ def test_what_waits_for_a_later_slice_raises():
         tpresets.build_cris("cocoop", config=cfg, device="cpu")
     with pytest.raises(ValueError, match="coop/cocoop"):
         tpresets.build_cris("vpt", config=cfg, device="cpu")
-    model, spec = tpresets.build_cris("e2e", config=cfg, device="cpu")
-    task = TTask(model, spec)
-    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="Slice C"):
-        task.train_step(task.init(), batch)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tmodel.CRISForSegmentation(cfg, layout="flat")
+    with pytest.raises(ValueError, match="TPU layout experiment"):
+        tmodel.CRISForSegmentation(cfg, layout="nhwc")
     with pytest.raises(ValueError, match="prompt_depth"):
         tpresets.build_cris("coop", prompt_depth=4, config=cfg, device="cpu")
+    # the e2e model's train step updates BatchNorm statistics: a task that
+    # does not carry them refuses it (Flax refuses to write an immutable
+    # collection); eval and predict need nothing
+    model, spec = tpresets.build_cris("e2e", config=cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    task = TTask(model, spec)
+    with pytest.raises(ValueError, match="mutable_collections"):
+        task.train_step(task.init(), batch)
+    assert task.predict_step(batch).shape == (4, 1, 64, 64)
+    with pytest.raises(ValueError, match="batch_stats"):
+        TTask(model, spec, mutable_collections=("cache",))
+    assert tmodel.CRISForSegmentation(cfg, layout="flat").visual.layout == "flat"
+
+
+# --- the e2e train step: BatchNorm batch statistics in the train state ------
+
+E2E_CASES = {
+    # the CRIS default: towers frozen, the head trains with train-mode BN
+    "default": dict(build={}, flat=False),
+    # full fine-tune on the flat layout: K4's backward (here its plain version)
+    "full_flat": dict(build=dict(freeze_encoder=False), flat=True),
+}
+
+
+@pytest.fixture(scope="module", params=list(E2E_CASES))
+def e2e_trained(request):
+    """Three e2e steps of both packages from the same weights and running
+    statistics on one batch, with `mutable_collections=("batch_stats",)`."""
+    case = E2E_CASES[request.param]
+    hp = dict(learning_rate=LR, weight_decay=0.01, grad_clip_norm=0.5,
+              mutable_collections=("batch_stats",))
+    batch = _batch()
+    cfg = jmodel.CRISConfig.tiny()
+    with _jax_flat_backbone("1" if case["flat"] else "0"):
+        jm, jspec = jpresets.build_cris("e2e", config=cfg, **case["build"])
+        jtask = JTask(jm, jspec, **hp)
+        jstate, frozen = jtask.init(KEY, batch)
+        assert "batch_stats" not in frozen
+        stats = _live_stats({"params": {}, **jstate.model_state})["batch_stats"]
+        jstate = jstate._replace(model_state={"batch_stats": stats})
+        params = merge_params(jstate.trainable, frozen["params"])
+
+        tm, tspec = tpresets.build_cris(
+            "e2e", config=tmodel.CRISConfig.tiny(), seed=1, device="cpu",
+            layout="flat" if case["flat"] else "nchw", **case["build"])
+        tm.load_state_dict(state_dict_from_jax(params, tm, stats))
+        ttask = TTask(tm, tspec, **hp)
+        tstate = ttask.init()
+        start = copy.deepcopy(tm.state_dict())
+        start_stats = dict(tstate.model_state)
+
+        @jax.jit
+        def jstep(state, frozen, batch):
+            rng = jax.random.fold_in(state.rng, state.step)
+            grads = jax.grad(lambda t: jtask._loss(t, state.model_state, frozen,
+                                                   batch, rng)[0])(state.trainable)
+            return jtask.train_step(state, frozen, batch), grads
+
+        tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        steps = []
+        for _ in range(STEPS):
+            (jstate, jmetrics), jgrads = jstep(jstate, frozen, batch)
+            # the raw gradients: the step's own are clipped in place (the
+            # global norm is above 0.5 here)
+            leaves = {n: p for n, p in tm.named_parameters() if p.requires_grad}
+            loss, _ = ttask._loss(tbatch, tstate.step, tstate.model_state, {})
+            tgrads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            tstate, tmetrics = ttask.train_step(tstate, tbatch)
+            steps.append((jmetrics, trainable_from_jax(jgrads, tm), tmetrics,
+                          tgrads, model_state_from_jax(jstate.model_state, tm),
+                          dict(tstate.model_state)))
+            if len(steps) == 1:
+                after_first = (trainable_from_jax(jstate.trainable, tm),
+                               copy.deepcopy(tm.state_dict()))
+        jprobs = jtask.predict_step(jstate, frozen, batch)
+        jfinal = state_dict_from_jax(
+            merge_params(jstate.trainable, frozen["params"]), tm,
+            jstate.model_state["batch_stats"])
+    return dict(case=request.param, steps=steps, model=tm, task=ttask,
+                tstate=tstate, start=start, start_stats=start_stats,
+                jstate=jstate, jprobs=jprobs, tbatch=tbatch,
+                after_first=after_first, jfinal=jfinal,
+                want_weights=trainable_from_jax(jstate.trainable, tm))
+
+
+def test_e2e_train_step_loss_and_gradients_match_jax(e2e_trained):
+    """The loss within 5e-5 at every step (f32, a live train-mode network;
+    the first step is 1.1e-5 apart), dice and iou within 2e-3 (a pixel that
+    crosses the threshold moves them by 1e-4). Every gradient of the first
+    step within 5e-4 of its largest entry, or of 1e-3 of the largest entry of
+    any leaf where that is more: some leaves have a gradient that is zero in
+    exact arithmetic and rounding noise here, 1e-6 of the others (a key bias
+    shifts every score of a row alike; the text projection's Linear and
+    BatchNorm and f1_v_proj's BatchNorm scale a channel that the next
+    train-mode BatchNorm normalises again). The full fine-tune sends
+    gradients into the backbone's convolution weights and, through the folded
+    affine, into its BatchNorm weight and bias."""
+    for jmetrics, _, tmetrics, *_ in e2e_trained["steps"]:
+        for key, value in tmetrics.items():
+            tol = 5e-5 if key == "loss" else 2e-3
+            np.testing.assert_allclose(value.item(), float(jmetrics[key]),
+                                       atol=tol, rtol=0, err_msg=key)
+    _, jgrads, _, tgrads, *_ = e2e_trained["steps"][0]
+    assert set(tgrads) == set(jgrads)
+    full = e2e_trained["case"] == "full_flat"
+    for name in ("visual.conv1.weight", "visual.layer2.0.conv2.weight",
+                 "visual.layer1.0.bn3.weight", "visual.bn2.bias",
+                 "visual.layer3.0.downsample_conv.weight",
+                 "text.resblocks.0.mlp.fc1.weight"):
+        assert (name in tgrads) == full, name
+    assert "neck.f2_cat.bn.weight" in tgrads and "proj.vis_1.conv.weight" in tgrads
+    overall = max(g.abs().max().item() for g in jgrads.values())
+    for name, got in tgrads.items():
+        want = jgrads[name]
+        bound = 5e-4 * max(want.abs().max().item(), 1e-3 * overall)
+        assert (got - want).abs().max().item() <= bound, name
+    if full:
+        for name in ("visual.conv1.weight", "visual.layer2.0.conv2.weight",
+                     "visual.layer1.0.bn3.weight", "visual.bn2.bias"):
+            assert jgrads[name].abs().max().item() > 1e-2 * overall, name
+
+
+def test_e2e_running_statistics_follow_the_train_state(e2e_trained):
+    """The state's running statistics equal the JAX task's: 1e-5 after the
+    first step, 2e-3 after the later ones (they are statistics of
+    activations, and the weights have by then moved apart by up to a few lr
+    = 1e-3, see the weights test); the FPN's and the projector's move, the
+    backbone's do not; the module's own buffers are never written; and
+    `model_state_to_jax` is the inverse of `model_state_from_jax`."""
+    model, start = e2e_trained["model"], e2e_trained["start"]
+    for i, (*_, want_stats, got_stats) in enumerate(e2e_trained["steps"]):
+        assert set(got_stats) == set(want_stats) == {
+            n for n, _ in model.named_buffers()}
+        for name, want in want_stats.items():
+            _close(got_stats[name], want, 1e-5 if i == 0 else 2e-3)
+    final = e2e_trained["tstate"].model_state
+    moved = {n for n in final
+             if not torch.equal(final[n], e2e_trained["start_stats"][n])}
+    assert moved == {n for n in final if n.startswith(("neck.", "proj."))}
+    assert len(moved) == 2 * 15      # 13 BatchNorms in the FPN, 2 in the projector
+    for name, buf in model.named_buffers():
+        assert torch.equal(buf, start[name]), name
+    back = model_state_to_jax(final)
+    flat_back = flatten_params(back["batch_stats"])
+    flat_want = flatten_params(e2e_trained["jstate"].model_state["batch_stats"])
+    assert set(flat_back) == set(flat_want)
+    for path, value in flat_back.items():
+        np.testing.assert_allclose(value, np.asarray(flat_want[path]), atol=2e-3)
+    assert model_state_to_jax({}) == {}
+
+
+def test_e2e_weights_after_three_steps_and_eval_match_jax(e2e_trained):
+    """Adam moves an entry by about lr * sign(g) a step. After the FIRST step
+    an entry whose gradient is well above the rounding noise (>= 1e-2 of its
+    leaf's largest and >= 1e-3 of the largest of any leaf) agrees to 2% of
+    lr. Entries with a gradient of rounding noise move by lr either way, so
+    from the second step on the two packages differentiate slightly
+    different functions: after three steps every entry agrees to twice the
+    most it can travel, 3 * lr, and of the robust entries at least 99% to a
+    tenth of that travel (measured 99.6% and 99.9%). Frozen tensors do not
+    move. Eval and predict read the state's statistics: on the JAX task's
+    final weights and statistics they agree with its prediction, and on the
+    port's own they differ from a prediction with the module's stale
+    buffers."""
+    model, start = e2e_trained["model"], e2e_trained["start"]
+    grads = [s[1] for s in e2e_trained["steps"]]
+    overall = max(g.abs().max().item() for g in grads[0].values())
+    want_first, got_first = e2e_trained["after_first"]
+    n_first = 0
+    for name, want in want_first.items():
+        g = grads[0][name].abs()
+        robust = (g >= 1e-2 * g.max()) & (g >= 1e-3 * overall)
+        if robust.any():
+            diff = (got_first[name] - want).abs()
+            assert diff[robust].max().item() <= 0.02 * LR, name
+            assert not torch.equal(got_first[name], start[name]), name
+        n_first += int(robust.sum())
+    assert n_first > 10000
+    now = model.state_dict()
+    robust_diffs = []
+    for name, want in e2e_trained["want_weights"].items():
+        diff = (now[name] - want).abs()
+        assert diff.max().item() <= 2 * TRAVEL, name
+        gmin = torch.stack([g[name].abs() for g in grads]).amin(dim=0)
+        gtop = max(g[name].abs().max().item() for g in grads)
+        robust_diffs.append(diff[gmin >= 1e-2 * gtop].flatten())
+    robust_diffs = torch.cat(robust_diffs)
+    assert robust_diffs.numel() > 10000
+    assert (robust_diffs <= 0.1 * TRAVEL).float().mean().item() >= 0.99
+    trainable = set(e2e_trained["want_weights"])
+    for name, p in model.named_parameters():
+        assert (name in trainable) == p.requires_grad, name
+        if name not in trainable:
+            assert torch.equal(now[name], start[name]), name
+    task, tstate, tbatch = (e2e_trained[k] for k in ("task", "tstate", "tbatch"))
+    probs = task.predict_step(tbatch, tstate)
+    stale = task.predict_step(tbatch)
+    assert (probs - stale).abs().max().item() > 1e-3
+    jfinal = e2e_trained["jfinal"]
+    final_model = copy.deepcopy(model)
+    final_model.load_state_dict(jfinal)
+    final_state = dataclasses.replace(tstate, model_state={
+        n: jfinal[n] for n in tstate.model_state})
+    on_jax_weights = TTask(final_model, task.freeze_spec).predict_step(tbatch)
+    _close(on_jax_weights, e2e_trained["jprobs"])
+    # the same statistics through the state, over the module's stale ones
+    final_model.load_state_dict({**jfinal, **e2e_trained["start_stats"]})
+    _close(TTask(final_model, task.freeze_spec, mutable_collections=("batch_stats",))
+           .predict_step(tbatch, final_state), on_jax_weights, 1e-6)
+    from tunevlseg_torch.ops.metrics import SegMetricState
+    _, aux = task.eval_step(SegMetricState.zeros(), tbatch, tstate)
+    _, aux_stale = task.eval_step(SegMetricState.zeros(), tbatch)
+    assert bool(aux["loss_sum"].isfinite()) and aux["loss_sum"] != aux_stale["loss_sum"]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host without CUDA")

@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3 and the port's serving and training paths on a CUDA
-GPU. These tests need the card (a CUDA kernel has no CPU mode) and skip
+"""Kernels K1, K2, K3 and K4 and the port's serving and training paths on a
+CUDA GPU. These tests need the card (a CUDA kernel has no CPU mode) and skip
 elsewhere; they import no JAX.
 On the card:
 
@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from tunevlseg_torch.nn import attention
+from tunevlseg_torch.ops import build
+from tunevlseg_torch.ops import conv_flat as cf
 from tunevlseg_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
@@ -415,3 +417,151 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
         plain = task.predict_step(batch)
     assert probs.shape == (4, 1, 256, 256) and bool(probs.isfinite().all())
     assert (probs - plain).abs().max().item() <= 2e-2
+
+
+# --- K4, the flat guard-banded convolution -----------------------------------
+
+# K4 against its plain version, bf16 outputs: both take the same bf16
+# operands and accumulate in f32 (in another order), so an output differs by
+# one rounding to bf16: 2^-8 of the largest |reference| (5e-3 with slack)
+K4_REL_TOL = 5e-3
+
+
+def _flat_case(cuda, b, h, w, c, o, k, affine=True, res=False, seed=0, mb=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    spec = cf.make_flat_spec(h, w, 1, mb=mb, max_k2c=9 * c)
+    x = cf.flat_begin(rnd(b, h, w, c).bfloat16(), spec)
+    wt = rnd(o, c, k, k) * (k * k * c) ** -0.5
+    scale = rnd(o).abs() + 0.5 if affine else None
+    offset = rnd(o) * 0.1 if affine else None
+    residual = cf.flat_begin(rnd(b, h, w, o).bfloat16(), spec) if res else None
+    return spec, x, wt, scale, offset, residual
+
+
+def _k4_ref(spec, x, wt, scale, offset, relu, residual):
+    o, i, k, _ = wt.shape
+    w_mat = wt.permute(2, 3, 1, 0).reshape(k * k * i, o)
+    ones = torch.ones(o, device=x.device)
+    return cf.conv_flat_ref(spec, relu, x, w_mat, ones if scale is None else scale,
+                            0 * ones if offset is None else offset, residual)
+
+
+@pytest.mark.parametrize("b,hw,c,o,k,relu,affine,res,mb", [
+    (2, (13, 13), 512, 512, 3, True, True, False, None),     # stage 4
+    (2, (13, 13), 512, 2048, 1, True, True, True, None),     # widen + residual
+    (2, (52, 52), 128, 128, 3, True, True, False, None),
+    (1, (104, 104), 32, 64, 3, True, True, False, None),     # stem widths
+    (1, (40, 40), 32, 32, 3, True, True, False, None),       # the 256 x 32 tile
+    (3, (9, 11), 8, 24, 3, False, False, False, 64),         # ragged: C, Cout, ROWS
+    (3, (7, 5), 40, 72, 1, True, True, True, 64),            # ragged 1x1
+    (2, (10, 12), 16, 136, 3, False, True, True, 64),        # ragged wide tile
+])
+def test_k4_matches_plain_version(cuda, b, hw, c, o, k, relu, affine, res, mb):
+    spec, x, wt, scale, offset, residual = _flat_case(cuda, b, *hw, c, o, k,
+                                                      affine, res, mb=mb)
+    before = cf.launch_count()
+    out = cf.conv_flat(x, spec, wt, scale, offset, relu, residual)
+    torch.cuda.synchronize()
+    assert cf.launch_count() == before + 1
+    assert out.shape == (b, spec.rows, o) and out.dtype == torch.bfloat16
+    ref = _k4_ref(spec, x, wt, scale, offset, relu, residual)
+    top = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= K4_REL_TOL * top
+    # every row is written, guard and ring rows as exact zeros
+    assert bool((out[:, ~cf._valid_rows(spec, cuda)] == 0).all())
+    assert torch.equal(out, cf.conv_flat(x, spec, wt, scale, offset, relu, residual))
+
+
+def test_k4_backward_launches_k4_for_dx_and_matches_autograd(cuda):
+    """The autograd.Function on the card: dx is a K4 launch (counted apart),
+    and all five gradients agree with autograd through the plain version in
+    f32 on the same bf16-rounded inputs (bf16 operands in the dW products:
+    1e-2 of the largest entry)."""
+    spec, x, wt, scale, offset, residual = _flat_case(cuda, 2, 12, 10, 32, 64, 3,
+                                                      True, True, mb=64)
+    leaves = [t.clone().requires_grad_() for t in (x, wt, scale, offset, residual)]
+    fwd, dx = cf.launch_count(), cf.dx_launch_count()
+    out = cf.conv_flat(leaves[0], spec, leaves[1], leaves[2], leaves[3], True,
+                       leaves[4])
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(9)).bfloat16()
+    g = g * cf._valid_rows(spec, cuda)[None, :, None]
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (cf.launch_count(), cf.dx_launch_count()) == (fwd + 1, dx + 1)
+
+    ref = [t.detach().float().requires_grad_() for t in (x, wt, scale, offset, residual)]
+    w_mat = ref[1].bfloat16().float().permute(2, 3, 1, 0).reshape(-1, 64)
+    # the masked ReLU state of the kernel's own output, as the Function uses it
+    mask = (out > 0).float()
+    lead = spec.lead
+    xg = torch.nn.functional.pad(ref[0], (0, 0, lead, lead))
+    acc = sum(xg[:, lead + off:lead + off + spec.rows] @ w_mat[t * 32:(t + 1) * 32]
+              for t, off in enumerate(cf._tap_offsets(spec, 3)))
+    pre = acc * ref[2] + ref[3] + ref[4]
+    (pre * mask * g.float()).sum().backward()
+    valid = cf._valid_rows(spec, cuda)
+    # by its contract the Function's dx is zero on guard and ring rows, where
+    # autograd through the plain products has the taps' true cotangent
+    assert bool((leaves[0].grad[:, ~valid] == 0).all())
+    ref[0].grad[:, ~valid] = 0
+    for name, got, want in zip(("dx", "dw", "d_scale", "d_offset", "d_residual"),
+                               leaves, ref):
+        top = want.grad.abs().max().item()
+        err = (got.grad.float() - want.grad).abs().max().item()
+        assert err <= 1e-2 * top, (name, err, top)
+
+
+def test_k4_on_the_card_never_takes_the_plain_version(cuda, monkeypatch):
+    spec, x, wt, scale, offset, _ = _flat_case(cuda, 1, 8, 8, 16, 16, 3, mb=64)
+
+    def boom(*a, **kw):
+        raise AssertionError("the plain version ran on a bf16 CUDA tensor")
+
+    monkeypatch.setattr(cf, "conv_flat_ref", boom)
+    wt.requires_grad_()
+    x.requires_grad_()
+    cf.conv_flat(x, spec, wt, scale, offset, True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert bool(x.grad.isfinite().all()) and bool(wt.grad.isfinite().all())
+    # f32 on the card is the plain version's, by the dispatch rule
+    monkeypatch.undo()
+    before = cf.launch_count()
+    out = cf.conv_flat(x.detach().float(), spec, wt.detach(), scale, offset, True)
+    assert out.dtype == torch.float32 and cf.launch_count() == before
+
+
+def test_k4_raises_on_what_it_does_not_take(cuda):
+    spec, x, wt, scale, offset, _ = _flat_case(cuda, 1, 8, 8, 16, 16, 3, mb=64)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cf.conv_flat(x[..., :12].contiguous(), spec, wt[:, :12])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        cf.conv_flat(x, spec, wt[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.conv_flat(x.repeat(1, 1, 2)[..., :16], spec, wt)
+    with pytest.raises(ValueError, match="residual"):
+        cf.conv_flat(x, spec, wt, residual=x[:, :-8].contiguous())
+    with pytest.raises(ValueError, match="bfloat16 residual"):
+        cf.conv_flat(x, spec, wt, residual=x.float())
+    with pytest.raises(ValueError, match="CUDA device"):
+        cf.conv_flat(x, spec, wt, scale.cpu(), offset)
+    with pytest.raises(AssertionError):
+        cf.conv_flat(x[:, :-8], spec, wt)                     # not the spec's rows
+
+
+def test_a_build_failure_raises(cuda, monkeypatch, tmp_path):
+    """A source that does not compile raises from the first launch: no
+    fallback to the plain version."""
+    bad = tmp_path / "conv_flat.cu"
+    bad.write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(build, "_libs", None)
+    monkeypatch.setattr(cf, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setitem(build.SOURCES, "conv", bad)
+    spec, x, wt, scale, offset, _ = _flat_case(cuda, 1, 8, 8, 16, 16, 3, mb=64)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        cf.conv_flat(x, spec, wt, scale, offset)

@@ -230,13 +230,17 @@ def test_dedup_overflow_raises_or_falls_back_like_jax():
 @pytest.mark.parametrize("kw,names", [
     (dict(accumulate_grad_batches=2), "Slice G"),
     (dict(remat=True), "Slice G"),
-    (dict(mutable_collections=("batch_stats",)), "Slice C"),
-])
+    # "batch_stats" is carried by the train state; no other collection is
+    (dict(mutable_collections=("cache",)), "batch_stats"),
+], ids=["kw0-Slice G", "kw1-Slice G", "kw2-Slice C"])   # the ids they had
 def test_unported_task_options_raise(kw, names):
     model, spec = tpresets.build_clipseg(
         "coop", config=tconfig.CLIPSegConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match=names):
+    with pytest.raises((NotImplementedError, ValueError), match=names):
         TTask(model, spec, **kw)
+    # a model without buffers takes the option and carries an empty state
+    state = TTask(model, spec, mutable_collections=("batch_stats",)).init()
+    assert state.model_state == {}
 
 
 def test_unported_compile_entry_points_raise():

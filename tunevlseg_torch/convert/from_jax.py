@@ -14,7 +14,9 @@ mechanically:
     `positional_embedding`, `text_projection`, `context_vectors`,
     `residual_ratio`) is copied as it is;
   * the `batch_stats` collection (`running_mean`, `running_var` of every
-    BatchNorm, under the same module paths) fills the port's buffers.
+    BatchNorm, under the same module paths) fills the port's buffers, and
+    the JAX `TrainState.model_state` (that collection, as a train step
+    updates it) maps to the port's `TrainState.model_state` and back.
 
 Flax creates parameters only for the modules a forward calls, and the port
 builds the same set (see `models/clip/vision.py`): with the early exit there
@@ -106,3 +108,31 @@ def state_dict_from_jax(params: Mapping[str, Any], model: nn.Module,
     if unfilled:
         raise KeyError(f"port parameters left unfilled: {unfilled}")
     return out
+
+
+def model_state_from_jax(model_state: Mapping[str, Any],
+                         model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX task's `TrainState.model_state` ({"batch_stats": tree}, or {}
+    without mutable collections) -> the port's: f32 CPU tensors under
+    `model`'s buffer names."""
+    return trainable_from_jax(model_state.get("batch_stats", {}), model)
+
+
+def model_state_to_jax(model_state: Mapping[str, torch.Tensor]) -> dict:
+    """The port's `TrainState.model_state` -> the JAX task's: numpy arrays in
+    the nested `batch_stats` tree ('neck.f2_cat.bn.running_var' ->
+    neck / f2_cat / bn / running_var, 'visual.layer2.1.bn1.running_mean' ->
+    visual / layer2_1 / bn1 / running_mean)."""
+    tree: dict = {}
+    for name, value in model_state.items():
+        path: list[str] = []
+        for part in name.split("."):
+            if part.isdigit() and path:
+                path[-1] = f"{path[-1]}_{part}"
+            else:
+                path.append(part)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.detach().cpu().numpy()
+    return {"batch_stats": tree} if tree else {}

@@ -52,8 +52,9 @@ class ConvBnRelu(nn.Module):
                            bias=False, dtype=dtype)
         self.bn = BatchNorm2d(out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor, use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(x), use_running_average, updates))
 
 
 class LinearBnRelu(nn.Module):
@@ -65,8 +66,9 @@ class LinearBnRelu(nn.Module):
         self.linear = Dense(in_dim, out_dim, bias=False, dtype=dtype)
         self.bn = BatchNorm1d(out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.linear(x)))
+    def forward(self, x: torch.Tensor, use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        return F.relu(self.bn(self.linear(x), use_running_average, updates))
 
 
 def add_coords(x: torch.Tensor) -> torch.Tensor:
@@ -102,23 +104,32 @@ class FPN(nn.Module):
         self.coordconv_0 = conv(co[1] + 2, co[1], 3, 1)
         self.coordconv_1 = conv(co[1], co[1], 3, 1)
 
-    def forward(self, feats, state: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats, state: torch.Tensor,
+                use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        """`use_running_average` overrides every BatchNorm of the neck at call
+        time (an e2e model trains them but evaluates with the running
+        statistics); `updates` collects the new running statistics, see
+        `models/cris/resnet.py`."""
+        bn = dict(use_running_average=use_running_average, updates=updates)
         v3, v4, v5 = feats
         # fusion 1: text gating of C5
-        s = self.txt_proj(state)
-        f5 = self.f1_v_proj(v5) * s[:, :, None, None]
-        f5 = F.relu(self.norm_layer_bn(f5))
+        s = self.txt_proj(state, **bn)
+        f5 = self.f1_v_proj(v5, **bn) * s[:, :, None, None]
+        f5 = F.relu(self.norm_layer_bn(f5, **bn))
         # fusion 2
-        f4 = self.f2_v_proj(v4)
-        f4 = self.f2_cat(torch.cat([f4, upsample_scale(f5, 2, "bilinear")], dim=1))
+        f4 = self.f2_v_proj(v4, **bn)
+        f4 = self.f2_cat(torch.cat([f4, upsample_scale(f5, 2, "bilinear")], dim=1),
+                         **bn)
         # fusion 3
-        f3 = avg_pool_nchw(self.f3_v_proj(v3), 2)
-        f3 = self.f3_cat(torch.cat([f3, f4], dim=1))
+        f3 = avg_pool_nchw(self.f3_v_proj(v3, **bn), 2)
+        f3 = self.f3_cat(torch.cat([f3, f4], dim=1), **bn)
         # fusion 4 + aggregation
-        fq5 = upsample_scale(self.f4_proj5(f5), 2, "bilinear")
-        fq = torch.cat([self.f4_proj3(f3), self.f4_proj4(f4), fq5], dim=1)
-        fq = self.coordconv_0(add_coords(self.aggr(fq)))
-        return self.coordconv_1(fq)
+        fq5 = upsample_scale(self.f4_proj5(f5, **bn), 2, "bilinear")
+        fq = torch.cat([self.f4_proj3(f3, **bn), self.f4_proj4(f4, **bn), fq5],
+                       dim=1)
+        fq = self.coordconv_0(add_coords(self.aggr(fq, **bn)), **bn)
+        return self.coordconv_1(fq, **bn)
 
 
 def sincos_pos_1d(d_model: int, length: int) -> np.ndarray:
@@ -283,9 +294,12 @@ class Projector(nn.Module):
         self.txt = Dense(word_dim, in_dim * kernel_size * kernel_size + 1,
                          dtype=dtype)
 
-    def forward(self, x: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
-        x = self.vis_1(upsample_scale(x, 2, "bilinear"))
-        x = self.vis_3(upsample_scale(x, 2, "bilinear"))
+    def forward(self, x: torch.Tensor, word: torch.Tensor,
+                use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        bn = dict(use_running_average=use_running_average, updates=updates)
+        x = self.vis_1(upsample_scale(x, 2, "bilinear"), **bn)
+        x = self.vis_3(upsample_scale(x, 2, "bilinear"), **bn)
         x = self.vis_4(x)
         b, c, h, w = x.shape
         k = self.kernel_size

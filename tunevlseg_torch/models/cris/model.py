@@ -21,6 +21,14 @@ Counterpart of `tunevlseg_tpu/models/cris/model.py`:
 `text_index` deduplicates prompts as in the CLIPSeg model. Dropout (the
 decoder's) is applied only with `deterministic=False` and draws its masks
 from the `generator` it is given.
+
+BatchNorm: the backbone always normalises with its running statistics (which
+is why `layout="flat"` can fold them into the flat convolution K4). A
+`bn_train` model (the e2e fine-tune) normalises the FPN and the projector with
+batch statistics when `deterministic=False` and with the running ones
+otherwise, and puts the updated running statistics into the caller's
+`stats_updates` dict under their `state_dict` names instead of writing its
+buffers (the JAX `mutable=["batch_stats"]`).
 """
 from __future__ import annotations
 
@@ -144,7 +152,9 @@ class CRISForSegmentation(nn.Module):
                  learner: Optional[BasePromptLearner] = None,
                  additive_mode: str = "none", additive_kernel_size: int = 5,
                  residual_ratio_init: float = 0.5, bn_train: bool = False,
-                 layout: str = "nchw", dtype: torch.dtype = torch.float32):
+                 layout: str = "nchw",
+                 flat_stages: Sequence[str] = ("stem", "1", "2", "3", "4"),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if additive_mode not in ("none", "residual"):
             raise ValueError('additive_mode must be "none" or "residual"')
@@ -155,7 +165,8 @@ class CRISForSegmentation(nn.Module):
         self.visual = ModifiedResNet(tuple(c.vision_layers), c.embed_dim,
                                      c.vision_heads, c.image_resolution,
                                      c.vision_width, use_running_average=True,
-                                     layout=layout, dtype=dtype)
+                                     layout=layout, flat_stages=flat_stages,
+                                     dtype=dtype)
         self.text = CLIPTextTransformer(c, dtype)
         self.neck = FPN(tuple(c.fpn_in), tuple(c.fpn_out), dtype)
         self.decoder = CRISTransformerDecoder(c.num_layers, c.vis_dim, c.num_head,
@@ -177,9 +188,13 @@ class CRISForSegmentation(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 text_index: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                stats_updates: Optional[dict] = None) -> torch.Tensor:
         """input_ids (B, L), or (U, L) with text_index (B,) into its rows;
-        pixel_values (B, 3, H, W). Returns logits (B, 1, img_size, img_size)."""
+        pixel_values (B, 3, H, W). Returns logits (B, 1, img_size, img_size).
+        A `bn_train` model called with `deterministic=False` needs the
+        `stats_updates` dict, which it fills with the new running statistics
+        of the FPN's and the projector's BatchNorms."""
         c = self.config
         learner = self.learner
         num_ctx = learner.num_context if learner is not None else 0
@@ -191,11 +206,15 @@ class CRISForSegmentation(nn.Module):
                     "conditioned prompt learners (CoCoOp)")
             raise NotImplementedError(
                 f"{type(learner).__name__} comes with ROADMAP Slice B")
-        if self.bn_train and not deterministic:
-            raise NotImplementedError(
-                "the e2e CRIS train step needs BatchNorm batch statistics "
-                "(the JAX task's mutable_collections); it comes with the "
-                "rest of ROADMAP Slice C")
+        # batch statistics while training, running statistics in eval (torch's
+        # train() / eval()); a frozen model always uses the running ones
+        bn_ura = (not self.bn_train) or deterministic
+        if not bn_ura and stats_updates is None:
+            raise ValueError(
+                "a bn_train model in a train step updates its BatchNorm "
+                "running statistics: pass stats_updates (SegmentationTask with "
+                'mutable_collections=("batch_stats",))')
+        updates = None if bn_ura else {}
 
         # pad mask (True = pad), extended with zeros for the context slots
         if attention_mask is not None:
@@ -215,10 +234,16 @@ class CRISForSegmentation(nn.Module):
             idx = text_index.long()
             tokens, state, pad_mask = tokens[idx], state[idx], pad_mask[idx]
 
-        fq = self.neck(vis, state)
+        fq = self.neck(vis, state, use_running_average=bn_ura, updates=updates)
         fq = self.decoder(fq, tokens, pad_mask, deterministic=deterministic,
                           generator=generator)
-        pred = self.proj(fq, state)
+        pred = self.proj(fq, state, use_running_average=bn_ura, updates=updates)
+        if updates:
+            for name, module in self.named_modules():
+                if module in updates:
+                    mean, var = updates[module]
+                    stats_updates[f"{name}.running_mean"] = mean
+                    stats_updates[f"{name}.running_var"] = var
         logits = resize_2d(pred, (c.img_size, c.img_size), "bicubic",
                            align_corners=True)
         if self.additive_mode == "residual":

@@ -9,10 +9,19 @@ residual and bicubic-resizes its positional embedding. Returns the
 
 BatchNorm takes `use_running_average` explicitly, as the JAX modules do, and
 never reads `nn.Module.training`: a frozen CRIS normalises with its running
-statistics in a train step too. Only the NCHW layout is ported. The JAX
-package's "nhwc" layout is a TPU layout experiment; its "flat" layout runs
-the stages through the flat guard-banded convolution kernel (K4), which is
-not ported yet, and raises here.
+statistics in a train step too. With batch statistics (the FPN and the
+projector of the e2e fine-tune) a layer never writes its buffers: it hands
+the updated running statistics to the caller's `updates` dict (the JAX
+`mutable=["batch_stats"]`), and `training/task.py` carries them in the train
+state.
+
+Layouts: "nchw" (the default) runs every convolution through cuDNN.
+"flat" runs the stages named in `flat_stages` through the flat guard-banded
+convolution K4 (`tunevlseg_torch/ops/conv_flat.py`) with the frozen BatchNorm
+folded into the kernel's epilogue; conv1, the pools, stages not listed and the
+attention pool stay on the cuDNN path. Parameter and buffer names are the
+same, so one `state_dict` serves both. The JAX package's "nhwc" layout is a
+TPU layout experiment and raises here.
 
 Memory format: tensors keep their NCHW shape everywhere, but the backbone
 follows its weights: where `build_cris` has stored the 4-D convolution
@@ -24,7 +33,7 @@ scripts/torch_cris_stages.py).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,22 +42,21 @@ from torch import nn
 from tunevlseg_torch.nn.attention import dot_product_attention
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Dense
+from tunevlseg_torch.ops.conv_flat import (FlatSpec, conv_flat, flat_begin,
+                                           flat_end, make_flat_spec)
 from tunevlseg_torch.ops.image import resize_2d
-
-_BATCH_STATS = ("BatchNorm batch statistics (the JAX task's "
-                "mutable_collections) come with the e2e CRIS train step, "
-                "ROADMAP Slice C")
 
 
 class _BatchNorm(nn.Module):
-    """torch BatchNorm semantics (eps 1e-5) over the channel axis 1, with the
-    running statistics as buffers: statistics and the affine in f32, output
-    in the input's dtype."""
+    """torch BatchNorm semantics (momentum 0.1, eps 1e-5) over the channel
+    axis 1, with the running statistics as buffers: statistics and the affine
+    in f32, output in the input's dtype."""
 
     def __init__(self, features: int, use_running_average: bool = True,
-                 epsilon: float = 1e-5):
+                 momentum: float = 0.1, epsilon: float = 1e-5):
         super().__init__()
         self.use_running_average = use_running_average
+        self.momentum = momentum
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
@@ -61,12 +69,50 @@ class _BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.use_running_average:
-            raise NotImplementedError(_BATCH_STATS)
-        # one pass: f32 arithmetic inside, one rounding to x's dtype
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.epsilon)
+    def forward(self, x: torch.Tensor,
+                use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        """`use_running_average` overrides the module's at call time. With
+        batch statistics (mean and biased variance over every axis but the
+        channels, in f32) and an `updates` dict, `updates[self]` becomes the
+        new (running_mean, running_var): momentum 0.1 towards the batch mean
+        and the unbiased variance var * n / max(n - 1, 1). The module's own
+        buffers are left as they are."""
+        ura = (self.use_running_average if use_running_average is None
+               else use_running_average)
+        if ura:
+            # one pass: f32 arithmetic inside, one rounding to x's dtype
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.epsilon)
+        n = x.numel() // x.shape[1]
+        if n > 1:
+            # one fused pass that also moves the copies of the statistics
+            mean, var = (self.running_mean.detach().clone(),
+                         self.running_var.detach().clone())
+            out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                               self.momentum, self.epsilon)
+        else:
+            # one value per channel (F.batch_norm refuses it): the batch
+            # variance is 0 and the unbiased one var * 1 / max(0, 1) = 0
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            x32 = x.float()
+            batch_mean = x32.mean([0, *range(2, x.dim())])
+            out = (x32 - batch_mean.reshape(shape)) * self.epsilon ** -0.5
+            out = (out * self.weight.reshape(shape)
+                   + self.bias.reshape(shape)).to(x.dtype)
+            mean = ((1 - self.momentum) * self.running_mean.detach()
+                    + self.momentum * batch_mean.detach())
+            var = (1 - self.momentum) * self.running_var.detach()
+        if updates is not None:
+            updates[self] = (mean, var)
+        return out
+
+    def folded_affine(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The frozen BatchNorm as a per-channel f32 (scale, offset) pair for
+        the flat convolution's epilogue. Only valid with running statistics."""
+        assert self.use_running_average, "BN folding requires frozen stats"
+        s = self.weight * torch.rsqrt(self.running_var + self.epsilon)
+        return s, self.bias - self.running_mean * s
 
 
 class BatchNorm2d(_BatchNorm):
@@ -114,6 +160,76 @@ class Bottleneck(nn.Module):
                 identity = avg_pool_nchw(x, self.stride)
             identity = self.downsample_bn(self.downsample_conv(identity))
         return F.relu(out + identity)
+
+    def forward_flat(self, x: torch.Tensor, spec_in: FlatSpec,
+                     spec_out: FlatSpec) -> torch.Tensor:
+        """The block on flat tensors (`ops/conv_flat.py`): 1x1 / 3x3 / 1x1
+        with the frozen BatchNorms folded into the epilogues, the residual
+        add and both ReLUs fused into the convolutions; a stride-2 block
+        leaves flat space for the average pool and enters `spec_out`."""
+        si, so = spec_in, spec_out
+        out = conv_flat(x, si, self.conv1.weight, *self.bn1.folded_affine(),
+                        relu=True)
+        out = conv_flat(out, si, self.conv2.weight, *self.bn2.folded_affine(),
+                        relu=True)
+        if self.stride > 1:
+            out = _pool_flat(out, si, so, self.stride)
+        identity = x
+        if self.has_downsample:
+            if self.stride > 1:
+                identity = _pool_flat(x, si, so, self.stride)
+            identity = conv_flat(identity, so, self.downsample_conv.weight,
+                                 *self.downsample_bn.folded_affine())
+        return conv_flat(out, so, self.conv3.weight, *self.bn3.folded_affine(),
+                         relu=True, residual=identity)
+
+
+def to_flat(x: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+    """(B, C, H, W) -> flat (B, ROWS, C). Of a channels-last tensor the NHWC
+    permutation is a view, so the one copy is `flat_begin`'s."""
+    return flat_begin(x.permute(0, 2, 3, 1), spec)
+
+
+def from_flat(flat: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+    """flat (B, ROWS, C) -> (B, C, H, W), a view of the flat tensor with
+    stride 1 on the channels."""
+    return flat_end(flat, spec).permute(0, 3, 1, 2)
+
+
+def _pool_flat(flat: torch.Tensor, spec_in: FlatSpec, spec_out: FlatSpec,
+               window: int) -> torch.Tensor:
+    return to_flat(avg_pool_nchw(from_flat(flat, spec_in), window), spec_out)
+
+
+def run_flat_stem_tail(x: torch.Tensor, net: "ModifiedResNet") -> torch.Tensor:
+    """conv2 / bn2 and conv3 / bn3 of the stem as one flat chain,
+    (B, C, H, W) in and out."""
+    width = net.conv3.weight.shape[0]
+    spec = make_flat_spec(x.shape[2], x.shape[3], 1, max_k2c=9 * (width // 2),
+                          itemsize=x.element_size())
+    f = to_flat(x, spec)
+    for i in (2, 3):
+        f = conv_flat(f, spec, getattr(net, f"conv{i}").weight,
+                      *getattr(net, f"bn{i}").folded_affine(), relu=True)
+    return from_flat(f, spec)
+
+
+def run_flat_stage(x: torch.Tensor, blocks: Sequence[Bottleneck]) -> torch.Tensor:
+    """One ResNet stage as a flat chain, (B, C, H, W) in and out: flat_begin,
+    the Bottlenecks with fused epilogues (a strided block 0 changes specs
+    inside), flat_end."""
+    planes = blocks[0].conv2.weight.shape[0]
+    stride = blocks[0].stride
+    itemsize = x.element_size()
+    spec_in = make_flat_spec(x.shape[2], x.shape[3], 1, max_k2c=9 * planes,
+                             itemsize=itemsize)
+    spec_out = spec_in if stride == 1 else make_flat_spec(
+        x.shape[2] // stride, x.shape[3] // stride, 1, max_k2c=9 * planes,
+        itemsize=itemsize)
+    f = to_flat(x, spec_in)
+    for b, block in enumerate(blocks):
+        f = block.forward_flat(f, spec_in if b == 0 else spec_out, spec_out)
+    return from_flat(f, spec_out)
 
 
 class AttentionPool2d(nn.Module):
@@ -163,22 +279,25 @@ class AttentionPool2d(nn.Module):
 
 
 class ModifiedResNet(nn.Module):
-    """(B, 3, H, W) -> (C3, C4, C5') with strides 8 / 16 / 32, all NCHW."""
+    """(B, 3, H, W) -> (C3, C4, C5') with strides 8 / 16 / 32, all NCHW.
+    `layout="flat"` runs the stages named in `flat_stages` ("stem" and "1"
+    to "4") through the flat convolution K4; it needs the frozen BatchNorm."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  output_dim: int = 1024, heads: int = 32,
                  input_resolution: int = 224, width: int = 64,
                  use_running_average: bool = True, layout: str = "nchw",
+                 flat_stages: Sequence[str] = ("stem", "1", "2", "3", "4"),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if layout == "flat":
-            raise NotImplementedError(
-                'layout="flat" runs the stages through the flat convolution '
-                "kernel K4, ops/conv_pallas.py, which is still to be ported "
-                "(ROADMAP Queue 2)")
-        if layout != "nchw":
-            raise ValueError(f'layout {layout!r}: the port runs "nchw" (the '
-                             'JAX package\'s "nhwc" is a TPU layout experiment)')
+        if layout not in ("nchw", "flat"):
+            raise ValueError(f'layout {layout!r}: the port runs "nchw" and '
+                             '"flat" (the JAX package\'s "nhwc" is a TPU layout '
+                             "experiment)")
+        if layout == "flat" and not use_running_average:
+            raise ValueError("the flat layout requires the frozen BatchNorm")
+        self.layout, self.flat_stages = layout, tuple(flat_stages)
+        self.dtype = dtype
         ura, w = use_running_average, width
         for i, (cin, cout) in enumerate(((3, w // 2), (w // 2, w // 2),
                                          (w // 2, w)), start=1):
@@ -197,15 +316,26 @@ class ModifiedResNet(nn.Module):
         self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads,
                                         output_dim, ura, dtype)
 
+    def _flat(self, stage: str) -> bool:
+        return self.layout == "flat" and stage in self.flat_stages
+
     def forward(self, x: torch.Tensor):
         if self.conv1.weight.is_contiguous(memory_format=torch.channels_last):
             x = x.contiguous(memory_format=torch.channels_last)
-        for i in (1, 2, 3):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        x = F.relu(self.bn1(self.conv1(x)))
+        if self._flat("stem"):
+            x = run_flat_stem_tail(x, self)
+        else:
+            for i in (2, 3):
+                x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
         x = avg_pool_nchw(x, 2)
         feats = []
         for stage in (1, 2, 3, 4):
-            for block in getattr(self, f"layer{stage}"):
-                x = block(x)
+            blocks = getattr(self, f"layer{stage}")
+            if self._flat(str(stage)):
+                x = run_flat_stage(x, blocks)
+            else:
+                for block in blocks:
+                    x = block(x)
             feats.append(x)
         return feats[1], feats[2], self.attnpool(feats[3])

@@ -9,7 +9,7 @@ loaded over them (`tunevlseg_torch/convert/from_jax.py`).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -90,15 +90,22 @@ def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
                use_new_last_layer: bool = True, freeze_all: bool = True,
                no_freeze_last_layer: bool = False,
                freeze_encoder: Optional[bool] = None,
+               layout: str = "nchw",
+               flat_stages: Sequence[str] = ("stem", "1", "2", "3", "4"),
                dtype: torch.dtype = torch.float32, device="cuda",
                seed: int = 0) -> tuple[CRISForSegmentation, FreezeSpec]:
     """CRIS with CoOp prompts ("coop") or the stock model (None / "e2e"),
     with seeded random f32 weights on `device`, and its freeze spec. The
     device rule is `build_clipseg`'s: the CUDA card unless the caller names
     another device, and no fallback to the CPU. The learner's context width
-    is the text transformer's width. The e2e model serves and evaluates; its
-    train step needs BatchNorm batch statistics and raises (ROADMAP Slice C),
-    and so does "cocoop" (Slice B)."""
+    is the text transformer's width. `layout="flat"` runs the backbone stages
+    named in `flat_stages` through the flat convolution K4
+    (`ops/conv_flat.py`; the JAX package's TUNEVLSEG_PALLAS_CONV); the default
+    "nchw" runs them through cuDNN. The e2e model trains the BatchNorms of
+    its FPN and projector: give its `SegmentationTask`
+    `mutable_collections=("batch_stats",)`. With `freeze_encoder=False` the
+    towers train too (on the flat layout through K4's backward). "cocoop"
+    raises (ROADMAP Slice B)."""
     cfg = config or cris_rn50_config()
     e2e = strategy in (None, "e2e")
     learner = None
@@ -114,7 +121,7 @@ def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
     model = CRISForSegmentation(
         cfg, learner=learner,
         additive_mode="residual" if use_new_last_layer and not e2e else "none",
-        bn_train=e2e, dtype=dtype)
+        bn_train=e2e, layout=layout, flat_stages=flat_stages, dtype=dtype)
     init_params(model, torch.Generator().manual_seed(seed))
     spec = FreezeSpec(
         freeze_all=False if e2e else freeze_all,

@@ -6,9 +6,8 @@ Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
 `_forward`. The CUDA C++ sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu`,
 `flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (shared helpers in
 `attn_common.cuh`); all are built with `nvcc` for `sm_90a` into plain C
-shared libraries at first use (one compiler process per source, started
-together; under `tunevlseg_torch/_build/`, keyed by a hash of the source and
-flags) and called through `ctypes` on PyTorch's current stream.
+shared libraries at first use (`ops/build.py`) and called through `ctypes` on
+PyTorch's current stream.
 
 `flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
 does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
@@ -24,23 +23,12 @@ numerics.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",
-            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu",
-            "bias": _PKG / "csrc" / "flash_attn_bias_fwd.cu"}
-_HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by every source
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from tunevlseg_torch.ops import build
+
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 
 _libs: Optional[dict[str, ctypes.CDLL]] = None
@@ -72,54 +60,14 @@ def reset_launch_count() -> None:
     _bias_launches = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def library_path(kernel: str = "fwd") -> Path:
-    """Where the built library of a kernel ("fwd" is K1, "bwd" is K2, "bias"
-    is K3) lives for its current source and flags."""
-    source = _SOURCES[kernel]
-    digest = hashlib.sha256(source.read_bytes() + _HEADER.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"{source.stem}-{digest}.so"
-
-
 def load_library() -> dict[str, ctypes.CDLL]:
-    """Build K1, K2 and K3 from source where needed (the compilers run side
-    by side) and load them; returns {"fwd": lib, "bwd": lib, "bias": lib}. A
-    failed build
-    raises; each compiler's output (with `ptxas -v` register and spill
-    counts) is kept beside its library as `<name>.log`."""
+    """Build the kernels from source where needed (`ops/build.py`) and set
+    the argument types of K1's, K2's and K3's entry points; returns
+    {"fwd": lib, "bwd": lib, "bias": lib, ...}. A failed build raises."""
     global _libs
     if _libs is not None:
         return _libs
-    builds = []
-    for kernel, source in _SOURCES.items():
-        out = library_path(kernel)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(source)]
-        builds.append((source, out, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failures = []
-    for source, out, tmp, cmd, proc in builds:
-        stdout, stderr = proc.communicate()
-        out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + stdout + stderr)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed ({proc.returncode}) building "
-                            f"{source}:\n{stderr}")
-        else:
-            os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    libs = {kernel: ctypes.CDLL(str(library_path(kernel))) for kernel in _SOURCES}
+    libs = build.load_libraries()
     fwd = libs["fwd"].tvs_flash_attn_fwd
     fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])

@@ -24,6 +24,14 @@ same step draw the same masks, the next step draws others. Eval, predict and
 serving apply no dropout. BatchNorm layers never look at
 `nn.Module.training`: a frozen backbone normalises with its running
 statistics in a train step too.
+
+`mutable_collections=("batch_stats",)` is the JAX task's: the model's buffers
+(the BatchNorm running statistics) then live in `TrainState.model_state`.
+`init` splits them out of the model, a train step reads them from the state,
+lets the model hand back the ones it updated (the e2e CRIS model's FPN and
+projector) and returns a state that holds the new ones, and `eval_step` and
+`predict_step` read them from the state they are given. No buffer of the
+module is written by a step.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from tunevlseg_torch.ops import losses as losses_lib
 from tunevlseg_torch.ops import metrics as metrics_lib
@@ -40,10 +49,12 @@ from tunevlseg_torch.training import optim as optim_lib
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count and the optimizer (its moments and learning rate); the
-    weights live in the model."""
+    """The step count, the optimizer (its moments and learning rate) and,
+    with `mutable_collections`, the buffers a step updates (the BatchNorm
+    running statistics, by `state_dict` name); the weights live in the model."""
     step: int
     optimizer: optim_lib.ClippedOptimizer
+    model_state: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -57,10 +68,11 @@ class SegmentationTask:
     weight_decay: float = 0.0
     grad_clip_norm: Optional[float] = None
     seed: int = 0     # of the dropout masks, with the step
+    # () or ("batch_stats",): the buffers a train step updates, kept in the state
+    mutable_collections: tuple = ()
     # options of the JAX task that later slices port; asking for one raises
     accumulate_grad_batches: int = 1
     remat: bool = False
-    mutable_collections: tuple = ()
     # (mean, std) for the device-side normalisation of uint8 image batches
     image_stats: tuple = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
@@ -72,20 +84,25 @@ class SegmentationTask:
             raise NotImplementedError(
                 "remat=True (nn/remat.py -> torch.utils.checkpoint) comes "
                 "with ROADMAP Slice G")
-        if self.mutable_collections:
-            raise NotImplementedError(
-                "mutable_collections (BatchNorm batch statistics of the e2e "
-                "CRIS train step) come with the rest of ROADMAP Slice C")
+        if tuple(self.mutable_collections) not in ((), ("batch_stats",)):
+            raise ValueError(
+                f"mutable_collections {self.mutable_collections!r}: the only "
+                'collection a step updates is "batch_stats"')
 
     # -- init ---------------------------------------------------------------
 
     def init(self) -> TrainState:
         """Apply the freeze spec to the model and build the optimizer over
-        what is left trainable."""
+        what is left trainable; with `mutable_collections`, copy the model's
+        buffers into the state."""
         optim_lib.apply_freeze(self.model, self.freeze_spec)
+        model_state = {}
+        if self.mutable_collections:
+            model_state = {name: buf.detach().clone()
+                           for name, buf in self.model.named_buffers()}
         return TrainState(0, optim_lib.make_optimizer(
             self.model, self.learning_rate, self.weight_decay,
-            grad_clip_norm=self.grad_clip_norm))
+            grad_clip_norm=self.grad_clip_norm), model_state)
 
     # -- steps --------------------------------------------------------------
 
@@ -104,8 +121,14 @@ class SegmentationTask:
         return (batch["input_ids"], self._prep_image(batch["image"]),
                 batch.get("attention_mask")), kwargs
 
-    def _forward(self, batch: dict, **kwargs) -> torch.Tensor:
+    def _forward(self, batch: dict, model_state: Optional[dict] = None,
+                 **kwargs) -> torch.Tensor:
+        """The model on a batch, with the buffers of `model_state` in the
+        place of its own where a state carries them."""
         args, model_kwargs = self.model_inputs(batch)
+        if model_state:
+            return functional_call(self.model, model_state, args,
+                                   {**model_kwargs, **kwargs})
         return self.model(*args, **model_kwargs, **kwargs)
 
     def dropout_generator(self, step: int) -> torch.Generator:
@@ -116,12 +139,18 @@ class SegmentationTask:
         gen.manual_seed((self.seed * 1_000_003 + step) % 2 ** 63)
         return gen
 
-    def _loss(self, batch: dict, step: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    def _loss(self, batch: dict, step: int = 0, model_state: Optional[dict] = None,
+              stats_updates: Optional[dict] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, logits) of a train step (dropout on, masks of `step`); with
         `valid`, padded samples are zeroed on both sides so that they
-        contribute a constant (matching) term."""
-        logits = self._forward(batch, deterministic=False,
-                               generator=self.dropout_generator(step))
+        contribute a constant (matching) term. With `mutable_collections` the
+        buffers are read from `model_state` and the updated ones are put into
+        `stats_updates`."""
+        mutable = ({"stats_updates": stats_updates}
+                   if self.mutable_collections else {})
+        logits = self._forward(batch, model_state, deterministic=False,
+                               generator=self.dropout_generator(step), **mutable)
         mask = batch["mask"]
         valid = batch.get("valid")
         if valid is not None:
@@ -136,8 +165,9 @@ class SegmentationTask:
         step waits for the device."""
         opt = state.optimizer
         opt.zero_grad()
+        updates = {}
         with torch.enable_grad():
-            loss, logits = self._loss(batch, state.step)
+            loss, logits = self._loss(batch, state.step, state.model_state, updates)
         loss.backward()
         opt.step()
         with torch.no_grad():
@@ -152,7 +182,9 @@ class SegmentationTask:
                 "iou": metrics_lib.iou_score(probs, batch["mask"],
                                              self.threshold, valid=valid),
             }
-        return TrainState(state.step + 1, opt), step_metrics
+        model_state = ({**state.model_state, **updates}
+                       if self.mutable_collections else state.model_state)
+        return TrainState(state.step + 1, opt, model_state), step_metrics
 
     def compile_steps(self, *args, **kwargs):
         raise NotImplementedError(
@@ -165,15 +197,21 @@ class SegmentationTask:
             "Queue 1 item 3 (Loop and CLI)")
 
     @torch.no_grad()
-    def predict_step(self, batch: dict) -> torch.Tensor:
-        """Sigmoid probabilities (B, 1, H, W) in f32."""
-        return torch.sigmoid(self._forward(batch).float())
+    def predict_step(self, batch: dict,
+                     state: Optional[TrainState] = None) -> torch.Tensor:
+        """Sigmoid probabilities (B, 1, H, W) in f32, with the buffers of
+        `state.model_state` where a state is given and carries them."""
+        model_state = state.model_state if state is not None else None
+        return torch.sigmoid(self._forward(batch, model_state).float())
 
     @torch.no_grad()
-    def eval_step(self, metric_state: metrics_lib.SegMetricState, batch: dict):
+    def eval_step(self, metric_state: metrics_lib.SegMetricState, batch: dict,
+                  state: Optional[TrainState] = None):
         """Returns (updated metric state, {"loss_sum", "n"}); samples with
-        valid == 0 contribute a constant loss term and no metric counts."""
-        logits = self._forward(batch)
+        valid == 0 contribute a constant loss term and no metric counts. The
+        buffers are those of `state.model_state` where a state carries them."""
+        logits = self._forward(batch, state.model_state if state is not None
+                               else None)
         mask = batch["mask"]
         valid = batch.get("valid")
         probs = torch.sigmoid(logits.float())
