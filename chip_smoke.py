@@ -7,12 +7,12 @@ Phases, each printing its numbers on lines of its own:
   1. device: the CUDA card's name, the device count, and nvidia-smi's name
      and power limit (exits nonzero without a CUDA device);
   2. build: kernels K1 (csrc/flash_attn_fwd.cu), K2 (csrc/flash_attn_bwd.cu),
-     K3 (csrc/flash_attn_bias_fwd.cu) and K4 (csrc/conv_flat.cu) built from
-     source side by side, timed, with the registers and spills `ptxas -v`
-     reports;
+     K3 (csrc/flash_attn_bias_fwd.cu), K4 (csrc/conv_flat.cu) and the sweeps'
+     S1-S4 (csrc/flash_attn_fwd_variants.cu) built from source side by side,
+     timed, with the registers and spills `ptxas -v` reports;
   3. kernel vs plain: K1 against `flash_attention_ref` and K2 against
-     `flash_attention_bwd_ref` at the CLIPSeg vision and decoder shapes, a
-     kv_valid case (masked dk/dv rows exactly zero), the two batch-16 shapes
+     `flash_attention_bwd_ref` at the CLIPSeg vision and decoder shapes (485
+     tokens, and 489 with four visual contexts), a kv_valid case (masked dk/dv rows exactly zero), the two batch-16 shapes
      of the e2e train step and the CRIS decoder's b64 x 676 x 8 x 64; K3
      against `biased_attention_ref` at the text shape (U = 1 and U = 64 rows,
      causal + padding bias) and the CRIS cross shape (676 queries into 77
@@ -70,6 +70,30 @@ Phases, each printing its numbers on lines of its own:
      BatchNorm weight / bias change, the first step's loss against the same
      step on `layout="nchw"`, and every gradient of the backbone for a fixed
      cotangent on its pyramid against `layout="nchw"`.
+ 14. kernel vs plain, S1-S4, through the sweeps' entry points
+     (`scripts/torch_micro_attn.py: check_variants, time_variants`), one pass
+     per sweep: every variant of K1 (`ops/flash_attention_variants.py`: heads
+     / batch rows per block, block order, exp2, no max pass, the two products
+     alone; and S3, the denominator out of the P V product) against its plain
+     version on q, k, v apart, then timed with the variants' launch counts
+     set to 0 before and read after; at the vision shape b64 x 485 x 12 x 64,
+     and S2 / S3 also at 512 with the keys from 485 on masked. The same two
+     counts are read on every model path, where they must stay 0;
+ 15. serve and train, CLIPSeg MaPLe (depth 3, 4 contexts; visual contexts in
+     the frozen vision tower, 489 tokens): the three requests (13 K1 and 12
+     K3 per forward), kernel path against plain path; 2 warm-up + 5 timed
+     b64 prompt-dedup steps: 13 K1, 13 K2 and 12 K3 per step (K2 at the
+     vision shape inside a prompt-tuning step), the learner and the additive
+     head move, every frozen tensor stays bit-identical and has no gradient,
+     first step against the plain path;
+ 16. VPT, Shared-Separate, Shared-Attention (the same launches) and CoCoOp
+     (dense text: 15 K1 and 12 K3 at 64 rows per forward, 3 K2 per step: the
+     vision tower stays forward-only): one b64 request and 1 warm-up + 2
+     timed steps each, checked the same way;
+ 17. CRIS CoCoOp on `layout="nchw"`: one b64 request and one train step. Its
+     probabilities get a wider bound against the plain path, earned in the
+     run: every K1 / K3 launch of the forward against its plain version on
+     the path's own tensors, and two kernel-free paths that differ as much.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts.
@@ -101,31 +125,55 @@ PROB_MEAN_TOL = 2e-3
 # kernel path vs plain path, first CoOp train step: the same two bf16 models,
 # so the loss (about 1) differs like the probabilities do, and the context
 # gradient, carried back through three bf16 decoder blocks and twelve text
-# layers, by a few percent of its largest entry
+# layers (and, under visual contexts, the ten vision layers: measured cosine
+# 0.9996 there), by a few percent of its largest entry
 LOSS_TOL = 2e-2
 GRAD_REL_TOL = 0.1
 GRAD_COS_MIN = 0.99
-# launches per forward or step, as (K1, K2, K3, K4 forward, K4 dx).
+# launches per forward or step, as (K1, K2, K3, K4 forward, K4 dx, S1/S2/S4,
+# S3): the variants' two counts are read beside the models' kernels on every
+# path, and no model may launch them.
+NO_VARIANTS = (0, 0)
+COUNTED = "(K1, K2, K3, K4, K4 dx, S1/S2/S4, S3)"
 # CLIPSeg: K1 in 10 vision layers + 3 decoder blocks; K3 in the 12 text
 # layers (causal + padding bias); K2 for the decoder blocks, and for the
 # vision layers too when they train (the frozen vision tower needs none)
-CLIPSEG_SERVE = (13, 0, 12, 0, 0)
-CLIPSEG_COOP_STEP = (13, 3, 12, 0, 0)
-CLIPSEG_E2E_STEP = (13, 13, 12, 0, 0)
+CLIPSEG_SERVE = (13, 0, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_COOP_STEP = (13, 3, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_E2E_STEP = (13, 13, 12, 0, 0) + NO_VARIANTS
+# visual contexts (VPT, MaPLe, the shared learners) sit in the frozen vision
+# tower, so the gradient runs back through its ten layers: K2 in all 13
+# attentions of a prompt-tuning step. CoCoOp runs the whole tower (12 layers)
+# for the pooled image features, forward only: no trainable leaf lies
+# upstream of them; its text tower runs 64 rows (no prompt dedup)
+CLIPSEG_VISUAL_STEP = (13, 13, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_COCOOP_SERVE = (15, 0, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_COCOOP_STEP = (15, 3, 12, 0, 0) + NO_VARIANTS
+# CRIS CoCoOp, kernel path vs plain path: the meta-net ends in a LayerNorm,
+# so its per-image bias has unit scale where context vectors and token
+# embeddings have 0.02-0.04, and the randomly initialised text tower then sees
+# scores in the tens: a sharp softmax, which amplifies any rounding. Measured
+# max 2.98e-2, mean 2.6e-3 on probabilities that span [0.07, 0.997], while two
+# paths WITHOUT a kernel (the plain path, and one with f32 scores) differ
+# among themselves by 3.06e-2 / 2.5e-3, and every K1 and K3 launch of that
+# forward is within 5.2e-3 of the largest |reference| on its own inputs.
+# `compare_with_plain_path` holds the run to both witnesses before it accepts
+# a bound wider than the common one.
+COCOOP_CRIS_PROB_TOL = (5e-2, 5e-3)
 # CRIS: K1 (K2) in the 3 decoder self-attentions over 676 tokens; K3 in the
 # 12 text layers and the 3 cross-attentions into the text; the RN50
 # attention pool has 169 tokens, under the gate's 256: plain
-CRIS_SERVE = (3, 0, 15, 0, 0)
-CRIS_COOP_STEP = (3, 3, 15, 0, 0)
+CRIS_SERVE = (3, 0, 15, 0, 0) + NO_VARIANTS
+CRIS_COOP_STEP = (3, 3, 15, 0, 0) + NO_VARIANTS
 # CRIS with layout="flat": K4 in the RN50's 2 stem convolutions, 3 per
 # bottleneck in 16 bottlenecks and 4 downsample convolutions = 54; K4 again
 # for dx of each of them when the backbone trains (conv1 in front of the stem
 # trains too, so even the first flat convolution's input wants a gradient)
 RN50_FLAT_CONVS = 2 + 3 * 16 + 4
-CRIS_FLAT_SERVE = (3, 0, 15, RN50_FLAT_CONVS, 0)
-CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0)
-CRIS_E2E_STEP = (3, 3, 15, 0, 0)
-CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS)
+CRIS_FLAT_SERVE = (3, 0, 15, RN50_FLAT_CONVS, 0) + NO_VARIANTS
+CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0) + NO_VARIANTS
+CRIS_E2E_STEP = (3, 3, 15, 0, 0) + NO_VARIANTS
+CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS) + NO_VARIANTS
 # K4 against its plain version, bf16 outputs: the same bf16 operands, f32
 # accumulation in another order, one rounding: one bf16 ulp (2^-8) of the
 # largest |reference|, 5e-3 with slack. Gradients of the Function against
@@ -157,6 +205,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, same sheet
 VISION = (BATCH, 485, 12, 64)
 DECODER = (BATCH, 485, 4, 16)
+# with four visual contexts appended (VPT, MaPLe, the shared learners)
+VISION_CTX = (BATCH, 489, 12, 64)
+DECODER_CTX = (BATCH, 489, 4, 16)
 # the shapes the e2e train step launches the kernels at
 E2E_VISION = (E2E_BATCH, 485, 12, 64)
 E2E_DECODER = (E2E_BATCH, 485, 4, 16)
@@ -170,16 +221,32 @@ def fail(msg: str) -> None:
 
 
 def counts(fa) -> tuple:
-    """(K1, K2, K3, K4 forward, K4 dx) launches since the last reset."""
+    """(K1, K2, K3, K4 forward, K4 dx, S1/S2/S4, S3) launches since the last
+    reset."""
     from tunevlseg_torch.ops import conv_flat as cf
+    from tunevlseg_torch.ops import flash_attention_variants as fav
     return (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count(),
-            cf.launch_count(), cf.dx_launch_count())
+            cf.launch_count(), cf.dx_launch_count(),
+            fav.launch_count("variant"), fav.launch_count("ones_column"))
 
 
 def reset_counts(fa) -> None:
     from tunevlseg_torch.ops import conv_flat as cf
+    from tunevlseg_torch.ops import flash_attention_variants as fav
     fa.reset_launch_count()
     cf.reset_launch_count()
+    fav.reset_launch_count()
+
+
+def load_sweeps():
+    """scripts/torch_micro_attn.py, the sweeps' entry point, as a module."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "scripts" / "torch_micro_attn.py"
+    spec = importlib.util.spec_from_file_location("torch_micro_attn", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def minus(after: tuple, before: tuple) -> tuple:
@@ -217,11 +284,12 @@ def phase_device():
 
 def phase_build():
     from tunevlseg_torch.ops import build
-    kernels = (("fwd", "K1"), ("bwd", "K2"), ("bias", "K3"), ("conv", "K4"))
+    kernels = (("fwd", "K1"), ("bwd", "K2"), ("bias", "K3"), ("conv", "K4"),
+               ("variants", "S1-S4"))
     t0 = time.perf_counter()
-    build.load_libraries()
+    build.load_libraries(sweeps=True)
     secs = time.perf_counter() - t0
-    print(f"build: K1, K2, K3 and K4 {secs:.2f} s -> "
+    print(f"build: K1, K2, K3, K4 and S1-S4 (five sources side by side) {secs:.2f} s -> "
           + ", ".join(build.library_path(k).name for k, _ in kernels))
     for kernel, label in kernels:
         log = build.library_path(kernel).with_suffix(".log").read_text()
@@ -247,6 +315,8 @@ def attention_bound(n_tensors: int, flops_factor: int, b, s, h, d, t_valid,
 def kernel_cases(gen):
     import torch
     for label, shape, kv in (("vision", VISION, None), ("decoder", DECODER, None),
+                             ("vision 489", VISION_CTX, None),
+                             ("decoder 489", DECODER_CTX, None),
                              ("vision kv_valid", (BATCH, 512, 12, 64), 485),
                              ("e2e vision", E2E_VISION, None),
                              ("e2e decoder", E2E_DECODER, None),
@@ -408,6 +478,8 @@ def phase_yardstick():
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
     for label, shape, kv in (("vision", VISION, None), ("decoder", DECODER, None),
+                             ("vision 489", VISION_CTX, None),
+                             ("decoder 489", DECODER_CTX, None),
                              ("vision kv_valid", (BATCH, 512, 12, 64), 485),
                              ("cris decoder", CRIS_DECODER, None)):
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
@@ -462,19 +534,68 @@ def check_probs(label: str, probs, batch: int, img: int = IMG) -> None:
         fail(f"{label}: probabilities outside [0, 1]: [{lo}, {hi}]")
 
 
-def plain_path():
+def plain_path(f32_scores: bool = False):
     """A context in which every attention of the models takes
-    `plain_attention`: the reference the kernel paths are compared with."""
+    `plain_attention`: the reference the kernel paths are compared with. With
+    `f32_scores` it takes the kernels' plain version instead, which keeps its
+    scores in f32 as the kernels do: a second path without a kernel."""
+    import contextlib
     from unittest import mock
     from tunevlseg_torch.nn import attention
-    return mock.patch.object(attention, "_kernel_eligible", lambda *a: "")
+    from tunevlseg_torch.ops import flash_attention as fa
+    stack = contextlib.ExitStack()
+    stack.enter_context(
+        mock.patch.object(attention, "_kernel_eligible", lambda *a: ""))
+    if f32_scores:
+        stack.enter_context(mock.patch.object(attention, "plain_attention",
+                                              fa.biased_attention_ref))
+    return stack
+
+
+def kernels_on_path_inputs(fa, tag: str, run) -> None:
+    """`run()` once with K1 and K3 wrapped: each launch's output is held
+    against the kernel's plain version on the very tensors the path gave it,
+    at `KERNEL_TOL` of the largest |reference|. Says whether a difference
+    between the kernel path and the plain path is a kernel's own."""
+    import torch
+    from unittest import mock
+    from tunevlseg_torch.nn import attention
+    seen = {"K1": [0, 0.0, 0.0], "K3": [0, 0.0, 0.0]}   # calls, worst ratio, its |ref|
+
+    def held(name, kernel):
+        def call(q, k, v, *bias, kv_valid=None):
+            out = kernel(q, k, v, *bias, kv_valid=kv_valid)
+            ref = fa.biased_attention_ref(q, k, v, *bias, kv_valid=kv_valid).float()
+            top = ref.abs().max().item()
+            ratio = (out.float() - ref).abs().max().item() / top
+            entry = seen[name]
+            entry[0] += 1
+            if ratio >= entry[1]:
+                entry[1:] = [ratio, top]
+            return out
+        return call
+
+    with mock.patch.object(attention, "flash_attention",
+                           held("K1", attention.flash_attention)), \
+            mock.patch.object(attention, "biased_attention",
+                              held("K3", attention.biased_attention)), \
+            torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+    for name, (calls, ratio, top) in seen.items():
+        print(f"{tag}: {name} on the path's own inputs, {calls} launches against "
+              f"the plain version: worst max abs error {ratio:.4g} of the largest "
+              f"|reference| ({top:.4g} there; bound {KERNEL_TOL})")
+        if calls == 0 or not ratio <= KERNEL_TOL:
+            fail(f"{tag}: {name} disagrees with its plain version on the path's "
+                 "inputs, or was not launched")
 
 
 def serve_requests(fa, tag: str, predict, params, requests, img: int,
                    per_forward: tuple, reps: int = 5):
     """Warm up, then `reps` timed forwards of each (label, request, batch)
     with the launch counts set to 0 just before and read just after; checks
-    the per-forward (K1, K2, K3, K4, K4 dx) launches and the probabilities. Returns (the
+    the per-forward launches (`COUNTED`) and the probabilities. Returns (the
     first request's probabilities, the counts)."""
     import torch
     for _, req, _ in requests:          # warm-up: cuBLAS/cuDNN handles, allocator
@@ -493,7 +614,7 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
             times.append(time.perf_counter() - t)
             grew = minus(counts(fa), before)
             if grew != per_forward:
-                fail(f"{tag} {label}: one forward launched (K1, K2, K3, K4, K4 dx) = {grew}, "
+                fail(f"{tag} {label}: one forward launched {COUNTED} = {grew}, "
                      f"expected {per_forward}")
         check_probs(f"{tag} {label}", probs, batch, img)
         if first_probs is None:
@@ -506,29 +627,60 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
     launches = counts(fa)
     peak = torch.cuda.max_memory_allocated()
     forwards = len(requests) * reps
-    print(f"{tag}: (K1, K2, K3, K4, K4 dx) launches in the main path {launches} "
+    print(f"{tag}: {COUNTED} launches in the main path {launches} "
           f"({forwards} forwards x {per_forward})")
     print(f"{tag}: peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
     if launches != tuple(forwards * n for n in per_forward):
-        fail(f"{tag}: (K1, K2, K3, K4, K4 dx) launched {launches} times in the main path")
+        fail(f"{tag}: {COUNTED} launched {launches} times in the main path")
     return first_probs, launches
 
 
-def compare_with_plain_path(fa, tag: str, predict, params, request, probs):
+def compare_with_plain_path(fa, tag: str, predict, params, request, probs,
+                            what: str = "b64 dedup",
+                            tol: tuple = (PROB_MAX_TOL, PROB_MEAN_TOL)):
+    """The kernel path's probabilities against the plain path's, within
+    `tol`. A `tol` wider than the common bounds has to be earned in the same
+    run: every K1 and K3 launch of the forward agrees with its plain version
+    on the path's own inputs, and two paths WITHOUT a kernel (the plain path
+    and the one with f32 scores) differ among themselves by at least half of
+    what the kernel path differs from the plain path by. The model then
+    amplifies a rounding, whichever code made it."""
     import torch
-    with plain_path():
-        before = counts(fa)
-        plain = predict(params, request)
-        torch.cuda.synchronize()
-        if counts(fa) != before:
-            fail(f"{tag}: the plain-path reference launched a kernel")
-    diff = (probs - plain).abs()
-    dmax, dmean = diff.max().item(), diff.mean().item()
-    print(f"{tag}: kernel path vs plain path, b64 dedup probabilities: max abs "
-          f"diff {dmax:.6g} (bound {PROB_MAX_TOL}), mean {dmean:.6g} "
-          f"(bound {PROB_MEAN_TOL})")
-    if not (dmax <= PROB_MAX_TOL and dmean <= PROB_MEAN_TOL):
+
+    def reference(name: str, f32_scores: bool):
+        with plain_path(f32_scores):
+            before = counts(fa)
+            out = predict(params, request)
+            torch.cuda.synchronize()
+            if counts(fa) != before:
+                fail(f"{tag}: the {name} reference launched a kernel")
+        return out
+
+    def differ(a, b):
+        diff = (a - b).abs()
+        return diff.max().item(), diff.mean().item()
+
+    plain = reference("plain path", False)
+    dmax, dmean = differ(probs, plain)
+    print(f"{tag}: kernel path vs plain path, {what} probabilities: max abs "
+          f"diff {dmax:.6g} (bound {tol[0]}), mean {dmean:.6g} "
+          f"(bound {tol[1]})")
+    if not (dmax <= tol[0] and dmean <= tol[1]):
         fail(f"{tag}: kernel path and plain path disagree beyond the stated bounds")
+    if tol == (PROB_MAX_TOL, PROB_MEAN_TOL):
+        return
+    kernels_on_path_inputs(fa, tag, lambda: predict(params, request))
+    plain_f32 = reference("plain path with f32 scores", True)
+    kmax, kmean = differ(probs, plain_f32)
+    pmax, pmean = differ(plain, plain_f32)
+    print(f"{tag}: kernel path vs plain path with f32 scores: max abs diff "
+          f"{kmax:.6g}, mean {kmean:.6g}; the two plain paths among themselves: "
+          f"max {pmax:.6g}, mean {pmean:.6g} (at least half of the kernel path's "
+          f"{dmax:.6g} and {dmean:.6g})")
+    if not (2 * pmax >= dmax and 2 * pmean >= dmean):
+        fail(f"{tag}: the kernel path differs from the plain path by more than "
+             "twice what two kernel-free paths differ by: the wide bound is not "
+             "earned")
 
 
 def three_requests(seed: int, img: int, pad_id: int):
@@ -634,8 +786,7 @@ def make_train_batch(batch: int, text_dedup: int, seed: int, img: int = IMG,
 def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
                 per_step: tuple):
     """`warmup` untimed and `steps` timed train steps, the launch counts set
-    to 0 before the timed ones and read after; checks the per-step (K1, K2,
-    K3) launches and that every loss is finite. Returns (state, losses of all
+    to 0 before the timed ones and read after; checks the per-step launches and that every loss is finite. Returns (state, losses of all
     steps, the counts)."""
     import torch
     losses = []
@@ -655,7 +806,7 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
         losses.append(metrics["loss"])
         grew = minus(counts(fa), before)
         if grew != per_step:
-            fail(f"{label}: one step launched (K1, K2, K3, K4, K4 dx) = {grew}, expected "
+            fail(f"{label}: one step launched {COUNTED} = {grew}, expected "
                  f"{per_step}")
     launches = counts(fa)
     peak = torch.cuda.max_memory_allocated()
@@ -667,7 +818,7 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
     print(f"{label}: step time median {med * 1e3:.3f} ms over {steps} "
           f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"{1 / med:.2f} steps/s, {n / med:.1f} images/s at batch {n}")
-    print(f"{label}: (K1, K2, K3, K4, K4 dx) launches {launches} in {steps} steps; peak "
+    print(f"{label}: {COUNTED} launches {launches} in {steps} steps; peak "
           f"device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
     print(f"{label}: loss per step (warm-up first) "
           + " ".join(f"{x:.5f}" for x in losses))
@@ -959,8 +1110,9 @@ def phase_kernel_k4_backward(cf):
     if (cf.launch_count(), cf.dx_launch_count()) != (fwd + 1, dxs + 1):
         fail("K4 backward: expected one forward and one dx launch")
     ref_leaves = [t.clone().requires_grad_() for t in (x, weight, scale, offset, res)]
-    pre = plain_conv_flat(cf, spec, False, *ref_leaves)
-    want = torch.autograd.grad(pre.float(), ref_leaves, g.float() * (out > 0))
+    pre = plain_conv_flat(cf, spec, False, *ref_leaves).float()
+    cot = g.float() * (out > 0)
+    want = torch.autograd.grad(pre, ref_leaves, cot, retain_graph=True)
     valid = cf._valid_rows(spec, x.device)
     if not bool((got[0][:, ~valid] == 0).all()):
         fail("K4 backward: dx is not exactly zero on guard and ring rows")
@@ -974,7 +1126,9 @@ def phase_kernel_k4_backward(cf):
         if not errs[name] <= K4_GRAD_REL_TOL:
             fail(f"K4 backward: {name} differs by {errs[name]} of its largest "
                  f"entry {top} (bound {K4_GRAD_REL_TOL})")
-    del pre, want, ref_leaves
+    plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        pre, ref_leaves, cot, retain_graph=True), 3, warmup=1)
+    del pre, want, ref_leaves, cot
     ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10)
     # with x alone wanting a gradient the backward is the mask, the scale and
     # one K4 launch (what it computes is fixed when the forward runs)
@@ -994,11 +1148,13 @@ def phase_kernel_k4_backward(cf):
     print(f"kernel K4 backward b{b} {hw}^2 {c}->{cout} k{k} affine + residual + "
           "ReLU: " + ", ".join(f"{n} {errs[n]:.3g}" for n in names)
           + f" of the largest entry (bound {K4_GRAD_REL_TOL}), dx exactly 0 on "
-          f"guard and ring rows; all five gradients {ms:.4f} ms, dx alone (mask, "
+          f"guard and ring rows; all five gradients {ms:.4f} ms, autograd through "
+          f"the plain version {plain_ms:.4f} ms, dx alone (mask, "
           f"scale, one K4 launch) {dx_ms:.4f} ms, F.conv2d backward (dgrad + "
           f"wgrad, no epilogue) {lib_ms:.4f} ms; the dx convolution's bound "
           f"{bound_ms:.4f} ms by {bound_by}")
-    return {"backward_ms": ms, "dx_ms": dx_ms, "library_backward_ms": lib_ms,
+    return {"backward_ms": ms, "plain_backward_ms": plain_ms, "dx_ms": dx_ms,
+            "library_backward_ms": lib_ms,
             "max_rel_err": max(errs.values())}
 
 
@@ -1235,6 +1391,166 @@ def phase_train_cris_e2e(fa, profile: bool):
     return launches_a, launches_b
 
 
+# --- S1-S4, the variants of K1 that the attention sweeps time ----------------
+
+def phase_kernels_variants(sweeps, library):
+    """The sweeps' entry points, one pass per sweep: every variant against
+    its plain version on q, k, v apart and standard normal (`check_variants`:
+    a mismatch ends the run), then, with the variants' launch counts set to 0
+    before and read after, timed on the sweep's own inputs at the least number
+    of launches the script takes (`time_variants`). The v2 sweep runs at its
+    own shape (512 with the keys from 485 on masked) and at the vision shape.
+    Returns ({"S1".."S4": {tag @ shape: numbers}}, {"S1".."S4": launches})."""
+    from tunevlseg_torch.ops import flash_attention_variants as fav
+    results = {"S1": {}, "S2": {}, "S3": {}, "S4": {}}
+    launches = dict.fromkeys(results, 0)
+    b, h, d = BATCH, 12, 64
+    for sweep, owners, label, at in (
+            ("hg", ("S1",), "vision", None),
+            ("v2", ("S2", "S3"), "vision kv_valid", None),
+            ("v2", ("S2", "S3"), "vision", (485, None)),
+            ("grid", ("S4",), "vision", None)):
+        s, kv = at or sweeps.SWEEPS[sweep][1:3]
+        checked = sweeps.check_variants(sweep, b, h, at)
+        fav.reset_launch_count()
+        rows = sweeps.time_variants(sweep, checked, 20, b, h, at=at)
+        grew = (fav.launch_count("variant"), fav.launch_count("ones_column"))
+        for owner, n in zip(owners, grew):
+            launches[owner] += n
+        if grew[len(owners):] not in ((), (0,)):
+            fail(f"sweep {sweep}: launched S3 {grew[1]} times, it has no S3 row")
+        print(f"sweep {sweep} @ {label}: launches while timing "
+              + ", ".join(f"{o} {n}" for o, n in zip(owners, grew)))
+        for row in rows:
+            if row["max_abs_err"] is None:      # K1's row and the yardstick's
+                continue
+            tag, kw = row["tag"], row["kw"]
+            owner = owners[-1 if "S3" in tag else 0]
+            # the two products alone take no mask: they run over every key
+            t_valid = s if kw.get("gemm_only") else (kv or s)
+            bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t_valid)
+            ms = row["ms"]
+            print(f"kernel {owner} {tag} {label} q{(b, s, h, d)} kv_valid {kv}: "
+                  f"max_abs_err {row['max_abs_err']:.6g} (bound {KERNEL_TOL} of "
+                  f"the largest |reference| {row['ref_max']:.4g}), kernel "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({100 * bound_ms / ms:.1f}% reached)")
+            results[owner][f"{tag} @ {label}"] = {
+                "max_abs_err": row["max_abs_err"], "ms": ms,
+                "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library[label][0]}
+    return results, launches
+
+
+# --- Slice B: the five strategies beyond CoOp --------------------------------
+
+def strategy_paths(fa, family: str, strategy: str, profile: bool, *,
+                   dedup: bool, serve: tuple, step: tuple, all_requests: bool,
+                   warmup: int, steps: int, img: int = IMG, pad_id: int = 49407,
+                   seed: int = 30, prob_tol: tuple = (PROB_MAX_TOL, PROB_MEAN_TOL)):
+    """One model of `strategy`, served and trained. Serving: the three
+    requests (or the b64 one alone) through `task_predict_fn`, the launches
+    per forward, kernel path against plain path. Training: `warmup` + `steps`
+    b64 steps with the launches per step; every trainable leaf that got a
+    gradient moves, every frozen tensor and buffer stays bit-identical and
+    without a gradient; the first step against the plain path. Returns (the
+    serving counts, the training counts)."""
+    import torch
+
+    from tunevlseg_torch.serving import task_predict_fn
+
+    tag = f"{'cris ' if family.startswith('CRIS') else ''}{strategy}"
+    task, state = build_task(family, strategy, 2e-4)
+    model = task.model
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    requests = three_requests(seed, img, pad_id)
+    if not dedup:
+        requests = requests[1:]
+    if not all_requests:
+        requests = requests[:1]
+    what = "b64 dedup" if dedup else "b64 dense"
+    probs, serve_launches = serve_requests(
+        fa, f"serve {tag}", predict, params, requests, img, serve,
+        reps=5 if all_requests else 2)
+    compare_with_plain_path(fa, f"serve {tag}", predict, params, requests[0][1],
+                            probs, what, prob_tol)
+    if profile:
+        for label, req, _ in requests[::max(1, len(requests) - 1)]:
+            profile_calls(f"serve {tag} {label}", lambda: predict(params, req))
+    del probs
+
+    batch = make_train_batch(BATCH, text_dedup=int(dedup), seed=seed + 1, img=img,
+                             pad_id=pad_id)
+    if (batch["input_ids"].shape[0] == 1) != dedup:
+        fail(f"train {tag}: collate gave {batch['input_ids'].shape[0]} prompt rows")
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    if not all(n.startswith(("learner.", "additive_", "residual_ratio"))
+               for n in trainable):
+        fail(f"train {tag}: trainable leaves {trainable}")
+    state, _, train_launches = timed_steps(fa, task, state, batch, f"train {tag}",
+                                           warmup=warmup, steps=steps,
+                                           per_step=step)
+    now = model.state_dict()
+    named = dict(model.named_parameters())
+    unread = [n for n in trainable if named[n].grad is None]
+    if unread not in ([], ["residual_ratio"]):
+        fail(f"train {tag}: trainable leaves without a gradient: {unread}")
+    for name in trainable:
+        if name not in unread and torch.equal(now[name], start[name]):
+            # q and k of the Shared-Attention projector attend over one key:
+            # their gradient is exactly zero, and without weight decay so is
+            # their update
+            if ".self_attn.q_proj." in name or ".self_attn.k_proj." in name:
+                if bool(named[name].grad.any()):
+                    fail(f"train {tag}: {name} has a gradient and did not move")
+                continue
+            fail(f"train {tag}: trainable leaf {name} did not change")
+    for name, value in now.items():
+        if name not in trainable:
+            if not torch.equal(value, start[name]):
+                fail(f"train {tag}: frozen tensor or buffer {name} changed")
+            if name in named and named[name].grad is not None:
+                fail(f"train {tag}: frozen tensor {name} got a gradient")
+    print(f"train {tag}: {len(trainable) - len(unread)} trainable leaves moved "
+          f"(learner{', additive head' if any(n.startswith('additive') for n in trainable) else ''}; "
+          f"never read: {unread or 'none'}); {len(now) - len(trainable)} frozen "
+          "tensors and buffers bit-identical, none with a gradient")
+    leaves = ["learner.context_vectors"]
+    leaves += [n for n in trainable if n.endswith(("proj_0.out.weight",
+                                                   "proj_0.linear2.weight"))][:1]
+    first_step_kernel_vs_plain(fa, f"train {tag}", task, start, batch,
+                               tuple(leaves))
+    if profile:
+        profile_step(tag, task, task.init(), batch)
+    return serve_launches, train_launches
+
+
+def phase_slice_b(fa, profile: bool) -> dict:
+    """MaPLe at depth (three requests, 2 + 5 steps), then VPT, the two shared
+    strategies and CoCoOp on CLIPSeg and CoCoOp on CRIS (one b64 request and
+    a few steps each). Returns {path: counts}."""
+    by_path = {}
+    by_path["serve_maple"], by_path["train_maple"] = strategy_paths(
+        fa, "CLIPSeg rd64", "maple", profile, dedup=True, serve=CLIPSEG_SERVE,
+        step=CLIPSEG_VISUAL_STEP, all_requests=True, warmup=2, steps=5)
+    for strategy in ("vpt", "shared_separate", "shared_attn"):
+        by_path[f"serve_{strategy}"], by_path[f"train_{strategy}"] = strategy_paths(
+            fa, "CLIPSeg rd64", strategy, False, dedup=True, serve=CLIPSEG_SERVE,
+            step=CLIPSEG_VISUAL_STEP, all_requests=False, warmup=1, steps=2)
+    by_path["serve_cocoop"], by_path["train_cocoop"] = strategy_paths(
+        fa, "CLIPSeg rd64", "cocoop", profile, dedup=False,
+        serve=CLIPSEG_COCOOP_SERVE, step=CLIPSEG_COCOOP_STEP,
+        all_requests=False, warmup=1, steps=2)
+    by_path["serve_cris_cocoop"], by_path["train_cris_cocoop"] = strategy_paths(
+        fa, "CRIS RN50", "cocoop", False, dedup=False, serve=CRIS_SERVE,
+        step=CRIS_COOP_STEP, all_requests=False, warmup=0, steps=1,
+        img=CRIS_IMG, pad_id=0, seed=40, prob_tol=COCOOP_CRIS_PROB_TOL)
+    return by_path
+
+
 def profile_calls(label: str, fn, n: int = 3, wall: float = None):
     """Device-busy time of `n` calls of `fn` (the sum of kernel durations
     under torch.profiler) against the wall time of a call without the
@@ -1320,6 +1636,7 @@ def main() -> None:
     from tunevlseg_torch.ops import flash_attention as fa
 
     profile = "--profile" in sys.argv[1:]
+    t_start = time.perf_counter()
     name, count = phase_device()
     phase_build()
     k1 = phase_kernels(fa)
@@ -1337,6 +1654,9 @@ def main() -> None:
                "train_cris_flat_coop": phase_train_cris_flat(fa)}
     by_path["train_cris_e2e"], by_path["train_cris_e2e_flat"] = \
         phase_train_cris_e2e(fa, profile)
+    by_path.update(phase_slice_b(fa, profile))
+    sweeps = load_sweeps()
+    variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
     for label, (fwd_ms, bwd_ms) in library.items():
         k1[label]["library_ms"], k2[label]["library_ms"] = fwd_ms, bwd_ms
@@ -1378,12 +1698,38 @@ def main() -> None:
     ]
     kernels[3]["dx_launches_by_path"] = {p: c[4] for p, c in by_path.items()}
     kernels[3]["backward"] = k4_backward
+    # S1-S4 are on no model's path: their main path is the sweeps' entry
+    # point, and their launches are those it made while timing. Their counts
+    # were read beside the other kernels' on every model path
+    # (`launches_by_path`) and must be 0 there. The numbers are those of the
+    # variant named in `main` at the vision shape.
+    source = "tunevlseg_torch/csrc/flash_attn_fwd_variants.cu"
+    for key, index, title, replaces, main in (
+            ("S1", 5, "S1 attn_variant: hg heads per block", "scripts/micro_attn.py:60",
+             "hg2 @ vision"),
+            ("S2", 5, "S2 attn_variant: exp2 / no max pass / products alone / hg / "
+             "block order", "scripts/micro_attn_v2.py:45", "ours (hg3) @ vision"),
+            ("S3", 6, "S3 attn_ones_column: folded scale, mask row, denominator out "
+             "of the P V product", "scripts/micro_attn_v2.py:113",
+             "opt (S3) @ vision"),
+            ("S4", 5, "S4 attn_variant: bg batch rows x hg heads per block, block "
+             "order", "scripts/micro_attn_grid.py:29", "bg1 hg3 query @ vision")):
+        numbers = variants[key]
+        if sweep_launches[key] <= 0:
+            fail(f"{title} was never launched by its sweep")
+        kernels.append({
+            "name": title, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sweep_launches[key],
+            "launches_by_path": {p: c[index] for p, c in by_path.items()},
+            **numbers[main],
+            "max_abs_err": max(r["max_abs_err"] for r in numbers.values()),
+            "main": main, "by_shape": numbers})
     # K1 and K3 run on every path, K2 on those that take a gradient, K4 on the
     # flat paths, and as dx where the backbone trains
     training = tuple(p for p in by_path if p.startswith("train"))
     flat = tuple(p for p in by_path if "flat" in p)
-    for kernel, paths in zip(kernels, (tuple(by_path), training, tuple(by_path),
-                                       flat)):
+    for kernel, paths in zip(kernels[:4], (tuple(by_path), training,
+                                           tuple(by_path), flat)):
         for path in paths:
             if kernel["launches_by_path"][path] <= 0:
                 fail(f"{kernel['name']} was never launched on the {path} path")
@@ -1394,6 +1740,11 @@ def main() -> None:
             fail(f"{path} launched K4; it does not run the flat layout")
         if (c[4] > 0) != (path == "train_cris_e2e_flat"):
             fail(f"{path}: {c[4]} K4 dx launches")
+        if c[5] or c[6]:
+            fail(f"{path} launched a variant of K1 (S1/S2/S4 {c[5]}, S3 {c[6]}): "
+                 "they are the sweeps' alone")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here, "
+          "the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -175,25 +175,33 @@ def test_context_vectors_init_overwrites_leading_depths():
 
 
 def test_unported_paths_raise():
+    """What the port still does not take: an unknown strategy or additive
+    mode, the refined head, and prompt dedup under an image-conditioned
+    learner (CoCoOp), which the JAX package refuses too. The strategies and
+    additive modes that used to raise here now build."""
     cfg = tconfig.CLIPSegConfig.tiny()
     for mode in ("plain", "residual"):
-        with pytest.raises(NotImplementedError, match="Slice B"):
-            CLIPSegForSegmentation(cfg, additive_mode=mode)
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        tpresets.build_clipseg("vpt", config=cfg, device="cpu")
+        assert hasattr(CLIPSegForSegmentation(cfg, additive_mode=mode),
+                       "additive_head")
+    with pytest.raises(ValueError, match="additive_mode"):
+        CLIPSegForSegmentation(cfg, additive_mode="blend")
+    with pytest.raises(ValueError, match="unknown strategy"):
+        tpresets.build_clipseg("lora", config=cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="refined head"):
+        CLIPSegForSegmentation(
+            tconfig.CLIPSegConfig.tiny(complex_transposed_convolution=True))
+    tpresets.build_clipseg("vpt", config=cfg, device="cpu")
 
-    class ImageConditioned(CoOpLearner):
-        needs_image_features = True
-
-    model, _ = tpresets.build_clipseg("coop", prompt_depth=2, config=cfg,
+    model, _ = tpresets.build_clipseg("cocoop", prompt_depth=2, config=cfg,
                                       device="cpu")
-    model.learner = ImageConditioned(prompt_depth=2, context_dim=16)
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     args = (batch["input_ids"], batch["image"].float(), batch["attention_mask"])
     with pytest.raises(ValueError, match="image-conditioned"):
         model(*args, text_index=batch["text_index"])
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        model(batch["input_ids"][batch["text_index"].long()], *args[1:])
+    idx = batch["text_index"].long()
+    with torch.no_grad():
+        out = model(batch["input_ids"][idx], args[1], args[2][idx])
+    assert out.shape == (4, 1, 64, 64) and bool(out.isfinite().all())
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host without CUDA")
@@ -211,10 +219,11 @@ def test_port_config_is_its_own_copy_of_the_jax_one():
 
 
 def test_port_runs_without_jax():
-    """Every module of the port and chip_smoke import, and a tiny eval and a
-    tiny train step of CLIPSeg and of CRIS run, with jax/flax/optax
-    unimportable; afterwards no module of the JAX package has been loaded
-    either."""
+    """Every module of the port, chip_smoke and every scripts/torch_*.py
+    import, and a tiny eval and a tiny train step of CLIPSeg (CoOp and the
+    five other strategies) and of CRIS (CoOp, CoCoOp, flat, e2e) run, with
+    jax/flax/optax unimportable; afterwards no module of the JAX package has
+    been loaded either."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -225,6 +234,14 @@ def test_port_runs_without_jax():
                                          "tunevlseg_torch."):
             importlib.import_module(mod.name)
         import chip_smoke  # noqa: F401
+        import glob, importlib.util, os
+        scripts = sorted(glob.glob(os.path.join("scripts", "torch_*.py")))
+        assert "scripts/torch_micro_attn.py" in scripts and len(scripts) >= 4
+        for path in scripts:
+            spec = importlib.util.spec_from_file_location(
+                os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert "tunevlseg_torch.ops.flash_attention_variants" in sys.modules
         from tunevlseg_torch.models.clip.config import CLIPSegConfig
         from tunevlseg_torch.models.presets import build_clipseg
         from tunevlseg_torch.ops.metrics import SegMetricState
@@ -245,6 +262,24 @@ def test_port_runs_without_jax():
         train_state, metrics = task.train_step(task.init(), batch)
         assert train_state.step == 1 and bool(metrics["loss"].isfinite())
         assert not torch.equal(model.learner.context_vectors, before)
+
+        dense = dict(batch, input_ids=ids.expand(2, -1))
+        del dense["text_index"]
+        for strategy in ("cocoop", "vpt", "maple", "shared_separate",
+                         "shared_attn"):
+            over = (dict(proj_num_heads=2, proj_dim_feedforward=16)
+                    if strategy == "shared_attn" else None)
+            m, sp = build_clipseg(strategy, prompt_depth=3, num_context=4,
+                                  config=CLIPSegConfig.tiny(), device="cpu",
+                                  learner_overrides=over)
+            t = SegmentationTask(m, sp)
+            b = dense if strategy == "cocoop" else batch
+            p = t.predict_step(b)
+            assert p.shape == (2, 1, 32, 32) and bool(p.isfinite().all())
+            before = m.learner.context_vectors.detach().clone()
+            st, mt = t.train_step(t.init(), b)
+            assert st.step == 1 and bool(mt["loss"].isfinite()), strategy
+            assert not torch.equal(m.learner.context_vectors, before), strategy
 
         from tunevlseg_torch.models.cris.model import CRISConfig
         from tunevlseg_torch.models.presets import build_cris
@@ -270,6 +305,12 @@ def test_port_runs_without_jax():
         assert train_state.step == 1 and bool(cmetrics["loss"].isfinite())
         assert not torch.equal(cris.learner.context_vectors, before)
         assert torch.equal(cris.visual.bn1.running_var, stats)
+        cocoop, ccspec = build_cris("cocoop", prompt_depth=2, num_context=4,
+                                    config=CRISConfig.tiny(img_size=32),
+                                    device="cpu")
+        cctask = SegmentationTask(cocoop, ccspec)
+        ccstate, ccmetrics = cctask.train_step(cctask.init(), dense)
+        assert ccstate.step == 1 and bool(ccmetrics["loss"].isfinite())
 
         # the flat backbone serves from the same weights, and the e2e model's
         # full fine-tune on it takes a step that moves the running statistics

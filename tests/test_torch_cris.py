@@ -706,8 +706,11 @@ def test_dropout_masks_are_a_function_of_seed_and_step():
 
 def test_what_waits_for_a_later_slice_raises():
     cfg = tmodel.CRISConfig.tiny()
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        tpresets.build_cris("cocoop", config=cfg, device="cpu")
+    # CoCoOp builds; its text stack is per image, so prompt dedup raises
+    cocoop, _ = tpresets.build_cris("cocoop", config=cfg, device="cpu")
+    dedup = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    with pytest.raises(ValueError, match="image-conditioned"):
+        TTask(cocoop).predict_step(dedup)
     with pytest.raises(ValueError, match="coop/cocoop"):
         tpresets.build_cris("vpt", config=cfg, device="cpu")
     with pytest.raises(ValueError, match="TPU layout experiment"):

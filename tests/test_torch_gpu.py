@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3 and K4 and the port's serving and training paths on a
-CUDA GPU. These tests need the card (a CUDA kernel has no CPU mode) and skip
+"""Kernels K1, K2, K3 and K4, the sweeps' variants S1-S4, and the port's
+serving and training paths on a CUDA GPU. These tests need the card (a CUDA kernel has no CPU mode) and skip
 elsewhere; they import no JAX.
 On the card:
 
@@ -15,6 +15,7 @@ from tunevlseg_torch.nn import attention
 from tunevlseg_torch.ops import build
 from tunevlseg_torch.ops import conv_flat as cf
 from tunevlseg_torch.ops import flash_attention as fa
+from tunevlseg_torch.ops import flash_attention_variants as fav
 
 pytestmark = pytest.mark.gpu
 
@@ -558,10 +559,165 @@ def test_a_build_failure_raises(cuda, monkeypatch, tmp_path):
     fallback to the plain version."""
     bad = tmp_path / "conv_flat.cu"
     bad.write_text("this is not CUDA C++\n")
-    monkeypatch.setattr(build, "_libs", None)
+    monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(cf, "_lib", None)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setitem(build.SOURCES, "conv", bad)
     spec, x, wt, scale, offset, _ = _flat_case(cuda, 1, 8, 8, 16, 16, 3, mb=64)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cf.conv_flat(x, spec, wt, scale, offset)
+
+
+# --- S1-S4, the variants of K1 -----------------------------------------------
+
+VARIANT_SWITCHES = [
+    dict(), dict(use_exp2=True), dict(skip_max=True),
+    dict(use_exp2=True, skip_max=True), dict(gemm_only=True),
+    dict(hg=2), dict(hg=6), dict(bg=2, hg=3, block_order="head"),
+    dict(bg=4, hg=1), dict(hg=3, block_order="head", use_exp2=True),
+]
+
+
+@pytest.mark.parametrize("shape,t,kv_valid", [
+    ((4, 70, 6, 64), 130, 99),         # ragged tails, S != T, masked keys
+    ((4, 128, 6, 64), 128, None),      # whole tiles
+])
+@pytest.mark.parametrize("kw", VARIANT_SWITCHES,
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items())
+                         or "default")
+def test_variants_match_plain_version(cuda, shape, t, kv_valid, kw):
+    """S1, S2, S4: every switch against its plain version; bf16 outputs, a
+    few ulp at |o| ~ 1, scaled by the largest |reference| without a softmax."""
+    q, k, v = _qkv(cuda, *shape, t=t)
+    before = fav.launch_count("variant")
+    out = fav.attention_variant(q, k, v, kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert fav.launch_count("variant") == before + 1
+    ref = fav.attention_variant_ref(q, k, v, kv_valid, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    bound = KERNEL_TOL * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= bound
+    if not kw.get("gemm_only"):
+        # the blocking and the block order change no value: K1's function
+        k1 = fa.flash_attention(q, k, v, kv_valid=kv_valid)
+        assert (out.float() - k1.float()).abs().max().item() <= KERNEL_TOL
+
+
+@pytest.mark.parametrize("shape,t,kv_valid", [
+    ((4, 70, 6, 64), 130, 99), ((4, 70, 6, 64), 130, None),
+    ((4, 128, 6, 64), 128, None),      # nothing to mask: no mask row at all
+])
+@pytest.mark.parametrize("kw", [dict(), dict(skip_max=True),
+                                dict(hg=3, bg=2, block_order="head")],
+                         ids=["default", "skip_max", "blocked"])
+def test_ones_column_matches_plain_version(cuda, shape, t, kv_valid, kw):
+    """S3 against its plain version, and within 2e-2 of K1: its denominator
+    is the sum of the bf16-rounded p (about 2^-9 relative) and its scale is
+    folded into q in bf16."""
+    q, k, v = _qkv(cuda, *shape, t=t)
+    before = fav.launch_count("ones_column")
+    out = fav.attention_ones_column(q, k, v, kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert fav.launch_count("ones_column") == before + 1
+    ref = fav.attention_ones_column_ref(q, k, v, kv_valid, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= KERNEL_TOL
+    k1 = fa.flash_attention(q, k, v, kv_valid=kv_valid)
+    assert (out.float() - k1.float()).abs().max().item() <= KERNEL_TOL
+    assert (fav.mask_row(t, kv_valid or t, cuda) is None) == (t == 128)
+
+
+def test_variants_raise_on_what_they_do_not_take(cuda):
+    q, k, v = _qkv(cuda, 4, 64, 6, 64)
+    for fn in (fav.attention_variant, fav.attention_ones_column):
+        with pytest.raises(ValueError, match="hg=4"):
+            fn(q, k, v, hg=4)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fn(q.float(), k.float(), v.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+        with pytest.raises(ValueError, match="kv_valid"):
+            fn(q, k, v, 0)
+    q32, k32, v32 = _qkv(cuda, 4, 64, 6, 32)
+    with pytest.raises(ValueError, match="head dim 64"):
+        fav.attention_variant(q32, k32, v32)
+
+
+def test_models_never_launch_a_variant(cuda):
+    """The gate sends the models' attention to K1 / K3; S1-S4 are the
+    sweeps' alone."""
+    task, batch = _narrow_model(cuda, "maple")
+    before = (fav.launch_count("variant"), fav.launch_count("ones_column"))
+    task.train_step(task.init(), batch)
+    torch.cuda.synchronize()
+    assert (fav.launch_count("variant"), fav.launch_count("ones_column")) == before
+
+
+# --- the strategies with visual contexts -------------------------------------
+
+@pytest.mark.parametrize("strategy", ["vpt", "maple", "shared_separate",
+                                      "shared_attn", "cocoop"])
+def test_small_strategy_step_kernel_path_matches_plain_path(cuda, strategy):
+    """One step of the narrow model (256^2: 257 tokens, 261 with the four
+    visual contexts). Visual contexts send the gradient back through the
+    frozen vision tower: 7 K1 and 7 K2 launches, none of the tower's
+    parameters gets a gradient or moves. CoCoOp keeps the tower forward-only
+    (7 K1, 3 K2) and runs the text tower on 4 rows. Loss and gradients
+    against the all-plain path as in the CoOp test: loss 2e-2, each leaf
+    within 10% of its largest entry or of 1e-2 of the largest entry overall
+    (the Shared-Attention projector's q / k gradients are exact zeros on
+    both paths); 20% under CoCoOp, whose meta-net also READS what differs
+    between the paths (the pooled image features), so its weight gradients
+    differ in both factors (measured 16% at these narrow widths, and 15%
+    between two paths without a kernel: the test holds the kernel path to
+    at most twice the latter)."""
+    from unittest import mock
+
+    task, batch = _narrow_model(cuda, strategy)
+    if strategy == "cocoop":
+        batch = dict(batch, input_ids=batch["input_ids"].expand(4, -1).contiguous(),
+                     attention_mask=batch["attention_mask"].expand(4, -1).contiguous())
+        del batch["text_index"]
+    start = {k: v.detach().clone() for k, v in task.model.state_dict().items()}
+
+    def step():
+        task.model.load_state_dict(start)
+        _, metrics = task.train_step(task.init(), batch)
+        return metrics["loss"].item(), {
+            n: p.grad.float().clone() for n, p in task.model.named_parameters()
+            if p.grad is not None}
+
+    k1, k2 = fa.launch_count(), fa.bwd_launch_count()
+    loss_k, grads_k = step()
+    want_k2 = 3 if strategy == "cocoop" else 7
+    assert (fa.launch_count() - k1, fa.bwd_launch_count() - k2) == (7, want_k2)
+    for name, p in task.model.named_parameters():
+        if not p.requires_grad:
+            assert p.grad is None and torch.equal(p, start[name]), name
+    def plain_step(plain):
+        with mock.patch.object(attention, "_kernel_eligible", lambda *a: ""), \
+                mock.patch.object(attention, "plain_attention", plain):
+            return step()
+
+    def worst_difference(grads, grads_p):
+        assert set(grads) == set(grads_p) and "learner.context_vectors" in grads
+        overall = max(g.abs().max().item() for g in grads_p.values())
+        return max(
+            (grads[name] - want).abs().max().item()
+            / max(want.abs().max().item(), 1e-2 * overall)
+            for name, want in grads_p.items() if not name.endswith("k_proj.bias"))
+
+    loss_p, grads_p = plain_step(attention.plain_attention)
+    assert abs(loss_k - loss_p) <= 2e-2
+    worst = worst_difference(grads_k, grads_p)
+    print(f"{strategy}: kernel path vs plain path, worst gradient difference "
+          f"{worst:.4f} of the leaf's scale")
+    assert worst <= (0.2 if strategy == "cocoop" else 0.1)
+    if strategy == "cocoop":
+        # the wide bound is earned in the same run: two paths without a
+        # kernel (the plain path, and the kernels' plain version with f32
+        # scores) differ among themselves by at least half as much
+        _, grads_f = plain_step(fa.biased_attention_ref)
+        among = worst_difference(grads_f, grads_p)
+        print(f"cocoop: the two plain paths among themselves {among:.4f}")
+        assert 2 * among >= worst

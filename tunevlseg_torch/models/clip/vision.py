@@ -7,14 +7,19 @@ Counterpart of `tunevlseg_tpu/models/clip/vision.py:CLIPVisionTower`
     `patch_proj` (C*p*p, D), equivalent to the stride-p Conv2d;
   * the CLS token, and position embeddings bicubic-resized from the
     pretraining grid to the input grid (HF `interpolate_pos_encoding`);
-  * the early exit after max(extract_layers).
+  * the early exit after max(extract_layers);
+  * visual prompt contexts (VPT, MaPLe, the shared learners): `visual_ctx[0]`
+    appended after the embeddings and BEFORE `pre_layernorm`, and the
+    trailing `num_ctx` slots overwritten with `visual_ctx[i]` after layer i
+    (1-based) while i < prompt_depth. Every hidden state handed out includes
+    the context tokens.
 
 The JAX package creates parameters only for the layers it runs, so with an
 early exit the tower holds layers 0..max(extract_layers) and no
-`post_layernorm`; this tower is built with the same set. The TPU sequence
-padding (485 -> 512 tokens) is not ported; `kv_valid` still reaches the
-attention kernel through `MultiHeadAttention`. Visual prompt contexts (VPT,
-MaPLe, shared learners) come with ROADMAP Slice B.
+`post_layernorm`; this tower is built with the same set. Without the early
+exit (CoCoOp reads the pooled output) it holds all the layers and
+`post_layernorm`. The TPU sequence padding (485 -> 512 tokens) is not ported;
+`kv_valid` still reaches the attention kernel through `MultiHeadAttention`.
 """
 from __future__ import annotations
 
@@ -84,16 +89,28 @@ class CLIPVisionTower(nn.Module):
             pos = torch.cat([pos[:1], patch_pos], dim=0)
         return embeds + pos[None].to(self.dtype)
 
-    def forward(self, pixel_values: torch.Tensor):
-        """Returns (hidden_states, last_hidden_state, pooled_output).
+    def forward(self, pixel_values: torch.Tensor,
+                visual_ctx: Optional[torch.Tensor] = None,
+                prompt_depth: int = 0):
+        """pixel_values (B, C, H, W); visual_ctx (depth, n, D) or None.
+        Returns (hidden_states, last_hidden_state, pooled_output).
 
         `hidden_states[i]` is the input of layer i (index 0 is the embedding
         output), matching HF `output_hidden_states=True`. With the early exit
         (last, pooled) are None."""
-        x = self.pre_layernorm(self.embed_patches(pixel_values))
+        x = self.embed_patches(pixel_values)
+        num_ctx = 0
+        if visual_ctx is not None:
+            num_ctx = visual_ctx.shape[-2]
+            ctx0 = visual_ctx[0].to(x.dtype).expand(x.shape[0], -1, -1)
+            x = torch.cat([x, ctx0], dim=1)
+        x = self.pre_layernorm(x)
         hidden_states = [x]
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers, start=1):
             x = layer(x)
+            if visual_ctx is not None and i < prompt_depth:
+                ctx_i = visual_ctx[i].to(x.dtype).expand(x.shape[0], -1, -1)
+                x = torch.cat([x[:, :x.shape[1] - num_ctx], ctx_i], dim=1)
             hidden_states.append(x)
         if self.early_exit:
             return hidden_states, None, None

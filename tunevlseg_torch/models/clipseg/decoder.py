@@ -4,11 +4,13 @@ Counterpart of `tunevlseg_tpu/models/clipseg/decoder.py:CLIPSegDecoder`:
 reversed extract-layer activations, each reduced to reduce_dim and summed;
 FiLM conditioning (film_mul(cond) * x + film_add(cond)) at
 `conditional_layer`; post-norm ReLU blocks; the CLS token (and trailing
-visual prompt tokens) stripped; the transposed-convolution head. The three
-blocks run self-attention at 485 tokens (4 heads x 16 dims at rd64), which
-goes through kernel K1 on the card. The refined head (3x3 conv + two
-transposed convs) and the additive `use_new_last_layer` head are not ported
-yet (the rd64 CoOp path uses neither).
+visual prompt tokens) stripped AFTER the blocks; the transposed-convolution
+head. The three blocks run self-attention at 485 tokens, or 485 + num_ctx
+with visual prompts (4 heads x 16 dims at rd64), which goes through kernel K1
+on the card. `AdditiveHead` is the `use_new_last_layer` head over the
+pre-head feature: a bilinear upsample by the patch size and a k5 convolution
+with replicate padding. The refined head (3x3 conv + two transposed convs)
+is not ported yet (no rd64 path uses it).
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import torch
 from torch import nn
 
 from tunevlseg_torch.models.clip.config import CLIPSegConfig
-from tunevlseg_torch.nn.conv import ConvTranspose2d
+from tunevlseg_torch.nn.conv import Conv2d, ConvTranspose2d
 from tunevlseg_torch.nn.layers import Dense, PostNormEncoderLayer
+from tunevlseg_torch.ops.image import resize_2d
 
 
 class CLIPSegDecoder(nn.Module):
@@ -65,3 +68,27 @@ class CLIPSegDecoder(nn.Module):
         feat = output.reshape(b, ch, size, size)
         logits = self.head_up(feat)[:, 0]
         return logits, feat
+
+
+class AdditiveHead(nn.Module):
+    """Upsample(patch, bilinear) + Conv2d(k, same, replicate) over the
+    pre-head decoder feature (B, C, s, s) -> (B, s*patch, s*patch). The
+    resize emits the replicate-padded map inside its own two products
+    (`resize_2d(out_pad=...)`, bitwise the same values) and the convolution
+    runs without padding."""
+
+    def __init__(self, config: CLIPSegConfig, kernel_size: int = 5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError("the additive head takes an odd kernel size")
+        self.scale = config.vision.patch_size
+        self.pad = (kernel_size - 1) // 2
+        self.conv = Conv2d(config.reduce_dim, 1, kernel_size, padding=0,
+                           dtype=dtype)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        h, w = feat.shape[-2:]
+        x = resize_2d(feat, (h * self.scale, w * self.scale), "bilinear",
+                      out_pad=self.pad)
+        return self.conv(x)[:, 0]

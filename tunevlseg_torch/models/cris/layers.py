@@ -24,22 +24,8 @@ from tunevlseg_torch.models.cris.resnet import (BatchNorm1d, BatchNorm2d,
                                                 avg_pool_nchw)
 from tunevlseg_torch.nn.attention import dot_product_attention
 from tunevlseg_torch.nn.conv import Conv2d
-from tunevlseg_torch.nn.layers import Dense, LayerNorm
+from tunevlseg_torch.nn.layers import Dense, LayerNorm, dropout
 from tunevlseg_torch.ops.image import upsample_scale
-
-
-def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with the mask drawn from `generator` (which lives on
-    x's device): kept entries are x / (1 - rate), the rest 0."""
-    if deterministic or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout needs an explicit torch.Generator")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
 
 
 class ConvBnRelu(nn.Module):

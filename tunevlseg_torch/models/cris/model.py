@@ -1,4 +1,4 @@
-"""CRIS referring-segmentation model with CoOp prompt support.
+"""CRIS referring-segmentation model with CoOp / CoCoOp prompt support.
 
 Counterpart of `tunevlseg_tpu/models/cris/model.py`:
 
@@ -199,13 +199,11 @@ class CRISForSegmentation(nn.Module):
         learner = self.learner
         num_ctx = learner.num_context if learner is not None else 0
         prompt_depth = learner.prompt_depth if learner is not None else 0
-        if learner is not None and learner.needs_image_features:
-            if text_index is not None:
-                raise ValueError(
-                    "text_index (prompt dedup) is incompatible with image-"
-                    "conditioned prompt learners (CoCoOp)")
-            raise NotImplementedError(
-                f"{type(learner).__name__} comes with ROADMAP Slice B")
+        need_pooled = learner is not None and learner.needs_image_features
+        if need_pooled and text_index is not None:
+            raise ValueError(
+                "text_index (prompt dedup) is incompatible with image-"
+                "conditioned prompt learners (CoCoOp)")
         # batch statistics while training, running statistics in eval (torch's
         # train() / eval()); a frozen model always uses the running ones
         bn_ura = (not self.bn_train) or deterministic
@@ -225,8 +223,14 @@ class CRISForSegmentation(nn.Module):
             pad = extend_text_mask(pad, num_ctx, c.context_length, 0)
         pad_mask = pad.bool()
 
+        # vision first: CoCoOp's meta-net reads the pooled last feature
         vis = self.visual(pixel_values)
-        text_ctx = learner().text if learner is not None else None
+        text_ctx = None
+        if learner is not None:
+            image_features = vis[-1].mean(dim=(2, 3)) if need_pooled else None
+            text_ctx = learner(image_features=image_features,
+                               deterministic=deterministic,
+                               generator=generator).text
         tokens, state = self.text(input_ids, pad_mask=pad_mask, text_ctx=text_ctx,
                                   prompt_depth=prompt_depth,
                                   max_length=c.context_length)

@@ -18,7 +18,8 @@ from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
 from tunevlseg_torch.models.clipseg.model import (CLIPSegForSegmentation,
                                                   strategy_additive_mode)
 from tunevlseg_torch.models.cris.model import CRISConfig, CRISForSegmentation
-from tunevlseg_torch.models.prompt.learners import CoOpLearner
+from tunevlseg_torch.models.prompt.learners import (LEARNER_REGISTRY,
+                                                    CoCoOpLearner, CoOpLearner)
 from tunevlseg_torch.nn.layers import init_params
 from tunevlseg_torch.training.optim import FreezeSpec
 
@@ -38,32 +39,65 @@ def clipseg_rd64_config(complex_head: bool = False) -> CLIPSegConfig:
     )
 
 
+def default_learner_kwargs(strategy: str, cfg: CLIPSegConfig) -> dict:
+    """Per-strategy widths wired from the model config, and the projector
+    settings of the reference's model configs."""
+    t, v, p = cfg.text.hidden_size, cfg.vision.hidden_size, cfg.projection_dim
+    return {
+        "coop": dict(context_dim=t),
+        "cocoop": dict(context_dim=t, visual_dim=p, norm_image_features=False,
+                       use_unified_projection=False, intermediate_dims=(64,),
+                       use_proj_norm=True),
+        "vpt": dict(context_dim=v),
+        "maple": dict(context_dim=t, visual_dim=v,
+                      use_unified_projection=False, intermediate_dims=(64,),
+                      use_proj_norm=True),
+        "shared_separate": dict(context_dim=64, textual_dim=t, visual_dim=v,
+                                use_unified_projection=False,
+                                use_proj_norm=True),
+        "shared_attn": dict(context_dim=t + v, textual_dim=t, visual_dim=v,
+                            use_unified_projection=False, proj_num_heads=16,
+                            proj_dim_feedforward=1536, proj_dropout=0.25),
+    }[strategy]
+
+
 def build_clipseg(strategy: Optional[str] = "coop", prompt_depth: int = 1,
                   num_context: int = 4, config: Optional[CLIPSegConfig] = None,
                   use_new_last_layer: bool = True, freeze_all: bool = True,
                   no_freeze_last_layer: bool = False,
                   freeze_encoder: Optional[bool] = None,
                   freeze_decoder: bool = False,
+                  learner_overrides: Optional[dict] = None,
+                  initializer_embeddings=None,
                   dtype: torch.dtype = torch.float32, device="cuda",
                   seed: int = 0) -> tuple[CLIPSegForSegmentation, FreezeSpec]:
-    """Build the model and its freeze spec for a strategy ("coop", or None /
-    "e2e" for the stock model, a full fine-tune) with seeded random f32
-    weights on `device`; `dtype` is the compute dtype. The model goes to the
-    CUDA card unless the caller names another device (the CPU parity tests
-    pass "cpu"); without a card the default raises, it never falls back to
-    the CPU. The spec is applied by `SegmentationTask.init`."""
+    """Build the model and its freeze spec for a strategy ("coop", "cocoop",
+    "vpt", "maple", "shared_separate", "shared_attn", or None / "e2e" for
+    the stock model, a full fine-tune) with seeded random f32 weights on
+    `device`; `dtype` is the compute dtype. `learner_overrides` replaces
+    entries of `default_learner_kwargs`; `initializer_embeddings` (the
+    embedded initializer text) goes to the learners whose parameters are
+    textual contexts. The model goes to the CUDA card unless the caller names
+    another device (the CPU parity tests pass "cpu"); without a card the
+    default raises, it never falls back to the CPU. The spec is applied by
+    `SegmentationTask.init`."""
     cfg = config or clipseg_rd64_config()
     e2e = strategy in (None, "e2e")
     learner = None
-    if strategy == "coop":
-        learner = CoOpLearner(prompt_depth=prompt_depth, num_context=num_context,
-                              context_dim=cfg.text.hidden_size, dtype=dtype)
+    if not e2e:
+        if strategy not in LEARNER_REGISTRY:
+            raise ValueError(f"unknown strategy {strategy!r}: one of "
+                             f"{sorted(LEARNER_REGISTRY)}, or None / 'e2e'")
+        kwargs = default_learner_kwargs(strategy, cfg)
+        kwargs.update(learner_overrides or {})
+        if (strategy in ("coop", "cocoop", "maple")
+                and initializer_embeddings is not None):
+            kwargs["initializer_embeddings"] = initializer_embeddings
+        learner = LEARNER_REGISTRY[strategy](
+            prompt_depth=prompt_depth, num_context=num_context, dtype=dtype,
+            **kwargs)
         learner.check_depth(prompt_depth,
                             min(cfg.text.num_layers, cfg.vision.num_layers))
-    elif not e2e:
-        raise NotImplementedError(
-            f"strategy {strategy!r} comes with ROADMAP Slice B; the port has "
-            "coop and e2e")
     model = CLIPSegForSegmentation(
         cfg, learner=learner,
         additive_mode=strategy_additive_mode(strategy, use_new_last_layer),
@@ -92,10 +126,15 @@ def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
                freeze_encoder: Optional[bool] = None,
                layout: str = "nchw",
                flat_stages: Sequence[str] = ("stem", "1", "2", "3", "4"),
+               learner_overrides: Optional[dict] = None,
+               initializer_embeddings=None,
                dtype: torch.dtype = torch.float32, device="cuda",
                seed: int = 0) -> tuple[CRISForSegmentation, FreezeSpec]:
-    """CRIS with CoOp prompts ("coop") or the stock model (None / "e2e"),
-    with seeded random f32 weights on `device`, and its freeze spec. The
+    """CRIS with CoOp or CoCoOp prompts ("coop", "cocoop": the strategies the
+    reference wires to CRIS) or the stock model (None / "e2e"), with seeded
+    random f32 weights on `device`, and its freeze spec. CoCoOp's meta-net
+    reads the mean of the last backbone feature (`embed_dim` wide), and its
+    text stack is per image (no prompt dedup). The
     device rule is `build_clipseg`'s: the CUDA card unless the caller names
     another device, and no fallback to the CPU. The learner's context width
     is the text transformer's width. `layout="flat"` runs the backbone stages
@@ -104,20 +143,25 @@ def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
     "nchw" runs them through cuDNN. The e2e model trains the BatchNorms of
     its FPN and projector: give its `SegmentationTask`
     `mutable_collections=("batch_stats",)`. With `freeze_encoder=False` the
-    towers train too (on the flat layout through K4's backward). "cocoop"
-    raises (ROADMAP Slice B)."""
+    towers train too (on the flat layout through K4's backward)."""
     cfg = config or cris_rn50_config()
     e2e = strategy in (None, "e2e")
     learner = None
-    if strategy == "coop":
-        learner = CoOpLearner(prompt_depth=prompt_depth, num_context=num_context,
-                              context_dim=cfg.transformer_width, dtype=dtype)
+    if not e2e:
+        common = dict(prompt_depth=prompt_depth, num_context=num_context,
+                      context_dim=cfg.transformer_width, dtype=dtype,
+                      initializer_embeddings=initializer_embeddings)
+        if strategy == "coop":
+            learner = CoOpLearner(**common)
+        elif strategy == "cocoop":
+            learner = CoCoOpLearner(
+                **{**dict(visual_dim=cfg.embed_dim, norm_image_features=False,
+                          use_unified_projection=False, intermediate_dims=(64,),
+                          use_proj_norm=True),
+                   **common, **(learner_overrides or {})})
+        else:
+            raise ValueError(f"CRIS supports coop/cocoop, got {strategy}")
         learner.check_depth(prompt_depth, cfg.transformer_layers)
-    elif strategy == "cocoop":
-        raise NotImplementedError(
-            "CoCoOp on CRIS comes with ROADMAP Slice B; the port has coop and e2e")
-    elif not e2e:
-        raise ValueError(f"CRIS supports coop/cocoop, got {strategy}")
     model = CRISForSegmentation(
         cfg, learner=learner,
         additive_mode="residual" if use_new_last_layer and not e2e else "none",

@@ -9,7 +9,10 @@ funnels through `dot_product_attention`. On a CUDA device in bf16 it sends
     padding attention, the CRIS decoder's cross-attention into the text),
     whose backward recomputes through `plain_attention`;
 and everything else (CPU tensors, f32, short unbiased self-attention) to
-`plain_attention`, which autograd differentiates as it stands. The gate is a
+`plain_attention`, which autograd differentiates as it stands. The
+Shared-Attention learner's projector is such a case by construction: it
+attends over ONE key (S = T = 1, no bias, 16 heads of 80 dims at full width, a
+head dim no kernel is built for), once per step, and stays on the plain path. The gate is a
 dispatch rule, like the JAX package's TPU-backend test, not a fallback: a
 CUDA call that passes it launches its kernel
 (`tunevlseg_torch.ops.flash_attention`) or raises.
@@ -49,7 +52,9 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_eligible(q: torch.Tensor, k: torch.Tensor,
                      bias: Optional[torch.Tensor]) -> str:
-    """The kernel a call goes to, "K1" or "K3", or "" for the plain path."""
+    """The kernel a call goes to, "K1" or "K3", or "" for the plain path
+    (where the Shared-Attention projector's one-key attention lands: no bias,
+    S = T = 1 < KERNEL_MIN_SEQ)."""
     if not (q.is_cuda and q.dtype == torch.bfloat16):
         return ""
     if bias is not None or q.shape[1] != k.shape[1]:

@@ -50,6 +50,20 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             m.init_weights(generator)
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from `generator` (which lives on
+    x's device): kept entries are x / (1 - rate), the rest 0."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class Dense(nn.Module):
     """Flax `nn.Dense` semantics with torch's (out, in) weight layout."""
 
@@ -71,24 +85,26 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Flax `nn.LayerNorm(dtype=...)`: f32 statistics and affine, output in
-    the compute dtype."""
+    """Flax `nn.LayerNorm(dtype=..., use_bias=bias)`: f32 statistics and
+    affine, output in the compute dtype."""
 
     def __init__(self, dim: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(dim))
-        self.bias = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim)) if bias else None
 
     def init_weights(self, generator: torch.Generator) -> None:
         self.weight.fill_(1.0)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), self.eps)
+                         None if self.bias is None else self.bias.float(),
+                         self.eps)
         return y.to(self.dtype)
 
 

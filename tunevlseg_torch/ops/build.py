@@ -1,15 +1,19 @@
 """Building and loading the port's CUDA kernels.
 
 Every kernel is one CUDA C++ source under `tunevlseg_torch/csrc/` with a plain
-C entry point. At first use of any of them, every source whose library is
-missing is compiled with `nvcc` for `sm_90a` (one compiler process per source,
-all started together) into `tunevlseg_torch/_build/`, under a name keyed by a
-hash of the source, the shared header and the flags, and loaded with `ctypes`.
-A failed build raises; there is no fallback. Each compiler's output (with the
-register and spill counts of `ptxas -v`) is kept beside its library as
-`<name>.log`. The wrappers (`ops/flash_attention.py`, `ops/conv_flat.py`) set
-the argument types of their entry points and launch on PyTorch's current
-stream.
+C entry point. At first use of any of the models' kernels (K1-K4), every
+source of theirs whose library is missing is compiled with `nvcc` for `sm_90a`
+(one compiler process per source, all started together) into
+`tunevlseg_torch/_build/`, under a name keyed by a hash of the source, the
+shared header and the flags, and loaded with `ctypes`. The attention sweeps'
+kernels (S1-S4, the variants of K1) are a library of their own, built at the
+first sweep: a process that only serves or trains never builds it;
+`load_libraries(sweeps=True)` builds whatever is missing of both sets in one
+go. A failed build raises; there is no fallback. Each compiler's output (with
+the register and spill counts of `ptxas -v`) is kept beside its library as
+`<name>.log`. The wrappers (`ops/flash_attention.py`,
+`ops/flash_attention_variants.py`, `ops/conv_flat.py`) set the argument types
+of their entry points and launch on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -19,19 +23,19 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",          # K1
            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu",          # K2
            "bias": _PKG / "csrc" / "flash_attn_bias_fwd.cu",    # K3
            "conv": _PKG / "csrc" / "conv_flat.cu"}              # K4
+SWEEP_SOURCES = {"variants": _PKG / "csrc" / "flash_attn_fwd_variants.cu"}  # S1-S4
 HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by every source
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: Optional[dict[str, ctypes.CDLL]] = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,23 +48,22 @@ def _nvcc() -> str:
 
 def library_path(kernel: str) -> Path:
     """Where the built library of a kernel ("fwd" is K1, "bwd" K2, "bias" K3,
-    "conv" K4) lives for its current source and flags."""
-    source = SOURCES[kernel]
+    "conv" K4, "variants" S1-S4) lives for its current source and flags."""
+    source = {**SOURCES, **SWEEP_SOURCES}[kernel]
     digest = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def load_libraries() -> dict[str, ctypes.CDLL]:
-    """Build every kernel from source where needed (the compilers run side by
-    side) and load them; returns {kernel: library}. A failed build raises."""
-    global _libs
-    if _libs is not None:
-        return _libs
+def load_libraries(sweeps: bool = False) -> dict[str, ctypes.CDLL]:
+    """Build the models' kernels, and with `sweeps` the attention sweeps'
+    too, from source where needed (the compilers run side by side) and load
+    them; returns {kernel: library}. A failed build raises."""
+    wanted = {**SOURCES, **(SWEEP_SOURCES if sweeps else {})}
     builds = []
-    for kernel, source in SOURCES.items():
+    for kernel, source in wanted.items():
         out = library_path(kernel)
-        if out.exists():
+        if kernel in _libs or out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -78,5 +81,7 @@ def load_libraries() -> dict[str, ctypes.CDLL]:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("\n".join(failures))
-    _libs = {kernel: ctypes.CDLL(str(library_path(kernel))) for kernel in SOURCES}
-    return _libs
+    for kernel in wanted:
+        if kernel not in _libs:
+            _libs[kernel] = ctypes.CDLL(str(library_path(kernel)))
+    return {kernel: _libs[kernel] for kernel in wanted}
