@@ -53,9 +53,11 @@ Phases, each printing its numbers on lines of its own:
      flipped weight): max abs error against the stated bound, guard and ring
      rows exactly zero, times from CUDA events, the bound from the pixel
      work, and `F.conv2d` in bf16 channels-last beside it (the convolution
-     alone: the epilogue is not in it); then the backward of the
-     `autograd.Function` (dx, dW, d_scale, d_offset, d_residual) against
-     autograd through the plain version;
+     alone: the epilogue is not in it) and K4's time over it; then the
+     backward of the `autograd.Function` (dx, dW, d_scale, d_offset,
+     d_residual) against autograd through the plain version, beside
+     `F.conv2d`'s backward, and the backward's prologue kernel (dy * scale,
+     dy, per-block sums of dy) against its plain version;
  11. serve, CRIS flat: the same CRIS model built with `layout="flat"`: the
      b64 dedup request and b1; 3 K1, 15 K3 and 54 K4 launches per forward,
      and the probabilities against the same weights on `layout="nchw"`;
@@ -66,10 +68,11 @@ Phases, each printing its numbers on lines of its own:
      (a) the default (towers frozen, "nchw"): the loss falls, the FPN's and
      the projector's running statistics move in the train state, the
      backbone's do not; (b) the full fine-tune on `layout="flat"`: 54 K4
-     forward and 54 K4 dx launches per step, backbone convolution weights and
-     BatchNorm weight / bias change, the first step's loss against the same
-     step on `layout="nchw"`, and every gradient of the backbone for a fixed
-     cotangent on its pyramid against `layout="nchw"`.
+     forward, 54 K4 dx and 54 prologue launches per step, backbone
+     convolution weights and BatchNorm weight / bias change, the first
+     step's loss against the same step on `layout="nchw"`, and every
+     gradient of the backbone for a fixed cotangent on its pyramid against
+     `layout="nchw"`.
  14. kernel vs plain, S1-S4, through the sweeps' entry points
      (`scripts/torch_micro_attn.py: check_variants, time_variants`), one pass
      per sweep: every variant of K1 (`ops/flash_attention_variants.py`: heads
@@ -130,25 +133,25 @@ PROB_MEAN_TOL = 2e-3
 LOSS_TOL = 2e-2
 GRAD_REL_TOL = 0.1
 GRAD_COS_MIN = 0.99
-# launches per forward or step, as (K1, K2, K3, K4 forward, K4 dx, S1/S2/S4,
-# S3): the variants' two counts are read beside the models' kernels on every
-# path, and no model may launch them.
+# launches per forward or step, as (K1, K2, K3, K4 forward, K4 dx, K4's
+# backward prologue, S1/S2/S4, S3): the variants' two counts are read beside
+# the models' kernels on every path, and no model may launch them.
 NO_VARIANTS = (0, 0)
-COUNTED = "(K1, K2, K3, K4, K4 dx, S1/S2/S4, S3)"
+COUNTED = "(K1, K2, K3, K4, K4 dx, K4 dy prologue, S1/S2/S4, S3)"
 # CLIPSeg: K1 in 10 vision layers + 3 decoder blocks; K3 in the 12 text
 # layers (causal + padding bias); K2 for the decoder blocks, and for the
 # vision layers too when they train (the frozen vision tower needs none)
-CLIPSEG_SERVE = (13, 0, 12, 0, 0) + NO_VARIANTS
-CLIPSEG_COOP_STEP = (13, 3, 12, 0, 0) + NO_VARIANTS
-CLIPSEG_E2E_STEP = (13, 13, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_SERVE = (13, 0, 12, 0, 0, 0) + NO_VARIANTS
+CLIPSEG_COOP_STEP = (13, 3, 12, 0, 0, 0) + NO_VARIANTS
+CLIPSEG_E2E_STEP = (13, 13, 12, 0, 0, 0) + NO_VARIANTS
 # visual contexts (VPT, MaPLe, the shared learners) sit in the frozen vision
 # tower, so the gradient runs back through its ten layers: K2 in all 13
 # attentions of a prompt-tuning step. CoCoOp runs the whole tower (12 layers)
 # for the pooled image features, forward only: no trainable leaf lies
 # upstream of them; its text tower runs 64 rows (no prompt dedup)
-CLIPSEG_VISUAL_STEP = (13, 13, 12, 0, 0) + NO_VARIANTS
-CLIPSEG_COCOOP_SERVE = (15, 0, 12, 0, 0) + NO_VARIANTS
-CLIPSEG_COCOOP_STEP = (15, 3, 12, 0, 0) + NO_VARIANTS
+CLIPSEG_VISUAL_STEP = (13, 13, 12, 0, 0, 0) + NO_VARIANTS
+CLIPSEG_COCOOP_SERVE = (15, 0, 12, 0, 0, 0) + NO_VARIANTS
+CLIPSEG_COCOOP_STEP = (15, 3, 12, 0, 0, 0) + NO_VARIANTS
 # CRIS CoCoOp, kernel path vs plain path: the meta-net ends in a LayerNorm,
 # so its per-image bias has unit scale where context vectors and token
 # embeddings have 0.02-0.04, and the randomly initialised text tower then sees
@@ -163,17 +166,18 @@ COCOOP_CRIS_PROB_TOL = (5e-2, 5e-3)
 # CRIS: K1 (K2) in the 3 decoder self-attentions over 676 tokens; K3 in the
 # 12 text layers and the 3 cross-attentions into the text; the RN50
 # attention pool has 169 tokens, under the gate's 256: plain
-CRIS_SERVE = (3, 0, 15, 0, 0) + NO_VARIANTS
-CRIS_COOP_STEP = (3, 3, 15, 0, 0) + NO_VARIANTS
+CRIS_SERVE = (3, 0, 15, 0, 0, 0) + NO_VARIANTS
+CRIS_COOP_STEP = (3, 3, 15, 0, 0, 0) + NO_VARIANTS
 # CRIS with layout="flat": K4 in the RN50's 2 stem convolutions, 3 per
 # bottleneck in 16 bottlenecks and 4 downsample convolutions = 54; K4 again
 # for dx of each of them when the backbone trains (conv1 in front of the stem
 # trains too, so even the first flat convolution's input wants a gradient)
 RN50_FLAT_CONVS = 2 + 3 * 16 + 4
-CRIS_FLAT_SERVE = (3, 0, 15, RN50_FLAT_CONVS, 0) + NO_VARIANTS
-CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0) + NO_VARIANTS
-CRIS_E2E_STEP = (3, 3, 15, 0, 0) + NO_VARIANTS
-CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS) + NO_VARIANTS
+CRIS_FLAT_SERVE = (3, 0, 15, RN50_FLAT_CONVS, 0, 0) + NO_VARIANTS
+CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0, 0) + NO_VARIANTS
+CRIS_E2E_STEP = (3, 3, 15, 0, 0, 0) + NO_VARIANTS
+CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS,
+                      RN50_FLAT_CONVS) + NO_VARIANTS
 # K4 against its plain version, bf16 outputs: the same bf16 operands, f32
 # accumulation in another order, one rounding: one bf16 ulp (2^-8) of the
 # largest |reference|, 5e-3 with slack. Gradients of the Function against
@@ -221,12 +225,12 @@ def fail(msg: str) -> None:
 
 
 def counts(fa) -> tuple:
-    """(K1, K2, K3, K4 forward, K4 dx, S1/S2/S4, S3) launches since the last
-    reset."""
+    """(K1, K2, K3, K4 forward, K4 dx, K4 dy prologue, S1/S2/S4, S3)
+    launches since the last reset."""
     from tunevlseg_torch.ops import conv_flat as cf
     from tunevlseg_torch.ops import flash_attention_variants as fav
     return (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count(),
-            cf.launch_count(), cf.dx_launch_count(),
+            cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count(),
             fav.launch_count("variant"), fav.launch_count("ones_column"))
 
 
@@ -1071,18 +1075,26 @@ def phase_kernels_k4(cf):
             memory_format=torch.channels_last)
         w_cl = weight.bfloat16().contiguous(memory_format=torch.channels_last)
         lib_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_cl, padding=k // 2), 20)
+        # the weight copy each launch makes (cast, transposed to the kernel's
+        # layout); it is inside `ms`
+        w_mat = weight.permute(2, 3, 1, 0).reshape(k * k * c, cout)
+        copy_ms = cuda_time_ms(lambda: cf.kernel_weight(w_mat, c, torch.bfloat16), 20)
         bound_ms, bound_by, flops = conv_bound(BATCH, hw, k, c, cout, residual)
         print(f"kernel K4 {label} x{tuple(x.shape)} (b{BATCH}, {hw}^2 pixels in "
-              f"{spec.rows} rows, guard {spec.mb}) C {c} Cout {cout} k {k}: "
+              f"{spec.rows} rows, guard {spec.mb}: {1 - hw * hw / spec.rows:.3f} of "
+              f"the rows hold no pixel) C {c} Cout {cout} k {k}: "
               f"max_abs_err {err:.6g} (bound {K4_REL_TOL} x largest |reference| "
               f"{top:.4g}), {int((~valid).sum())} guard and ring rows exactly 0, "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; its weight copy "
+              f"alone {copy_ms:.4f} ms), plain "
               f"{plain_ms:.3f} ms, F.conv2d bf16 channels-last (the convolution "
-              f"alone, no epilogue) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"alone, no epilogue) {lib_ms:.4f} ms, K4 / F.conv2d "
+              f"{ms / lib_ms:.2f}, bound {bound_ms:.4f} ms by "
               f"{bound_by} ({100 * bound_ms / ms:.1f}% reached)")
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": lib_ms}
+                          "library_ms": lib_ms, "over_library": ms / lib_ms,
+                          "weight_copy_ms": copy_ms}
         del out, x, res, x_nchw
     return results
 
@@ -1093,7 +1105,9 @@ def phase_kernel_k4_backward(cf):
     dW, d_scale, d_offset and d_residual against autograd through the plain
     version (without its ReLU, the ReLU state taken from the kernel's output,
     so that a pre-activation within rounding of 0 cannot flip one element's
-    whole gradient). Returns the numbers of the backward."""
+    whole gradient); then the backward's prologue kernel against its plain
+    version on the same cotangent. Returns (the numbers of the backward, the
+    prologue's)."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -1102,13 +1116,14 @@ def phase_kernel_k4_backward(cf):
         cf, gen, b, hw, 64, c, cout, k, True, True, False)
     names = ("dx", "dW", "d_scale", "d_offset", "d_residual")
     leaves = [t.clone().requires_grad_() for t in (x, weight, scale, offset, res)]
-    fwd, dxs = cf.launch_count(), cf.dx_launch_count()
+    fwd, dxs, dys = cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()
     out = cf.conv_flat(leaves[0], spec, *leaves[1:4], True, leaves[4])
     g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
     got = torch.autograd.grad(out, leaves, g, retain_graph=True)
     torch.cuda.synchronize()
-    if (cf.launch_count(), cf.dx_launch_count()) != (fwd + 1, dxs + 1):
-        fail("K4 backward: expected one forward and one dx launch")
+    if (cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()) != (
+            fwd + 1, dxs + 1, dys + 1):
+        fail("K4 backward: expected one forward, one dx and one prologue launch")
     ref_leaves = [t.clone().requires_grad_() for t in (x, weight, scale, offset, res)]
     pre = plain_conv_flat(cf, spec, False, *ref_leaves).float()
     cot = g.float() * (out > 0)
@@ -1130,8 +1145,8 @@ def phase_kernel_k4_backward(cf):
         pre, ref_leaves, cot, retain_graph=True), 3, warmup=1)
     del pre, want, ref_leaves, cot
     ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10)
-    # with x alone wanting a gradient the backward is the mask, the scale and
-    # one K4 launch (what it computes is fixed when the forward runs)
+    # with x alone wanting a gradient the backward is the prologue and one K4
+    # launch (what it computes is fixed when the forward runs)
     x_only = x.clone().requires_grad_()
     out_x = cf.conv_flat(x_only, spec, weight, scale, offset, True, res)
     dx_ms = cuda_time_ms(lambda: torch.autograd.grad(out_x, x_only, g,
@@ -1144,18 +1159,57 @@ def phase_kernel_k4_backward(cf):
     gy = torch.randn_like(y)
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(y, (x_nchw, w_cl), gy,
                                                       retain_graph=True), 10)
-    bound_ms, bound_by, flops = conv_bound(b, hw, k, c, cout, True)
+    # the bound of the whole backward: the dx and the dW convolutions'
+    # operations against reading x, g, the output (the ReLU state) and
+    # writing dx and d_residual, on the unpadded pixels
+    pixels = b * hw * hw
+    flops = 2 * (2 * pixels * k * k * c * cout)
+    nbytes = 2 * (2 * pixels * c + 3 * pixels * cout + 2 * k * k * c * cout)
+    by_ops, by_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(by_ops, by_bytes)
+    bound_by = "operations" if by_ops >= by_bytes else "bytes"
     print(f"kernel K4 backward b{b} {hw}^2 {c}->{cout} k{k} affine + residual + "
           "ReLU: " + ", ".join(f"{n} {errs[n]:.3g}" for n in names)
           + f" of the largest entry (bound {K4_GRAD_REL_TOL}), dx exactly 0 on "
           f"guard and ring rows; all five gradients {ms:.4f} ms, autograd through "
-          f"the plain version {plain_ms:.4f} ms, dx alone (mask, "
-          f"scale, one K4 launch) {dx_ms:.4f} ms, F.conv2d backward (dgrad + "
-          f"wgrad, no epilogue) {lib_ms:.4f} ms; the dx convolution's bound "
-          f"{bound_ms:.4f} ms by {bound_by}")
-    return {"backward_ms": ms, "plain_backward_ms": plain_ms, "dx_ms": dx_ms,
-            "library_backward_ms": lib_ms,
-            "max_rel_err": max(errs.values())}
+          f"the plain version {plain_ms:.4f} ms, dx alone (prologue, one K4 "
+          f"launch) {dx_ms:.4f} ms, F.conv2d backward (dgrad + wgrad, no "
+          f"epilogue) {lib_ms:.4f} ms, all five / F.conv2d {ms / lib_ms:.2f}; "
+          f"the bound of dx and dW {bound_ms:.4f} ms by {bound_by}")
+    backward = {"backward_ms": ms, "plain_backward_ms": plain_ms, "dx_ms": dx_ms,
+                "library_backward_ms": lib_ms, "over_library": ms / lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_rel_err": max(errs.values())}
+
+    # the prologue kernel on this backward's cotangent and output: dy * scale
+    # and dy in bf16 are exact (dy is a bf16 value times 0 or 1), the sum of
+    # dy over batch and rows differs by f32 rounding in another order
+    scale_f, out_d = scale.float(), out.detach()
+    kernel = cf._dy_prologue(spec, True, g, out_d, scale_f, True, True, True)
+    plain = cf.dy_prologue_ref(spec, True, g, out_d, scale_f, torch.bfloat16,
+                               True, True, True)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dy * scale", "dy"), kernel[:2], plain[:2]):
+        if not torch.equal(a, w):
+            fail(f"K4 prologue: {name} differs from its plain version")
+    sum_err = (kernel[2] - plain[2]).abs().max().item()
+    sum_tol = 1e-5 * g.float().abs().sum((0, 1)).max().item()
+    if not sum_err <= sum_tol:
+        fail(f"K4 prologue: the sum of dy differs by {sum_err} > {sum_tol}")
+    pro_ms = cuda_time_ms(lambda: cf._dy_prologue(spec, True, g, out_d, scale_f,
+                                                  True, True, True), 20)
+    pro_plain_ms = cuda_time_ms(lambda: cf.dy_prologue_ref(
+        spec, True, g, out_d, scale_f, torch.bfloat16, True, True, True), 5)
+    # reads g and out, writes dy * scale and dy, each (B, ROWS, Cout) bf16
+    pro_bound = 4 * g.numel() * 2 / HBM_BYTES_PER_S * 1e3
+    print(f"kernel K4 dy prologue {tuple(g.shape)}: dy * scale and dy bit-equal "
+          f"to the plain version, sum of dy max abs err {sum_err:.4g} (bound "
+          f"{sum_tol:.4g}); kernel {pro_ms:.4f} ms, plain {pro_plain_ms:.4f} ms, "
+          f"bound {pro_bound:.4f} ms by bytes ({100 * pro_bound / pro_ms:.1f}% "
+          f"reached)")
+    prologue = {"max_abs_err": sum_err, "ms": pro_ms, "plain_ms": pro_plain_ms,
+                "bound_ms": pro_bound, "bound_by": "bytes", "library_ms": None}
+    return backward, prologue
 
 
 def switch_layout(model, layout: str):
@@ -1644,7 +1698,7 @@ def main() -> None:
     k3 = phase_kernels_k3(fa)
     library = phase_yardstick()
     k4 = phase_kernels_k4(cf)
-    k4_backward = phase_kernel_k4_backward(cf)
+    k4_backward, k4_prologue = phase_kernel_k4_backward(cf)
     by_path = {"serve": phase_serve(fa),
                "train_coop": phase_train_coop(fa, profile),
                "train_e2e": phase_train_e2e(fa, profile),
@@ -1698,6 +1752,17 @@ def main() -> None:
     ]
     kernels[3]["dx_launches_by_path"] = {p: c[4] for p, c in by_path.items()}
     kernels[3]["backward"] = k4_backward
+    # K4's backward prologue: one launch per backward of a flat convolution,
+    # so on the path whose backbone trains; the TPU package leaves that work
+    # to XLA inside the backward of `conv_flat`
+    kernels.append({
+        "name": "K4 dy prologue (the flat convolution's backward: masked, scaled "
+                "and plain dy in one pass, per-block sums for d_offset)",
+        "route": "cuda", "source": "tunevlseg_torch/csrc/conv_flat.cu",
+        "replaces": "tunevlseg_tpu/ops/conv_pallas.py:480",
+        "launches": sum(c[5] for c in by_path.values()),
+        "launches_by_path": {p: c[5] for p, c in by_path.items()},
+        **k4_prologue})
     # S1-S4 are on no model's path: their main path is the sweeps' entry
     # point, and their launches are those it made while timing. Their counts
     # were read beside the other kernels' on every model path
@@ -1705,14 +1770,14 @@ def main() -> None:
     # variant named in `main` at the vision shape.
     source = "tunevlseg_torch/csrc/flash_attn_fwd_variants.cu"
     for key, index, title, replaces, main in (
-            ("S1", 5, "S1 attn_variant: hg heads per block", "scripts/micro_attn.py:60",
+            ("S1", 6, "S1 attn_variant: hg heads per block", "scripts/micro_attn.py:60",
              "hg2 @ vision"),
-            ("S2", 5, "S2 attn_variant: exp2 / no max pass / products alone / hg / "
+            ("S2", 6, "S2 attn_variant: exp2 / no max pass / products alone / hg / "
              "block order", "scripts/micro_attn_v2.py:45", "ours (hg3) @ vision"),
-            ("S3", 6, "S3 attn_ones_column: folded scale, mask row, denominator out "
+            ("S3", 7, "S3 attn_ones_column: folded scale, mask row, denominator out "
              "of the P V product", "scripts/micro_attn_v2.py:113",
              "opt (S3) @ vision"),
-            ("S4", 5, "S4 attn_variant: bg batch rows x hg heads per block, block "
+            ("S4", 6, "S4 attn_variant: bg batch rows x hg heads per block, block "
              "order", "scripts/micro_attn_grid.py:29", "bg1 hg3 query @ vision")):
         numbers = variants[key]
         if sweep_launches[key] <= 0:
@@ -1740,8 +1805,10 @@ def main() -> None:
             fail(f"{path} launched K4; it does not run the flat layout")
         if (c[4] > 0) != (path == "train_cris_e2e_flat"):
             fail(f"{path}: {c[4]} K4 dx launches")
-        if c[5] or c[6]:
-            fail(f"{path} launched a variant of K1 (S1/S2/S4 {c[5]}, S3 {c[6]}): "
+        if c[5] != c[4]:
+            fail(f"{path}: {c[5]} launches of K4's backward prologue for {c[4]} dx")
+        if c[6] or c[7]:
+            fail(f"{path} launched a variant of K1 (S1/S2/S4 {c[6]}, S3 {c[7]}): "
                  "they are the sweeps' alone")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here, "
           "the kernels' build included")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Every convolution of the CRIS RN50 on the flat layout, K4 against cuDNN.
 
-    python3 scripts/torch_conv_flat_bench.py [--batch 64]
+    python3 scripts/torch_conv_flat_bench.py [--batch 64] [--tile-widths]
 
 Builds the full-width bf16 CRIS model with `layout="flat"` on the CUDA card,
 records the 54 calls of `conv_flat` that one backbone forward makes at 416^2,
@@ -11,7 +11,11 @@ and times each distinct shape (CUDA events, 20 launches after 3 warm-up):
   * what the "nchw" layout runs in K4's place: `F.conv2d`, the one-pass
     BatchNorm, the residual add and the ReLU as separate kernels;
   * the bound from the pixel work (operations over 989 TFLOP/s against bytes
-    over 3.35 TB/s).
+    over 3.35 TB/s);
+  * the share of K4's output rows that are guard or ring rows, and what
+    writing them as zeros costs at 3.35 TB/s;
+  * with --tile-widths, K4's own launch at each of its tile widths (64, 128
+    and 256 output channels) beside the one its rule picks.
 Then the copies around the flat chains (`to_flat` at each stage's entry, the
 pools between specs of the strided blocks, the exits) and the whole backbone
 on both layouts. Prints the card's name and power limit first. The numbers
@@ -54,6 +58,7 @@ def cuda_ms(fn, iters=20, warmup=3):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--tile-widths", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("this script needs a CUDA GPU")
@@ -92,10 +97,12 @@ def main():
     print(f"one backbone forward at b{b}, 416^2: {len(calls)} conv_flat calls, "
           f"{len(copies)} copies into flat space")
 
+    widths = (64, 128, 256) if args.tile_widths else ()
     print("| H=W | rows / pixels | C→Cout k | epilogue | calls | K4 ms | "
           "F.conv2d ms | conv2d + BN (+add) + ReLU ms | bound ms (by) | "
-          "K4 / conv2d | K4 / unfused |")
-    print("|---|---|---|---|---|---|---|---|---|---|---|")
+          "K4 / conv2d | K4 / unfused | guard + ring rows | their zeros ms |"
+          + "".join(f" K4 at {n} ms |" for n in widths))
+    print("|---" * (13 + len(widths)) + "|")
     totals = collections.Counter()
     with torch.no_grad():
         for key, n in collections.Counter(calls).items():
@@ -135,15 +142,27 @@ def main():
             by_ops, by_bytes = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(by_ops, by_bytes)
             epi = "affine" + (" + res" if has_res else "") + (" + ReLU" if relu else "")
+            # the rows of K4's output that hold no pixel, written as zeros
+            guard_share = 1 - hw * hw / spec.rows
+            guard_ms = b * (spec.rows - hw * hw) * cout * 2 / HBM_BYTES_PER_S * 1e3
+            by_width = ""
+            if widths:
+                w_mat = w.permute(2, 3, 1, 0).reshape(k * k * c, cout)
+                for bn in widths:
+                    by_width += " {:.4f} |".format(cuda_ms(lambda: cf._launch(
+                        spec, relu, x, w_mat, scale, offset, res, k, False, bn)))
             print(f"| {hw} | {spec.rows} / {hw * hw} | {c}→{cout} k{k} | {epi} | {n} "
                   f"| {k4:.4f} | {lib:.4f} | {unf:.4f} | {bound:.4f} "
                   f"({'operations' if by_ops > by_bytes else 'bytes'}) | "
-                  f"{k4 / lib:.2f} | {k4 / unf:.2f} |")
-            totals.update(k4=n * k4, lib=n * lib, unf=n * unf, bound=n * bound)
+                  f"{k4 / lib:.2f} | {k4 / unf:.2f} | {guard_share:.3f} | "
+                  f"{guard_ms:.4f} |" + by_width)
+            totals.update(k4=n * k4, lib=n * lib, unf=n * unf, bound=n * bound,
+                          guard=n * guard_ms)
             del x, res, xn, rn
         print(f"all {len(calls)} convolutions: K4 {totals['k4']:.3f} ms, F.conv2d "
               f"alone {totals['lib']:.3f} ms, conv2d + BN (+add) + ReLU "
-              f"{totals['unf']:.3f} ms, bound {totals['bound']:.3f} ms")
+              f"{totals['unf']:.3f} ms, bound {totals['bound']:.3f} ms; writing "
+              f"the guard and ring rows' zeros {totals['guard']:.3f} ms of K4's")
 
         total_copy = 0.0
         for kind, shape, si, so in copies:

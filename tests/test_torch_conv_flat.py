@@ -266,7 +266,7 @@ def test_backward_computes_only_what_is_asked_and_saves_nothing_when_frozen():
     finally:
         tc.conv_flat_ref = ref
     assert len(calls) == 1 and wt.grad is not None
-    assert tc.launch_count() == tc.dx_launch_count() == 0   # no card, no launch
+    assert tc.launch_count() == tc.dx_launch_count() == tc.dy_launch_count() == 0
 
 
 def test_dispatch_is_by_device_and_dtype():
@@ -283,3 +283,67 @@ def test_dispatch_is_by_device_and_dtype():
         tc.conv_flat(x, spec, _t(np.ones((8, 8, 2, 2))))       # even kernel
     with pytest.raises(AssertionError):
         tc.conv_flat(x, spec, _t(np.ones((8, 8, 5, 5))))       # k // 2 > r
+
+
+def test_bf16_weight_offset_and_residual_gradients_match_jax_grad():
+    """The backward's glue in bf16, as the card runs it: the prologue's plain
+    version (dy masked by the ReLU state, dy * scale and dy in bf16, the f32
+    sum of dy), dW as one product per tap over the whole batch, against
+    `jax.grad` of the JAX `conv_flat` on the same bf16 inputs. dy is exact in
+    bf16 (a bf16 cotangent times 0 or 1), so dW, d_scale and d_offset differ
+    from JAX's f32 contraction by f32 summation order alone (1e-5 of the
+    largest entry); d_residual is the same bf16 dy; dx goes through one more
+    bf16 rounding of dy * scale on both sides and the two kernels' plain
+    versions, one bf16 ulp of the largest entry (BF16_TOL)."""
+    rng = np.random.RandomState(7)
+    h, w, c, o, k = 9, 8, 16, 24, 3
+    x = rng.randn(3, h, w, c).astype(np.float32)
+    wt = (rng.randn(o, c, k, k) * 0.1).astype(np.float32)
+    sc = (rng.rand(o) + 0.5).astype(np.float32)
+    sc[1] = 0.0
+    of = (rng.randn(o) * 0.1).astype(np.float32)
+    rs = rng.randn(3, h, w, o).astype(np.float32)
+    cot = rng.randn(3, h, w, o).astype(np.float32)
+    jspec = cp.make_flat_spec(h, w, 1, mb=64)
+    tspec = tc.make_flat_spec(h, w, 1, mb=64)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+
+    def jloss(x, wt, sc, of, rs):
+        y = cp.conv_flat(cp.flat_begin(x, jspec), jspec, wt, sc, of, True,
+                         cp.flat_begin(rs, jspec))
+        return jnp.sum(cp.flat_end(y, jspec).astype(jnp.float32)
+                       * bf(cot).astype(jnp.float32))
+
+    want = jax.grad(jloss, tuple(range(5)))(bf(x), jnp.asarray(wt), jnp.asarray(sc),
+                                           jnp.asarray(of), bf(rs))
+    args = [_t(x, torch.bfloat16), _t(wt), _t(sc), _t(of), _t(rs, torch.bfloat16)]
+    args = [a.requires_grad_() for a in args]
+    y = tc.conv_flat(tc.flat_begin(args[0], tspec), tspec, args[1], args[2],
+                     args[3], True, tc.flat_begin(args[4], tspec))
+    (tc.flat_end(y, tspec).float() * _t(cot, torch.bfloat16).float()).sum().backward()
+    for name, a, b in zip(("dx", "dw", "d_scale", "d_offset", "d_residual"),
+                          args, want):
+        got = a.grad.float().numpy()
+        ref = np.asarray(jnp.asarray(b, jnp.float32))
+        top = np.abs(ref).max()
+        tol = BF16_TOL if name == "dx" else 1e-5
+        assert np.abs(got - ref).max() <= tol * top, (name, np.abs(got - ref).max(), top)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_weight_gradient_products_over_the_whole_batch_are_exact(k):
+    """`weight_grad_taps` contracts each tap over every (batch, row) pair of
+    the flat tensors at once; with dy zero outside the pixel blocks that is
+    the per-image sum over each image's pixel block, in f64 to the bit of
+    the f64 sums' rounding."""
+    rng = np.random.RandomState(8)
+    spec = tc.make_flat_spec(7, 6, 1, mb=64)
+    x = tc.flat_begin(torch.from_numpy(rng.randn(3, 7, 6, 8)), spec)
+    valid = tc._valid_rows(spec)[None, :, None]
+    dy = torch.from_numpy(rng.randn(3, spec.rows, 16)) * valid
+    got = tc.weight_grad_taps(spec, k, x, dy)
+    lo, hi = spec.mb, spec.mb + spec.mp
+    want = torch.cat([sum(x[i, lo + off:hi + off].t() @ dy[i, lo:hi] for i in range(3))
+                      for off in tc._tap_offsets(spec, k)])
+    assert got.shape == (k * k * 8, 16)
+    np.testing.assert_allclose(got.numpy(), want.float().numpy(), rtol=1e-6, atol=1e-5)

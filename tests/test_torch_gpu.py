@@ -426,6 +426,11 @@ def test_small_model_kernel_path_matches_plain_path(cuda):
 # operands and accumulate in f32 (in another order), so an output differs by
 # one rounding to bf16: 2^-8 of the largest |reference| (5e-3 with slack)
 K4_REL_TOL = 5e-3
+# the same bound stated exactly: one bf16 ulp of the largest |reference|. An
+# ulp is 2^-7 of a value at the bottom of its binade, so where the largest
+# output lies just above a power of two (4.6875 in a 256 -> 256 case) a sum
+# that rounds the other way there differs by 2^-7 of it, over K4_REL_TOL
+K4_ULP_TOL = 2 ** -7
 
 
 def _flat_case(cuda, b, h, w, c, o, k, affine=True, res=False, seed=0, mb=None):
@@ -456,10 +461,13 @@ def _k4_ref(spec, x, wt, scale, offset, relu, residual):
     (2, (13, 13), 512, 2048, 1, True, True, True, None),     # widen + residual
     (2, (52, 52), 128, 128, 3, True, True, False, None),
     (1, (104, 104), 32, 64, 3, True, True, False, None),     # stem widths
-    (1, (40, 40), 32, 32, 3, True, True, False, None),       # the 256 x 32 tile
+    (1, (40, 40), 32, 32, 3, True, True, False, None),       # Cout under the tile
     (3, (9, 11), 8, 24, 3, False, False, False, 64),         # ragged: C, Cout, ROWS
     (3, (7, 5), 40, 72, 1, True, True, True, 64),            # ragged 1x1
     (2, (10, 12), 16, 136, 3, False, True, True, 64),        # ragged wide tile
+    # one tile of 96 rows: the first taps read rows before 0, the last ones
+    # rows past ROWS (both zero-filled by the TMA unit)
+    (2, (6, 6), 16, 16, 3, True, True, True, 16),
 ])
 def test_k4_matches_plain_version(cuda, b, hw, c, o, k, relu, affine, res, mb):
     spec, x, wt, scale, offset, residual = _flat_case(cuda, b, *hw, c, o, k,
@@ -470,11 +478,88 @@ def test_k4_matches_plain_version(cuda, b, hw, c, o, k, relu, affine, res, mb):
     assert cf.launch_count() == before + 1
     assert out.shape == (b, spec.rows, o) and out.dtype == torch.bfloat16
     ref = _k4_ref(spec, x, wt, scale, offset, relu, residual)
+    if hw == (13, 13):   # 768 rows for 225 padded pixels: tiles of guard rows alone
+        assert spec.mb + spec.lead >= 128
     top = ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= K4_REL_TOL * top
     # every row is written, guard and ring rows as exact zeros
     assert bool((out[:, ~cf._valid_rows(spec, cuda)] == 0).all())
     assert torch.equal(out, cf.conv_flat(x, spec, wt, scale, offset, relu, residual))
+
+
+@pytest.mark.parametrize("block_n", [64, 128, 256])
+@pytest.mark.parametrize("b,hw,c,o,k,relu,affine,res", [
+    (2, (13, 13), 512, 2048, 1, True, True, True),       # stage 4 widening
+    (2, (26, 26), 256, 256, 3, False, False, False),     # stage 3, no epilogue
+    (1, (52, 52), 32, 136, 3, True, True, False),        # BK 32, ragged Cout
+])
+def test_k4_every_tile_width_matches_plain_version(cuda, block_n, b, hw, c, o, k,
+                                                   relu, affine, res):
+    """Each of K4's tile widths (64, 128 and 256 output channels), forced on
+    shapes the choice by Cout would give another, and the input-gradient form
+    (the weight transposed, its taps reversed) against the plain version of
+    the flipped weight; two launches give the same bits."""
+    spec, x, wt, scale, offset, residual = _flat_case(cuda, b, *hw, c, o, k,
+                                                      affine, res)
+    w_mat = wt.permute(2, 3, 1, 0).reshape(k * k * c, o)
+    ones = torch.ones(o, device=cuda)
+    sc = ones if scale is None else scale
+    of = 0 * ones if offset is None else offset
+    out = cf._launch(spec, relu, x, w_mat, scale, offset, residual, k, False,
+                     block_n)
+    ref = cf.conv_flat_ref(spec, relu, x, w_mat, sc, of, residual)
+    top = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= K4_ULP_TOL * top
+    assert bool((out[:, ~cf._valid_rows(spec, cuda)] == 0).all())
+    again = cf._launch(spec, relu, x, w_mat, scale, offset, residual, k, False,
+                       block_n)
+    assert torch.equal(out, again)
+    # the input gradient's form: a cotangent with Cout channels in, C out
+    dy = cf.flat_begin(torch.randn(b, *hw, o, device=cuda).bfloat16(), spec)
+    dx = cf._launch(spec, False, dy, w_mat, None, None, None, k, True, block_n)
+    ones_c = torch.ones(c, device=cuda)
+    ref = cf.conv_flat_ref(spec, False, dy, cf._flipped(w_mat, c), ones_c,
+                           0 * ones_c, None)
+    top = ref.float().abs().max().item()
+    assert dx.shape == (b, spec.rows, c)
+    assert (dx.float() - ref.float()).abs().max().item() <= K4_ULP_TOL * top
+    assert bool((dx[:, ~cf._valid_rows(spec, cuda)] == 0).all())
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("want", [(True, True, True), (True, False, False),
+                                  (False, True, False), (False, False, True)])
+@pytest.mark.parametrize("o", [64, 24, 2048])
+def test_k4_dy_prologue_matches_plain_version(cuda, relu, want, o):
+    """The backward's prologue kernel against its plain version: dy * scale
+    in bf16 (channel 0's scale exactly 0), dy in bf16, and the f32 sum of dy
+    over batch and rows, each only where asked for, in one pass; two launches
+    give the same bits. dy is exact in bf16 (a bf16 cotangent times 0 or 1),
+    so both bf16 outputs are equal to the bit; the sums differ by f32
+    rounding in another order (1e-5 of the sum of |dy|)."""
+    h = 13 if o == 2048 else 20
+    spec, x, wt, scale, offset, _ = _flat_case(cuda, 3, h, h, 16, o, 1, mb=None)
+    scale[0] = 0.0
+    out = cf.conv_flat(x, spec, wt, scale, offset, relu)
+    g = torch.randn(out.shape, device=cuda).bfloat16()
+    before = cf.dy_launch_count()
+    got = cf._dy_prologue(spec, relu, g, out, scale, *want)
+    again = cf._dy_prologue(spec, relu, g, out, scale, *want)
+    torch.cuda.synchronize()
+    assert cf.dy_launch_count() == before + 2
+    ref = cf.dy_prologue_ref(spec, relu, g, out, scale, torch.bfloat16, *want)
+    for name, a, b, r in zip(("dy * scale", "dy", "sum of dy"), got, ref, again):
+        assert (a is None) == (b is None) == (r is None), name
+        if a is None:
+            continue
+        assert torch.equal(a, r), name
+        if name == "sum of dy":
+            scale_of = (g.float().abs().sum((0, 1)) + 1).max().item()
+            assert (a - b).abs().max().item() <= 1e-5 * scale_of, name
+        else:
+            assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
+    if want[0]:
+        assert bool((got[0][..., 0] == 0).all())
 
 
 def test_k4_backward_launches_k4_for_dx_and_matches_autograd(cuda):
@@ -485,7 +570,7 @@ def test_k4_backward_launches_k4_for_dx_and_matches_autograd(cuda):
     spec, x, wt, scale, offset, residual = _flat_case(cuda, 2, 12, 10, 32, 64, 3,
                                                       True, True, mb=64)
     leaves = [t.clone().requires_grad_() for t in (x, wt, scale, offset, residual)]
-    fwd, dx = cf.launch_count(), cf.dx_launch_count()
+    fwd, dx, dy = cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()
     out = cf.conv_flat(leaves[0], spec, leaves[1], leaves[2], leaves[3], True,
                        leaves[4])
     g = torch.randn(out.shape, device=cuda, generator=torch.Generator(
@@ -493,7 +578,8 @@ def test_k4_backward_launches_k4_for_dx_and_matches_autograd(cuda):
     g = g * cf._valid_rows(spec, cuda)[None, :, None]
     out.backward(g)
     torch.cuda.synchronize()
-    assert (cf.launch_count(), cf.dx_launch_count()) == (fwd + 1, dx + 1)
+    assert (cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()) == (
+        fwd + 1, dx + 1, dy + 1)
 
     ref = [t.detach().float().requires_grad_() for t in (x, wt, scale, offset, residual)]
     w_mat = ref[1].bfloat16().float().permute(2, 3, 1, 0).reshape(-1, 64)

@@ -4,8 +4,8 @@ Every kernel is one CUDA C++ source under `tunevlseg_torch/csrc/` with a plain
 C entry point. At first use of any of the models' kernels (K1-K4), every
 source of theirs whose library is missing is compiled with `nvcc` for `sm_90a`
 (one compiler process per source, all started together) into
-`tunevlseg_torch/_build/`, under a name keyed by a hash of the source, the
-shared header and the flags, and loaded with `ctypes`. The attention sweeps'
+`tunevlseg_torch/_build/`, under a name keyed by a hash of the source, every
+shared header (`csrc/*.cuh`) and the flags, and loaded with `ctypes`. The attention sweeps'
 kernels (S1-S4, the variants of K1) are a library of their own, built at the
 first sweep: a process that only serves or trains never builds it;
 `load_libraries(sweeps=True)` builds whatever is missing of both sets in one
@@ -30,7 +30,7 @@ SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",          # K1
            "bias": _PKG / "csrc" / "flash_attn_bias_fwd.cu",    # K3
            "conv": _PKG / "csrc" / "conv_flat.cu"}              # K4
 SWEEP_SOURCES = {"variants": _PKG / "csrc" / "flash_attn_fwd_variants.cu"}  # S1-S4
-HEADER = _PKG / "csrc" / "attn_common.cuh"     # included by every source
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))   # shared by the sources
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,7 +50,8 @@ def library_path(kernel: str) -> Path:
     """Where the built library of a kernel ("fwd" is K1, "bwd" K2, "bias" K3,
     "conv" K4, "variants" S1-S4) lives for its current source and flags."""
     source = {**SOURCES, **SWEEP_SOURCES}[kernel]
-    digest = hashlib.sha256(source.read_bytes() + HEADER.read_bytes()
+    digest = hashlib.sha256(source.read_bytes()
+                            + b"".join(h.read_bytes() for h in HEADERS)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 

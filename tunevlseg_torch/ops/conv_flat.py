@@ -25,9 +25,12 @@ Dispatch, a rule and not a fallback: a bf16 CUDA tensor launches K4
 (`tunevlseg_torch/csrc/conv_flat.cu`, built at first use by `ops/build.py`)
 or raises; CPU tensors and f32 take `conv_flat_ref`, the kernel's plain
 PyTorch version. The gradient is analytic on either device, as the JAX
-package's `_conv_flat_bwd`: dx is a flat convolution with the flipped,
-transposed weight and goes through the same dispatch (so on the card dx
-launches K4); dW is k*k matrix products outside any kernel.
+package's `_conv_flat_bwd`: one pass over the cotangent (the prologue kernel
+of the same source on the card, `dy_prologue_ref` elsewhere) gives dy * scale,
+dy and the sum of dy; dx is a flat convolution with the transposed weight and
+its taps reversed and goes through the same dispatch (so on the card dx
+launches K4); dW is one matrix product per tap over the whole batch, outside
+any kernel.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from tunevlseg_torch.ops import build
 _lib: Optional[ctypes.CDLL] = None
 _launches = 0
 _dx_launches = 0
+_dy_launches = 0
 
 
 def launch_count() -> int:
@@ -55,11 +59,18 @@ def dx_launch_count() -> int:
     return _dx_launches
 
 
+def dy_launch_count() -> int:
+    """Number of launches of the backward's prologue kernel since the last
+    reset."""
+    return _dy_launches
+
+
 def reset_launch_count() -> None:
-    """Set both K4 launch counts to 0."""
-    global _launches, _dx_launches
+    """Set the K4 launch counts (forward, dx, prologue) to 0."""
+    global _launches, _dx_launches, _dy_launches
     _launches = 0
     _dx_launches = 0
+    _dy_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -213,30 +224,28 @@ def conv_flat_ref(spec: FlatSpec, relu: bool, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 def load_library() -> ctypes.CDLL:
     """Build the kernels from source where needed (`ops/build.py`) and set
-    the argument types of K4's entry point. A failed build raises."""
+    the argument types of K4's entry points. A failed build raises."""
     global _lib
     if _lib is None:
         lib = build.load_libraries()["conv"]
-        lib.tvs_conv_flat.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        lib.tvs_conv_flat.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
                                       + [ctypes.c_void_p])
         lib.tvs_conv_flat.restype = ctypes.c_int
+        lib.tvs_conv_flat_dy.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                                         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.tvs_conv_flat_dy.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check_kernel_inputs(spec, x, w_nk, scale, offset, residual) -> None:
-    """Raise on anything K4 does not take."""
-    b, rows, c = x.shape
-    cout, k2c = w_nk.shape
-    tensors = [("x", x, torch.bfloat16), ("weight", w_nk, torch.bfloat16),
-               ("scale", scale, torch.float32), ("offset", offset, torch.float32)]
-    if residual is not None:
-        tensors.append(("residual", residual, torch.bfloat16))
+def _check_cuda(x: torch.Tensor, tensors) -> None:
+    """Raise unless every (name, tensor, dtype) lies on x's CUDA device with
+    that dtype, contiguous and 16-byte aligned."""
     for name, t, dtype in tensors:
         if t.device != x.device or not t.is_cuda:
             raise ValueError(f"K4 needs every tensor on x's CUDA device; "
@@ -247,12 +256,24 @@ def _check_kernel_inputs(spec, x, w_nk, scale, offset, residual) -> None:
             raise ValueError(f"K4 takes contiguous tensors; {name} is not")
         if t.data_ptr() % 16:
             raise ValueError(f"K4 needs 16-byte aligned tensors; {name} is not")
+
+
+def _check_kernel_inputs(spec, x, w_b, scale, offset, residual) -> None:
+    """Raise on anything K4 does not take."""
+    b, rows, c = x.shape
+    cout = w_b.shape[0]
+    tensors = [("x", x, torch.bfloat16), ("weight", w_b, torch.bfloat16)]
+    if scale is not None:
+        tensors += [("scale", scale, torch.float32), ("offset", offset, torch.float32)]
+    if residual is not None:
+        tensors.append(("residual", residual, torch.bfloat16))
+    _check_cuda(x, tensors)
     if rows != spec.rows:
         raise ValueError(f"K4: x has {rows} rows, the spec {spec.rows}")
     if c % 8 or cout % 8:
         raise ValueError(f"K4 takes channel counts that are multiples of 8 "
                          f"(16-byte rows), got C = {c}, Cout = {cout}")
-    if scale.shape != (cout,) or offset.shape != (cout,):
+    if scale is not None and (scale.shape != (cout,) or offset.shape != (cout,)):
         raise ValueError(f"K4: scale {tuple(scale.shape)} and offset "
                          f"{tuple(offset.shape)} must be ({cout},)")
     if residual is not None and residual.shape != (b, rows, cout):
@@ -262,30 +283,43 @@ def _check_kernel_inputs(spec, x, w_nk, scale, offset, residual) -> None:
         raise ValueError(f"K4 grid out of range for x {tuple(x.shape)}")
 
 
+def kernel_weight(w_mat: torch.Tensor, c: int, dtype: torch.dtype,
+                  for_dx: bool = False) -> torch.Tensor:
+    """The weight as K4 reads it, in one copy that casts and transposes:
+    (Cout, k*k, C) for the forward, and (C, k*k, Cout) for the input
+    gradient, whose launch pairs tap t with the weight's tap k*k-1-t."""
+    k2 = w_mat.shape[0] // c
+    w = w_mat.detach().reshape(k2, c, -1)
+    w = w.permute(1, 0, 2) if for_dx else w.permute(2, 0, 1)
+    return torch.empty(w.shape, dtype=dtype, device=w.device).copy_(w)
+
+
 def _launch(spec: FlatSpec, relu: bool, x, w_mat, scale, offset, residual,
-            for_dx: bool) -> torch.Tensor:
-    """One K4 launch. The weight goes to the kernel as (Cout, k*k*C) in x's
-    dtype: the cast the JAX wrapper makes once per call and the layout the
-    kernel's B fragments want, in one copy."""
+            k: int, for_dx: bool, block_n: int = 0) -> torch.Tensor:
+    """One K4 launch. `w_mat` is the forward's (k*k*C, Cout) weight in both
+    cases; for the input gradient (`for_dx`) x is the scaled cotangent and
+    the kernel reads the weight transposed with its taps reversed.
+    `block_n` forces the tile width (64, 128, 256; 0 chooses by Cout)."""
     global _launches, _dx_launches
-    k = _kernel_size(x, w_mat)
     if k % 2 != 1 or k // 2 > spec.r:
         raise ValueError(f"K4: kernel size {k} does not fit a spec of radius "
                          f"{spec.r}")
-    cout = w_mat.shape[1]
-    w_nk = torch.empty(cout, w_mat.shape[0], dtype=x.dtype, device=x.device)
-    w_nk.copy_(w_mat.detach().t())
-    _check_kernel_inputs(spec, x, w_nk, scale, offset, residual)
+    w_b = kernel_weight(w_mat, w_mat.shape[0] // (k * k), x.dtype, for_dx)
+    _check_kernel_inputs(spec, x, w_b, scale, offset, residual)
+    if w_b.shape[2] != x.shape[-1]:
+        raise ValueError(f"K4: x has {x.shape[-1]} channels, the weight "
+                         f"{w_b.shape[2]}")
     lib = load_library()
+    cout = w_b.shape[0]
     # every row is written by the kernel, guard and ring rows as zeros
     out = torch.empty(x.shape[0], spec.rows, cout, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = lib.tvs_conv_flat(
-            x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-            None if residual is None else residual.data_ptr(), out.data_ptr(),
-            x.shape[0], spec.rows, x.shape[-1], cout, k, spec.wp, spec.hp,
-            spec.r, spec.mb, int(relu), stream)
+            x.data_ptr(), w_b.data_ptr(), ptr(scale), ptr(offset), ptr(residual),
+            out.data_ptr(), x.shape[0], spec.rows, x.shape[-1], cout, k, spec.wp,
+            spec.hp, spec.r, spec.mb, int(relu), int(for_dx), block_n, stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
     if for_dx:
@@ -295,11 +329,123 @@ def _launch(spec: FlatSpec, relu: bool, x, w_mat, scale, offset, residual,
     return out
 
 
-def _dispatch(spec, relu, x, w_mat, scale, offset, residual, for_dx=False):
-    """K4 for a bf16 CUDA tensor (or raise), else the plain version."""
+def _flipped(w_mat: torch.Tensor, c: int) -> torch.Tensor:
+    """W'[t'] = W[k*k-1-t']^T as a (k*k*Cout, C) matrix: the weight of the
+    input gradient as a flat convolution (the tap offsets negate under index
+    reversal)."""
+    k2 = w_mat.shape[0] // c
+    return (w_mat.detach().reshape(k2, c, -1).flip(0).transpose(1, 2)
+            .reshape(-1, c))
+
+
+def _dispatch(spec, relu, x, w_mat, scale, offset, residual, k, for_dx=False):
+    """K4 for a bf16 CUDA tensor (or raise), else the plain version. With
+    `for_dx`, x is the scaled cotangent and `w_mat` the forward's weight;
+    scale and offset None mean 1 and 0."""
     if x.is_cuda and x.dtype == torch.bfloat16:
-        return _launch(spec, relu, x, w_mat, scale, offset, residual, for_dx)
+        return _launch(spec, relu, x, w_mat, scale, offset, residual, k, for_dx)
+    if for_dx:
+        w_mat = _flipped(w_mat, w_mat.shape[0] // (k * k))
+    if scale is None:
+        scale = torch.ones(w_mat.shape[1], dtype=torch.float32, device=x.device)
+        offset = torch.zeros_like(scale)
     return conv_flat_ref(spec, relu, x, w_mat, scale, offset, residual)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def dy_prologue_ref(spec: FlatSpec, relu: bool, g: torch.Tensor,
+                    out: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+                    want_scaled: bool, want_plain: bool, want_offset: bool):
+    """Plain PyTorch version of the backward's prologue kernel: dy = g
+    masked by the ReLU state (ties at 0 take the 0-branch), which also masks
+    the rows the forward forced to zero, or else by those rows; returns
+    (dy * scale in `dtype`, dy in `dtype`, the f32 sum of dy over batch and
+    rows), each None where it is not wanted."""
+    if relu:
+        dy = g.float() * (out > 0)
+    else:
+        dy = g.float() * _valid_rows(spec, g.device)[None, :, None]
+    return ((dy * scale.float()).to(dtype) if want_scaled else None,
+            dy.to(dtype) if want_plain else None,
+            dy.sum((0, 1)) if want_offset else None)
+
+
+def _dy_rows_per_block(n_rows: int) -> int:
+    """Rows a block of the prologue walks: 256, more where the grid would
+    pass its 65535 row blocks."""
+    return max(256, -(-n_rows // 65535))
+
+
+def _dy_prologue(spec, relu, g, out, scale, want_scaled, want_plain,
+                 want_offset):
+    """The prologue kernel on a bf16 CUDA cotangent (or raise). The per-block
+    sums of dy are added over the blocks by one `sum` in a fixed order."""
+    global _dy_launches
+    g = g.contiguous()
+    b, rows, cout = g.shape
+    _check_cuda(g, [("g", g, torch.bfloat16), ("out", out, torch.bfloat16),
+                    ("scale", scale, torch.float32)])
+    if rows != spec.rows or out.shape != g.shape or cout % 8:
+        raise ValueError(f"K4 prologue: g {tuple(g.shape)}, out "
+                         f"{tuple(out.shape)}, spec rows {spec.rows}")
+    n_rows = b * rows
+    per_block = _dy_rows_per_block(n_rows)
+    dys = torch.empty_like(g) if want_scaled else None
+    dyb = torch.empty_like(g) if want_plain else None
+    part = (torch.empty(-(-n_rows // per_block), cout, dtype=torch.float32,
+                        device=g.device) if want_offset else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = load_library()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        err = lib.tvs_conv_flat_dy(
+            g.data_ptr(), out.data_ptr(), scale.data_ptr(), ptr(dys), ptr(dyb),
+            ptr(part), n_rows, rows, cout, spec.wp, spec.hp, spec.r, spec.mb,
+            int(relu), per_block, stream)
+    if err != 0:
+        raise RuntimeError(f"K4 prologue launch failed: cudaError {err}")
+    _dy_launches += 1
+    return dys, dyb, None if part is None else part.sum(0)
+
+
+def dy_prologue(spec, relu, g, out, scale, dtype, want_scaled, want_plain,
+                want_offset):
+    """The prologue kernel for a bf16 CUDA cotangent (or raise), else its
+    plain version."""
+    if g.is_cuda and g.dtype == torch.bfloat16 and dtype == torch.bfloat16:
+        return _dy_prologue(spec, relu, g, out, scale, want_scaled, want_plain,
+                            want_offset)
+    return dy_prologue_ref(spec, relu, g, out, scale, dtype, want_scaled,
+                           want_plain, want_offset)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 sums and an f32 result, for operands in any dtype."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def weight_grad_taps(spec: FlatSpec, k: int, x: torch.Tensor,
+                     dy: torch.Tensor) -> torch.Tensor:
+    """dWt (k*k*C, Cout) = per tap x_shift(t)^T dy against the UNSCALED dy,
+    each tap one product over every (batch, row) pair. x and dy are viewed
+    as (B*ROWS, C) and (B*ROWS, Cout); tap t contracts rows [mb + off,
+    B*ROWS - mb + off) of x with rows [mb, B*ROWS - mb) of dy. That is exact:
+    dy is zero outside each image's pixel block, every pixel block lies in
+    [mb, B*ROWS - mb), and |off| <= lead <= mb keeps the shifted rows inside
+    the tensor; the rows where dy is zero (guard bands, the ring, the seams
+    between images, whose shifted x rows belong to the neighbouring image)
+    add exact zeros."""
+    c, cout = x.shape[-1], dy.shape[-1]
+    x2 = x.reshape(-1, c)
+    d2 = dy.reshape(-1, cout)
+    lo, hi = spec.mb, x2.shape[0] - spec.mb
+    return torch.cat([_mm_f32(x2[lo + off:hi + off].t(), d2[lo:hi])
+                      for off in _tap_offsets(spec, k)], 0)
 
 
 class _ConvFlat(torch.autograd.Function):
@@ -308,7 +454,8 @@ class _ConvFlat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w_mat, scale, offset, residual, spec, relu):
-        out = _dispatch(spec, relu, x, w_mat, scale, offset, residual)
+        out = _dispatch(spec, relu, x, w_mat, scale, offset, residual,
+                        _kernel_size(x, w_mat))
         ctx.spec, ctx.relu = spec, relu
         if any(ctx.needs_input_grad[:5]):
             ctx.save_for_backward(x, w_mat, scale, offset, residual, out)
@@ -319,47 +466,28 @@ class _ConvFlat(torch.autograd.Function):
         x, w_mat, scale, offset, residual, out = ctx.saved_tensors
         spec, relu = ctx.spec, ctx.relu
         need_x, need_w, need_s, need_o, need_r = ctx.needs_input_grad[:5]
-        c = x.shape[-1]
         k = _kernel_size(x, w_mat)
-        k2 = k * k
-        # dy masked by the ReLU state (ties at 0 take the 0-branch), which
-        # also masks the rows the forward forced to zero; else by those rows
-        if relu:
-            dy = g.float() * (out > 0)
-        else:
-            dy = g.float() * _valid_rows(spec, g.device)[None, :, None]
-
-        dx = dw = d_scale = d_offset = d_res = None
+        # one pass over g (and out): dy * scale for dx, dy for dW / d_scale /
+        # d_residual, and the sum of dy for d_offset, each only where wanted
+        dys, dyb, d_offset = dy_prologue(spec, relu, g, out, scale, x.dtype,
+                                         need_x, need_w or need_s or need_r,
+                                         need_o)
+        dx = dw = d_scale = d_res = None
         if need_x:
-            # the transpose of a flat conv is a flat conv: W'[t'] = W[k2-1-t']^T,
-            # since the tap offsets negate under index reversal
-            w_flip = (w_mat.detach().reshape(k2, c, -1).flip(0)
-                      .transpose(1, 2).reshape(-1, c))
-            dx = _dispatch(spec, False, (dy * scale.float()).to(x.dtype), w_flip,
-                           torch.ones(c, dtype=torch.float32, device=x.device),
-                           torch.zeros(c, dtype=torch.float32, device=x.device),
-                           None, for_dx=True)
+            # the transpose of a flat conv is a flat conv with the weight
+            # transposed and its taps reversed (on the card: K4 again)
+            dx = _dispatch(spec, False, dys, w_mat, None, None, None, k,
+                           for_dx=True)
         if need_w or need_s:
-            # per tap x_shift(t)^T dy against the UNSCALED dy, contracted over
-            # every (batch, row) pair. dy is zero outside the pixel block, so
-            # the products run over its rows [mb, mb + mp) alone (the shifted
-            # rows stay inside the tensor: |off| <= lead <= mb). Operands in
-            # x's dtype, f32 sums over the batch.
-            lo, hi = spec.mb, spec.mb + spec.mp
-            dyt = dy[:, lo:hi].to(x.dtype)
-            dwt = torch.cat([
-                torch.bmm(x[:, lo + off:hi + off].transpose(1, 2), dyt)
-                .float().sum(0) for off in _tap_offsets(spec, k)], 0)
+            dwt = weight_grad_taps(spec, k, x, dyb)
             if need_w:
                 dw = (dwt * scale.float()).to(w_mat.dtype)
             if need_s:
                 # d_scale_o = sum dy*acc = sum_{t,c} W[tc,o] * dWt[tc,o]: exact
                 # for scale == 0, no division, no forward recompute
                 d_scale = (w_mat.float() * dwt).sum(0)
-        if need_o:
-            d_offset = dy.sum((0, 1))
         if need_r:
-            d_res = dy.to(residual.dtype)
+            d_res = dyb.to(residual.dtype)
         return dx, dw, d_scale, d_offset, d_res, None, None
 
 

@@ -1,21 +1,28 @@
-"""Segmentation loss with MONAI DiceCE semantics.
+"""Segmentation losses with MONAI semantics, every reduction in f32.
 
-Counterpart of `tunevlseg_tpu/ops/losses.py:dice_ce_loss`: MONAI
-`DiceCELoss(sigmoid=True)` for the binary single-channel case, Dice per
-(sample, channel) with smooth_nr = smooth_dr = 1e-5 and mean reduction, plus
-BCE-with-logits (mean), every reduction in f32. Only the options the
-configurations set (`lambda_dice`, `lambda_ce`, `weight`) are ported.
+Counterpart of `tunevlseg_tpu/ops/losses.py`, function for function, with the
+same argument order and defaults, so that a configuration's `loss_fn` block
+(`name` picks the function from `LOSS_REGISTRY`, every other key is a keyword
+argument) builds the same loss on either package:
+
+  DiceLoss (include_background=True, reduction="mean"), per (sample,
+  channel), or per channel over the batch with `batch=True`:
+      f = 1 - (2*sum(p*g) + smooth_nr) / (sum(p) + sum(g) + smooth_dr)
+  with p = sigmoid(logits) when `sigmoid`, squared sums with `squared_pred`,
+  and the Jaccard denominator 2*(sum(p) + sum(g) - sum(p*g)) with `jaccard`;
+  the CE part for the single-channel binary case is BCE-with-logits (mean,
+  `weight` -> pos_weight); total = lambda_dice * dice + lambda_ce * bce.
+  `focal_loss` is the sigmoid focal loss (mean) of SOLOv2's objective.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-SMOOTH = 1e-5
-
 
 def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor,
                                      pos_weight=None) -> torch.Tensor:
+    """Mean BCE-with-logits (torch `BCEWithLogitsLoss(pos_weight=...)`)."""
     x = logits.float()
     z = targets.float()
     w = 1.0 if pos_weight is None else pos_weight
@@ -24,21 +31,59 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor
     return loss.mean()
 
 
-def dice_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Sigmoid Dice loss per (sample, channel), averaged."""
-    p = torch.sigmoid(logits.float())
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor, sigmoid: bool = True,
+              squared_pred: bool = False, jaccard: bool = False,
+              smooth_nr: float = 1e-5, smooth_dr: float = 1e-5,
+              batch: bool = False) -> torch.Tensor:
+    """`monai.losses.DiceLoss` on (B, C, *spatial), averaged."""
+    x = logits.float()
     g = targets.float()
+    p = torch.sigmoid(x) if sigmoid else x
     dims = tuple(range(2, p.dim()))
+    if batch:
+        dims = (0,) + dims
     intersection = (g * p).sum(dim=dims)
-    denominator = g.sum(dim=dims) + p.sum(dim=dims)
-    f = 1.0 - (2.0 * intersection + SMOOTH) / (denominator + SMOOTH)
+    if squared_pred:
+        denominator = (g * g).sum(dim=dims) + (p * p).sum(dim=dims)
+    else:
+        denominator = g.sum(dim=dims) + p.sum(dim=dims)
+    if jaccard:
+        denominator = 2.0 * (denominator - intersection)
+    f = 1.0 - (2.0 * intersection + smooth_nr) / (denominator + smooth_dr)
     return f.mean()
 
 
-def dice_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
+def dice_ce_loss(logits: torch.Tensor, targets: torch.Tensor, sigmoid: bool = True,
                  lambda_dice: float = 1.0, lambda_ce: float = 0.2,
-                 weight=None) -> torch.Tensor:
-    """`monai.losses.DiceCELoss(sigmoid=True)` for the binary single-channel
-    case (`weight` -> BCE pos_weight)."""
+                 smooth_nr: float = 1e-5, smooth_dr: float = 1e-5,
+                 squared_pred: bool = False, jaccard: bool = False,
+                 batch: bool = False, weight=None) -> torch.Tensor:
+    """`monai.losses.DiceCELoss` for the binary single-channel case
+    (`weight` -> BCE pos_weight)."""
+    d = dice_loss(logits, targets, sigmoid=sigmoid, squared_pred=squared_pred,
+                  jaccard=jaccard, smooth_nr=smooth_nr, smooth_dr=smooth_dr,
+                  batch=batch)
     ce = binary_cross_entropy_with_logits(logits, targets, pos_weight=weight)
-    return lambda_dice * dice_loss(logits, targets) + lambda_ce * ce
+    return lambda_dice * d + lambda_ce * ce
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
+               alpha: float = 0.25) -> torch.Tensor:
+    """Sigmoid focal loss (mean); no alpha weighting when alpha < 0."""
+    x = logits.float()
+    z = targets.float()
+    p = torch.sigmoid(x)
+    ce = x.clamp(min=0) - x * z + torch.log1p(torch.exp(-x.abs()))
+    p_t = p * z + (1 - p) * (1 - z)
+    weight = (1 - p_t) ** gamma
+    if alpha >= 0:
+        weight = weight * (alpha * z + (1 - alpha) * (1 - z))
+    return (weight * ce).mean()
+
+
+LOSS_REGISTRY = {
+    "dice_ce": dice_ce_loss,
+    "dice": dice_loss,
+    "bce": binary_cross_entropy_with_logits,
+    "focal": focal_loss,
+}
