@@ -9,11 +9,17 @@ Phases, each printing its numbers on lines of its own:
   2. build: kernels K1 (csrc/flash_attn_fwd.cu), K2 (csrc/flash_attn_bwd.cu),
      K3 (csrc/flash_attn_bias_fwd.cu), K4 (csrc/conv_flat.cu) and the sweeps'
      S1-S4 (csrc/flash_attn_fwd_variants.cu) built from source side by side,
-     timed, with the registers and spills `ptxas -v` reports;
-  3. kernel vs plain: K1 against `flash_attention_ref` and K2 against
-     `flash_attention_bwd_ref` at the CLIPSeg vision and decoder shapes (485
-     tokens, and 489 with four visual contexts), a kv_valid case (masked dk/dv rows exactly zero), the two batch-16 shapes
-     of the e2e train step and the CRIS decoder's b64 x 676 x 8 x 64; K3
+     timed, with the registers and spills `ptxas -v` reports for each kernel;
+  3. kernel vs plain: K1 against `flash_attention_ref` (its output, and with
+     the log-sum-exp a backward asks for: output bit-identical, lse against
+     the plain version's, K1 timed with and without the lse write) and K2
+     against `flash_attention_bwd_ref` on the lse K1 wrote, as a train step
+     calls it, and against the plain version without it (p = e / sum e);
+     two calls bit-identical; the device time of K2's two kernels, the dq
+     pass with its delta sweep and the dk/dv pass) at the CLIPSeg vision and decoder
+     shapes (485 tokens, and 489 with four visual contexts), a kv_valid case
+     (masked dk/dv rows exactly zero), the two batch-16 shapes of the e2e
+     train step and the CRIS decoder's b64 x 676 x 8 x 64; K3
      against `biased_attention_ref` at the text shape (U = 1 and U = 64 rows,
      causal + padding bias) and the CRIS cross shape (676 queries into 77
      keys, key-padding bias): max abs error against the stated bound, times
@@ -107,19 +113,24 @@ nonzero.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 KERNEL_TOL = 2e-2          # K1 and K3, bf16 output: a few ulp at |o| ~ 1
-# K2, bf16 outputs: the kernel and its plain version round p and ds to bf16
-# from f32 values that differ in the last bits (exp2 against a log-sum-exp
-# vs e / sum), accumulate in f32 in another order, and round the outputs
-# once. At worst the two roundings of an output near the largest magnitude
-# land one bf16 ulp apart (2^-8 = 3.9e-3 relative), so the bound is 5e-3 of
-# the largest |reference|. Both passes are deterministic (no atomics).
+# K2, bf16 outputs, against its plain version with p from the same lse (as
+# the kernel takes it) and without (p = e / sum e), both held: the kernel and
+# the plain version round p and ds to bf16 from f32 values that differ in the
+# last bits, accumulate in f32 in another order, and round the outputs once.
+# At worst the two roundings of an output near the largest magnitude land one
+# bf16 ulp apart (2^-8 = 3.9e-3 relative), so the bound is 5e-3 of the
+# largest |reference|. The kernels are deterministic (no atomics).
 K2_REL_TOL = 5e-3
+# K1's log-sum-exp against its plain version: f32 sums in another order and
+# exp2 / log2 against the plain version's, relative to max(1, |lse|)
+LSE_REL_TOL = 1e-4
 # kernel path vs plain path, probabilities: the plain path rounds the scores
 # to bf16 before the softmax and the kernel does not, so the two bf16 models
 # differ by more than the kernel's own rounding (predicted max ~5e-3)
@@ -297,9 +308,13 @@ def phase_build():
           + ", ".join(build.library_path(k).name for k, _ in kernels))
     for kernel, label in kernels:
         log = build.library_path(kernel).with_suffix(".log").read_text()
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {label} ptxas {line.strip()}")
+            found = re.search(r"Compiling entry function '_Z\w*?\d([a-z_]+_kernel)(I\w*?E)?E", line)
+            if found:      # the kernel's name and its template arguments
+                entry = found.group(1) + (found.group(2) or "")
+            elif "registers" in line or "spill" in line:
+                print(f"build: {label} {entry} ptxas {line.strip()}")
 
 
 def attention_bound(n_tensors: int, flops_factor: int, b, s, h, d, t_valid,
@@ -330,77 +345,129 @@ def kernel_cases(gen):
             for _ in range(4))
 
 
+def device_ms_by_kernel(fn, n: int = 5) -> dict:
+    """Device time per call of each kernel `fn` launches, by kernel name,
+    from torch.profiler over `n` calls after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def phase_kernels(fa):
-    """K1 against its plain version; returns {label: numbers}."""
+    """K1 against its plain version, with and without the log-sum-exp that
+    a backward asks for; returns {label: numbers}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for label, (b, s, h, d), kv, (q, k, v, _) in kernel_cases(gen):
+        t = kv or s
         out = fa.flash_attention(q, k, v, kv_valid=kv)
+        with_lse, lse = fa._launch(q, k, v, t, with_lse=True)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_ref(q, k, v, kv_valid=kv)
+        ref, lse_ref = fa.flash_attention_ref(q, k, v, kv_valid=kv, return_lse=True)
         err = (out.float() - ref.float()).abs().max().item()
+        lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)).max().item()
+        same = torch.equal(out, with_lse)
         ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, kv_valid=kv), 50)
+        lse_ms = cuda_time_ms(lambda: fa._launch(q, k, v, t, with_lse=True), 50)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_ref(q, k, v, kv_valid=kv), 10)
-        bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, kv or s)
+        bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t)
         print(f"kernel K1 {label} q{(b, s, h, d)} kv_valid {kv}: "
               f"max_abs_err {err:.6g} (bound {KERNEL_TOL}), kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), with the lse write {lse_ms:.4f} ms "
+              f"({100 * (lse_ms / ms - 1):+.1f}%; output bit-identical {same}, lse "
+              f"error {lse_err:.3g} of max(1, |lse|), bound {LSE_REL_TOL}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.1f}% reached)")
         if not err <= KERNEL_TOL:
             fail(f"K1 {label}: max abs error {err} > {KERNEL_TOL}")
+        if not same:
+            fail(f"K1 {label}: the output changes when the lse is written")
+        if not lse_err <= LSE_REL_TOL:
+            fail(f"K1 {label}: lse error {lse_err} > {LSE_REL_TOL} of max(1, |lse|)")
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by}
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "ms_with_lse": lse_ms}
     return results
 
 
 def phase_kernels_bwd(fa):
-    """K2 against its plain version; returns {label: numbers}."""
+    """K2 against its plain version on the lse that K1 wrote, as a train
+    step calls it, and without it; returns {label: numbers}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
     for label, (b, s, h, d), kv, (q, k, v, g) in kernel_cases(gen):
-        before = fa.bwd_launch_count()
-        out = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv)
+        t = kv or s
+        _, lse = fa._launch(q, k, v, t, with_lse=True)
+        before = fa.bwd_launch_count(), fa.launch_count()
+        out = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse)
         torch.cuda.synchronize()
-        if fa.bwd_launch_count() != before + 1:
-            fail(f"K2 {label}: the wrapper did not count its launch")
-        ref = fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv)
-        errs, rels = [], []
-        for name, got, want in zip(("dq", "dk", "dv"), out, ref):
+        if (fa.bwd_launch_count(), fa.launch_count()) != (before[0] + 1, before[1]):
+            fail(f"K2 {label}: the wrapper did not count one K2 launch and no K1")
+        ref = fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv, lse=lse)
+        exact = fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv)
+        errs, rels, exact_rels = [], [], []
+        for name, got, want, want0 in zip(("dq", "dk", "dv"), out, ref, exact):
             if got.shape != want.shape or got.dtype != torch.bfloat16:
                 fail(f"K2 {label}: {name} is {tuple(got.shape)} {got.dtype}")
             err = (got.float() - want.float()).abs().max().item()
             top = want.float().abs().max().item()
             errs.append(err)
             rels.append(err / top)
+            exact_rels.append((got.float() - want0.float()).abs().max().item()
+                              / want0.float().abs().max().item())
             if not err <= K2_REL_TOL * top:
                 fail(f"K2 {label}: {name} max abs error {err} > "
                      f"{K2_REL_TOL} x {top}")
+            if not exact_rels[-1] <= K2_REL_TOL:
+                fail(f"K2 {label}: {name} is {exact_rels[-1]} of the largest "
+                     f"|exact gradient| away from it (bound {K2_REL_TOL})")
         if kv is not None:
             for name, got in (("dk", out[1]), ("dv", out[2])):
                 if not bool((got[:, kv:] == 0).all()):
                     fail(f"K2 {label}: {name} rows of masked keys are not "
                          "exactly zero")
-        del ref
+        again = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse)
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            fail(f"K2 {label}: two calls on the same inputs differ")
+        del ref, exact, again
         ms = cuda_time_ms(
-            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv), 50)
+            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse), 50)
         plain_ms = cuda_time_ms(
-            lambda: fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv), 5)
-        bound_ms, bound_by, flops = attention_bound(7, 10, b, s, h, d, kv or s)
+            lambda: fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv, lse=lse), 5)
+        parts = device_ms_by_kernel(
+            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse))
+        by_pass = {key: sum(v for n, v in parts.items() if key in n)
+                   for key in ("bwd_dq", "dkdv")}
+        # each input read once (q, k, v, g and the f32 lse), each output
+        # written once (dq, dk, dv)
+        nbytes = 7 * b * s * h * d * 2 + 4 * b * h * s
+        bound_ms, bound_by, flops = attention_bound(0, 10, b, s, h, d, t, nbytes)
         masked = "" if kv is None else f", {s - kv} masked dk/dv rows exactly 0"
         print(f"kernel K2 {label} q{(b, s, h, d)} kv_valid {kv}: max_abs_err "
               f"dq {errs[0]:.6g} dk {errs[1]:.6g} dv {errs[2]:.6g} (bound "
               f"{K2_REL_TOL} of the largest |reference|; reached "
-              f"{max(rels):.4g}){masked}, kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s of 10*B*H*S*T*D), plain "
+              f"{max(rels):.4g}; against the plain version without the lse "
+              f"{max(exact_rels):.4g}){masked}, two calls bit-identical, kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of 10*B*H*S*T*D; "
+              f"device: dq pass with its delta sweep {by_pass['bwd_dq']:.4f}, "
+              f"dk/dv pass {by_pass['dkdv']:.4f}), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.1f}% reached)")
         results[label] = {"max_abs_err": max(errs), "ms": ms,
                           "plain_ms": plain_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
+                          "bound_by": bound_by, "passes_ms": by_pass,
+                          "rel_err_vs_plain_without_lse": max(exact_rels)}
     return results
 
 
@@ -1733,11 +1800,13 @@ def main() -> None:
                 "by_shape": numbers}
 
     kernels = [
-        entry((0,), "K1 flash_attn_fwd (unbiased self-attention forward)",
+        entry((0,), "K1 flash_attn_fwd (unbiased self-attention forward, lse "
+              "written when a gradient is wanted)",
               "tunevlseg_torch/csrc/flash_attn_fwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:80", k1, "vision",
               library["vision"][0]),
-        entry((1,), "K2 flash_attn_bwd (fused self-attention backward)",
+        entry((1,), "K2 flash_attn_bwd (self-attention backward: a dq pass with a delta "
+              "sweep, then a dk/dv pass; wgmma from TMA rings, p from K1's lse)",
               "tunevlseg_torch/csrc/flash_attn_bwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:227", k2, "vision",
               library["vision"][1]),
@@ -1775,7 +1844,8 @@ def main() -> None:
             ("S2", 6, "S2 attn_variant: exp2 / no max pass / products alone / hg / "
              "block order", "scripts/micro_attn_v2.py:45", "ours (hg3) @ vision"),
             ("S3", 7, "S3 attn_ones_column: folded scale, mask row, denominator out "
-             "of the P V product", "scripts/micro_attn_v2.py:113",
+             "of the P V step; wgmma from a TMA ring, two consumer warpgroups",
+             "scripts/micro_attn_v2.py:113",
              "opt (S3) @ vision"),
             ("S4", 6, "S4 attn_variant: bg batch rows x hg heads per block, block "
              "order", "scripts/micro_attn_grid.py:29", "bg1 hg3 query @ vision")):

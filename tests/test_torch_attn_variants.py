@@ -144,6 +144,21 @@ def test_ones_column_helpers():
     assert fav.mask_row(100, 100, "cpu").shape == (128,)   # the ragged tail alone
 
 
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 485, 512])
+def test_mask_row_pads_to_the_kernels_key_tile(t):
+    """S3's kernel streams keys in tiles of KEY_TILE and reads the mask row
+    over whole tiles: the row covers the ragged tail (zero-filled keys score 0)
+    and the keys past kv_valid."""
+    padded = -(-t // fav.KEY_TILE) * fav.KEY_TILE
+    for t_valid in sorted({1, max(1, t - 1), t}):
+        row = fav.mask_row(t, t_valid, "cpu")
+        if t_valid == padded:
+            assert row is None
+            continue
+        assert row.shape == (padded,)
+        assert not row[:t_valid].any() and bool((row[t_valid:] == fav.MASKED).all())
+
+
 VARIANTS = {
     "hg2 (S1)": (fav.attention_variant_ref, dict(hg=2)),
     "hg6 (S1)": (fav.attention_variant_ref, dict(hg=6)),

@@ -84,22 +84,26 @@ def rand_g(seed, b, s, h, d):
     (1, 512, 3, 64, 512, 485),    # padded keys masked by kv_valid
 ])
 def test_bwd_ref_matches_pallas_k2(b, s, h, d, t, kv_valid):
+    """Both forms of the plain version: from q, k, v and g alone, and K2's
+    own with p from the forward's log-sum-exp."""
     q, k, v = rand_qkv(4, b, s, h, d, t)
     g = rand_g(5, b, s, h, d)
     want = jfa._backward_batched_heads(*(jnp.asarray(x) for x in (q, k, v, g)),
                                        kv_valid)
-    got = fa.flash_attention_bwd_ref(*(torch.from_numpy(x) for x in (q, k, v, g)),
-                                     kv_valid)
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        assert a.shape == w.shape, name
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-4,
-                                   rtol=1e-3, err_msg=name)
-    if kv_valid is not None:
-        # masked keys: exactly zero dk and dv rows, in both packages
-        for a, w in zip(got[1:], want[1:]):
-            assert (a[:, kv_valid:] == 0).all()
-            assert (np.asarray(w)[:, kv_valid:] == 0).all()
-            assert (a[:, :kv_valid] != 0).any()
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    _, lse = fa.flash_attention_ref(tq, tk, tv, kv_valid, return_lse=True)
+    for got in (fa.flash_attention_bwd_ref(tq, tk, tv, tg, kv_valid),
+                fa.flash_attention_bwd_ref(tq, tk, tv, tg, kv_valid, lse=lse)):
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.shape == w.shape, name
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-4,
+                                       rtol=1e-3, err_msg=name)
+        if kv_valid is not None:
+            # masked keys: exactly zero dk and dv rows, in both packages
+            for a, w in zip(got[1:], want[1:]):
+                assert (a[:, kv_valid:] == 0).all()
+                assert (np.asarray(w)[:, kv_valid:] == 0).all()
+                assert (a[:, :kv_valid] != 0).any()
 
 
 def test_bwd_ref_bf16_matches_pallas_k2():
@@ -109,12 +113,15 @@ def test_bwd_ref_bf16_matches_pallas_k2():
     g = rand_g(7, 1, 485, 3, 64)
     want = jfa._backward_batched_heads(
         *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, g)))
-    got = fa.flash_attention_bwd_ref(
-        *(torch.from_numpy(x).bfloat16() for x in (q, k, v, g)))
-    for a, w in zip(got, want):
-        assert a.dtype == torch.bfloat16
-        np.testing.assert_allclose(a.float().numpy(),
-                                   np.asarray(w, np.float32), atol=5e-2)
+    tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    o, lse = fa.flash_attention_ref(tq, tk, tv, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    for got in (fa.flash_attention_bwd_ref(tq, tk, tv, tg),
+                fa.flash_attention_bwd_ref(tq, tk, tv, tg, lse=lse)):
+        for a, w in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(w, np.float32), atol=5e-2)
 
 
 def test_cpu_bwd_wrapper_takes_plain_version():
@@ -130,6 +137,40 @@ def test_cpu_bwd_wrapper_takes_plain_version():
     auto = torch.autograd.grad(fa.flash_attention_ref(*qkv, 30), qkv, g)
     for a, w in zip(got, auto):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,d,t,kv_valid", [
+    (2, 485, 3, 64, 485, None), (2, 70, 2, 16, 130, 99), (1, 40, 2, 32, 40, 1),
+])
+def test_ref_log_sum_exp_matches_float64(b, s, h, d, t, kv_valid):
+    """lse = log2 Σⱼ exp2(s·log2 e) over the unmasked keys, s = q·k/√D: the
+    log2 domain K1 writes it in, against numpy in float64."""
+    q, k, v = rand_qkv(12, b, s, h, d, t)
+    _, lse = fa.flash_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    kv_valid, return_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    n = t if kv_valid is None else kv_valid
+    s2 = np.einsum("bshd,bthd->bhst", q.astype(np.float64),
+                   k[:, :n].astype(np.float64)) * d ** -0.5 * np.log2(np.e)
+    top = s2.max(axis=-1, keepdims=True)
+    want = (top + np.log2(np.exp2(s2 - top).sum(axis=-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_bwd_wrapper_takes_plain_version_with_lse():
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in rand_qkv(13, 2, 50, 2, 16, 70))
+    g = torch.from_numpy(rand_g(14, 2, 50, 2, 16)).bfloat16()
+    _, lse = fa.flash_attention_ref(q, k, v, 60, return_lse=True)
+    before = fa.bwd_launch_count(), fa.launch_count()
+    got = fa.flash_attention_bwd(q, k, v, g, 60, lse=lse)
+    assert (fa.bwd_launch_count(), fa.launch_count()) == before
+    for a, w in zip(got, fa.flash_attention_bwd_ref(q, k, v, g, 60, lse=lse)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    assert (got[1][:, 60:] == 0).all() and (got[2][:, 60:] == 0).all()
+    # p from the lse is e / Σe to f32 rounding: the bf16 results one ulp apart at most
+    for a, w in zip(got, fa.flash_attention_bwd_ref(q, k, v, g, 60)):
+        top = w.float().abs().max()
+        assert (a.float() - w.float()).abs().max() <= 2 ** -7 * top
 
 
 def test_plain_attention_grad_matches_xla_vjp():

@@ -20,10 +20,13 @@ from tunevlseg_torch.ops import flash_attention_variants as fav
 pytestmark = pytest.mark.gpu
 
 KERNEL_TOL = 2e-2  # bf16 output, a few ulp at |o| ~ 1
-# K2's bf16 outputs against its plain version: about one bf16 ulp of the
-# largest magnitude (p and ds rounded from f32 values that differ in the last
-# bits, another summation order, one output rounding); K2 is deterministic
+# K2's bf16 outputs against its plain version given the same lse:
+# about one bf16 ulp of the largest magnitude (p and ds rounded from f32
+# values that differ in the last bits, another summation order, one output
+# rounding); K2 is deterministic
 K2_REL_TOL = 5e-3
+# K1's log-sum-exp against its plain version, relative to max(1, |lse|)
+LSE_REL_TOL = 1e-4
 
 
 @pytest.fixture
@@ -56,6 +59,24 @@ def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
     assert (out.float() - ref.float()).abs().max().item() <= KERNEL_TOL
 
 
+@pytest.mark.parametrize("shape,t,kv_valid", [
+    ((64, 485, 12, 64), 485, None), ((8, 489, 4, 16), 489, None),
+    ((4, 512, 12, 64), 512, 485), ((3, 77, 2, 32), 130, 99),
+])
+def test_k1_log_sum_exp_matches_plain_version(cuda, shape, t, kv_valid):
+    """With the lse a backward asks for, K1's output keeps its bits and the
+    lse (log2 domain, masked keys out) is its plain version's."""
+    q, k, v = _qkv(cuda, *shape, t=t)
+    plain_out = fa._launch(q, k, v, kv_valid or t)
+    out, lse = fa._launch(q, k, v, kv_valid or t, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    b, s, h, _ = shape
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    _, want = fa.flash_attention_ref(q, k, v, kv_valid, return_lse=True)
+    assert ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item() <= LSE_REL_TOL
+
+
 def test_k1_raises_on_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 2, 64, 2, 64)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -84,20 +105,38 @@ def _assert_k2_close(got, want):
     ((64, 512, 12, 64), 512, 485),     # padded keys masked by kv_valid
     ((3, 300, 2, 32), 300, None),      # ragged tail of 44 rows, D = 32
     ((3, 70, 2, 32), 130, 99),         # S != T with kv_valid
+    ((4, 77, 2, 16), 77, None),        # ragged S at every head dim
+    ((4, 130, 2, 32), 130, None),
+    ((4, 489, 3, 64), 489, None),
+    ((4, 485, 2, 16), 512, 485),       # S != T, masked keys, D = 16
 ])
-def test_k2_matches_plain_version(cuda, shape, t, kv_valid):
+@pytest.mark.parametrize("strided_g", [False, True], ids=["g", "strided_g"])
+def test_k2_matches_plain_version(cuda, shape, t, kv_valid, strided_g):
+    """K2 on the lse that K1 wrote, against its plain version given the
+    same: masked dk / dv rows exactly 0, two calls bit-identical; g also as
+    the strided view a (B, H, S, D) -> (B, S, H, D) transpose gives."""
     q, k, v = _qkv(cuda, *shape, t=t)
-    g = _qkv(cuda, *shape, seed=1)[0]
-    before = fa.bwd_launch_count()
-    got = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv_valid)
+    b, s, h, d = shape
+    g = _qkv(cuda, b, h, s, d, seed=1)[0].transpose(1, 2) if strided_g else \
+        _qkv(cuda, *shape, seed=1)[0]
+    assert g.is_contiguous() != strided_g
+    _, lse = fa._launch(q, k, v, kv_valid or t, with_lse=True)
+    before = fa.bwd_launch_count(), fa.launch_count()
+    got = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv_valid, lse=lse)
     torch.cuda.synchronize()
-    assert fa.bwd_launch_count() == before + 1
+    assert (fa.bwd_launch_count(), fa.launch_count()) == (before[0] + 1, before[1])
+    _assert_k2_close(got, fa.flash_attention_bwd_ref(q, k, v, g, kv_valid, lse=lse))
+    # and the exact function (p = e / Σe): the same bound
     _assert_k2_close(got, fa.flash_attention_bwd_ref(q, k, v, g, kv_valid))
     if kv_valid is not None:
         assert bool((got[1][:, kv_valid:] == 0).all())
         assert bool((got[2][:, kv_valid:] == 0).all())
-    again = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv_valid)
+    again = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv_valid, lse=lse)
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+    # without the lse, K1 runs first to make it: the same bits
+    alone = fa.flash_attention_bwd(q, k, v, g, kv_valid=kv_valid)
+    assert fa.launch_count() == before[1] + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, alone))
 
 
 def test_backward_launches_k2_with_a_strided_gradient(cuda):
@@ -110,12 +149,13 @@ def test_backward_launches_k2_with_a_strided_gradient(cuda):
     out.backward(g)
     torch.cuda.synchronize()
     assert fa.bwd_launch_count() == before + 1
-    want = fa.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), g)
+    _, lse = fa._launch(q.detach(), k.detach(), v.detach(), 300, with_lse=True)
+    want = fa.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), g, lse=lse)
     _assert_k2_close((q.grad, k.grad, v.grad), want)
     # a layout K2 cannot read in place (rows not 16-byte aligned) is copied
     odd = torch.zeros(2, 300, 2, 40, device=cuda, dtype=torch.bfloat16)[..., 4:36]
     odd.copy_(g)
-    got = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), odd)
+    got = fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), odd, lse=lse)
     _assert_k2_close(got, want)
 
 
@@ -126,12 +166,45 @@ def test_backward_on_the_card_never_takes_the_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_bwd_ref", boom)
     monkeypatch.setattr(fa, "flash_attention_ref", boom)
     monkeypatch.setattr(attention, "plain_attention", boom)
+    monkeypatch.setattr(fa, "_lse2", boom)
     q, k, v = (x.requires_grad_() for x in _qkv(cuda, 2, 256, 2, 32))
     k1, k2 = fa.launch_count(), fa.bwd_launch_count()
     attention.dot_product_attention(q, k, v).float().sum().backward()
     torch.cuda.synchronize()
     assert (fa.launch_count(), fa.bwd_launch_count()) == (k1 + 1, k2 + 1)
     assert all(bool(x.grad.isfinite().all()) for x in (q, k, v))
+    # the public backward without the lse: K1 makes it, then K2
+    g = torch.ones_like(q)
+    fa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), g)
+    torch.cuda.synchronize()
+    assert (fa.launch_count(), fa.bwd_launch_count()) == (k1 + 2, k2 + 2)
+
+
+def test_kernels_with_tensor_maps_launch_from_a_fresh_thread(cuda):
+    """K2 and S3 encode TMA tensor maps on the host, a driver call that
+    needs a current context: a thread that has made no CUDA call yet (as
+    autograd's backward thread) must launch them all the same."""
+    import threading
+    q, k, v = _qkv(cuda, 2, 300, 2, 64)
+    g = _qkv(cuda, 2, 2, 300, 64, seed=2)[0].transpose(1, 2)
+    want = (fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v))
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append((fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v)))
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the test's thread
+            errors.append(e)
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=300)
+    assert not worker.is_alive()
+    assert not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got[0][0], want[0]))
+    assert torch.equal(got[0][1], want[1])
 
 
 def test_k2_raises_on_what_it_does_not_take(cuda):
@@ -145,6 +218,9 @@ def test_k2_raises_on_what_it_does_not_take(cuda):
         fa.flash_attention_bwd(q, k, v, q[:, :32])
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd(q, k.cpu(), v, q)
+    _, lse = fa._launch(q, k, v, 64, with_lse=True)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd(q, k, v, q, lse=lse[:, :1])
 
 
 def _narrow_model(cuda, strategy):
@@ -692,10 +768,15 @@ def test_variants_match_plain_version(cuda, shape, t, kv_valid, kw):
 @pytest.mark.parametrize("shape,t,kv_valid", [
     ((4, 70, 6, 64), 130, 99), ((4, 70, 6, 64), 130, None),
     ((4, 128, 6, 64), 128, None),      # nothing to mask: no mask row at all
+    ((4, 77, 6, 64), 77, None), ((4, 489, 6, 64), 489, None),
+    ((4, 300, 6, 64), 200, 150),       # S > T, ragged tails of both
 ])
 @pytest.mark.parametrize("kw", [dict(), dict(skip_max=True),
-                                dict(hg=3, bg=2, block_order="head")],
-                         ids=["default", "skip_max", "blocked"])
+                                dict(hg=3, bg=2, block_order="head"),
+                                dict(hg=6, bg=4, skip_max=True),
+                                dict(hg=2, block_order="head")],
+                         ids=["default", "skip_max", "blocked", "blocked_skip_max",
+                              "hg2_head"])
 def test_ones_column_matches_plain_version(cuda, shape, t, kv_valid, kw):
     """S3 against its plain version, and within 2e-2 of K1: its denominator
     is the sum of the bf16-rounded p (about 2^-9 relative) and its scale is

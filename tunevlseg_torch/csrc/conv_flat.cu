@@ -137,31 +137,12 @@ struct Tiles {
   }
 };
 
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ bool pixel_row(int row, int mb, int wp, int hp, int r) {
   const int pp = row - mb;  // index in the padded plane
   if (pp < 0) return false;
   const int hh = pp / wp;
   const int ww = pp - hh * wp;
   return hh >= r && hh < hp - r && ww >= r && ww < wp - r;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    f[2 * i] = __low2float(h);
-    f[2 * i + 1] = __high2float(h);
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack_f32x2(f[0], f[1]), pack_f32x2(f[2], f[3]), pack_f32x2(f[4], f[5]),
-                    pack_f32x2(f[6], f[7]));
 }
 
 template <int BK, int BN, int S, int kMinBlocks>
@@ -427,29 +408,6 @@ __global__ void __launch_bounds__(kDyThreads) dy_prologue_kernel(const DyParams 
 
 // --- host side ------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
 // a bf16 tensor of dims (d0, d1, d2), innermost first, contiguous, read in
 // boxes of (b0, b1, b2) with a `swizzle`-byte swizzle; zeros outside
 bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
@@ -469,13 +427,14 @@ bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uin
 template <int BK, int BN, int S, int kMinBlocks>
 cudaError_t launch(const void* x, const void* w, const ConvParams& p, int B, cudaStream_t stream) {
   using L = Smem<BK, BN, S>;
+  cudaError_t err = make_context_current();
+  if (err != cudaSuccess) return err;
   CUtensorMap tm_x, tm_w;
   if (!encode_3d(&tm_x, x, p.C, p.rows, B, BK, kBM, 1, L::kSwizzle) ||
       !encode_3d(&tm_w, w, p.C, p.k * p.k, p.Cout, BK, 1, BN, L::kSwizzle))
     return cudaErrorNotSupported;
   auto kernel = conv_flat_kernel<BK, BN, S, kMinBlocks>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   // persistent: as many blocks as fit on the card at once
   int device = 0, sms = 0, per_sm = 0;

@@ -1,420 +1,492 @@
 // K2: fused backward of unbiased self-attention for Hopper (sm_90a), bf16.
 //
 // Replaces the Pallas TPU kernel tunevlseg_tpu/ops/flash_attention.py:
-// _backward_batched_heads. From q, k, v and the incoming gradient g alone (no
-// residual of the forward beyond q, k, v) it recomputes
+// _backward_batched_heads. It computes the gradient of
 //
-//     p  = softmax(q k^T * scale),  keys at index >= t_valid get p = 0,
-//     dv = p^T g,   dp = g v^T,   delta_i = sum_j p_ij dp_ij,
-//     ds = p (dp - delta) * scale,   dq = ds k,   dk = ds^T q,
+//     o = softmax(q k^T * scale) v,   keys at index >= t_valid get p = 0,
 //
-// with the TPU kernel's numerics: scores, softmax, delta and ds in f32; p is
-// rounded to bf16 only as the operand of dv, ds only as the operand of dq and
-// dk; every product accumulates in f32; outputs are bf16. Masked keys give
-// exactly zero dk and dv rows.
+// from q, k, v, the incoming gradient g and one residual of the forward (K1,
+// flash_attn_fwd.cu): each row's log-sum-exp in the log2 domain, lse2 =
+// max_j s2_ij + log2 sum_j exp2(s2_ij - max), s2 = s * scale * log2(e). With it
+//
+//     p  = exp2(s2 - lse2),   dv = p^T g,   dp = g v^T,
+//     delta_i = sum_j p_ij dp_ij,   ds = p (dp - delta) * scale,
+//     dq = ds k,   dk = ds^T q.
+//
+// Scores, p, delta and ds are f32; p is rounded to bf16 only as the operand
+// of dv, ds only as the operand of dq and dk; every product accumulates in
+// f32; outputs are bf16. Keys at or beyond t_valid give exactly zero dk and dv
+// rows. (delta = g . o from the forward's bf16 output, the FlashAttention-2
+// recipe, would spare two tile products, but measured on the card it moved dq
+// and dk up to 5.7e-3 of their largest value from the exact gradient, past
+// the bound of 5e-3 that the sum of p dp keeps: PERF.md, section 6.)
 //
 // The TPU kernel holds four f32 (S x T) tiles of a head in VMEM inside one
-// grid cell. An SM cannot (4 * 512 * 512 * 4 B = 4 MB against 227 KB of
-// shared memory) and blocks carry nothing to each other, while dq sums over
-// keys and dk, dv sum over queries. This version takes two deterministic
-// passes, each recomputing the scores in 64 x 64 tiles that never leave
-// registers, with no atomics, no f32 gradient scratch and no cast epilogue:
+// grid cell. An SM cannot (4 MB at 512 x 512 against 227 KB of shared memory)
+// and blocks carry nothing to each other, while dq sums over keys and dk, dv
+// over queries. One C call enqueues two kernels, deterministic (no atomics, no
+// f32 gradient scratch):
 //
-//   pass 1 (flash_attn_bwd_dq_kernel): a block owns 64 query rows (16 per
-//     warp, q and g held as mma A fragments). A first sweep over the key
-//     tiles forms s = q k^T and dp = g v^T and keeps, online, the row max,
-//     the row sum of exp(s - max) and the row sum of exp(s - max) * dp; that
-//     gives the log-sum-exp and delta = sum_j p dp of each row (f32, written
-//     to a (B, H, S) scratch for pass 2). A second sweep recomputes s and dp,
-//     forms ds in registers, repacks it as the A operand and accumulates
-//     dq += ds k.
-//   pass 2 (flash_attn_bwd_dkdv_kernel): a block owns 64 keys (k and v held
-//     as A fragments) and loops over the query tiles, computing the
-//     TRANSPOSED tiles s^T = k q^T and dp^T = v g^T so that p^T and ds^T come
-//     out in the A-operand layout of dv += p^T g and dk += ds^T q.
+//   1. flash_attn_bwd_dq_kernel: a block owns 192 query rows, 64 per consumer
+//      warpgroup (three), whose q and g tiles TMA brings in once. One producer warp
+//      streams the key tiles (k, v; 64 rows) through a ring of mbarrier-
+//      guarded stages, twice. First sweep: s = q k^T and dp = g v^T (wgmma,
+//      both operands K-major in shared memory), p in registers, the row sums
+//      of p dp: delta, written with lse2 as (lse2, delta) pairs into a
+//      (B, H, S_pad) f32x2 scratch (rows S..S_pad get (+inf, 0), so that a
+//      padded query row gives p = 0 without a predicate). Second sweep: s and
+//      dp again, ds in registers, dq += ds k (wgmma with ds repacked as the
+//      register A operand and k read MN-major through the transpose bit).
+//   2. flash_attn_bwd_dkdv_kernel: a block owns 128 keys, 64 per warpgroup
+//      (two; k, v in once), and streams the query tiles (q, g and their (lse2,
+//      delta) pairs). Per tile a warpgroup forms s^T = k q^T and dp^T = v g^T,
+//      p^T and ds^T in registers, and accumulates dv += p^T g and dk += ds^T q
+//      (register A, g / q read MN-major).
 //
-// That is 9 tile products for the 5 of the formula (1.8x the operations);
-// the price of determinism and of needing nothing from the forward. Bound at
-// the training shapes (b64, S = T = 485): vision h12 d64 needs
-// 10*B*H*S*T*D = 116 GFLOP against 7 tensors of 47.7 MB, 346 FLOP/byte,
-// above the H100's bf16 ridge of ~295: bound by the tensor cores (117 us at
-// 989 TFLOP/s, 100 us by HBM). The decoder shape (h4 d16) has the same ratio.
-// The S x T intermediates never reach HBM. Tensor cores are used through
-// mma.sync.m16n8k16; no cp.async pipelining, TMA or wgmma yet.
+// Nine tile products for the formula's five: s and dp are formed in both
+// sweeps of the dq pass and again in the dk/dv pass. Bound at the training
+// shapes (b64, S = T = 485): vision h12 d64 needs 10*B*H*S*T*D = 116 GFLOP
+// against 7 tensors of 47.7 MB (q, k, v, g in; dq, dk, dv out) and the lse,
+// above the H100's bf16 ridge of ~295 FLOP/byte: bound by the tensor cores
+// (117 us at 989 TFLOP/s). The S x T intermediates never reach HBM.
 //
-// q, k, v, g and the outputs are read and written in place in their
-// (B, S, H, D) layout through strides (g is often a strided view); the ragged
-// S and T tails and t_valid are masked in the kernel (zero-filled shared
-// rows, zero probabilities), with no padding copies.
+// q, k, v and g are read in place in their (B, S, H, D) layout through TMA
+// tensor maps over their strides (g is often a strided view); rows past S or
+// T come back as zeros. D is 16, 32 or 64: a tile row is 32, 64 or 128 bytes,
+// the swizzle of its tensor map and descriptors.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (see tunevlseg_torch/ops/flash_attention.py). Plain C
-// entry point, loaded with ctypes.
+// -Xcompiler -fPIC (see tunevlseg_torch/ops/build.py). Plain C entry point,
+// loaded with ctypes; the tensor maps are encoded on the host in it.
 
-#include "attn_common.cuh"
+#include "attn_hopper.cuh"
 
 namespace {
 
 using namespace tvs;
 
-constexpr int kTile = 64;  // rows per block tile and per streamed tile, 16 per warp
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kColTiles = kTile / 8;   // 8-wide column tiles of a 64-wide score tile
-constexpr int kColSteps = kTile / 16;  // k-steps of a product over those 64 columns
+constexpr int kRows = 64;                  // rows of a warpgroup's tile and of a streamed tile
+constexpr int kBlockRows = 2 * kRows;      // keys a dk/dv block owns: two consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 2;
+constexpr int kStatBytes = kRows * 8;      // (lse2, delta) of a streamed tile's 64 rows
+// The dq pass takes three consumer warpgroups (152 registers a thread, 1
+// block per SM): more warps to hide its latencies than two, 1-9% faster on
+// the card (PERF.md); the dk/dv pass's 168 registers allow two.
+constexpr int kDqWgs = 3;
+constexpr int kDqRows = kDqWgs * kRows;        // query rows a dq block owns
+constexpr int kDqConsumers = kDqWgs * 128;
+constexpr int kDqThreads = kDqConsumers + 32;
 
 // (batch, sequence, head) strides of one tensor, in elements; unit stride on D.
 struct Strides {
-  int64_t b, s, h;
+  long long v[3];
 };
 
-// A fragments (16 rows x D) of rows row0 + g and row0 + g + 8 of a shared tile.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile,
-                                             int row0, int g, int tig) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = tile + (row0 + g) * kStride + kk * 16 + tig * 2;
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
-}
+// Shared memory of both passes: the owned tiles (two tensors x WGS
+// warpgroups), the ring (two tensors per stage, and in the dk/dv pass the
+// rows' statistics), the barriers.
+template <int D, int WGS = 2>
+struct Smem {
+  static constexpr int kSwizzle = 2 * D;
+  static constexpr int kTile = kRows * D * 2;  // bytes of a 64-row tile
+  static constexpr int kOwned = 2 * WGS * kTile;
+  static constexpr int kRing = kStages * 2 * kTile;
+  static constexpr int kStats = kStages * kStatBytes;
+  static constexpr int kBars = kOwned + kRing + kStats;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+  // a k-step (16 rows) of an MN-major operand, in descriptor units of 16 bytes
+  static constexpr int kMnStep = (16 * 2 * D) >> 4;
+};
 
-// c[row][n] = sum_d A[row][d] * tile[n][d]: the warp's 16 rows (fragments a)
-// against the 64 rows of a shared tile, contracted over D.
+// The dk/dv pass: dk and dv of 128 keys.
 template <int D>
-__device__ __forceinline__ void mma_rows_x_tile_t(float (&c)[kColTiles][4],
-                                                  const uint32_t (&a)[D / 16][4],
-                                                  const __nv_bfloat16* tile, int g, int tig) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < kColTiles; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* bp = tile + (nt * 8 + g) * kStride + kk * 16 + tig * 2;
-      mma_bf16_16816(c[nt], a[kk], *reinterpret_cast<const uint32_t*>(bp),
-                     *reinterpret_cast<const uint32_t*>(bp + 8));
-    }
-  }
-}
-
-// acc[row][d] += sum_n P[row][n] * tile[n][d]: the warp's 16 x 64 operand
-// (packed bf16 fragments p) against a 64 x D shared tile.
-template <int D>
-__device__ __forceinline__ void mma_p_x_tile(float (&acc)[D / 8][4],
-                                             const uint32_t (&p)[kColSteps][4],
-                                             const __nv_bfloat16* tile, int g, int tig) {
-  constexpr int kStride = D + 8;
-  const unsigned short* raw = reinterpret_cast<const unsigned short*>(tile);
-#pragma unroll
-  for (int kk = 0; kk < kColSteps; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      // B[n][d] = tile[n][d]: two rows n per register, one column d
-      const unsigned short* bp = raw + (kk * 16 + tig * 2) * kStride + nt * 8 + g;
-      const uint32_t b0 = pack_raw(bp[0], bp[kStride]);
-      const uint32_t b1 = pack_raw(bp[8 * kStride], bp[9 * kStride]);
-      mma_bf16_16816(acc[nt], p[kk], b0, b1);
-    }
-  }
-}
-
-// Store the warp's 16 x D accumulator as bf16 rows row_a = first + g and
-// row_a + 8 of a (rows x D) tensor slice, rows >= limit skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int64_t row_stride,
-                                           const float (&acc)[D / 8][4], int row_a, int limit,
-                                           int tig) {
-  const int row_b = row_a + 8;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-    if (row_a < limit)
-      *reinterpret_cast<uint32_t*>(base + row_a * row_stride + col) =
-          pack_f32x2(acc[nt][0], acc[nt][1]);
-    if (row_b < limit)
-      *reinterpret_cast<uint32_t*>(base + row_b * row_stride + col) =
-          pack_f32x2(acc[nt][2], acc[nt][3]);
-  }
-}
-
-// Pass 1: dq, and each query row's log2-sum-exp and delta for pass 2.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                         __nv_bfloat16* __restrict__ dq, float* __restrict__ lse,
-                         float* __restrict__ delta, int S, int t_valid, float scale,
-                         float scale_log2, Strides qs, Strides ks, Strides vs, Strides gs,
-                         Strides dqs) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sG[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile * kStride];
-
-  const int m0 = blockIdx.x * kTile;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const __grid_constant__ CUtensorMap tm_stats,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
+                           int T, int t_valid, float scale, float scale_log2, Strides dks,
+                           Strides dvs) {
+  using L = Smem<D>;
+  const int n0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;  // fragment row group
-  const int tig = lane % 4;  // thread in group
-
-  load_tile<D, kTile, kThreads>(sQ, q + b * qs.b + h * qs.h + m0 * qs.s, qs.s, S - m0);
-  load_tile<D, kTile, kThreads>(sG, g + b * gs.b + h * gs.h + m0 * gs.s, gs.s, S - m0);
-  __syncthreads();
-  uint32_t qa[D / 16][4], ga[D / 16][4];
-  load_a_frags<D>(qa, sQ, warp * 16, grp, tig);
-  load_a_frags<D>(ga, sG, warp * 16, grp, tig);
-
-  const __nv_bfloat16* kbase = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vbase = v + b * vs.b + h * vs.h;
-
-  // Sweep 1: online row max, sum of e = exp2(x - max) and sum of e * dp, for
-  // rows grp and grp + 8 of the warp's 16; scores in the log2 domain.
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
-  float row_num[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < t_valid; n0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, kTile, kThreads>(sK, kbase + n0 * ks.s, ks.s, t_valid - n0);
-    load_tile<D, kTile, kThreads>(sV, vbase + n0 * vs.s, vs.s, t_valid - n0);
-    __syncthreads();
-
-    float s[kColTiles][4], dp[kColTiles][4];
-    mma_rows_x_tile_t<D>(s, qa, sK, grp, tig);
-    mma_rows_x_tile_t<D>(dp, ga, sV, grp, tig);
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kColTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + tig * 2 + (i & 1);
-        const float x = col < t_valid ? s[nt][i] * scale_log2 : -INFINITY;
-        s[nt][i] = x;
-        tile_max[i >> 1] = fmaxf(tile_max[i >> 1], x);
-      }
+  if (n0 >= t_valid) {
+    // only masked keys: zero rows, nothing computed (block-uniform test)
+    constexpr int kPieces = D / 8;
+    for (int i = threadIdx.x; i < kBlockRows * kPieces; i += kThreads) {
+      const int key = n0 + i / kPieces;
+      const int c = (i % kPieces) * 8;
+      if (key >= T) continue;
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dk + b * dks.v[0] + key * dks.v[1] + h * dks.v[2] + c) = z;
+      *reinterpret_cast<uint4*>(dv + b * dvs.v[0] + key * dvs.v[1] + h * dvs.v[2] + c) = z;
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // key 0 is always valid, so the running max is finite after tile 0
-      const float new_max = fmaxf(row_max[r], group4_max(tile_max[r]));
-      const float corr = exp2f(row_max[r] - new_max);
-      row_max[r] = new_max;
-      row_sum[r] *= corr;
-      row_num[r] *= corr;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kColTiles; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float e = exp2f(s[nt][i] - row_max[i >> 1]);  // 0 at masked keys
-        row_sum[i >> 1] += e;
-        row_num[i >> 1] += e * dp[nt][i];
-      }
-    }
+    return;
   }
 
-  float row_lse[2], row_delta[2];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = smem;                       // 2 x 64 rows
+  uint8_t* sV = smem + 2 * L::kTile;        // 2 x 64 rows
+  uint8_t* sQ = smem + L::kOwned;           // stage s at s * 2 * kTile
+  uint8_t* sG = sQ + L::kTile;
+  uint8_t* sStat = smem + L::kOwned + L::kRing;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_tiles = (S + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp == kConsumers / 32) {
+    if (lane == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_g);
+      tma_prefetch_map(&tm_stats);
+      mbar_arrive_expect_tx(kv_full, 4 * L::kTile);
+      for (int half = 0; half < 2; ++half) {
+        tma_load_4d(sK + half * L::kTile, &tm_k, kv_full, 0, h, n0 + half * kRows, b);
+        tma_load_4d(sV + half * L::kTile, &tm_v, kv_full, 0, h, n0 + half * kRows, b);
+      }
+      for (int m = 0; m < n_tiles; ++m) {
+        const int s = m % kStages;
+        mbar_wait(&empty[s], ((m / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::kTile + kStatBytes);
+        tma_load_4d(sQ + s * 2 * L::kTile, &tm_q, &full[s], 0, h, m * kRows, b);
+        tma_load_4d(sG + s * 2 * L::kTile, &tm_g, &full[s], 0, h, m * kRows, b);
+        tma_load_3d(sStat + s * kStatBytes, &tm_stats, &full[s], 2 * m * kRows, h, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys n0 + 64 wg + [0, 64)
+  const int wg = warp / 4;
+  const AccPlace at = acc_place();
+  const int key0 = n0 + wg * kRows + at.row;
+  const bool live[2] = {key0 < t_valid, key0 + 8 < t_valid};
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  mbar_wait(kv_full, 0);
+  const uint64_t desc_k = kmajor_desc(sK + wg * L::kTile, L::kSwizzle);
+  const uint64_t desc_v = kmajor_desc(sV + wg * L::kTile, L::kSwizzle);
+
+  for (int m = 0; m < n_tiles; ++m) {
+    const int s = m % kStages;
+    uint8_t* q_tile = sQ + s * 2 * L::kTile;
+    uint8_t* g_tile = sG + s * 2 * L::kTile;
+    mbar_wait(&full[s], (m / kStages) & 1);
+
+    // st[key][query] = k q^T, dpt[key][query] = v g^T
+    float st[32], dpt[32];
+    zero(st);
+    zero(dpt);
+    fence_operands(st);
+    fence_operands(dpt);
+    wgmma_fence();
+    const uint64_t desc_q = kmajor_desc(q_tile, L::kSwizzle);
+    const uint64_t desc_g = kmajor_desc(g_tile, L::kSwizzle);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(st, desc_k + 2 * kk, desc_q + 2 * kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(dpt, desc_v + 2 * kk, desc_g + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+    fence_operands(dpt);
+
+    // p^T and ds^T in place; the columns are the tile's queries, whose
+    // (lse2, delta) pairs came with the tile
+    const float* stat = reinterpret_cast<const float*>(sStat + s * kStatBytes);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 pair = *reinterpret_cast<const float4*>(stat + 2 * (8 * j + at.col));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float l2 = (e & 1) ? pair.z : pair.x;
+        const float delta = (e & 1) ? pair.w : pair.y;
+        const float p = live[acc_row_half(i)] ? exp2f(st[i] * scale_log2 - l2) : 0.f;
+        st[i] = p;
+        dpt[i] = p * (dpt[i] - delta) * scale;
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_a<64>(st, pa);
+    acc_to_a<64>(dpt, dsa);
+
+    // dv += p^T g, dk += ds^T q: g and q as [query][D], MN-major
+    fence_operands(dk_acc);
+    fence_operands(dv_acc);
+    wgmma_fence();
+    const uint64_t mn_g = mnmajor_desc(g_tile, L::kSwizzle);
+    const uint64_t mn_q = mnmajor_desc(q_tile, L::kSwizzle);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<D, 1>(dv_acc, pa[kk], mn_g + kk * L::kMnStep);
+      wgmma_rs<D, 1>(dk_acc, dsa[kk], mn_q + kk * L::kMnStep);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dk_acc);
+    fence_operands(dv_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_operands(pa[kk]);
+      fence_operands(dsa[kk]);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const int first = n0 + wg * kRows;
+  store_acc_rows<D>(dk + b * dks.v[0] + h * dks.v[2], dks.v[1], dk_acc, one, first, T, at);
+  store_acc_rows<D>(dv + b * dvs.v[0] + h * dvs.v[2], dvs.v[1], dv_acc, one, first, T, at);
+}
+
+// The dq pass: delta, then dq, of kDqRows query rows.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_g, const float* __restrict__ lse,
+                         float2* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int S,
+                         int S_pad, int t_valid, float scale, float scale_log2, Strides dqs) {
+  using L = Smem<D, kDqWgs>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;                       // kDqWgs x 64 rows
+  uint8_t* sG = smem + kDqWgs * L::kTile;   // kDqWgs x 64 rows
+  uint8_t* sK = smem + L::kOwned;           // stage s at s * 2 * kTile
+  uint8_t* sV = sK + L::kTile;
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDqConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int m0 = blockIdx.x * kDqRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (t_valid + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp == kDqConsumers / 32) {
+    if (lane == 0) {
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(qg_full, 2 * kDqWgs * L::kTile);
+      for (int half = 0; half < kDqWgs; ++half) {
+        tma_load_4d(sQ + half * L::kTile, &tm_q, qg_full, 0, h, m0 + half * kRows, b);
+        tma_load_4d(sG + half * L::kTile, &tm_g, qg_full, 0, h, m0 + half * kRows, b);
+      }
+      // the key tiles twice: once for delta, once for dq
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int s = it % kStages;
+        const int n = it % n_tiles;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+        tma_load_4d(sK + s * 2 * L::kTile, &tm_k, &full[s], 0, h, n * kRows, b);
+        tma_load_4d(sV + s * 2 * L::kTile, &tm_v, &full[s], 0, h, n * kRows, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows m0 + 64 wg + [0, 64); rows past S
+  // get lse2 = +inf, so p = 0 there
+  const int wg = warp / 4;
+  const AccPlace at = acc_place();
+  const int first = m0 + wg * kRows;
+  const int64_t bh = static_cast<int64_t>(b) * gridDim.y + h;
+  float l2[2], delta[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float total = group4_sum(row_sum[r]);
-    row_lse[r] = row_max[r] + log2f(total);
-    row_delta[r] = group4_sum(row_num[r]) / total;
-    const int row = m0 + warp * 16 + grp + r * 8;
-    if (tig == 0 && row < S) {
-      const int64_t idx = (static_cast<int64_t>(b) * gridDim.y + h) * S + row;
-      lse[idx] = row_lse[r];
-      delta[idx] = row_delta[r];
-    }
+    const int row = first + at.row + 8 * r;
+    l2[r] = row < S ? lse[bh * S + row] : INFINITY;
   }
+  float acc[D / 2];
+  zero(acc);
+  mbar_wait(qg_full, 0);
+  const uint64_t desc_q = kmajor_desc(sQ + wg * L::kTile, L::kSwizzle);
+  const uint64_t desc_g = kmajor_desc(sG + wg * L::kTile, L::kSwizzle);
 
-  // Sweep 2: ds = p (dp - delta) scale in registers, dq += ds k.
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int n0 = 0; n0 < t_valid; n0 += kTile) {
-    __syncthreads();
-    load_tile<D, kTile, kThreads>(sK, kbase + n0 * ks.s, ks.s, t_valid - n0);
-    load_tile<D, kTile, kThreads>(sV, vbase + n0 * vs.s, vs.s, t_valid - n0);
-    __syncthreads();
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const int s = it % kStages;
+    const int n = it % n_tiles;
+    const bool sweep_dq = it >= n_tiles;
+    uint8_t* k_tile = sK + s * 2 * L::kTile;
+    uint8_t* v_tile = sV + s * 2 * L::kTile;
+    mbar_wait(&full[s], (it / kStages) & 1);
 
-    float s[kColTiles][4], dp[kColTiles][4];
-    mma_rows_x_tile_t<D>(s, qa, sK, grp, tig);
-    mma_rows_x_tile_t<D>(dp, ga, sV, grp, tig);
+    // sc[query][key] = q k^T, dp[query][key] = g v^T
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    fence_operands(sc);
+    fence_operands(dp);
+    wgmma_fence();
+    const uint64_t desc_k = kmajor_desc(k_tile, L::kSwizzle);
+    const uint64_t desc_v = kmajor_desc(v_tile, L::kSwizzle);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(dp, desc_g + 2 * kk, desc_v + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(sc);
+    fence_operands(dp);
 
-    // Score tiles 2j and 2j+1 form k-step j of the ds k product.
-    uint32_t dsa[kColSteps][4];
+    // keys at or past t_valid (only in the last tile) get p = 0
+    const int key_end = t_valid - n * kRows;  // columns >= key_end are masked
+    if (!sweep_dq) {
+      // first sweep: this thread's share of delta = sum_j p dp
 #pragma unroll
-    for (int nt = 0; nt < kColTiles; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + tig * 2 + (i & 1);
-        const int r = i >> 1;
-        const float p = col < t_valid ? exp2f(s[nt][i] * scale_log2 - row_lse[r]) : 0.f;
-        ds[i] = p * (dp[nt][i] - row_delta[r]) * scale;
+      for (int i = 0; i < 32; ++i) {
+        const int r = acc_row_half(i);
+        const float p = acc_col(i, at.col) < key_end ? exp2f(sc[i] * scale_log2 - l2[r]) : 0.f;
+        delta[r] += p * dp[i];
       }
-      dsa[nt / 2][(nt % 2) * 2 + 0] = pack_f32x2(ds[0], ds[1]);
-      dsa[nt / 2][(nt % 2) * 2 + 1] = pack_f32x2(ds[2], ds[3]);
-    }
-    mma_p_x_tile<D>(acc, dsa, sK, grp, tig);
-  }
-
-  store_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, acc, m0 + warp * 16 + grp, S, tig);
-}
-
-// Pass 2: dk and dv of 64 keys, from transposed score tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, const float* __restrict__ lse,
-                           const float* __restrict__ delta, int S, int T, int t_valid,
-                           float scale, float scale_log2, Strides qs, Strides ks, Strides vs,
-                           Strides gs, Strides dks, Strides dvs) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sG[kTile * kStride];
-  __shared__ float sLse[kTile];
-  __shared__ float sDelta[kTile];
-
-  const int n0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / 4;
-  const int tig = lane % 4;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (n == n_tiles - 1) {
+        // the rows' delta, and (lse2, delta) for the dk/dv pass
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    dk_acc[nt][0] = dk_acc[nt][1] = dk_acc[nt][2] = dk_acc[nt][3] = 0.f;
-    dv_acc[nt][0] = dv_acc[nt][1] = dv_acc[nt][2] = dv_acc[nt][3] = 0.f;
-  }
-
-  // A tile of masked keys only keeps its zero accumulators (block-uniform test).
-  if (n0 < t_valid) {
-    load_tile<D, kTile, kThreads>(sK, k + b * ks.b + h * ks.h + n0 * ks.s, ks.s, t_valid - n0);
-    load_tile<D, kTile, kThreads>(sV, v + b * vs.b + h * vs.h + n0 * vs.s, vs.s, t_valid - n0);
-    __syncthreads();
-    uint32_t ka[D / 16][4], va[D / 16][4];
-    load_a_frags<D>(ka, sK, warp * 16, grp, tig);
-    load_a_frags<D>(va, sV, warp * 16, grp, tig);
-
-    const __nv_bfloat16* qbase = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* gbase = g + b * gs.b + h * gs.h;
-    const int64_t stat_base = (static_cast<int64_t>(b) * gridDim.y + h) * S;
-    const int key_a = n0 + warp * 16 + grp;  // this thread's keys: key_a and key_a + 8
-
-    for (int m0 = 0; m0 < S; m0 += kTile) {
-      __syncthreads();  // every warp is done with the previous query tile
-      load_tile<D, kTile, kThreads>(sQ, qbase + m0 * qs.s, qs.s, S - m0);
-      load_tile<D, kTile, kThreads>(sG, gbase + m0 * gs.s, gs.s, S - m0);
-      if (threadIdx.x < kTile) {
-        const int row = m0 + threadIdx.x;
-        sLse[threadIdx.x] = row < S ? lse[stat_base + row] : 0.f;
-        sDelta[threadIdx.x] = row < S ? delta[stat_base + row] : 0.f;
-      }
-      __syncthreads();
-
-      // st[key][query] = k q^T, dpt[key][query] = v g^T
-      float st[kColTiles][4], dpt[kColTiles][4];
-      mma_rows_x_tile_t<D>(st, ka, sQ, grp, tig);
-      mma_rows_x_tile_t<D>(dpt, va, sG, grp, tig);
-
-      // Query tiles 2j and 2j+1 form k-step j of the products over queries.
-      uint32_t pa[kColSteps][4], dsa[kColSteps][4];
-#pragma unroll
-      for (int nt = 0; nt < kColTiles; ++nt) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qcol = nt * 8 + tig * 2 + (i & 1);
-          const int key = key_a + (i >> 1) * 8;
-          const bool live = key < t_valid && m0 + qcol < S;
-          p[i] = live ? exp2f(st[nt][i] * scale_log2 - sLse[qcol]) : 0.f;
-          ds[i] = p[i] * (dpt[nt][i] - sDelta[qcol]) * scale;
+        for (int r = 0; r < 2; ++r) {
+          delta[r] = group4_sum(delta[r]);
+          const int row = first + at.row + 8 * r;
+          if (at.col == 0)
+            stats[bh * S_pad + row] = row < S ? make_float2(l2[r], delta[r])
+                                              : make_float2(INFINITY, 0.f);
         }
-        pa[nt / 2][(nt % 2) * 2 + 0] = pack_f32x2(p[0], p[1]);
-        pa[nt / 2][(nt % 2) * 2 + 1] = pack_f32x2(p[2], p[3]);
-        dsa[nt / 2][(nt % 2) * 2 + 0] = pack_f32x2(ds[0], ds[1]);
-        dsa[nt / 2][(nt % 2) * 2 + 1] = pack_f32x2(ds[2], ds[3]);
       }
-      mma_p_x_tile<D>(dv_acc, pa, sG, grp, tig);
-      mma_p_x_tile<D>(dk_acc, dsa, sQ, grp, tig);
+      continue;
     }
+
+    // second sweep: ds in place of dp, dq += ds k (k as [key][D], MN-major)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = acc_row_half(i);
+      const float p = acc_col(i, at.col) < key_end ? exp2f(sc[i] * scale_log2 - l2[r]) : 0.f;
+      dp[i] = p * (dp[i] - delta[r]) * scale;
+    }
+    uint32_t dsa[4][4];
+    acc_to_a<64>(dp, dsa);
+    fence_operands(acc);
+    wgmma_fence();
+    const uint64_t mn_k = mnmajor_desc(k_tile, L::kSwizzle);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(acc, dsa[kk], mn_k + kk * L::kMnStep);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_operands(dsa[kk]);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  const int row_a = n0 + warp * 16 + grp;
-  store_rows<D>(dk + b * dks.b + h * dks.h, dks.s, dk_acc, row_a, T, tig);
-  store_rows<D>(dv + b * dvs.b + h * dvs.h, dvs.s, dv_acc, row_a, T, tig);
+  const float one[2] = {1.f, 1.f};
+  store_acc_rows<D>(dq + b * dqs.v[0] + h * dqs.v[2], dqs.v[1], acc, one, first, S, at);
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* g, void* dq, void* dk,
-                   void* dv, float* lse, float* delta, int B, int S, int T, int H, int t_valid,
-                   const long long* st, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g, const float* lse,
+                   void* dq, void* dk, void* dv, float2* stats, int B, int S, int S_pad, int T,
+                   int H, int t_valid, const long long* st, cudaStream_t stream) {
+  using L = Smem<D>;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const float scale_log2 = scale * 1.4426950408889634f;
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
-      gs{st[9], st[10], st[11]}, dqs{st[12], st[13], st[14]}, dks{st[15], st[16], st[17]},
-      dvs{st[18], st[19], st[20]};
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
-  const __nv_bfloat16* gp = static_cast<const __nv_bfloat16*>(g);
+  Strides ss[7];  // q, k, v, g, dq, dk, dv
+  for (int t = 0; t < 7; ++t)
+    for (int i = 0; i < 3; ++i) ss[t].v[i] = st[3 * t + i];
 
-  const dim3 grid_q((S + kTile - 1) / kTile, H, B);
-  flash_attn_bwd_dq_kernel<D><<<grid_q, kThreads, 0, stream>>>(
-      qp, kp, vp, gp, static_cast<__nv_bfloat16*>(dq), lse, delta, S, t_valid, scale, scale_log2,
-      qs, ks, vs, gs, dqs);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = make_context_current();
   if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_g, tm_stats;
+  if (!encode_bshd(&tm_q, q, B, S, H, D, ss[0].v, kRows) ||
+      !encode_bshd(&tm_k, k, B, T, H, D, ss[1].v, kRows) ||
+      !encode_bshd(&tm_v, v, B, T, H, D, ss[2].v, kRows) ||
+      !encode_bshd(&tm_g, g, B, S, H, D, ss[3].v, kRows) ||
+      !encode_f32_3d(&tm_stats, stats, 2 * uint64_t(S_pad), H, B, 2 * kRows))
+    return cudaErrorNotSupported;
 
-  const dim3 grid_k((T + kTile - 1) / kTile, H, B);
-  flash_attn_bwd_dkdv_kernel<D><<<grid_k, kThreads, 0, stream>>>(
-      qp, kp, vp, gp, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), lse, delta,
-      S, T, t_valid, scale, scale_log2, qs, ks, vs, gs, dks, dvs);
+  using Lq = Smem<D, kDqWgs>;
+  if ((err = set_smem(flash_attn_bwd_dq_kernel<D>, Lq::kBytes)) != cudaSuccess) return err;
+  const dim3 grid_q((S + kDqRows - 1) / kDqRows, H, B);
+  flash_attn_bwd_dq_kernel<D><<<grid_q, kDqThreads, Lq::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, lse, stats, static_cast<__nv_bfloat16*>(dq), S, S_pad, t_valid,
+      scale, scale_log2, ss[4]);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(flash_attn_bwd_dkdv_kernel<D>, L::kBytes)) != cudaSuccess) return err;
+  const dim3 grid_k((T + kBlockRows - 1) / kBlockRows, H, B);
+  flash_attn_bwd_dkdv_kernel<D><<<grid_k, kThreads, L::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_g, tm_stats, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, T, t_valid, scale, scale_log2, ss[5], ss[6]);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, g, dq (B, S, H, D) and k, v, dk, dv (B, T, H, D), all bf16 with unit
-// stride on D and 16-byte aligned rows; lse and delta are f32 scratch of
-// B * H * S elements each. `strides` holds the (batch, seq, head) strides in
-// elements of q, k, v, g, dq, dk and dv, in that order (21 values). Keys at
-// index >= t_valid are masked (t_valid = kv_valid, or T). Both passes are
-// enqueued on `stream`; returns the cudaError_t of the first failed launch.
+// stride on D, 16-byte aligned bases and strides that are multiples of 8
+// elements (TMA reads them in place); lse (B, H, S) f32 from K1; stats f32
+// scratch of B * H * S_pad * 2 elements, S_pad >= S a multiple of both
+// passes' block rows (STATS_ROWS in ops/flash_attention.py).
+// `strides` holds the (batch, seq, head) strides in elements of q, k, v, g,
+// dq, dk and dv, in that order (21 values). Keys at index >= t_valid are
+// masked (t_valid = kv_valid, or T). The two kernels are enqueued on
+// `stream`; returns the cudaError_t of the first failed launch
+// (cudaErrorNotSupported if a tensor map could not be encoded).
 extern "C" int tvs_flash_attn_bwd(const void* q, const void* k, const void* v, const void* g,
-                                  void* dq, void* dk, void* dv, void* lse, void* delta, int B,
-                                  int S, int T, int H, int D, int t_valid,
+                                  const void* lse, void* dq, void* dk, void* dv, void* stats,
+                                  int B, int S, int S_pad, int T, int H, int D, int t_valid,
                                   const long long* strides, void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535 || t_valid < 1 ||
+      t_valid > T || S_pad < S || S_pad % kDqRows != 0 || S_pad % kRows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* lp = static_cast<float*>(lse);
-  float* dp = static_cast<float*>(delta);
+  const float* lp = static_cast<const float*>(lse);
+  float2* sp = static_cast<float2*>(stats);
   switch (D) {
     case 16:
       return static_cast<int>(
-          launch<16>(q, k, v, g, dq, dk, dv, lp, dp, B, S, T, H, t_valid, strides, st));
+          launch<16>(q, k, v, g, lp, dq, dk, dv, sp, B, S, S_pad, T, H, t_valid, strides, st));
     case 32:
       return static_cast<int>(
-          launch<32>(q, k, v, g, dq, dk, dv, lp, dp, B, S, T, H, t_valid, strides, st));
+          launch<32>(q, k, v, g, lp, dq, dk, dv, sp, B, S, S_pad, T, H, t_valid, strides, st));
     case 64:
       return static_cast<int>(
-          launch<64>(q, k, v, g, dq, dk, dv, lp, dp, B, S, T, H, t_valid, strides, st));
+          launch<64>(q, k, v, g, lp, dq, dk, dv, sp, B, S, S_pad, T, H, t_valid, strides, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

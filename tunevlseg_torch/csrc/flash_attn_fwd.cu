@@ -20,6 +20,11 @@
 // as mma.sync accumulators, are rescaled and exponentiated there, and are
 // re-packed in place as the A operand of the PV product.
 //
+// When a backward will follow, K1 also writes each row's log-sum-exp in its
+// log2 domain, lse2 = row_max + log2(row_sum) (f32, (B, H, S)), which K2
+// (flash_attn_bwd.cu) turns into p = exp2(s2 - lse2) without a sweep of its
+// own. A null pointer writes nothing; o is the same bits either way.
+//
 // Design (a first, simple version): one thread block of 4 warps per
 // (batch, head, 64 query rows); each warp owns 16 query rows. q, k, v and o
 // are read in place in their (B, S, H, D) layout through strides; ragged S
@@ -47,7 +52,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                      int S, int t_valid, float scale_log2,
+                      float* __restrict__ lse, int S, int t_valid, float scale_log2,
                       int64_t q_sb, int64_t q_ss, int64_t q_sh,
                       int64_t k_sb, int64_t k_ss, int64_t k_sh,
                       int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -174,6 +179,11 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const float denom1 = group4_sum(row_sum[1]);
   const int row_a = m0 + r0;
   const int row_b = row_a + 8;
+  if (lse != nullptr && tig == 0) {
+    float* lrow = lse + (static_cast<int64_t>(b) * gridDim.y + h) * S;
+    if (row_a < S) lrow[row_a] = row_max[0] + log2f(denom0);
+    if (row_b < S) lrow[row_b] = row_max[1] + log2f(denom1);
+  }
   __nv_bfloat16* obase = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int nt = 0; nt < kOutTiles; ++nt) {
@@ -188,13 +198,13 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int t_valid, const long long* strides, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                   int H, int t_valid, const long long* strides, cudaStream_t stream) {
   const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
   const float scale_log2 = (1.0f / sqrtf(static_cast<float>(D))) * 1.4426950408889634f;
   flash_attn_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, t_valid,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, t_valid,
       scale_log2, strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
       strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]);
   return cudaGetLastError();
@@ -205,15 +215,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // q (B, S, H, D), k and v (B, T, H, D), o (B, S, H, D), all bf16 with unit
 // stride on D. `strides` holds the (batch, seq, head) strides in elements of
 // q, k, v and o, in that order (12 values). Keys at index >= t_valid are
-// masked (t_valid = kv_valid, or T). Returns the cudaError_t of the launch.
-extern "C" int tvs_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                  int S, int H, int D, int t_valid, const long long* strides,
-                                  void* stream) {
+// masked (t_valid = kv_valid, or T). lse is null or f32 (B, H, S), each
+// row's log2-domain log-sum-exp. Returns the cudaError_t of the launch.
+extern "C" int tvs_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                  int B, int S, int H, int D, int t_valid,
+                                  const long long* strides, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
   switch (D) {
-    case 16: return static_cast<int>(launch<16>(q, k, v, o, B, S, H, t_valid, strides, st));
-    case 32: return static_cast<int>(launch<32>(q, k, v, o, B, S, H, t_valid, strides, st));
-    case 64: return static_cast<int>(launch<64>(q, k, v, o, B, S, H, t_valid, strides, st));
+    case 16: return static_cast<int>(launch<16>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
+    case 32: return static_cast<int>(launch<32>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
+    case 64: return static_cast<int>(launch<64>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

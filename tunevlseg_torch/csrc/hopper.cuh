@@ -1,9 +1,12 @@
 // Building blocks of the Hopper (sm_90a) kernels: shared-memory addresses,
-// mbarrier waits and arrivals, TMA tile loads through a tensor map, and the
-// warpgroup products (wgmma) on bf16 operands in shared memory with their
-// fences and groups. Inline PTX only, so a source that includes this header
-// builds in seconds (no CUTLASS / CuTe). Used by the flat convolution K4,
-// conv_flat.cu.
+// mbarrier waits and arrivals, named barriers, TMA tile loads through a
+// tensor map (and, on the host, the encoding of such a map), and the
+// warpgroup products (wgmma) on bf16 operands, B always in shared memory, A
+// in shared memory or in registers, with their fences and groups. Inline PTX
+// only, so a source that includes this header builds in seconds (no CUTLASS /
+// CuTe). Used by the flat convolution K4 (conv_flat.cu) and, through
+// attn_hopper.cuh, by the attention kernels K2 (flash_attn_bwd.cu) and S3
+// (flash_attn_fwd_variants.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing here calls the driver)
@@ -58,6 +61,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// bar.sync on barrier `id` (1-15; 0 is __syncthreads) for `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// reads of the same bytes by the async proxy (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_view_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- TMA -----------------------------------------------------------------------
 
 // one box of a 3-D tensor map into shared memory at coordinates (c0, c1, c2),
@@ -72,22 +86,89 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// Host side: cuTensorMapEncodeTiled, through the driver entry point the
+// runtime hands out (so that a library links no -lcuda); null if missing.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// cuTensorMapEncodeTiled is a driver call and fails without a current context
+// in the calling thread, which a thread that has made no runtime call yet
+// (autograd's backward thread, say) lacks: cudaFree(nullptr) makes the
+// runtime's primary context of the current device current.
+inline cudaError_t make_context_current() { return cudaFree(nullptr); }
+
+// the swizzle mode of a tile whose rows are `row_bytes` long (32, 64 or 128)
+inline CUtensorMapSwizzle swizzle_mode(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
 // --- wgmma -----------------------------------------------------------------------
 
+// the descriptor's layout type of a `swizzle`-byte swizzle (128, 64 or 32)
+__device__ __forceinline__ uint64_t swizzle_layout(int swizzle) {
+  return uint64_t(swizzle == 128 ? 1 : swizzle == 64 ? 2 : 3) << 62;
+}
+
 // Descriptor of a K-major bf16 operand in shared memory as TMA writes it with
-// a `swizzle`-byte swizzle (128 or 64): rows of `swizzle` bytes, 8-row atoms
-// one after the other (stride byte offset 8 * swizzle), the tile at an address
-// aligned to an atom. A step of 16 along K adds 32 bytes to the start address.
+// a `swizzle`-byte swizzle (128, 64 or 32): rows of `swizzle` bytes, 8-row
+// atoms one after the other (stride byte offset 8 * swizzle), the tile at an
+// address aligned to 1024 bytes. A step of 16 along K adds 32 bytes to the
+// start address (a 32-byte row holds one step).
 __device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int swizzle) {
   uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;            // start address
   d |= uint64_t(1) << 16;                                    // leading byte offset (unused)
   d |= uint64_t((8 * swizzle) >> 4) << 32;                   // stride byte offset
-  d |= uint64_t(swizzle == 128 ? 1 : 2) << 62;               // 128B / 64B swizzle
-  return d;
+  return d | swizzle_layout(swizzle);
+}
+
+// Descriptor of an MN-major bf16 B operand (read with the transpose bit): a
+// tile stored [K rows][N] as TMA writes it, rows of N * 2 = `swizzle` bytes
+// (N = 16, 32 or 64: one swizzle atom wide), the tile aligned to 1024 bytes.
+// The stride byte offset steps 8 rows of K; the leading byte offset would step
+// to the next atom along N, which a one-atom-wide tile never takes, and is
+// given the same value. A step of 16 along K adds 16 rows = 16 * swizzle bytes.
+__device__ __forceinline__ uint64_t mnmajor_desc(const void* tile, int swizzle) {
+  const uint64_t step8 = (8 * swizzle) >> 4;
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= step8 << 16;
+  d |= step8 << 32;
+  return d | swizzle_layout(swizzle);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -194,6 +275,99 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 8, f32) += A (64 x 16, bf16 in registers, the fragments `a`) *
+// B (16 x 8, bf16 in shared memory, described by `db`; TRANS_B = 1: MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 16, f32) += A (64 x 16, bf16 in registers, the fragments `a`) *
+// B (16 x 16, bf16 in shared memory, described by `db`; TRANS_B = 1: MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers, the fragments `a`) *
+// B (16 x 32, bf16 in shared memory, described by `db`; TRANS_B = 1: MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers, the fragments `a`) *
+// B (16 x 64, bf16 in shared memory, described by `db`; TRANS_B = 1: MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x N) += A (registers) * B (shared memory), N = 8, 16, 32 or 64
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 8) wgmma_rs_m64n8k16<TRANS_B>(d, a, db);
+  else if constexpr (N == 16) wgmma_rs_m64n16k16<TRANS_B>(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_m64n32k16<TRANS_B>(d, a, db);
+  else wgmma_rs_m64n64k16<TRANS_B>(d, a, db);
+}
+
+// keeps the compiler from reusing the registers of an A operand before the
+// products that read them are done
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 template <int N>

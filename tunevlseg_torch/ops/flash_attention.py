@@ -5,13 +5,16 @@ Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
 `_forward_batched_heads`, K2 replaces `_backward_batched_heads`, K3 replaces
 `_forward`. The CUDA C++ sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu`,
 `flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (shared helpers in
-`attn_common.cuh`); all are built with `nvcc` for `sm_90a` into plain C
-shared libraries at first use (`ops/build.py`) and called through `ctypes` on
+`attn_common.cuh`; K2's wgmma / TMA building blocks in `attn_hopper.cuh` and
+`hopper.cuh`); all are built with `nvcc` for `sm_90a` into plain C shared
+libraries at first use (`ops/build.py`) and called through `ctypes` on
 PyTorch's current stream.
 
 `flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
 does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
-backward of the `autograd.Function`. `biased_attention` takes K3 for CUDA
+backward of the `autograd.Function`. When a gradient is wanted, K1 also
+writes each row's log-sum-exp (log2 domain) and the Function keeps it with
+q, k and v: K2 forms p from it. `biased_attention` takes K3 for CUDA
 tensors: an optional f32 bias broadcastable to (B, H, S, T), read in place
 through its strides, and S != T allowed; like the TPU kernel it has no
 backward kernel, its gradient recomputes through `nn.attention.plain_attention`.
@@ -69,11 +72,11 @@ def load_library() -> dict[str, ctypes.CDLL]:
         return _libs
     libs = build.load_libraries()
     fwd = libs["fwd"].tvs_flash_attn_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = libs["bwd"].tvs_flash_attn_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     biased = libs["bias"].tvs_biased_attn_fwd
@@ -108,34 +111,59 @@ def biased_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / denom).transpose(1, 2).to(q.dtype)
 
 
+LOG2E = 1.4426950408889634
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_valid: Optional[int] = None) -> torch.Tensor:
+                        kv_valid: Optional[int] = None, return_lse: bool = False):
     """Plain PyTorch version of K1 with the kernel's numerics, which are
     K3's without a bias: f32 scores and softmax, p cast to v's dtype for the
     PV product (f32 accumulation), the denominator the f32 sum of the
     unrounded p. Keys at index >= kv_valid get exactly zero probability.
-    (B, S, H, D) in and out."""
-    return biased_attention_ref(q, k, v, None, kv_valid)
+    (B, S, H, D) in and out. With `return_lse`, returns (out, lse) with lse
+    the f32 (B, H, S) log-sum-exp of the scores in the log2 domain, as K1
+    writes it for K2: log2 Σⱼ exp2(s·log2(e)) over the unmasked keys."""
+    out = biased_attention_ref(q, k, v, None, kv_valid)
+    if not return_lse:
+        return out
+    return out, _lse2(q, k, kv_valid)
+
+
+def _lse2(q, k, kv_valid) -> torch.Tensor:
+    """(B, H, S) f32 log-sum-exp of the log2-domain scores, masked keys out."""
+    t = k.shape[1] if kv_valid is None else kv_valid
+    s2 = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (q.shape[-1] ** -0.5 * LOG2E)
+    s2 = s2.masked_fill(torch.arange(k.shape[1], device=q.device) >= t, float("-inf"))
+    top = s2.amax(dim=-1, keepdim=True)
+    return (top + torch.log2(torch.exp2(s2 - top).sum(dim=-1, keepdim=True))).squeeze(-1)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            g: torch.Tensor, kv_valid: Optional[int] = None):
-    """Plain PyTorch version of K2 with the kernel's numerics, from q, k, v
-    and the output gradient g alone: p = softmax(q kᵀ / √D) recomputed in
-    f32 (keys >= kv_valid at -inf), dv = pᵀ g, dp = g vᵀ, δ = Σⱼ p·dp,
-    ds = p (dp - δ) / √D, dq = ds k, dk = dsᵀ q. p and ds are rounded to the
-    input dtype as operands of their products, every product accumulates in
-    f32, and g is cast to q's dtype first. Masked keys get exactly zero dk
-    and dv rows. (B, S, H, D) in; returns (dq, dk, dv) in the input dtypes."""
+                            g: torch.Tensor, kv_valid: Optional[int] = None, *,
+                            lse: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K2 with the kernel's numerics: p =
+    softmax(q kᵀ / √D) in f32 (keys >= kv_valid get p = 0), dv = pᵀ g,
+    dp = g vᵀ, δ = Σⱼ p·dp, ds = p (dp - δ) / √D, dq = ds k, dk = dsᵀ q.
+    Without `lse`, p is recomputed from q and k alone (e / Σe); with the
+    forward's log2-domain log-sum-exp `lse` ((B, H, S) f32, as K1 writes
+    it), p = exp2(s·√D⁻¹·log2(e) - lse), as K2 takes it: the same in exact
+    arithmetic. p and ds are rounded to the input dtype as operands of their
+    products, every product accumulates in f32, and g is cast to q's dtype
+    first. Masked keys get exactly zero dk and dv rows. (B, S, H, D) in;
+    returns (dq, dk, dv) in the input dtypes."""
     d = q.shape[-1]
     scale = d ** -0.5
     t = k.shape[1] if kv_valid is None else kv_valid
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.to(q.dtype).float()
-    scores = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
     col = torch.arange(k.shape[1], device=q.device)
-    scores = scores.masked_fill(col >= t, float("-inf"))
-    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+    if lse is None:
+        scores = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+        scores = scores.masked_fill(col >= t, float("-inf"))
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+    else:
+        s2 = torch.einsum("bshd,bthd->bhst", qf, kf) * (scale * LOG2E)
+        p = torch.exp2(s2 - lse.float()[..., None]).masked_fill(col >= t, 0.0)
     dv = torch.einsum("bhst,bshd->bthd", p.to(q.dtype).float(), gf)
     dp = torch.einsum("bshd,bthd->bhst", gf, vf)
     delta = (p * dp).sum(dim=-1, keepdim=True)
@@ -182,70 +210,85 @@ def _seq_strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def _launch(q, k, v, t_valid) -> torch.Tensor:
+def _launch(q, k, v, t_valid, with_lse: bool = False):
+    """K1: the output, or (output, lse) with `with_lse`."""
     global _launches
     lib = load_library()["fwd"]
     o = torch.empty_like(q)
     b, s, h, d = q.shape
+    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.tvs_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     o.data_ptr(), b, s, h, d, t_valid,
-                                     _seq_strides(q, k, v, o), stream)
+                                     o.data_ptr(), None if lse is None else lse.data_ptr(),
+                                     b, s, h, d, t_valid, _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     _launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 def _kernel_readable(g: torch.Tensor) -> bool:
     """Whether K2 can read a gradient in place: unit stride on D and every
-    row 16-byte aligned (it reads rows in 16-byte chunks through strides)."""
+    row 16-byte aligned (TMA reads its rows through the strides)."""
     return (g.stride(3) == 1 and g.data_ptr() % 16 == 0
             and all(g.stride(i) % 8 == 0 for i in range(3)))
 
 
-def _launch_bwd(q, k, v, g, t_valid):
+STATS_ROWS = 192   # K2 pads its per-row (lse, δ) scratch to whole blocks of its dq pass
+
+
+def _launch_bwd(q, k, v, g, t_valid, lse):
     global _bwd_launches
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"K2: gradient {tuple(g.shape)} on {g.device} does not "
                          f"match q {tuple(q.shape)} on {q.device}")
+    b, s, h, d = q.shape
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"K2: lse must be f32 (B, H, S) = {(b, h, s)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
     g = g.to(q.dtype)
     if not _kernel_readable(g):
         g = g.contiguous()       # a copy K2's caller pays for: rare layouts only
     lib = load_library()["bwd"]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    b, s, h, d = q.shape
-    # per-row log-sum-exp and delta, written by K2's first pass for its second
-    stats = torch.empty(2, b, h, s, dtype=torch.float32, device=q.device)
+    # (lse, δ) of every query row, padded: written by K2's dq pass for its
+    # dk / dv pass
+    s_pad = -(-s // STATS_ROWS) * STATS_ROWS
+    stats = torch.empty(b, h, s_pad, 2, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.tvs_flash_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), b, s, k.shape[1], h, d, t_valid,
-            _seq_strides(q, k, v, g, dq, dk, dv), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, s,
+            s_pad, k.shape[1], h, d, t_valid, _seq_strides(q, k, v, g, dq, dk, dv), stream)
     if err != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError {err}")
+        raise RuntimeError(f"K2 launch failed: cudaError {err} (q {tuple(q.shape)}, "
+                           f"g strides {g.stride()}, kv_valid {t_valid})")
     _bwd_launches += 1
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward. q, k and v are kept for the backward only
-    when one of them needs a gradient (a frozen tower saves nothing)."""
+    """K1 forward, K2 backward. Only when one of q, k, v needs a gradient
+    does K1 write the log-sum-exp, and q, k, v and the log-sum-exp are kept
+    for K2 (a frozen tower saves nothing)."""
 
     @staticmethod
     def forward(ctx, q, k, v, t_valid):
         ctx.t_valid = t_valid
-        if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v, t_valid)
+        if not any(ctx.needs_input_grad[:3]):
+            return _launch(q, k, v, t_valid)
+        o, lse = _launch(q, k, v, t_valid, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        return o
 
     @staticmethod
     def backward(ctx, grad):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, grad, ctx.t_valid)
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, grad, ctx.t_valid, lse)
         return dq, dk, dv, None
 
 
@@ -267,16 +310,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        g: torch.Tensor, kv_valid: Optional[int] = None):
+                        g: torch.Tensor, kv_valid: Optional[int] = None, *,
+                        lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of `flash_attention(q, k, v, kv_valid)` for the output
-    gradient g, from q, k, v and g alone.
+    gradient g, given the forward's log2-domain log-sum-exp `lse` as K1
+    writes it (a train step has it), or not.
 
     CUDA tensors go through K2 (the same inputs K1 takes; g may be a strided
-    view) or raise; CPU tensors take `flash_attention_bwd_ref`."""
+    view) or raise; without lse, K1 runs first to make it (a K1 launch).
+    CPU tensors take `flash_attention_bwd_ref`."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, g, kv_valid)
+        return flash_attention_bwd_ref(q, k, v, g, kv_valid, lse=lse)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="K2")
-    return _launch_bwd(q, k, v, g, t_valid)
+    if lse is None:
+        _, lse = _launch(q, k, v, t_valid, with_lse=True)
+    return _launch_bwd(q, k, v, g, t_valid, lse)
 
 
 def _bias_strides(bias: torch.Tensor, q: torch.Tensor, t: int) -> ctypes.Array:

@@ -8,7 +8,8 @@ batched_heads` (S2) and `batched_heads_opt` (S3), and
 S4 (`attention_variant`: heads and batch rows per block, the block order,
 exp2, no max pass, the two products without a softmax) and one for S3
 (`attention_ones_column`: scale folded into q, the mask as an additive row,
-the softmax denominator out of the P V product). They are built into a
+the softmax denominator out of the P V product), the latter built on Hopper's
+wgmma and a TMA ring (`csrc/attn_hopper.cuh`, shared with K2). They are built into a
 library of their own at the first sweep (`ops/build.py`), so serving and
 training never build them, and no model calls them: the models' forward is
 K1 (`ops/flash_attention.py`), and `nn/attention.py` does not know this
@@ -31,7 +32,7 @@ from tunevlseg_torch.ops import build
 from tunevlseg_torch.ops.flash_attention import _check_kernel_inputs, _seq_strides
 
 HEAD_DIM = 64          # the only head dim the variants are instantiated for
-KEY_TILE = 64          # keys per shared-memory tile; S3's mask row is padded to it
+KEY_TILE = 64          # keys per ring stage of S3's kernel; its mask row is padded to it
 LOG2E = 1.4426950408889634
 MASKED = -1e30         # S3's additive mask on a key that is not attended
 BLOCK_ORDERS = ("query", "head")   # which index of a block moves fastest
@@ -106,8 +107,8 @@ def attention_variant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def fold_scale(q: torch.Tensor) -> torch.Tensor:
-    """q · D^-1/2 · log2(e) in q's dtype (the factor rounded to it first):
-    S3's one multiply outside the kernel."""
+    """q · D^-1/2 · log2(e) in q's dtype (the factor rounded to it first),
+    as S3's kernel multiplies its Q tile in shared memory."""
     return q * torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype,
                             device=q.device)
 
@@ -198,10 +199,10 @@ def attention_ones_column(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid: Optional[int] = None, *, hg: int = 1,
                           bg: int = 1, skip_max: bool = False,
                           block_order: str = "query") -> torch.Tensor:
-    """softmax(q kᵀ / √D) v by S3's recipe: q is multiplied by D^-1/2 ·
-    log2(e) here, outside the kernel; the kernel adds an f32 mask row to the
-    scores, takes exp2, and lets the P V product emit the softmax denominator
-    through a column of ones beside V in shared memory. (B, S, H, 64) bf16 in
+    """softmax(q kᵀ / √D) v by S3's recipe: the kernel multiplies q by the
+    bf16 factor D^-1/2 · log2(e) (as `fold_scale`), adds an f32 mask row to
+    the scores, takes exp2, and has the P V step emit the softmax denominator
+    as a product of the same p with a column of ones. (B, S, H, 64) bf16 in
     and out; no gradient. The denominator is the sum of the bf16-rounded p,
     so the result differs from K1's by up to about 2^-9 relative before the
     output's own rounding."""
@@ -210,17 +211,16 @@ def attention_ones_column(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ones_column_ref(q, k, v, kv_valid, skip_max=skip_max)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="S3")
     lib = load_library()
-    qs = fold_scale(q)
     row = mask_row(k.shape[1], t_valid, q.device)
     o = torch.empty_like(q)
     b, s, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.tvs_attn_ones_column(
-            qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if row is None else row.data_ptr(), o.data_ptr(), b, s,
             k.shape[1], h, d, int(skip_max), hg, bg, int(block_order == "head"),
-            _seq_strides(qs, k, v, o), stream)
+            _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"S3 launch failed: cudaError {err}")
     _launches["ones_column"] += 1
