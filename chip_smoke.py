@@ -12,14 +12,17 @@ Phases, each printing its numbers on lines of its own:
      timed, with the registers and spills `ptxas -v` reports for each kernel;
   3. kernel vs plain: K1 against `flash_attention_ref` (its output, and with
      the log-sum-exp a backward asks for: output bit-identical, lse against
-     the plain version's, K1 timed with and without the lse write) and K2
+     the plain version's, K1 timed with and without the lse write, and its
+     device time from torch.profiler) and K2
      against `flash_attention_bwd_ref` on the lse K1 wrote, as a train step
      calls it, and against the plain version without it (p = e / sum e);
      two calls bit-identical; the device time of K2's two kernels, the dq
      pass with its delta sweep and the dk/dv pass) at the CLIPSeg vision and decoder
      shapes (485 tokens, and 489 with four visual contexts), a kv_valid case
      (masked dk/dv rows exactly zero), the two batch-16 shapes of the e2e
-     train step and the CRIS decoder's b64 x 676 x 8 x 64; K3
+     train step and the CRIS decoder's b64 x 676 x 8 x 64; the host time of
+     a K1 call at D = 64 and 16 (perf_counter over 1000 calls at the b1
+     request's shapes, no synchronize, beside the kernel's device time); K3
      against `biased_attention_ref` at the text shape (U = 1 and U = 64 rows,
      causal + padding bias) and the CRIS cross shape (676 queries into 77
      keys, key-padding bias): max abs error against the stated bound, times
@@ -86,8 +89,10 @@ Phases, each printing its numbers on lines of its own:
      alone; and S3, the denominator out of the P V product) against its plain
      version on q, k, v apart, then timed with the variants' launch counts
      set to 0 before and read after; at the vision shape b64 x 485 x 12 x 64,
-     and S2 / S3 also at 512 with the keys from 485 on masked. The same two
-     counts are read on every model path, where they must stay 0;
+     and S2 / S3 also at 512 with the keys from 485 on masked; the v2
+     sweep's "hg1 exp2" row (K1's own instance of the forward body) printed
+     beside K1's time in the same turns. The same two counts are read on
+     every model path, where they must stay 0;
  15. serve and train, CLIPSeg MaPLe (depth 3, 4 contexts; visual contexts in
      the frozen vision tower, 489 tokens): the three requests (13 K1 and 12
      K3 per forward), kernel path against plain path; 2 warm-up + 5 timed
@@ -361,9 +366,24 @@ def device_ms_by_kernel(fn, n: int = 5) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host time per call of `fn`: time.perf_counter over `calls` calls with
+    no synchronize in between (they are only enqueued)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 def phase_kernels(fa):
     """K1 against its plain version, with and without the log-sum-exp that
-    a backward asks for; returns {label: numbers}."""
+    a backward asks for, and the host time of a K1 call; returns {label:
+    numbers}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -380,10 +400,15 @@ def phase_kernels(fa):
         lse_ms = cuda_time_ms(lambda: fa._launch(q, k, v, t, with_lse=True), 50)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_ref(q, k, v, kv_valid=kv), 10)
+        # the kernel's own duration: where a call's host time comes near it
+        # (D = 16, b16), the event time above is the host's
+        device_ms = sum(x for n, x in device_ms_by_kernel(
+            lambda: fa.flash_attention(q, k, v, kv_valid=kv)).items() if "flash_attn_fwd" in n)
         bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t)
         print(f"kernel K1 {label} q{(b, s, h, d)} kv_valid {kv}: "
               f"max_abs_err {err:.6g} (bound {KERNEL_TOL}), kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), with the lse write {lse_ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s; device {device_ms:.4f} ms by "
+              f"torch.profiler), with the lse write {lse_ms:.4f} ms "
               f"({100 * (lse_ms / ms - 1):+.1f}%; output bit-identical {same}, lse "
               f"error {lse_err:.3g} of max(1, |lse|), bound {LSE_REL_TOL}), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
@@ -396,7 +421,19 @@ def phase_kernels(fa):
             fail(f"K1 {label}: lse error {lse_err} > {LSE_REL_TOL} of max(1, |lse|)")
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "ms_with_lse": lse_ms}
+                          "ms_with_lse": lse_ms, "device_ms": device_ms}
+    # the b1 request's shapes, where the card finishes a call before the host
+    # has launched the next: the wrapper's host time (ctypes, three tensor maps)
+    for d, shape in ((64, (1, 485, 12, 64)), (16, (1, 485, 4, 16))):
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        us = min(host_us_per_call(lambda: fa.flash_attention(q, k, v)) for _ in range(3))
+        device_ms = sum(ms for name, ms in device_ms_by_kernel(
+            lambda: fa.flash_attention(q, k, v)).items() if "flash_attn_fwd" in name)
+        print(f"host K1 D = {d} q{shape}: {us:.2f} us per flash_attention call "
+              f"(perf_counter over 1000 calls, no synchronize, the least of 3 "
+              f"rounds); the kernel's device time {device_ms * 1e3:.2f} us")
+        results["vision" if d == 64 else "decoder"]["host_us_b1"] = us
     return results
 
 
@@ -552,6 +589,8 @@ def phase_yardstick():
                              ("vision 489", VISION_CTX, None),
                              ("decoder 489", DECODER_CTX, None),
                              ("vision kv_valid", (BATCH, 512, 12, 64), 485),
+                             ("e2e vision", E2E_VISION, None),
+                             ("e2e decoder", E2E_DECODER, None),
                              ("cris decoder", CRIS_DECODER, None)):
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       .bfloat16().transpose(1, 2) for _ in range(4))
@@ -1542,6 +1581,12 @@ def phase_kernels_variants(sweeps, library):
             fail(f"sweep {sweep}: launched S3 {grew[1]} times, it has no S3 row")
         print(f"sweep {sweep} @ {label}: launches while timing "
               + ", ".join(f"{o} {n}" for o, n in zip(owners, grew)))
+        ms_of = {row["tag"]: row["ms"] for row in rows}
+        if sweep == "v2":
+            control = ms_of["hg1 exp2 (K1's choices)"]
+            print(f"sweep v2 @ {label}: control row hg1 exp2 {control:.4f} ms beside "
+                  f"K1 {ms_of['K1']:.4f} ms in the same turns (the same instance of "
+                  f"the forward body; ratio {control / ms_of['K1']:.3f})")
         for row in rows:
             if row["max_abs_err"] is None:      # K1's row and the yardstick's
                 continue
@@ -1801,7 +1846,8 @@ def main() -> None:
 
     kernels = [
         entry((0,), "K1 flash_attn_fwd (unbiased self-attention forward, lse "
-              "written when a gradient is wanted)",
+              "written when a gradient is wanted; wgmma from a TMA ring, two "
+              "consumer warpgroups)",
               "tunevlseg_torch/csrc/flash_attn_fwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:80", k1, "vision",
               library["vision"][0]),
@@ -1839,16 +1885,18 @@ def main() -> None:
     # variant named in `main` at the vision shape.
     source = "tunevlseg_torch/csrc/flash_attn_fwd_variants.cu"
     for key, index, title, replaces, main in (
-            ("S1", 6, "S1 attn_variant: hg heads per block", "scripts/micro_attn.py:60",
-             "hg2 @ vision"),
+            ("S1", 6, "S1 attn_variant: hg heads per block; wgmma from a TMA ring, "
+             "two consumer warpgroups", "scripts/micro_attn.py:60", "hg2 @ vision"),
             ("S2", 6, "S2 attn_variant: exp2 / no max pass / products alone / hg / "
-             "block order", "scripts/micro_attn_v2.py:45", "ours (hg3) @ vision"),
+             "block order; wgmma from a TMA ring, two consumer warpgroups",
+             "scripts/micro_attn_v2.py:45", "ours (hg3) @ vision"),
             ("S3", 7, "S3 attn_ones_column: folded scale, mask row, denominator out "
              "of the P V step; wgmma from a TMA ring, two consumer warpgroups",
              "scripts/micro_attn_v2.py:113",
              "opt (S3) @ vision"),
             ("S4", 6, "S4 attn_variant: bg batch rows x hg heads per block, block "
-             "order", "scripts/micro_attn_grid.py:29", "bg1 hg3 query @ vision")):
+             "order; wgmma from a TMA ring, two consumer warpgroups",
+             "scripts/micro_attn_grid.py:29", "bg1 hg3 query @ vision")):
         numbers = variants[key]
         if sweep_launches[key] <= 0:
             fail(f"{title} was never launched by its sweep")

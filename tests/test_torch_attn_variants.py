@@ -80,15 +80,28 @@ S2_CASES = {
 }
 
 
-@pytest.mark.parametrize("kv_valid", [None, 100])
+# (S, T, kv_valid) at b2 h4 (the hg4 case takes four heads): 128 x 128 with
+# and without masked keys, then the tile edges the kernel masks (128 query
+# rows a block, 64 keys a tile)
+S2_GEOMETRIES = [
+    pytest.param((128, 128, None), id="None"), pytest.param((128, 128, 100), id="100"),
+    pytest.param((128, 128, 64), id="s128-kv64"), pytest.param((128, 128, 65), id="s128-kv65"),
+    pytest.param((129, 65, None), id="s129-t65"), pytest.param((129, 65, 64), id="s129-t65-kv64"),
+]
+
+
+@pytest.mark.parametrize("geometry", S2_GEOMETRIES)
 @pytest.mark.parametrize("case", list(S2_CASES))
 def test_variant_plain_version_matches_the_pallas_kernel(v2, interpret_mode, case,
-                                                         kv_valid):
+                                                         geometry):
     """S2: every softmax switch of `batched_heads`. Its `force_hg` and grid
     semantics change the TPU grid, not the value: the plain version ignores
     `hg` and `block_order` likewise."""
     kw = dict(S2_CASES[case])
-    (q, k, v), (jq, jk, jv) = _pair(_qkv(0))
+    s, t, kv_valid = geometry
+    q = _qkv(0, s=s)[0]
+    k, v = _qkv(1, s=t)[1:]
+    (q, k, v), (jq, jk, jv) = _pair((q, k, v))
     want = v2.batched_heads(jq, jk, jv, kv_valid=kv_valid, **kw)
     hg = kw.pop("force_hg", 1)
     order = "head" if kw.pop("arbitrary", False) else "query"

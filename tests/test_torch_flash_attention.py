@@ -31,6 +31,12 @@ def rand_qkv(seed, b, s, h, d, t):
     (2, 485, 3, 64, 485, None),   # vision shape, cut in batch and heads
     (2, 485, 3, 64, 512, 485),    # padded keys masked by kv_valid
     (2, 485, 4, 16, 485, None),   # decoder shape, cut in batch
+    # the tile edges the kernel masks: 128 query rows a block, 64 keys a tile
+    (2, 129, 3, 32, 129, None),   # one query row past a block
+    (2, 129, 2, 16, 65, 64),      # one key past a tile, masked; S != T
+    (2, 129, 3, 64, 65, 65),      # one key past a tile, valid
+    (1, 129, 3, 64, 129, 64),     # kv_valid at a tile edge
+    (2, 70, 2, 32, 65, 65),       # S > T
 ])
 def test_ref_matches_pallas_k1(b, s, h, d, t, kv_valid):
     q, k, v = rand_qkv(0, b, s, h, d, t)
@@ -141,6 +147,9 @@ def test_cpu_bwd_wrapper_takes_plain_version():
 
 @pytest.mark.parametrize("b,s,h,d,t,kv_valid", [
     (2, 485, 3, 64, 485, None), (2, 70, 2, 16, 130, 99), (1, 40, 2, 32, 40, 1),
+    # K1's tile edges: 128 query rows a block, 64 keys a tile
+    (2, 129, 3, 32, 65, 64), (2, 129, 2, 16, 65, 65), (1, 129, 3, 64, 129, 64),
+    (2, 129, 2, 64, 130, 65),
 ])
 def test_ref_log_sum_exp_matches_float64(b, s, h, d, t, kv_valid):
     """lse = log2 Σⱼ exp2(s·log2 e) over the unmasked keys, s = q·k/√D: the
@@ -196,3 +205,21 @@ def test_plain_attention_grad_matches_xla_vjp():
 def test_reset_sets_both_launch_counts_to_zero():
     fa.reset_launch_count()
     assert fa.launch_count() == 0 and fa.bwd_launch_count() == 0
+
+
+def test_k1_and_the_variants_run_the_hopper_forward_body():
+    """K1 and the sweeps' S1 / S2 / S4 kernel are instances of one forward
+    body (csrc/attn_fwd_hopper.cuh: wgmma on operands a producer warp brings
+    in by TMA through an mbarrier ring), with no mma.sync path left beside
+    it; the body's header is part of every library's build hash."""
+    from tunevlseg_torch.ops import build
+    csrc = build.SOURCES["fwd"].parent
+    body = (csrc / "attn_fwd_hopper.cuh").read_text()
+    for needed in ("tma_load_4d", "mbar_wait", "wgmma_m64n64k16", "wgmma_rs<D, 1>"):
+        assert needed in body, needed
+    for source in (build.SOURCES["fwd"], build.SWEEP_SOURCES["variants"]):
+        text = source.read_text()
+        assert '#include "attn_fwd_hopper.cuh"' in text
+        assert "attn_fwd_body<" in text
+        assert "mma_bf16_16816" not in text and "load_tile" not in text
+    assert csrc / "attn_fwd_hopper.cuh" in build.HEADERS

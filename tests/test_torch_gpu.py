@@ -42,11 +42,28 @@ def _qkv(cuda, b, s, h, d, t=None, dtype=torch.bfloat16, seed=0):
                  for n in (s, t or s, t or s))
 
 
+# K1's tile edges: a block owns 128 query rows, a ring stage 64 keys, and the
+# keys' maps end at kv_valid
+K1_EDGES = [
+    ((3, 129, 2, 32), 129, None),      # one query row past a block
+    ((3, 300, 2, 32), 300, None),      # ragged tail of 44 rows
+    ((2, 150, 2, 16), 64, 64),         # one key tile, every key valid
+    ((2, 150, 2, 32), 65, 64),         # one key past a tile, masked
+    ((2, 150, 2, 64), 65, 65),         # one key past a tile, valid
+    ((2, 150, 2, 32), 130, 128),       # kv_valid at a tile edge
+    ((2, 150, 2, 64), 130, 129),       # one valid key past a tile edge
+    ((2, 300, 2, 64), 200, 150),       # S > T, ragged tails of both
+]
+
+
 @pytest.mark.parametrize("shape,t,kv_valid", [
     ((64, 485, 12, 64), 485, None),    # vision tower
     ((64, 485, 4, 16), 485, None),     # CLIPSeg decoder
     ((64, 512, 12, 64), 512, 485),     # padded keys masked by kv_valid
     ((3, 70, 2, 32), 130, 99),         # ragged tails, S != T
+    *K1_EDGES,
+    ((64, 676, 8, 64), 676, None),     # CRIS decoder
+    ((16, 485, 4, 16), 485, None),     # CLIPSeg decoder in the e2e step (b16)
 ])
 def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
     q, k, v = _qkv(cuda, *shape, t=t)
@@ -62,6 +79,9 @@ def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
 @pytest.mark.parametrize("shape,t,kv_valid", [
     ((64, 485, 12, 64), 485, None), ((8, 489, 4, 16), 489, None),
     ((4, 512, 12, 64), 512, 485), ((3, 77, 2, 32), 130, 99),
+    *K1_EDGES,
+    ((8, 676, 8, 64), 676, None),      # CRIS decoder, cut in batch
+    ((16, 485, 4, 16), 485, None),
 ])
 def test_k1_log_sum_exp_matches_plain_version(cuda, shape, t, kv_valid):
     """With the lse a backward asks for, K1's output keeps its bits and the
@@ -75,6 +95,20 @@ def test_k1_log_sum_exp_matches_plain_version(cuda, shape, t, kv_valid):
     assert lse.shape == (b, h, s) and lse.dtype == torch.float32
     _, want = fa.flash_attention_ref(q, k, v, kv_valid, return_lse=True)
     assert ((lse - want).abs() / want.abs().clamp(min=1.0)).max().item() <= LSE_REL_TOL
+
+
+@pytest.mark.parametrize("shape,t,kv_valid", [
+    ((64, 485, 12, 64), 485, None), ((64, 485, 4, 16), 485, None),
+    ((2, 150, 2, 32), 130, 129),
+])
+def test_k1_two_calls_are_bit_identical(cuda, shape, t, kv_valid):
+    """No atomics and a fixed order of the sums: the same inputs give the
+    same bits, output and log-sum-exp."""
+    q, k, v = _qkv(cuda, *shape, t=t)
+    first = fa._launch(q, k, v, kv_valid or t, with_lse=True)
+    second = fa._launch(q, k, v, kv_valid or t, with_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_k1_raises_on_what_it_does_not_take(cuda):
@@ -181,19 +215,25 @@ def test_backward_on_the_card_never_takes_the_plain_version(cuda, monkeypatch):
 
 
 def test_kernels_with_tensor_maps_launch_from_a_fresh_thread(cuda):
-    """K2 and S3 encode TMA tensor maps on the host, a driver call that
-    needs a current context: a thread that has made no CUDA call yet (as
-    autograd's backward thread) must launch them all the same."""
+    """K1, K2, S1/S2/S4 and S3 encode TMA tensor maps on the host with
+    cuTensorMapEncodeTiled, which needs a current context: a thread that has
+    made no CUDA call yet (as autograd's backward thread) must launch them all
+    the same."""
     import threading
     q, k, v = _qkv(cuda, 2, 300, 2, 64)
     g = _qkv(cuda, 2, 2, 300, 64, seed=2)[0].transpose(1, 2)
-    want = (fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v))
+
+    def launch_all():
+        return (fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v),
+                fa._launch(q, k, v, 300, with_lse=True), fav.attention_variant(q, k, v))
+
+    want = launch_all()
     torch.cuda.synchronize()
     got, errors = [], []
 
     def run():
         try:
-            got.append((fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v)))
+            got.append(launch_all())
             torch.cuda.synchronize()
         except Exception as e:  # handed to the test's thread
             errors.append(e)
@@ -205,6 +245,8 @@ def test_kernels_with_tensor_maps_launch_from_a_fresh_thread(cuda):
     assert not errors, errors
     assert all(torch.equal(a, b) for a, b in zip(got[0][0], want[0]))
     assert torch.equal(got[0][1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[0][2], want[2]))
+    assert torch.equal(got[0][3], want[3])
 
 
 def test_k2_raises_on_what_it_does_not_take(cuda):
@@ -743,6 +785,8 @@ VARIANT_SWITCHES = [
 @pytest.mark.parametrize("shape,t,kv_valid", [
     ((4, 70, 6, 64), 130, 99),         # ragged tails, S != T, masked keys
     ((4, 128, 6, 64), 128, None),      # whole tiles
+    ((4, 489, 6, 64), 489, None),      # the vision tower with four contexts
+    ((4, 300, 6, 64), 200, 150),       # S > T, ragged tails of both
 ])
 @pytest.mark.parametrize("kw", VARIANT_SWITCHES,
                          ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items())

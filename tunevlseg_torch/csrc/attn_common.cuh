@@ -1,8 +1,8 @@
 // Building blocks shared by the kernels: bf16 packing (all of them, the flat
-// convolution K4, conv_flat.cu, included), and for the attention kernels
-// K1-K3 (flash_attn_*.cu) the mma.sync m16n8k16 wrapper, the reductions over
-// the four threads that share a fragment row and the strided global ->
-// shared tile load.
+// convolution K4, conv_flat.cu, included), the reductions over the four
+// threads that share a fragment row (every attention kernel), and for the
+// biased attention forward K3 (flash_attn_bias_fwd.cu) the mma.sync m16n8k16
+// wrapper and the strided global -> shared tile load.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,4 +1,5 @@
-// Building blocks of the Hopper attention kernels (the S3 forward in
+// Building blocks of the Hopper attention kernels (the forward body of K1 and
+// S1, S2, S4 in attn_fwd_hopper.cuh, the S3 forward in
 // flash_attn_fwd_variants.cu and the K2 backward in flash_attn_bwd.cu) on top
 // of hopper.cuh's generic PTX:
 //

@@ -15,267 +15,61 @@
 // None of them is on a model's path: the models run K1 (flash_attn_fwd.cu).
 // They are the tool for redesigning it, K1 with its choices as switches.
 //
-// What the switches mean on this card. The TPU kernels hold a head's whole
-// S x T f32 score tile in VMEM and walk a sequential grid; here S1, S2 and S4
-// keep K1's structure (one block of 4 warps per 64 query rows, keys streamed
-// through shared memory in tiles of 64, online softmax, mma.sync m16n8k16).
+// Bound: as K1. At b64 S = T = 485 h12 d64 the call does 46 GFLOP against
+// 191 MB of q, k, v and o: bound by bytes (57 us at 3.35 TB/s), by a small
+// margin over the tensor cores (46 us at 989 TFLOP/s).
+//
+// S1, S2 and S4 (attn_variant_kernel) are K1's own body (attn_fwd_hopper.cuh:
+// one producer warp feeding two consumer warpgroups of 64 query rows through
+// a TMA / mbarrier ring, wgmma for both products with p kept in registers,
+// two blocks per SM) at D = 64, with the switches as the body's compile-time
+// softmax policy; what they mean on this card:
 //   * "hg heads / bg batch rows per grid cell" is a block that owns one query
-//     tile and loops over its bg x hg (batch, head) pairs: fewer, longer
+//     tile of 128 rows and loops over its bg x hg (batch, head) pairs, the
+//     next pair's Q tile and keys streaming in behind the last: fewer, longer
 //     blocks. hg and bg are launch parameters, the loop is the same code.
 //   * `dimension_semantics` has no meaning in CUDA. Its counterpart is the
 //     order in which blockIdx maps to (batch group, head group, query tile):
 //     query-tile-fastest, so that neighbouring blocks share one head's K and V
 //     in L2, or head-fastest. A launch parameter.
 //   * USE_EXP2: p = exp2(s * scale * log2(e) - m) against expf(s * scale - m).
+//     With hg = bg = 1 and the query-tile-fastest order it is K1's launch.
 //   * SKIP_MAX: no running maximum and no rescale of the accumulator,
 //     p = exp(s). An experiment, as in the script: it overflows for scores
 //     above ~88 (~128 with exp2).
-//   * GEMM_ONLY: o = (q k^T * scale) v over all T keys, no softmax, no mask.
-// S3 (attn_ones_column_kernel) is built the Hopper way, on the attention
-// building blocks of attn_hopper.cuh, which K2 shares: one producer warp
-// feeding two consumer warpgroups through a TMA / mbarrier ring, 128 query
-// rows a block, wgmma for both products with p kept in registers. Its recipe:
-// q is multiplied by the bf16 factor D^-1/2 * log2(e) (in the kernel, on the
-// Q tile in shared memory); an f32 mask row (0 on valid keys, -1e30 beyond;
-// padded to whole key tiles of 64) is added to the scores in the place of the
+//   * GEMM_ONLY: o = (q k^T * scale) v over all T keys, no softmax, no mask
+//     (the keys past T arrive as zeros and add nothing).
+// S3 (attn_ones_column_kernel) is built the same way on the attention
+// building blocks of attn_hopper.cuh, with its own recipe: q is multiplied by
+// the bf16 factor D^-1/2 * log2(e) (in the kernel, on the Q tile in shared
+// memory); an f32 mask row (0 on valid keys, -1e30 beyond; padded to whole
+// key tiles of 64) is added to the scores in the place of the
 // compare-and-select; the denominator comes out of the P V step, as an n8
 // product of the same bf16 p against a constant [1, 0, ..., 0] tile, rescaled
 // with the output like any of its columns; the epilogue multiplies by its
 // reciprocal. The sum is of the bf16-ROUNDED p, accumulated in f32: it
 // differs from K1's f32 sum of the unrounded p by at most about 2^-9 relative.
 //
-// Bound: as K1. At b64 S = T = 485 h12 d64 the call does 46 GFLOP against
-// 191 MB of q, k, v and o: bound by bytes, by a small margin over the tensor
-// cores. What limits S1, S2 and S4 in fact is neither: mma.sync's rate and
-// the softmax's f32 work between the two products.
-//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC into a library of its own (tunevlseg_torch/ops/build.py),
 // so that a process that never sweeps never builds it. Plain C entry points,
 // loaded with ctypes (tunevlseg_torch/ops/flash_attention_variants.py).
 
-#include "attn_hopper.cuh"
+#include "attn_fwd_hopper.cuh"
 
 namespace {
 
 using namespace tvs;
 
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kScoreTiles = kBlockN / 8;
-constexpr int kKeySteps = kBlockN / 16;
-
-// (batch, seq, head) strides in elements of q, k, v and o
-struct Strides {
-  long long q[3], k[3], v[3], o[3];
-};
-
-// How the grid is cut: hg heads and bg batch rows per block, and the order
-// of the blocks.
-struct Blocking {
-  int hg, bg, n_qt, n_hg, head_fastest;
-};
-
-struct Cell {
-  int qt, hgi, bgi;
-};
-
-__device__ __forceinline__ Cell block_cell(const Blocking& bl) {
-  int idx = blockIdx.x;
-  Cell c;
-  if (bl.head_fastest) {
-    c.hgi = idx % bl.n_hg;
-    idx /= bl.n_hg;
-    c.qt = idx % bl.n_qt;
-    c.bgi = idx / bl.n_qt;
-  } else {
-    c.qt = idx % bl.n_qt;
-    idx /= bl.n_qt;
-    c.hgi = idx % bl.n_hg;
-    c.bgi = idx / bl.n_hg;
-  }
-  return c;
-}
-
-// A fragments of a warp's 16 query rows (first row r0 = warp * 16 + g).
-template <int D>
-__device__ __forceinline__ void read_q_frags(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* sQ,
-                                             int r0, int tig) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* base = sQ + r0 * kStride + kk * 16 + tig * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kStride + 8);
-  }
-}
-
-// s = q k^T of the warp's 16 rows against the 64 keys of the shared tile.
-template <int D>
-__device__ __forceinline__ void qk_scores(float (&s)[kScoreTiles][4],
-                                          const uint32_t (&qa)[D / 16][4],
-                                          const __nv_bfloat16* sK, int g, int tig) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < kScoreTiles; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* kb = sK + (nt * 8 + g) * kStride + kk * 16 + tig * 2;
-      mma_bf16_16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kb),
-                     *reinterpret_cast<const uint32_t*>(kb + 8));
-    }
-  }
-}
-
-// acc += p v over the 64 keys of the shared tile, for kTiles groups of 8
-// output columns. kStride is the row stride of sV.
-template <int kTiles, int kStride>
-__device__ __forceinline__ void pv_accumulate(float (&acc)[kTiles][4],
-                                              const uint32_t (&pa)[kKeySteps][4],
-                                              const unsigned short* sV, int g, int tig) {
-#pragma unroll
-  for (int kk = 0; kk < kKeySteps; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < kTiles; ++nt) {
-      // B[key][dim] = V[key][dim]: two keys per register, one dim column
-      const unsigned short* vb = sV + (kk * 16 + tig * 2) * kStride + nt * 8 + g;
-      const uint32_t b0 = pack_raw(vb[0], vb[kStride]);
-      const uint32_t b1 = pack_raw(vb[8 * kStride], vb[9 * kStride]);
-      mma_bf16_16816(acc[nt], pa[kk], b0, b1);
-    }
-  }
-}
-
-// S1, S2, S4. `scale` is D^-1/2, times log2(e) with USE_EXP2.
-template <int D, bool USE_EXP2, bool SKIP_MAX, bool GEMM_ONLY>
-__global__ void __launch_bounds__(kThreads)
-attn_variant_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                    int T, int t_valid, float scale, Strides st, Blocking bl) {
-  constexpr int kStride = D + 8;
-  constexpr int kOutTiles = D / 8;
-
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockM * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * kStride];
-
-  const Cell cell = block_cell(bl);
-  const int m0 = cell.qt * kBlockM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int r0 = warp * 16 + g;
-  const int t_end = GEMM_ONLY ? T : t_valid;
-  const unsigned short* sVraw = reinterpret_cast<const unsigned short*>(sV);
-
-  for (int pair = 0; pair < bl.bg * bl.hg; ++pair) {
-    const int b = cell.bgi * bl.bg + pair / bl.hg;
-    const int h = cell.hgi * bl.hg + pair % bl.hg;
-
-    // No barrier in front of this store: a warp gets here only after every
-    // warp passed the key loop's first barrier of the previous pair, and so
-    // has read its q fragments; the key loop does not read sQ.
-    load_tile<D, kBlockM, kThreads>(sQ, q + b * st.q[0] + h * st.q[2] + m0 * st.q[1], st.q[1],
-                                    S - m0);
-    __syncthreads();
-    uint32_t qa[D / 16][4];
-    read_q_frags<D>(qa, sQ, r0, tig);
-
-    float acc[kOutTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kOutTiles; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    float row_max[2] = {-INFINITY, -INFINITY};
-    float row_sum[2] = {0.f, 0.f};
-
-    const __nv_bfloat16* kbase = k + b * st.k[0] + h * st.k[2];
-    const __nv_bfloat16* vbase = v + b * st.v[0] + h * st.v[2];
-
-    for (int n0 = 0; n0 < t_end; n0 += kBlockN) {
-      __syncthreads();  // every warp is done with the previous K/V tile
-      load_tile<D, kBlockN, kThreads>(sK, kbase + n0 * st.k[1], st.k[1], t_end - n0);
-      load_tile<D, kBlockN, kThreads>(sV, vbase + n0 * st.v[1], st.v[1], t_end - n0);
-      __syncthreads();
-
-      float s[kScoreTiles][4];
-      qk_scores<D>(s, qa, sK, g, tig);
-
-      uint32_t pa[kKeySteps][4];
-      if constexpr (GEMM_ONLY) {
-        // zero-filled key rows give s = 0: nothing to mask
-#pragma unroll
-        for (int nt = 0; nt < kScoreTiles; ++nt) {
-          pa[nt / 2][(nt % 2) * 2 + 0] = pack_f32x2(s[nt][0] * scale, s[nt][1] * scale);
-          pa[nt / 2][(nt % 2) * 2 + 1] = pack_f32x2(s[nt][2] * scale, s[nt][3] * scale);
-        }
-      } else {
-        float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int nt = 0; nt < kScoreTiles; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int col = n0 + nt * 8 + tig * 2 + (i & 1);
-            const float x = col < t_valid ? s[nt][i] * scale : -INFINITY;
-            s[nt][i] = x;
-            if constexpr (!SKIP_MAX) tile_max[i >> 1] = fmaxf(tile_max[i >> 1], x);
-          }
-        }
-        float shift[2] = {0.f, 0.f};
-        if constexpr (!SKIP_MAX) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            // key 0 is always valid, so the running max is finite after tile 0
-            const float new_max = fmaxf(row_max[r], group4_max(tile_max[r]));
-            const float corr =
-                USE_EXP2 ? exp2f(row_max[r] - new_max) : expf(row_max[r] - new_max);
-            row_max[r] = new_max;
-            row_sum[r] *= corr;
-            shift[r] = new_max;
-#pragma unroll
-            for (int nt = 0; nt < kOutTiles; ++nt) {
-              acc[nt][2 * r] *= corr;
-              acc[nt][2 * r + 1] *= corr;
-            }
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < kScoreTiles; ++nt) {
-          float p[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float x = s[nt][i] - shift[i >> 1];
-            p[i] = USE_EXP2 ? exp2f(x) : expf(x);
-          }
-          row_sum[0] += p[0] + p[1];
-          row_sum[1] += p[2] + p[3];
-          pa[nt / 2][(nt % 2) * 2 + 0] = pack_f32x2(p[0], p[1]);
-          pa[nt / 2][(nt % 2) * 2 + 1] = pack_f32x2(p[2], p[3]);
-        }
-      }
-      pv_accumulate<kOutTiles, kStride>(acc, pa, sVraw, g, tig);
-    }
-
-    const float inv0 = GEMM_ONLY ? 1.f : 1.f / group4_sum(row_sum[0]);
-    const float inv1 = GEMM_ONLY ? 1.f : 1.f / group4_sum(row_sum[1]);
-    const int row_a = m0 + r0;
-    const int row_b = row_a + 8;
-    __nv_bfloat16* obase = o + b * st.o[0] + h * st.o[2];
-#pragma unroll
-    for (int nt = 0; nt < kOutTiles; ++nt) {
-      const int col = nt * 8 + tig * 2;
-      if (row_a < S)
-        *reinterpret_cast<uint32_t*>(obase + row_a * st.o[1] + col) =
-            pack_f32x2(acc[nt][0] * inv0, acc[nt][1] * inv0);
-      if (row_b < S)
-        *reinterpret_cast<uint32_t*>(obase + row_b * st.o[1] + col) =
-            pack_f32x2(acc[nt][2] * inv1, acc[nt][3] * inv1);
-    }
-  }
+// S1, S2, S4: the forward body at D = 64 with the switches as its policy.
+template <bool USE_EXP2, bool SKIP_MAX, bool GEMM_ONLY>
+__global__ void __launch_bounds__(fwd::kThreads, fwd::kMinBlocks)
+attn_variant_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, const fwd::Params p) {
+  fwd::attn_fwd_body<64, fwd::Policy<USE_EXP2, !SKIP_MAX, !GEMM_ONLY>>(&tm_q, &tm_k, &tm_v, o,
+                                                                       lse, p);
 }
 
 // S3 on Hopper's own path: warpgroup products from a TMA ring.
@@ -495,68 +289,49 @@ attn_ones_column_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-Strides make_strides(const long long* s) {
-  Strides st;
-  for (int i = 0; i < 3; ++i) {
-    st.q[i] = s[i];
-    st.k[i] = s[3 + i];
-    st.v[i] = s[6 + i];
-    st.o[i] = s[9 + i];
-  }
-  return st;
-}
-
-// The grid of a launch with `block_m` query rows a block, or false when hg /
-// bg do not divide H / B.
-bool make_blocking(int B, int S, int H, int hg, int bg, int head_fastest, int block_m,
-                   Blocking* bl, unsigned* blocks) {
-  if (hg < 1 || bg < 1 || H % hg || B % bg) return false;
-  bl->hg = hg;
-  bl->bg = bg;
-  bl->n_qt = (S + block_m - 1) / block_m;
-  bl->n_hg = H / hg;
-  bl->head_fastest = head_fastest;
-  *blocks = static_cast<unsigned>(bl->n_qt) * bl->n_hg * (B / bg);
-  return true;
-}
-
 template <bool USE_EXP2, bool SKIP_MAX, bool GEMM_ONLY>
-cudaError_t launch_variant(const void* q, const void* k, const void* v, void* o, int S, int T,
-                           int t_valid, const Strides& st, const Blocking& bl, unsigned blocks,
+cudaError_t launch_variant(const void* q, const void* k, const void* v, void* o, int B, int T,
+                           const Strides& st, fwd::Params p, unsigned blocks,
                            cudaStream_t stream) {
-  constexpr int D = 64;
-  float scale = 1.0f / sqrtf(static_cast<float>(D));
-  if (USE_EXP2) scale *= 1.4426950408889634f;
-  attn_variant_kernel<D, USE_EXP2, SKIP_MAX, GEMM_ONLY><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, T, t_valid, scale,
-      st, bl);
-  return cudaGetLastError();
+  p.scale = 1.0f / sqrtf(64.f);
+  if (USE_EXP2) p.scale *= 1.4426950408889634f;
+  // the two products alone run over every key; the softmax over the valid ones
+  p.n_tiles = ((GEMM_ONLY ? T : p.t_valid) + fwd::kBN - 1) / fwd::kBN;
+  return fwd::launch_fwd<64>(attn_variant_kernel<USE_EXP2, SKIP_MAX, GEMM_ONLY>, q, k, v, o,
+                             nullptr, B, T, st, p, blocks, stream);
 }
 
 }  // namespace
 
 // S1, S2, S4. q (B, S, H, 64), k and v (B, T, H, 64), o (B, S, H, 64), bf16
-// with unit stride on the last dimension; `strides` as in tvs_flash_attn_fwd
-// (12 values). `flags`: bit 0 USE_EXP2, bit 1 SKIP_MAX, bit 2 GEMM_ONLY
-// (alone). hg heads and bg batch rows per block (they must divide H and B);
-// head_fastest picks the block order. Returns the cudaError_t of the launch.
+// with unit stride on the last dimension, read in place by TMA (16-byte
+// aligned, strides multiples of 8 elements); `strides` as in
+// tvs_flash_attn_fwd (12 values). `flags`: bit 0 USE_EXP2, bit 1 SKIP_MAX,
+// bit 2 GEMM_ONLY (alone). hg heads and bg batch rows per block (they must
+// divide H and B); head_fastest picks the block order. Returns the
+// cudaError_t of the launch (cudaErrorNotSupported if a tensor map could not
+// be encoded).
 extern "C" int tvs_attn_variant(const void* q, const void* k, const void* v, void* o, int B, int S,
                                 int T, int H, int D, int t_valid, int flags, int hg, int bg,
                                 int head_fastest, const long long* strides, void* stream) {
-  Blocking bl;
+  fwd::Params p;
   unsigned blocks;
-  if (D != 64 || !make_blocking(B, S, H, hg, bg, head_fastest, kBlockM, &bl, &blocks))
+  if (D != 64 || S <= 0 || T <= 0 || t_valid < 1 || t_valid > T ||
+      !make_blocking(B, S, H, hg, bg, head_fastest, fwd::kBM, &p.bl, &blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st = make_strides(strides);
+  p.S = S;
+  p.t_valid = t_valid;
+  p.H = H;
+  for (int i = 0; i < 3; ++i) p.os[i] = st.o[i];
   const cudaStream_t sm = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (flags) {
-    case 0: err = launch_variant<false, false, false>(q, k, v, o, S, T, t_valid, st, bl, blocks, sm); break;
-    case 1: err = launch_variant<true, false, false>(q, k, v, o, S, T, t_valid, st, bl, blocks, sm); break;
-    case 2: err = launch_variant<false, true, false>(q, k, v, o, S, T, t_valid, st, bl, blocks, sm); break;
-    case 3: err = launch_variant<true, true, false>(q, k, v, o, S, T, t_valid, st, bl, blocks, sm); break;
-    case 4: err = launch_variant<false, false, true>(q, k, v, o, S, T, t_valid, st, bl, blocks, sm); break;
+    case 0: err = launch_variant<false, false, false>(q, k, v, o, B, T, st, p, blocks, sm); break;
+    case 1: err = launch_variant<true, false, false>(q, k, v, o, B, T, st, p, blocks, sm); break;
+    case 2: err = launch_variant<false, true, false>(q, k, v, o, B, T, st, p, blocks, sm); break;
+    case 3: err = launch_variant<true, true, false>(q, k, v, o, B, T, st, p, blocks, sm); break;
+    case 4: err = launch_variant<false, false, true>(q, k, v, o, B, T, st, p, blocks, sm); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

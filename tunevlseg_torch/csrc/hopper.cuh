@@ -5,8 +5,8 @@
 // in shared memory or in registers, with their fences and groups. Inline PTX
 // only, so a source that includes this header builds in seconds (no CUTLASS /
 // CuTe). Used by the flat convolution K4 (conv_flat.cu) and, through
-// attn_hopper.cuh, by the attention kernels K2 (flash_attn_bwd.cu) and S3
-// (flash_attn_fwd_variants.cu).
+// attn_hopper.cuh, by the attention kernels K1 (flash_attn_fwd.cu), K2
+// (flash_attn_bwd.cu) and S1-S4 (flash_attn_fwd_variants.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing here calls the driver)

@@ -4,9 +4,11 @@ biased / cross-attention forward, as hand-written Hopper kernels.
 Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
 `_forward_batched_heads`, K2 replaces `_backward_batched_heads`, K3 replaces
 `_forward`. The CUDA C++ sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu`,
-`flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (shared helpers in
-`attn_common.cuh`; K2's wgmma / TMA building blocks in `attn_hopper.cuh` and
-`hopper.cuh`); all are built with `nvcc` for `sm_90a` into plain C shared
+`flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (K1's forward body, one
+producer warp feeding two consumer warpgroups with wgmma from a TMA ring, in
+`attn_fwd_hopper.cuh`; the wgmma / TMA building blocks it shares with K2 in
+`attn_hopper.cuh` and `hopper.cuh`; K3's helpers in `attn_common.cuh`); all
+are built with `nvcc` for `sm_90a` into plain C shared
 libraries at first use (`ops/build.py`) and called through `ctypes` on
 PyTorch's current stream.
 

@@ -6,17 +6,19 @@ batched_heads` (S2) and `batched_heads_opt` (S3), and
 `scripts/micro_attn_grid.py: make` (S4). The CUDA C++ source is
 `tunevlseg_torch/csrc/flash_attn_fwd_variants.cu`: one kernel for S1, S2 and
 S4 (`attention_variant`: heads and batch rows per block, the block order,
-exp2, no max pass, the two products without a softmax) and one for S3
+exp2, no max pass, the two products without a softmax), which is K1's own
+forward body (`csrc/attn_fwd_hopper.cuh`: wgmma from a TMA ring, two
+consumer warpgroups) with the switches as its softmax policy, and one for S3
 (`attention_ones_column`: scale folded into q, the mask as an additive row,
-the softmax denominator out of the P V product), the latter built on Hopper's
-wgmma and a TMA ring (`csrc/attn_hopper.cuh`, shared with K2). They are built into a
+the softmax denominator out of the P V product) on the same wgmma / TMA
+building blocks (`csrc/attn_hopper.cuh`, shared with K2). They are built into a
 library of their own at the first sweep (`ops/build.py`), so serving and
 training never build them, and no model calls them: the models' forward is
 K1 (`ops/flash_attention.py`), and `nn/attention.py` does not know this
 module. `scripts/torch_micro_attn.py` is their entry point.
 
 CUDA tensors go through the kernels or raise (bf16, head dim 64, contiguous,
-`hg` dividing H and `bg` dividing B); CPU tensors take the plain versions
+16-byte aligned, `hg` dividing H and `bg` dividing B); CPU tensors take the plain versions
 `attention_variant_ref` and `attention_ones_column_ref`, which repeat the
 kernels' arithmetic step by step where a switch changes the value.
 """
