@@ -24,9 +24,13 @@ Phases, each printing its numbers on lines of its own:
      a K1 call at D = 64 and 16 (perf_counter over 1000 calls at the b1
      request's shapes, no synchronize, beside the kernel's device time); K3
      against `biased_attention_ref` at the text shape (U = 1 and U = 64 rows,
-     causal + padding bias) and the CRIS cross shape (676 queries into 77
-     keys, key-padding bias): max abs error against the stated bound, times
-     from CUDA events, and each kernel's bound (the larger of bytes over the
+     causal + padding bias), the CRIS cross shape (676 queries into 77
+     keys, key-padding bias) and the edges of its tiling (S = 129, T = 65,
+     80, 81, 128, 129 and 245, kv_valid at a key-tile edge, -inf over a whole
+     key tile, rows entirely at dtype-min; D = 16, 32, 64): max abs error
+     against the stated bound, two calls bit-identical, times from CUDA
+     events beside the device time from torch.profiler, the host time of a
+     call at U = 1, and each kernel's bound (the larger of bytes over the
      memory rate and operations over the bf16 tensor-core rate);
   4. yardstick: `F.scaled_dot_product_attention` forward and backward at the
      same shapes (with the same mask for K3 and for kv_valid), printed beside
@@ -513,15 +517,21 @@ def k3_cases(gen):
     over 77 tokens (U = 1 deduplicated row, U = 64 dense rows; 8 heads of 64
     in CLIPSeg and CRIS alike) and the CRIS decoder's cross-attention from
     676 visual tokens into 77 text tokens with a key-padding bias. Prompts
-    have 10 real tokens (+ 4 contexts), the rest is padding."""
+    have 10 real tokens (+ 4 contexts), the rest is padding. Then the edges
+    of K3's tiling (128 query rows a tile, a block taking a run of a pair's
+    query tiles, 80 keys a tile, up to two key tiles resident and more
+    streamed, the keys' maps ending at kv_valid), with the biases that take
+    the softmax's special cases: -inf over a whole key tile of a row, rows
+    entirely at dtype-min. Yields (label, (B, S, H, D), T, kv_valid, bias,
+    (q, k, v))."""
     import torch
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
-    def key_pad(rows):
-        bias = torch.zeros(rows, 1, 1, SEQ, device="cuda")
-        bias[..., 14:] = F32_MIN
+    def key_pad(rows, t=SEQ, first=14):
+        bias = torch.zeros(rows, 1, 1, t, device="cuda")
+        bias[..., first:] = F32_MIN
         return bias
 
     causal = torch.triu(torch.full((SEQ, SEQ), F32_MIN, device="cuda"), 1)[None, None]
@@ -529,24 +539,54 @@ def k3_cases(gen):
                         ("cris cross", BATCH, 676)):
         # min + min overflows to -inf where a key is both future and padding
         bias = key_pad(b) + causal if s == SEQ else key_pad(b)
-        yield label, (b, s, 8, 64), bias, (rnd(b, s, 8, 64), rnd(b, SEQ, 8, 64),
-                                            rnd(b, SEQ, 8, 64))
+        yield label, (b, s, 8, 64), SEQ, None, bias, (
+            rnd(b, s, 8, 64), rnd(b, SEQ, 8, 64), rnd(b, SEQ, 8, 64))
+
+    def inf_tile(b, h, s, t):
+        bias = torch.randn(b, h, s, t, generator=gen, device="cuda")
+        bias[:, :, ::3, :64] = float("-inf")
+        bias[:, :, 1::3, :80] = float("-inf")
+        return bias
+
+    def min_rows(b, h, s, t):
+        bias = key_pad(b, t, t - 20).expand(b, h, s, t).clone()
+        bias[:, :, ::5] = F32_MIN
+        return bias
+
+    for label, (b, s, h, d), t, kv, make in (
+            ("edge S=129", (BATCH, 129, 8, 64), SEQ, None, lambda: key_pad(BATCH)),
+            ("edge T=65", (16, 300, 8, 64), 65, None, lambda: key_pad(16, 65)),
+            ("edge T=80 d32", (16, 300, 8, 32), 80, None, lambda: key_pad(16, 80)),
+            ("edge T=81 d16", (16, 300, 8, 16), 81, None, lambda: key_pad(16, 81)),
+            ("edge T=128", (16, 300, 8, 64), 128, None, lambda: key_pad(16, 128)),
+            ("edge T=129 d32", (16, 300, 8, 32), 129, None, lambda: key_pad(16, 129)),
+            ("edge kv_valid 80 of 129", (16, 300, 8, 64), 129, 80, lambda: key_pad(16, 129)),
+            ("edge T=245 streamed", (16, 300, 8, 64), 245, None, lambda: key_pad(16, 245)),
+            ("edge -inf over a key tile", (16, 300, 8, 64), 129, None,
+             lambda: inf_tile(16, 8, 300, 129)),
+            ("edge rows at dtype-min", (16, 300, 8, 32), SEQ, None,
+             lambda: min_rows(16, 8, 300, SEQ))):
+        yield label, (b, s, h, d), t, kv, make(), (rnd(b, s, h, d), rnd(b, t, h, d),
+                                                   rnd(b, t, h, d))
 
 
 def phase_kernels_k3(fa):
     """K3 against its plain version, with `scaled_dot_product_attention`
-    under the same mask beside it; returns {label: numbers}."""
+    under the same mask beside it, its device time from torch.profiler
+    beside the event time, and the host time of a `biased_attention` call
+    at the U = 1 shape; returns {label: numbers}."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = {}
-    for label, (b, s, h, d), bias, (q, k, v) in k3_cases(gen):
+    for label, (b, s, h, d), t, kv, bias, (q, k, v) in k3_cases(gen):
+        t_valid = kv or t
         before = fa.bias_launch_count()
-        out = fa.biased_attention(q, k, v, bias)
+        out = fa.biased_attention(q, k, v, bias, kv_valid=kv)
         torch.cuda.synchronize()
         if fa.bias_launch_count() != before + 1:
             fail(f"K3 {label}: the wrapper did not count its launch")
-        ref = fa.biased_attention_ref(q, k, v, bias)
+        ref = fa.biased_attention_ref(q, k, v, bias, kv_valid=kv)
         if out.shape != q.shape or out.dtype != torch.bfloat16:
             fail(f"K3 {label}: output is {tuple(out.shape)} {out.dtype}")
         if not bool(out.isfinite().all()):
@@ -554,26 +594,52 @@ def phase_kernels_k3(fa):
         err = (out.float() - ref.float()).abs().max().item()
         if not err <= KERNEL_TOL:
             fail(f"K3 {label}: max abs error {err} > {KERNEL_TOL}")
-        ms = cuda_time_ms(lambda: fa.biased_attention(q, k, v, bias), 50)
-        plain_ms = cuda_time_ms(lambda: fa.biased_attention_ref(q, k, v, bias), 10)
-        # one PyTorch call for the same function: the mask as booleans
-        keep = bias > -1e30
+        if not torch.equal(out, fa.biased_attention(q, k, v, bias, kv_valid=kv)):
+            fail(f"K3 {label}: two calls on the same inputs differ")
+        ms = cuda_time_ms(lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv), 50)
+        device_ms = 0.0
+        for _ in range(3):          # a profiler window now and then comes back empty
+            device_ms = sum(x for n, x in device_ms_by_kernel(
+                lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv)).items()
+                if "biased_attn" in n)
+            if device_ms > 0:
+                break
+        if not device_ms > 0:
+            fail(f"K3 {label}: torch.profiler saw no device time of the kernel")
+        plain_ms = cuda_time_ms(lambda: fa.biased_attention_ref(q, k, v, bias, kv_valid=kv), 10)
+        # one PyTorch call for the same function: a mask of 0 / dtype-min as
+        # booleans, any other bias added in q's dtype; kv_valid as masked keys
+        masks_only = bool(((bias == 0) | (bias < -1e30)).all())
+        mask = (bias > -1e30) if masks_only else bias.to(q.dtype)
+        if kv is not None:
+            keys = torch.arange(t, device="cuda") < kv
+            mask = mask & keys if masks_only else mask.masked_fill(~keys, float("-inf"))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=keep), 50)
-        # each input read once, the output written once; the bias at the
-        # size it is stored at, not at (B, H, S, T)
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * bias.numel()
-        bound_ms, bound_by, flops = attention_bound(0, 4, b, s, h, d, SEQ, nbytes)
-        print(f"kernel K3 {label} q{(b, s, h, d)} k{tuple(k.shape)} bias"
-              f"{tuple(bias.shape)}: max_abs_err {err:.6g} (bound {KERNEL_TOL}), "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+            qt, kt, vt, attn_mask=mask), 50)
+        # each input read once (the keys up to kv_valid), the output written
+        # once; the bias at the size it is stored at, not at (B, H, S, T)
+        nbytes = 2 * (2 * q.numel() + 2 * b * t_valid * h * d) + 4 * bias.numel()
+        bound_ms, bound_by, flops = attention_bound(0, 4, b, s, h, d, t_valid, nbytes)
+        row = {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms}
+        host = ""
+        if label == "text U=1":
+            # the b1 request's shape, where the host launches slower than the
+            # card runs: the wrapper's host time (checks, ctypes, three maps)
+            row["host_us"] = min(host_us_per_call(
+                lambda: fa.biased_attention(q, k, v, bias)) for _ in range(3))
+            host = (f", host {row['host_us']:.2f} us per biased_attention call "
+                    "(perf_counter over 1000 calls, no synchronize, the least of 3 rounds)")
+        print(f"kernel K3 {label} q{(b, s, h, d)} k{tuple(k.shape)} kv_valid {kv} bias"
+              f"{tuple(bias.shape)}: max_abs_err {err:.6g} (bound {KERNEL_TOL}), two calls "
+              f"bit-identical, kernel {ms:.4f} ms by events, device {device_ms:.4f} ms by "
+              f"torch.profiler ({flops / device_ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, scaled_dot_product_attention with the same "
               f"mask {lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-              f"({100 * bound_ms / ms:.1f}% reached)")
-        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": lib_ms}
+              f"({100 * bound_ms / device_ms:.1f}% reached by device time){host}")
+        results[label] = row
     return results
 
 
@@ -1856,7 +1922,9 @@ def main() -> None:
               "tunevlseg_torch/csrc/flash_attn_bwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:227", k2, "vision",
               library["vision"][1]),
-        entry((2,), "K3 flash_attn_bias_fwd (biased / cross-attention forward)",
+        entry((2,), "K3 flash_attn_bias_fwd (biased / cross-attention forward; "
+              "wgmma from TMA, 80-key tiles resident while double-buffered "
+              "128-row query tiles stream past them, one block per SM)",
               "tunevlseg_torch/csrc/flash_attn_bias_fwd.cu",
               "tunevlseg_tpu/ops/flash_attention.py:140", k3, "cris cross",
               k3["cris cross"]["library_ms"]),

@@ -51,6 +51,28 @@ def causal_plus_pad(b, s, first_pad):
     return bias
 
 
+def general_bias(b, h, s, t, seed=9):
+    return np.random.default_rng(seed).normal(size=(b, h, s, t)).astype(np.float32)
+
+
+def inf_prefix_bias(b, h, s, t):
+    """A general bias with -inf over the first 64 keys in some rows and over
+    the first 80 in others (a whole key tile of the kernel at -inf: the
+    running maximum is -inf after it), finite keys after them."""
+    bias = general_bias(b, h, s, t, seed=10)
+    bias[:, :, ::3, :64] = -np.inf
+    bias[:, :, 1::3, :80] = -np.inf
+    return bias
+
+
+def min_row_bias(b, h, s, t):
+    """Key padding, with some rows entirely at dtype-min: those rows keep a
+    uniform p over their keys, as the Pallas kernel gives them."""
+    bias = np.broadcast_to(key_pad(b, t, t - 20), (b, h, s, t)).copy()
+    bias[:, :, ::5] = F32_MIN
+    return bias
+
+
 CASES = {
     # label: (b, s, t, h, d, bias maker, kv_valid)
     "text causal+pad 77": (2, 77, 77, 2, 64, lambda: causal_plus_pad(2, 77, 12), None),
@@ -60,9 +82,19 @@ CASES = {
     "no bias, S != T": (2, 40, 77, 2, 32, lambda: None, None),
     "no bias, kv_valid < T": (2, 40, 77, 2, 32, lambda: None, 60),
     "key-pad and kv_valid": (2, 40, 77, 2, 64, lambda: key_pad(2, 77, 50), 70),
-    "full (B,H,S,T) bias": (2, 24, 40, 2, 16,
-                            lambda: np.random.default_rng(9).normal(
-                                size=(2, 2, 24, 40)).astype(np.float32), None),
+    "full (B,H,S,T) bias": (2, 24, 40, 2, 16, lambda: general_bias(2, 2, 24, 40), None),
+    # the Hopper kernel's tile edges: 128 query rows a tile, 80 keys a tile,
+    # up to two key tiles resident, the keys' maps ending at kv_valid
+    "two query tiles S=129": (2, 129, 77, 2, 64, lambda: key_pad(2, 77, 30), None),
+    "T=65 d64": (2, 40, 65, 2, 64, lambda: key_pad(2, 65, 60), None),
+    "T=80 d32, one full key tile": (2, 40, 80, 2, 32, lambda: key_pad(2, 80, 79), None),
+    "T=81 d16, one key past a tile": (2, 40, 81, 2, 16, lambda: key_pad(2, 81, 81), None),
+    "T=128 d64": (2, 40, 128, 2, 64, lambda: general_bias(2, 2, 40, 128), None),
+    "T=129 d32": (2, 40, 129, 2, 32, lambda: key_pad(2, 129, 100), None),
+    "kv_valid 80 at a key-tile edge": (2, 40, 129, 2, 64, lambda: key_pad(2, 129, 120), 80),
+    "kv_valid 64, no bias": (2, 40, 129, 2, 16, lambda: None, 64),
+    "-inf over a key tile": (2, 40, 129, 2, 64, lambda: inf_prefix_bias(2, 2, 40, 129), None),
+    "rows entirely dtype-min": (2, 40, 77, 2, 32, lambda: min_row_bias(2, 2, 40, 77), None),
 }
 
 
@@ -92,7 +124,8 @@ def test_ref_matches_pallas_k3_f32(label):
 # output once; a few bf16 ulp at |o| ~ 1
 @pytest.mark.parametrize("label", ["text causal+pad 77", "cross 40x77 key-pad",
                                    "cross 40x77 key-pad d16",
-                                   "text causal+pad d32"])
+                                   "text causal+pad d32", "two query tiles S=129",
+                                   "-inf over a key tile", "rows entirely dtype-min"])
 def test_ref_matches_pallas_k3_bf16(label):
     b, s, t, h, d, make_bias, kv_valid = CASES[label]
     q, k, v = rand_qkv(1, b, s, t, h, d)
@@ -194,3 +227,26 @@ def test_gate_keeps_cpu_and_f32_on_the_plain_path(monkeypatch):
 def test_reset_sets_the_k3_launch_count_to_zero():
     fa.reset_launch_count()
     assert fa.bias_launch_count() == 0
+
+
+def test_k3_runs_wgmma_from_tma_with_no_mma_sync():
+    """K3 (csrc/flash_attn_bias_fwd.cu) runs both products on wgmma from
+    shared memory that a producer warp fills by TMA, on the building blocks
+    in csrc/attn_hopper.cuh, with no mma.sync path left; the headers it
+    includes are part of its library's build hash."""
+    from tunevlseg_torch.ops import build
+    source = build.SOURCES["bias"]
+    text = source.read_text()
+    for needed in ("tma_load_4d", "mbar_wait", "wgmma_m64k16<kBN>", "wgmma_rs<D, 1>",
+                   "acc_to_a<kBN>", '#include "attn_fwd_hopper.cuh"'):
+        assert needed in text, needed
+    for gone in ("mma.sync", "mma_bf16_16816", "load_tile", "pack_raw"):
+        assert gone not in text, gone
+    csrc = source.parent
+    assert "kBN = 80;" in text and "wgmma_m64n80k16" in (csrc / "hopper.cuh").read_text()
+    for header in ("attn_fwd_hopper.cuh", "attn_hopper.cuh", "attn_common.cuh",
+                   "hopper.cuh"):
+        assert csrc / header in build.HEADERS
+    # the helpers only the mma.sync design used are gone from the shared header
+    common = (csrc / "attn_common.cuh").read_text()
+    assert "mma.sync" not in common and "load_tile" not in common

@@ -215,17 +215,19 @@ def test_backward_on_the_card_never_takes_the_plain_version(cuda, monkeypatch):
 
 
 def test_kernels_with_tensor_maps_launch_from_a_fresh_thread(cuda):
-    """K1, K2, S1/S2/S4 and S3 encode TMA tensor maps on the host with
+    """K1, K2, K3, S1/S2/S4 and S3 encode TMA tensor maps on the host with
     cuTensorMapEncodeTiled, which needs a current context: a thread that has
     made no CUDA call yet (as autograd's backward thread) must launch them all
     the same."""
     import threading
     q, k, v = _qkv(cuda, 2, 300, 2, 64)
     g = _qkv(cuda, 2, 2, 300, 64, seed=2)[0].transpose(1, 2)
+    bias = _key_pad(cuda, 2, 77, 30)
 
     def launch_all():
         return (fa.flash_attention_bwd(q, k, v, g), fav.attention_ones_column(q, k, v),
-                fa._launch(q, k, v, 300, with_lse=True), fav.attention_variant(q, k, v))
+                fa._launch(q, k, v, 300, with_lse=True), fav.attention_variant(q, k, v),
+                fa.biased_attention(q, k[:, :77].contiguous(), v[:, :77].contiguous(), bias))
 
     want = launch_all()
     torch.cuda.synchronize()
@@ -247,6 +249,7 @@ def test_kernels_with_tensor_maps_launch_from_a_fresh_thread(cuda):
     assert torch.equal(got[0][1], want[1])
     assert all(torch.equal(a, b) for a, b in zip(got[0][2], want[2]))
     assert torch.equal(got[0][3], want[3])
+    assert torch.equal(got[0][4], want[4])
 
 
 def test_k2_raises_on_what_it_does_not_take(cuda):
@@ -267,12 +270,18 @@ def test_k2_raises_on_what_it_does_not_take(cuda):
 
 def _narrow_model(cuda, strategy):
     """A narrow CLIPSeg in bf16 for 256^2 images (257 tokens, vision heads
-    of 32 dims, decoder heads of 16): 4 vision layers + 3 decoder blocks."""
-    from tunevlseg_torch.models.clip.config import CLIPSegConfig, CLIPVisionConfig
+    of 32 dims, decoder heads of 16): 4 vision layers + 3 decoder blocks
+    (K1), and 4 text layers of width 16 in ONE head of 16 dims (K3: the gate
+    sends a biased call at a head dim K3 is not built for to K3, which
+    raises; the tiny config's two heads of 8 would)."""
+    from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
+                                                    CLIPVisionConfig)
     from tunevlseg_torch.models.presets import build_clipseg
     from tunevlseg_torch.training.task import SegmentationTask
 
     cfg = CLIPSegConfig.tiny(
+        text=CLIPTextConfig(vocab_size=49408, hidden_size=16, num_layers=4, num_heads=1,
+                            intermediate_size=32, max_position_embeddings=77),
         vision=CLIPVisionConfig(hidden_size=64, num_layers=4, num_heads=2,
                                 intermediate_size=128, patch_size=16,
                                 image_size=32),
@@ -362,9 +371,13 @@ def test_gate_routes_only_unbiased_long_bf16(cuda):
     attention.dot_product_attention(*short, bias=bias[..., :255, :255])
     attention.dot_product_attention(short[0], k, v)              # S != T
     assert (fa.launch_count(), fa.bias_launch_count()) == (before + 1, before3 + 3)
-    # a head dim the kernels are not built for: K3's gate leaves it plain
+    # a head dim the kernels are not built for reaches K3 and raises there,
+    # as it does at K1 (test_gate_raises_on_head_dim_k1_lacks)
     odd = _qkv(cuda, 2, 40, 2, 24, t=77)
-    attention.dot_product_attention(*odd, bias=torch.zeros(2, 1, 1, 77, device=cuda))
+    with pytest.raises(ValueError, match="head dims"):
+        attention.dot_product_attention(*odd, bias=torch.zeros(2, 1, 1, 77, device=cuda))
+    with pytest.raises(ValueError, match="head dims"):
+        attention.dot_product_attention(*odd)                    # S != T, no bias
     assert fa.bias_launch_count() == before3 + 3
 
 
@@ -382,6 +395,56 @@ def _causal(cuda, s):
     return torch.triu(torch.full((s, s), F32_MIN, device=cuda), 1)[None, None]
 
 
+def _k3_bias(cuda, label, b, s, h, t):
+    """The bias of a K3 case, by the first word of its label."""
+    kind = label.split()[0]
+    if kind == "text":
+        bias = _causal(cuda, s) + _key_pad(cuda, b, t, 14)   # holds -inf too
+        assert bool(bias.isneginf().any())
+        return bias
+    if kind == "full":
+        return torch.randn(b, h, s, t, device=cuda)
+    if kind == "no":
+        return None
+    if kind == "inf":
+        # -inf over the first 64 keys of some rows and over a whole 80-key
+        # tile of others: the running maximum is -inf after that tile
+        bias = torch.randn(b, h, s, t, device=cuda)
+        bias[:, :, ::3, :64] = float("-inf")
+        bias[:, :, 1::3, :80] = float("-inf")
+        return bias
+    if kind == "min":
+        # rows entirely at dtype-min: p uniform over their keys
+        bias = _key_pad(cuda, b, t, t - 20).expand(b, h, s, t).clone()
+        bias[:, :, ::5] = F32_MIN
+        return bias
+    return _key_pad(cuda, b, t, 14)
+
+
+# K3's tile edges: 128 query rows a tile, a block taking a run of a pair's
+# query tiles, 80 keys a tile, up to two key tiles resident (more stream
+# through the ring), the keys' maps ending at kv_valid
+K3_EDGES = [
+    ("cross S=129", (3, 129, 2, 64), 77, None),
+    ("cross T=65", (2, 150, 2, 64), 65, None),
+    ("cross T=80 d32", (2, 150, 2, 32), 80, None),
+    ("cross T=81 d16", (2, 150, 2, 16), 81, None),
+    ("cross T=128", (2, 150, 2, 64), 128, None),
+    ("cross T=129 d32", (2, 150, 2, 32), 129, None),
+    ("cross kv_valid 80", (2, 150, 2, 64), 129, 80),
+    ("cross kv_valid 64 d16", (2, 150, 2, 16), 129, 64),
+    ("cross T=245, streamed", (2, 300, 2, 64), 245, None),
+    ("cross T=400 kv_valid 333 d32, streamed", (2, 520, 2, 32), 400, 333),
+    ("cross one pair, six query tiles", (1, 676, 1, 64), 77, None),
+    ("cross runs of three query tiles", (25, 676, 4, 32), 77, None),
+    ("cross runs of three, streamed", (25, 676, 4, 64), 245, 200),
+    ("inf over a key tile", (2, 150, 2, 64), 129, None),
+    ("min rows d32", (2, 150, 2, 32), 77, None),
+    ("full bias T=129 d16", (2, 150, 2, 16), 129, None),
+    ("no bias T=81", (2, 150, 2, 64), 81, None),
+]
+
+
 @pytest.mark.parametrize("label,shape,t,kv_valid", [
     ("text U=1", (1, 77, 8, 64), 77, None),
     ("text U=64", (64, 77, 8, 64), 77, None),
@@ -389,19 +452,12 @@ def _causal(cuda, s):
     ("cross d32 kv_valid", (3, 70, 2, 32), 130, 99),
     ("full bias d16", (2, 100, 4, 16), 50, 45),
     ("no bias S != T", (3, 70, 2, 32), 130, None),
+    *K3_EDGES,
 ])
 def test_k3_matches_plain_version(cuda, label, shape, t, kv_valid):
     b, s, h, d = shape
     q, k, v = _qkv(cuda, *shape, t=t)
-    if label.startswith("text"):
-        bias = _causal(cuda, s) + _key_pad(cuda, b, t, 14)   # holds -inf too
-        assert bool(bias.isneginf().any())
-    elif label.startswith("full"):
-        bias = torch.randn(b, h, s, t, device=cuda)
-    elif label.startswith("no bias"):
-        bias = None
-    else:
-        bias = _key_pad(cuda, b, t, 14)
+    bias = _k3_bias(cuda, label, b, s, h, t)
     before = fa.bias_launch_count()
     out = fa.biased_attention(q, k, v, bias, kv_valid=kv_valid)
     torch.cuda.synchronize()
@@ -415,6 +471,23 @@ def test_k3_matches_plain_version(cuda, label, shape, t, kv_valid):
         full = bias.expand(b, h, s, t)
         again = fa.biased_attention(q, k, v, full, kv_valid=kv_valid)
         assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("label,shape,t,kv_valid", [
+    ("text U=64", (64, 77, 8, 64), 77, None),
+    ("cris cross", (64, 676, 8, 64), 77, None),
+    ("cross T=400 kv_valid 333 d32, streamed", (2, 520, 2, 32), 400, 333),
+])
+def test_k3_two_calls_are_bit_identical(cuda, label, shape, t, kv_valid):
+    """No atomics and a fixed order of the sums: the same inputs give the
+    same bits."""
+    b, s, h, d = shape
+    q, k, v = _qkv(cuda, *shape, t=t)
+    bias = _k3_bias(cuda, label, b, s, h, t)
+    first = fa.biased_attention(q, k, v, bias, kv_valid=kv_valid)
+    second = fa.biased_attention(q, k, v, bias, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_k3_backward_recomputes_on_the_plain_path(cuda):
@@ -452,6 +525,12 @@ def test_k3_raises_on_what_it_does_not_take(cuda):
     q48, k48, v48 = _qkv(cuda, 2, 40, 2, 48, t=77)
     with pytest.raises(ValueError, match="head dims"):
         fa.biased_attention(q48, k48, v48, bias)
+    # contiguous, but a batch of one with a stride TMA cannot step
+    odd = torch.randn(4000, device=cuda).bfloat16().as_strided((1, 40, 2, 32),
+                                                                (3, 64, 32, 1))
+    assert odd.is_contiguous()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.biased_attention(odd, k[:1], v[:1], bias[:1])
 
 
 def test_small_cris_kernel_path_matches_plain_path(cuda):
@@ -874,7 +953,10 @@ def test_small_strategy_step_kernel_path_matches_plain_path(cuda, strategy):
     frozen vision tower: 7 K1 and 7 K2 launches, none of the tower's
     parameters gets a gradient or moves. CoCoOp keeps the tower forward-only
     (7 K1, 3 K2) and runs the text tower on 4 rows. Loss and gradients
-    against the all-plain path as in the CoOp test: loss 2e-2, each leaf
+    against the path with every K1 / K2 call plain, the text tower's K3
+    calls on K3 on both paths (the text ran on one path on both sides when
+    its heads of 8 kept it off K3; K3 against its plain version is
+    test_k3_matches_plain_version's), as in the CoOp test: loss 2e-2, each leaf
     within 10% of its largest entry or of 1e-2 of the largest entry overall
     (the Shared-Attention projector's q / k gradients are exact zeros on
     both paths); 20% under CoCoOp, whose meta-net also READS what differs
@@ -905,8 +987,13 @@ def test_small_strategy_step_kernel_path_matches_plain_path(cuda, strategy):
     for name, p in task.model.named_parameters():
         if not p.requires_grad:
             assert p.grad is None and torch.equal(p, start[name]), name
+    gate = attention._kernel_eligible
+
+    def k1_calls_plain(q, k, bias):
+        return "K3" if gate(q, k, bias) == "K3" else ""
+
     def plain_step(plain):
-        with mock.patch.object(attention, "_kernel_eligible", lambda *a: ""), \
+        with mock.patch.object(attention, "_kernel_eligible", k1_calls_plain), \
                 mock.patch.object(attention, "plain_attention", plain):
             return step()
 

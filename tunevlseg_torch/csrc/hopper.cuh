@@ -6,7 +6,8 @@
 // only, so a source that includes this header builds in seconds (no CUTLASS /
 // CuTe). Used by the flat convolution K4 (conv_flat.cu) and, through
 // attn_hopper.cuh, by the attention kernels K1 (flash_attn_fwd.cu), K2
-// (flash_attn_bwd.cu) and S1-S4 (flash_attn_fwd_variants.cu).
+// (flash_attn_bwd.cu), K3 (flash_attn_bias_fwd.cu) and S1-S4
+// (flash_attn_fwd_variants.cu).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: nothing here calls the driver)
@@ -213,6 +214,28 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 80, f32, the accumulator fragment) += A (64 x 16) * B (16 x 80), both
+// bf16 in shared memory, K-major, described by `da` and `db`
+__device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32, the accumulator fragment) += A (64 x 16) * B (16 x 128), both
 // bf16 in shared memory, K-major, described by `da` and `db`
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
@@ -373,6 +396,7 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[4]) {
 template <int N>
 __device__ __forceinline__ void wgmma_m64k16(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 64) wgmma_m64n64k16(d, da, db);
+  else if constexpr (N == 80) wgmma_m64n80k16(d, da, db);
   else if constexpr (N == 128) wgmma_m64n128k16(d, da, db);
   else wgmma_m64n256k16(d, da, db);
 }

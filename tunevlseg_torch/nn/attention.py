@@ -4,17 +4,19 @@ Counterpart of `tunevlseg_tpu/nn/attention.py`. Every attention of the model
 funnels through `dot_product_attention`. On a CUDA device in bf16 it sends
   * unbiased self-attention (S == T) with S >= 256 to K1, whose backward
     launches K2, the fused attention backward;
-  * attention with a bias or with S != T, at a head dim the kernels are built
-    for, to K3 at any length (its users are short: the text towers' causal +
-    padding attention, the CRIS decoder's cross-attention into the text),
-    whose backward recomputes through `plain_attention`;
+  * attention with a bias or with S != T to K3 at any length (its users are
+    short: the text towers' causal + padding attention, the CRIS decoder's
+    cross-attention into the text), whose backward recomputes through
+    `plain_attention`;
 and everything else (CPU tensors, f32, short unbiased self-attention) to
 `plain_attention`, which autograd differentiates as it stands. The
 Shared-Attention learner's projector is such a case by construction: it
-attends over ONE key (S = T = 1, no bias, 16 heads of 80 dims at full width, a
-head dim no kernel is built for), once per step, and stays on the plain path. The gate is a
-dispatch rule, like the JAX package's TPU-backend test, not a fallback: a
-CUDA call that passes it launches its kernel
+attends over ONE key (S = T = 1, no bias, 16 heads of 80 dims at full width),
+once per step, and stays on the plain path by K1's length rule. The gate
+does not look at the head dim: a call it sends to a kernel at a head dim the
+kernels are not built for (16, 32, 64) raises there, biased or not. The gate
+is a dispatch rule, like the JAX package's TPU-backend test, not a fallback:
+a CUDA call that passes it launches its kernel
 (`tunevlseg_torch.ops.flash_attention`) or raises.
 """
 from __future__ import annotations
@@ -23,9 +25,7 @@ from typing import Optional
 
 import torch
 
-from tunevlseg_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
-                                                 biased_attention,
-                                                 flash_attention)
+from tunevlseg_torch.ops.flash_attention import biased_attention, flash_attention
 
 KERNEL_MIN_SEQ = 256
 
@@ -54,11 +54,12 @@ def _kernel_eligible(q: torch.Tensor, k: torch.Tensor,
                      bias: Optional[torch.Tensor]) -> str:
     """The kernel a call goes to, "K1" or "K3", or "" for the plain path
     (where the Shared-Attention projector's one-key attention lands: no bias,
-    S = T = 1 < KERNEL_MIN_SEQ)."""
+    S = T = 1 < KERNEL_MIN_SEQ). The head dim plays no part: the kernel
+    raises on one it is not built for."""
     if not (q.is_cuda and q.dtype == torch.bfloat16):
         return ""
     if bias is not None or q.shape[1] != k.shape[1]:
-        return "K3" if q.shape[-1] in SUPPORTED_HEAD_DIMS else ""
+        return "K3"
     return "K1" if q.shape[1] >= KERNEL_MIN_SEQ else ""
 
 
@@ -67,7 +68,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid: Optional[int] = None) -> torch.Tensor:
     """K1 (and K2 for its gradient) for unbiased bf16 CUDA self-attention at
     S >= 256, K3 for bf16 CUDA attention with a bias or S != T, else
-    `plain_attention`. A head dim the kernels are not built for raises in K1."""
+    `plain_attention`. A head dim the kernels are not built for raises in
+    the kernel's wrapper."""
     kernel = _kernel_eligible(q, k, bias)
     if kernel == "K1":
         return flash_attention(q, k, v, kv_valid=kv_valid)

@@ -6,11 +6,12 @@ Counterpart of `tunevlseg_tpu/ops/flash_attention.py`: K1 replaces
 `_forward`. The CUDA C++ sources are `tunevlseg_torch/csrc/flash_attn_fwd.cu`,
 `flash_attn_bwd.cu` and `flash_attn_bias_fwd.cu` (K1's forward body, one
 producer warp feeding two consumer warpgroups with wgmma from a TMA ring, in
-`attn_fwd_hopper.cuh`; the wgmma / TMA building blocks it shares with K2 in
-`attn_hopper.cuh` and `hopper.cuh`; K3's helpers in `attn_common.cuh`); all
-are built with `nvcc` for `sm_90a` into plain C shared
-libraries at first use (`ops/build.py`) and called through `ctypes` on
-PyTorch's current stream.
+`attn_fwd_hopper.cuh`; K3 the same structure cut for short key sequences,
+its 80-key tiles resident while the query tiles stream past them; the wgmma /
+TMA building blocks all three share in `attn_hopper.cuh` and `hopper.cuh`);
+all are built with `nvcc` for `sm_90a` into plain C shared libraries at
+first use (`ops/build.py`) and called through `ctypes` on PyTorch's current
+stream.
 
 `flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
 does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
@@ -27,6 +28,7 @@ numerics.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -189,6 +191,12 @@ def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
             raise ValueError(f"{kernel} takes contiguous inputs; {name} is not")
         if x.data_ptr() % 16:
             raise ValueError(f"{kernel} needs 16-byte aligned inputs; {name} is not")
+        st = x.stride()
+        if st[0] % 8 or st[1] % 8 or st[2] % 8:
+            # TMA reads every row through the strides, 16-byte steps only (a
+            # dimension of size 1 may have any stride in a contiguous tensor)
+            raise ValueError(f"{kernel} needs (batch, seq, head) strides that are "
+                             f"multiples of 8 elements; {name} has {st}")
         if x.device != q.device:
             raise ValueError("q, k and v must be on one device")
     b, s, h, d = q.shape
@@ -208,7 +216,7 @@ def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
 
 def _seq_strides(*tensors) -> ctypes.Array:
     """(batch, seq, head) strides in elements of each (B, S, H, D) tensor."""
-    values = [x.stride(i) for x in tensors for i in range(3)]
+    values = [n for x in tensors for n in x.stride()[:3]]
     return (ctypes.c_longlong * len(values))(*values)
 
 
@@ -341,7 +349,7 @@ def _bias_strides(bias: torch.Tensor, q: torch.Tensor, t: int) -> ctypes.Array:
     if bias.dim() != 4 or any(n not in (1, m) for n, m in zip(bias.shape, full)):
         raise ValueError(f"K3: bias {tuple(bias.shape)} does not broadcast to "
                          f"(B, H, S, T) = {full}")
-    values = [0 if n == 1 else bias.stride(i) for i, n in enumerate(bias.shape)]
+    values = [0 if n == 1 else st for n, st in zip(bias.shape, bias.stride())]
     return (ctypes.c_longlong * 4)(*values)
 
 
@@ -352,7 +360,11 @@ def _launch_biased(q, k, v, bias, t_valid) -> torch.Tensor:
     o = torch.empty_like(q)
     b, s, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    # the C entry launches on the current device: switch to q's only where it
+    # is another (the switch costs microseconds of the b1 request's host time)
+    switch = (torch.cuda.device(q.device) if q.device.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
         err = lib.tvs_biased_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), o.data_ptr(), b, s, h, d,
