@@ -112,6 +112,25 @@ Phases, each printing its numbers on lines of its own:
      probabilities get a wider bound against the plain path, earned in the
      run: every K1 / K3 launch of the forward against its plain version on
      the path's own tensors, and two kernel-free paths that differ as much.
+ 18. fit, CLIPSeg CoOp (run right after phase 7): `Trainer.fit` on a new
+     instance of phase 6's model (same seed) over an in-memory dataset (256 train, 64 val, 64 test
+     samples, uint8 352^2, one prompt) through the threaded `DataLoader` at
+     b64 with `text_dedup=1` (each batch pinned and copied to the card
+     without blocking): 2 epochs of 4 steps,
+     metrics logged every 2 steps, an interval snapshot every 3, the plateau
+     scheduler, early stopping, jsonl + csv. Checks 13 K1, 3 K2 and 12 K3
+     launches per train step and 13 / 0 / 12 per forward (validation and
+     its image panel) over the whole fit, finite val metrics, `best`,
+     `last` and `frozen` written, frozen tensors bit-identical, the context
+     vectors moved; then a run that gets SIGTERM as its 5th batch is handed
+     out and a resume from its `last`: trainable tensors, optimizer moments,
+     step, learning rate, scheduler and early-stopping state and best value
+     bit-identical to the uninterrupted run; `test(use_best=True)` puts the
+     best checkpoint's weights in the model; `predict` gives 64 masks of
+     352^2 in [0, 1]. Prints the loop's ms a step (host clock over an
+     epoch's train part) beside phase 6's bare step, the loader alone, the
+     loop over batches made beforehand, a save's blocking and writing ms and
+     bytes, `save_frozen`'s, and the peak device memory over the fit.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts.
@@ -291,6 +310,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# nvidia-smi's "name, power.limit" of the card, printed beside the numbers
+# of the fit phase
+CARD = ["not read"]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -302,7 +326,8 @@ def phase_device():
         capture_output=True, text=True, timeout=60, check=True).stdout
     print(f"device: {name}, count {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
-    print(smi.strip().splitlines()[0])
+    CARD[0] = smi.strip().splitlines()[0]
+    print(CARD[0])
     return name, count
 
 
@@ -598,9 +623,10 @@ def phase_kernels_k3(fa):
             fail(f"K3 {label}: two calls on the same inputs differ")
         ms = cuda_time_ms(lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv), 50)
         device_ms = 0.0
-        for _ in range(3):          # a profiler window now and then comes back empty
+        for attempt in range(6):    # a profiler window now and then comes back empty
             device_ms = sum(x for n, x in device_ms_by_kernel(
-                lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv)).items()
+                lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv),
+                n=5 * (attempt + 1)).items()
                 if "biased_attn" in n)
             if device_ms > 0:
                 break
@@ -959,6 +985,11 @@ def make_train_batch(batch: int, text_dedup: int, seed: int, img: int = IMG,
     return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
 
 
+# {label: (median step seconds, peak device bytes)} of `timed_steps`, read
+# by the fit phase to set the loop's cost beside the bare step's
+STEP_TIMES: dict = {}
+
+
 def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
                 per_step: tuple):
     """`warmup` untimed and `steps` timed train steps, the launch counts set
@@ -991,6 +1022,7 @@ def timed_steps(fa, task, state, batch, label: str, warmup: int, steps: int,
         fail(f"{label}: non-finite loss in {losses}")
     n = batch["image"].shape[0]
     med = statistics.median(times)
+    STEP_TIMES[label] = (med, peak)
     print(f"{label}: step time median {med * 1e3:.3f} ms over {steps} "
           f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
           f"{1 / med:.2f} steps/s, {n / med:.1f} images/s at batch {n}")
@@ -1110,6 +1142,298 @@ def phase_train_e2e(fa, profile: bool):
     if profile:
         profile_step("e2e", task, state, batch)
     return launches
+
+
+class InMemoryDataset:
+    """`n` samples as a dataset of the port yields them (uint8 image, mask,
+    one prompt's ids, name and original shape), made once, read by index."""
+
+    def __init__(self, n: int, seed: int, img: int = IMG):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        ids = np.full((SEQ,), 49407, np.int32)
+        ids[0] = 49406
+        ids[1:9] = rng.integers(3, 1000, size=(8,))
+        mask = (ids != 49407).astype(np.int32)
+        self.samples = [{
+            "image": rng.integers(0, 256, (3, img, img), dtype=np.uint8),
+            "mask": (rng.random((1, img, img)) > 0.5).astype(np.float32),
+            "input_ids": ids, "attention_mask": mask,
+            "mask_name": f"{seed}_{i}.png", "mask_shape": (img, img),
+            "prompt": "synthetic"} for i in range(n)]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[int(i)]
+
+
+class SigtermAfter:
+    """A train loader that sends this process SIGTERM as it hands out its
+    `n`-th batch of the run (counted over epochs), as a preemption would."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n, self.seen = loader, n, 0
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        self.loader.set_epoch(epoch, start_batch)
+
+    def __iter__(self):
+        import os
+        import signal
+        for batch in self.loader:
+            self.seen += 1
+            if self.seen == self.n:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+
+def phase_fit_coop(fa):
+    """`Trainer.fit` on the full-width CLIPSeg CoOp model over an in-memory
+    dataset: uninterrupted, then interrupted by SIGTERM after batch 5 and
+    resumed from `last`; test on `best`, predict."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from tunevlseg_torch.data.pipeline import DataLoader
+    from tunevlseg_torch.training.loop import EarlyStopping, Trainer
+    from tunevlseg_torch.training.optim import (ReduceLROnPlateau,
+                                                get_learning_rate)
+
+    t0 = time.perf_counter()
+    train_ds, val_ds, test_ds = (InMemoryDataset(n, seed, IMG) for n, seed in
+                                 ((4 * BATCH, 11), (BATCH, 12), (BATCH, 13)))
+    print(f"fit coop: in-memory dataset of {len(train_ds)} train, {len(val_ds)} "
+          f"val and {len(test_ds)} test samples (uint8 {IMG}^2, one prompt) "
+          f"made in {time.perf_counter() - t0:.1f} s")
+
+    def loader(ds, shuffle):
+        return DataLoader(ds, BATCH, shuffle=shuffle, seed=5, num_workers=4,
+                          text_dedup=1)
+
+    task, _ = build_task("CLIPSeg rd64", "coop", 2e-4)
+    model = task.model
+    params = dict(model.named_parameters())
+    start = {k: v.detach().clone() for k, v in params.items()}
+    trainable = [n for n, p in params.items() if p.requires_grad]
+    epochs, batches = 2, len(train_ds) // BATCH
+
+    def trainer(out):
+        return Trainer(task, out, max_epochs=epochs, log_every_n_steps=2,
+                       ckpt_every_n_steps=3,
+                       scheduler=ReduceLROnPlateau(factor=0.2, patience=0),
+                       early_stopping=EarlyStopping(),
+                       loggers=("jsonl", "csv"))
+
+    def fresh_state():
+        with torch.no_grad():
+            for n in trainable:
+                params[n].copy_(start[n])
+        return task.init()
+
+    work = Path(tempfile.mkdtemp(prefix="fit_coop_"))
+    # (a) uninterrupted
+    tr_a = trainer(work / "a")
+    state = fresh_state()
+    t = time.perf_counter()
+    tr_a.ckpt.save_frozen()
+    frozen_s = time.perf_counter() - t
+    frozen_bytes = (tr_a.ckpt.dir / "frozen" / "frozen.pt").stat().st_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t = time.perf_counter()
+    final_a = tr_a.fit(state, loader(train_ds, True), loader(val_ds, False))
+    fit_s = time.perf_counter() - t
+    launches = counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = 2 * epochs          # per epoch: the val panel and the val batch
+    want = tuple(s * final_a.step + f * forwards for s, f in
+                 zip(CLIPSEG_COOP_STEP, CLIPSEG_SERVE))
+    if final_a.step != epochs * batches:
+        fail(f"fit coop: {final_a.step} steps, expected {epochs * batches}")
+    if launches != want:
+        fail(f"fit coop: {COUNTED} launches {launches} over {final_a.step} "
+             f"train steps and {forwards} forwards, expected {want}")
+    print(f"fit coop: {epochs} epochs of {batches} b{BATCH} batches + val in "
+          f"{fit_s:.2f} s; {COUNTED} launches {launches} = {final_a.step} x "
+          f"{CLIPSEG_COOP_STEP[:3]} + {forwards} x {CLIPSEG_SERVE[:3]}")
+    ctx = "learner.context_vectors"
+    if torch.equal(params[ctx], start[ctx]):
+        fail("fit coop: the context vectors did not change")
+    for name, p in params.items():
+        if not p.requires_grad and not torch.equal(p, start[name]):
+            fail(f"fit coop: frozen tensor {name} changed")
+    for tag in ("best", "last", "frozen"):
+        if not (tr_a.ckpt.dir / tag).is_dir():
+            fail(f"fit coop: no '{tag}' checkpoint")
+    meta = tr_a.ckpt.load_meta("last")
+    for key in ("val_loss", "val_dice", "val_iou"):
+        if not np_finite(meta.get(key)):
+            fail(f"fit coop: {key} = {meta.get(key)}")
+    bare_s, bare_peak = STEP_TIMES["train coop"]
+    for epoch, n, secs in tr_a.train_times:
+        print(f"fit coop [{CARD[0]}]: epoch {epoch} train part {secs * 1e3:.3f} ms for {n} "
+              f"steps = {secs * 1e3 / n:.3f} ms a step in the loop (host clock, "
+              f"device drained at both ends) against the bare train_step's "
+              f"median {bare_s * 1e3:.3f} ms (train coop): loop overhead "
+              f"{(secs / n - bare_s) * 1e3:+.3f} ms a step")
+    print(f"fit coop [{CARD[0]}]: peak device memory over the fit {peak} bytes "
+          f"({peak / 2**30:.2f} GiB) against {bare_peak} ({bare_peak / 2**30:.2f} "
+          "GiB) over the bare steps (train coop)")
+    print(f"fit coop: val after epoch {int(meta['epoch'])}: loss {meta['val_loss']:.6f} "
+          f"dice {meta['val_dice']:.6f} iou {meta['val_iou']:.6f}; lr "
+          f"{get_learning_rate(final_a.optimizer):.3g}; best val_dice "
+          f"{tr_a.ckpt.best_value:.6f}")
+    print(f"fit coop [{CARD[0]}]: save_frozen {frozen_s * 1e3:.1f} ms for {frozen_bytes} "
+          "bytes (the frozen parameters and buffers in f32, once per run)")
+    t = time.perf_counter()
+    tr_a.ckpt.save("probe", final_a, {"epoch": -1})
+    d2h_s = time.perf_counter() - t
+    tr_a.ckpt.wait()
+    write_s = time.perf_counter() - t - d2h_s
+    probe_bytes = (tr_a.ckpt.dir / "probe" / "state.pt").stat().st_size
+    print(f"fit coop [{CARD[0]}]: save of the train state {d2h_s * 1e3:.3f} ms to the host "
+          f"(blocking part), then {write_s * 1e3:.3f} ms to write and promote "
+          f"{probe_bytes} bytes (trainable parameters, optimizer moments, step)")
+    snapshot_a = fit_snapshot(tr_a, final_a, params, trainable)
+    loop_costs(task, work, loader(train_ds, True), bare_s)
+
+    # (b) SIGTERM as the 5th batch is handed out, then (c) resume from last
+    reset_counts(fa)
+    tr_b = trainer(work / "b")
+    state_b = tr_b.fit(fresh_state(), SigtermAfter(loader(train_ds, True), 5),
+                       loader(val_ds, False))
+    meta_b = tr_b.ckpt.load_meta("last")
+    if not (meta_b.get("preempted") and meta_b["epoch"] == 0
+            and meta_b["batch_offset"] == 1 and state_b.step == 5):
+        fail(f"fit coop: the preempted run saved {meta_b} at step {state_b.step}")
+    tr_c = trainer(work / "b")
+    final_c = tr_c.fit(fresh_state(), loader(train_ds, True),
+                       loader(val_ds, False), resume_from="last")
+    launches_bc = counts(fa)
+    want_bc = tuple(s * final_c.step + f * forwards for s, f in
+                    zip(CLIPSEG_COOP_STEP, CLIPSEG_SERVE))
+    if launches_bc != want_bc:
+        fail(f"fit coop: interrupted + resumed runs launched {launches_bc}, "
+             f"expected {want_bc}")
+    snapshot_c = fit_snapshot(tr_c, final_c, params, trainable)
+    differ = [k for k in snapshot_a if not same(snapshot_a[k], snapshot_c[k])]
+    if differ:
+        fail(f"fit coop: the resumed run differs from the uninterrupted one in "
+             f"{differ}")
+    print(f"fit coop: SIGTERM after batch 5 saved 'last' at step 5 (epoch 0 "
+          f"done, batch_offset 1); resumed from it: trainable tensors, optimizer "
+          f"moments, step {final_c.step}, scheduler {snapshot_c['scheduler']}, "
+          f"early stopping {snapshot_c['early_stopping']}, best value "
+          f"{snapshot_c['best_value']:.6f} and lr {snapshot_c['lr']:.3g} "
+          "bit-identical to the uninterrupted run")
+
+    # test on best, predict
+    best = torch.load(tr_c.ckpt.dir / "best" / "state.pt", map_location="cpu",
+                      weights_only=True)
+    result = tr_c.test(final_c, loader(test_ds, False), use_best=True)
+    for name in trainable:
+        if not torch.equal(params[name].cpu(), best["trainable"][name]):
+            fail(f"fit coop: test(use_best=True) left {name} off the best "
+                 "checkpoint's")
+    if not all(np_finite(v) for v in result.values()):
+        fail(f"fit coop: test metrics {result}")
+    preds = tr_c.predict(final_c, loader(test_ds, False))
+    if len(preds) != BATCH:
+        fail(f"fit coop: predict gave {len(preds)} masks")
+    for rec in preds:
+        p = rec["pred"]
+        if p.shape != (IMG, IMG) or not (p >= 0).all() or not (p <= 1).all():
+            fail(f"fit coop: a predicted mask of shape {p.shape} in "
+                 f"[{p.min()}, {p.max()}]")
+    print(f"fit coop: test on best (restored: trainable tensors equal the best "
+          f"checkpoint's) {result}; predict {len(preds)} masks of {IMG}^2 in "
+          "[0, 1]")
+    import shutil
+    shutil.rmtree(work)
+    return launches
+
+
+class BatchList:
+    """Batches collated beforehand, handed out as a loader does."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def loop_costs(task, work, train_loader, bare_s: float) -> None:
+    """Where the loop's time goes beyond the bare step: the loader alone
+    (host clock from `iter` to each batch, nothing training), a batch's
+    `device_batch` (pinned, then copied), then one epoch of the same
+    Trainer over batches collated beforehand (no producer thread)."""
+    from tunevlseg_torch.data.pipeline import device_batch
+    from tunevlseg_torch.training.loop import Trainer
+    train_loader.set_epoch(0)
+    t = time.perf_counter()
+    stamps, batches = [], []
+    for batch in train_loader:
+        stamps.append(time.perf_counter() - t)
+        batches.append(batch)
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    print(f"fit coop [{CARD[0]}]: the loader alone (4 worker threads, collate in its "
+          f"producer thread): first batch after {stamps[0] * 1e3:.3f} ms, then "
+          f"{statistics.mean(gaps) * 1e3:.3f} ms a batch")
+    import torch
+    device = next(task.model.parameters()).device
+    copies = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        device_batch(batch, device)
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t)
+    nbytes = sum(torch.as_tensor(v).nbytes
+                 for v in device_batch(batches[0]).values())
+    print(f"fit coop [{CARD[0]}]: device_batch of a b{BATCH} batch ({nbytes} bytes) "
+          f"{statistics.median(copies) * 1e3:.3f} ms: pinned, copied to the "
+          "card, synchronized")
+    tr = Trainer(task, work / "d", max_epochs=1, log_every_n_steps=2,
+                 ckpt_every_n_steps=3, log_image_num=0)
+    tr.fit(task.init(), BatchList(batches))
+    _, n, secs = tr.train_times[0]
+    print(f"fit coop [{CARD[0]}]: the same loop over batches collated beforehand: "
+          f"{secs * 1e3 / n:.3f} ms a step ({n} steps; bare "
+          f"train_step {bare_s * 1e3:.3f} ms)")
+
+
+def np_finite(x) -> bool:
+    return isinstance(x, float) and x == x and abs(x) != float("inf")
+
+
+def same(a, b) -> bool:
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def fit_snapshot(tr, state, params, trainable) -> dict:
+    """What a resumed fit must reproduce bit for bit."""
+    from tunevlseg_torch.training.optim import get_learning_rate
+    opt = state.optimizer.optimizer
+    return {
+        "trainable": {n: params[n].detach().clone() for n in trainable},
+        "moments": {n: {k: v.clone() for k, v in opt.state[params[n]].items()}
+                    for n in trainable if params[n] in opt.state},
+        "step": state.step, "lr": get_learning_rate(state.optimizer),
+        "scheduler": tr._fit_extra()["scheduler"],
+        "early_stopping": tr._fit_extra()["early_stopping"],
+        "best_value": tr.ckpt.best_value}
 
 
 def phase_train_cris(fa, profile: bool):
@@ -1880,6 +2204,7 @@ def main() -> None:
     by_path = {"serve": phase_serve(fa),
                "train_coop": phase_train_coop(fa, profile),
                "train_e2e": phase_train_e2e(fa, profile),
+               "train_fit_coop": phase_fit_coop(fa),
                "serve_cris": phase_serve_cris(fa, profile),
                "train_cris_coop": phase_train_cris(fa, profile),
                "serve_cris_flat": phase_serve_cris_flat(fa, profile),

@@ -1,0 +1,241 @@
+"""The port's config composer and its `train` / `eval` entry points:
+`compose` against the JAX composer on every experiment file and model
+option of `configs/`, and train -> test -> predict cycles on the CPU
+(`+trainer.device=cpu`) with tiny models on a synthetic image folder, with a
+synthetic BPE merges file as `vocab_path` (tiny configs keep the real
+vocabulary size, so its ids stay in range and `test_loss` stays finite).
+Options of slices not ported yet raise and name their ROADMAP item."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+cv2 = pytest.importorskip("cv2")
+pytest.importorskip("yaml")
+pytest.importorskip("regex")
+
+from tunevlseg_tpu.config.composer import compose as jcompose  # noqa: E402
+from tunevlseg_torch import eval as eval_mod  # noqa: E402
+from tunevlseg_torch import train as train_mod  # noqa: E402
+from tunevlseg_torch.config.composer import compose  # noqa: E402
+from tunevlseg_torch.config.instantiate import instantiate  # noqa: E402
+
+CONFIG_DIR = train_mod.CONFIG_DIR
+REPO = Path(__file__).resolve().parents[1]
+EXPERIMENTS = sorted(str(p.relative_to(CONFIG_DIR / "experiment"))[:-5]
+                     for p in (CONFIG_DIR / "experiment").rglob("*.yaml"))
+MODELS = sorted(str(p.relative_to(CONFIG_DIR / "model"))[:-5]
+                for p in (CONFIG_DIR / "model").rglob("*.yaml"))
+MERGES = ["p o", "l y", "po ly", "polyp </w>", "a </w>", "t h", "th e</w>"]
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch on one thread for each test: the tiny models run thousands of
+    small ops, and with the test workers sharing the host's cores each op's
+    OpenMP team waits for its descheduled threads (the overfit test: 36 s
+    against 5 s beside six busy processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _compose_both(root, overrides):
+    """(port, JAX) results of one composition, or the exception each raised."""
+    out = []
+    for fn in (compose, jcompose):
+        try:
+            out.append(fn(CONFIG_DIR, root, overrides))
+        except Exception as e:   # both must raise alike
+            out.append((type(e), str(e)))
+    return out
+
+
+@pytest.mark.parametrize("root", ["train", "eval", "eval_zeroshot"])
+def test_compose_matches_jax_on_every_experiment(root):
+    assert len(EXPERIMENTS) >= 8 and "coop/clipseg" in EXPERIMENTS
+    for name in EXPERIMENTS:
+        for extra in ([], ["trainer=debug", "model.optimizer.lr=1e-3",
+                           "+tiny_model=true", "~tags"]):
+            got, want = _compose_both(
+                root, [f"experiment={name}", "ds_name=kvasir_polyp",
+                       "ckpt_path=x", *extra])
+            assert got == want, (root, name, extra)
+
+
+def test_compose_matches_jax_on_every_model_and_group():
+    assert {"coop/clipseg", "cocoop/cris", "maple_clipseg",
+            "shared_attn_clipseg"} <= set(MODELS)
+    groups = [f"model={m}" for m in MODELS] + [
+        f"data={p.stem}" for p in (CONFIG_DIR / "data").glob("*.yaml")] + [
+        f"debug={p.stem}" for p in (CONFIG_DIR / "debug").glob("*.yaml")] + [
+        "trainer=cpu", "hparams_search=coop", "+trainer.device=cpu"]
+    for override in groups:
+        got, want = _compose_both("train", ["ds_name=busi", override])
+        assert got == want, override
+    got, want = _compose_both("train", [])     # a mandatory value missing
+    assert got == want and got[0] is ValueError and "ds_name" in got[1]
+
+
+def test_instantiate_partial_and_args():
+    node = {"_target_": "builtins.dict", "a": 1,
+            "b": {"_target_": "builtins.list", "_args_": [[1, 2]]}}
+    assert instantiate(node) == {"a": 1, "b": [1, 2]}
+    part = instantiate({"_target_": "builtins.int", "_partial_": True,
+                        "base": 2})
+    assert part("11") == 3
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    """Eight 40 x 40 images with square masks (the folder of
+    tests/test_cli.py) and a BPE merges file."""
+    tmp = tmp_path_factory.mktemp("cli")
+    root = tmp / "data" / "kvasir_polyp"
+    for sub in ("images", "masks", "anns"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    tasks = []
+    for i in range(8):
+        cv2.imwrite(str(root / "images" / f"{i}.png"),
+                    rng.integers(0, 255, (40, 40, 3), dtype=np.uint8))
+        mask = np.zeros((40, 40), np.uint8)
+        mask[8:30, 8:30] = 255
+        cv2.imwrite(str(root / "masks" / f"{i}.png"), mask)
+        tasks.append({"img_name": f"{i}.png", "mask_name": f"{i}.png",
+                      "prompts": {"p0": "polyp"}})
+    for split in ("train", "val", "test"):
+        (root / "anns" / f"{split}.json").write_text(json.dumps(tasks))
+    merges = tmp / "merges.txt"
+    merges.write_text("#version: 0.2\n" + "\n".join(MERGES) + "\n")
+    return {"data_root": tmp / "data", "vocab": merges}
+
+
+def _common(synth, out, img=32):
+    return ["ds_name=kvasir_polyp", f"paths.data_root={synth['data_root']}",
+            f"paths.log_dir={out}", f"vocab_path={synth['vocab']}",
+            f"img_size={img}", "+tiny_model=true", "data.batch_size=4",
+            "data.num_workers=2", "trainer=debug", "+trainer.device=cpu"]
+
+
+def test_train_test_predict_then_eval_from_best(synth, tmp_path):
+    out = tmp_path / "logs"
+    result = train_mod.main(_common(synth, out) + [
+        "trainer.max_epochs=2", "predict=true", "exp_name=smoke"])
+    assert "test_dice" in result and 0 <= result["test_dice"] <= 1
+    assert np.isfinite(result["test_loss"])
+    run = out / "train" / "smoke"
+    ckpt = run / "checkpoints"
+    for tag in ("best", "last", "frozen"):
+        assert (ckpt / tag).is_dir(), tag
+    masks = sorted(Path(result["output_masks_dir"]).glob("*.png"))
+    assert len(masks) == 8
+    assert cv2.imread(str(masks[0]), cv2.IMREAD_GRAYSCALE).shape == (40, 40)
+    assert (run / "config.yaml").exists() and (run / "metrics.csv").exists()
+    hparams = json.loads((run / "hparams.json").read_text())
+    assert 0 < hparams["model/params/trainable"] < hparams["model/params/total"]
+    assert not (run / "FAILED").exists()
+
+    evaluated = eval_mod.main(_common(synth, out) + [
+        f"ckpt_path={ckpt}", "exp_name=smoke_eval"])
+    np.testing.assert_allclose(evaluated["test_dice"], result["test_dice"],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(evaluated["test_loss"], result["test_loss"],
+                               rtol=1e-6)
+
+
+def test_cris_train_cycle(synth, tmp_path):
+    result = train_mod.main(_common(synth, tmp_path / "logs", img=64) + [
+        "experiment=coop/cris", "predict=false", "exp_name=cris_smoke"])
+    assert 0 <= result["test_dice"] <= 1 and np.isfinite(result["test_loss"])
+
+
+def test_module_entry_point_text_dedup_cycle(synth, tmp_path):
+    """`python -m tunevlseg_torch.train experiment=coop/clipseg` (whose
+    data.text_dedup is 1) in a process of its own."""
+    out = tmp_path / "logs"
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "tunevlseg_torch.train", "experiment=coop/clipseg",
+         *_common(synth, out), "trainer.max_epochs=1", "predict=false",
+         "exp_name=dedup"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    records = [json.loads(line) for line in
+               (out / "train" / "dedup" / "metrics.jsonl").read_text().splitlines()]
+    test = [r for r in records if "test_loss" in r]
+    assert len(test) == 1 and np.isfinite(test[0]["test_loss"])
+    cfg = (out / "train" / "dedup" / "config.yaml").read_text()
+    assert "text_dedup: 1" in cfg
+
+
+def test_the_card_is_the_default(synth, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    args = [a for a in _common(synth, tmp_path) if a != "+trainer.device=cpu"]
+    with pytest.raises(RuntimeError, match=r"\+trainer.device=cpu"):
+        train_mod.main(args + ["exp_name=nocard"])
+    assert (tmp_path / "train" / "nocard" / "FAILED").read_text().strip() == \
+        "RuntimeError"
+
+
+def test_eval_without_ckpt_raises(synth, tmp_path):
+    with pytest.raises(ValueError, match="ckpt_path"):
+        eval_mod.main(_common(synth, tmp_path) + ["ckpt_path=null",
+                                                  "exp_name=nockpt"])
+
+
+@pytest.mark.parametrize("override,item", [
+    ("pretrained_checkpoint=/x.pt", "item 9"),
+    ("model=trans_seg", "item 6"),
+    ("trainer.model_parallel=2", "Do not port"),
+    ("trainer.seq_shard=true", "Do not port"),
+    ("trainer.fsdp=true", "Slice G"),
+    ("trainer.multihost=true", "Slice G"),
+    ("+export_dir=/x", "Slice G"),
+    ("trainer.remat=true", "Slice G"),
+    ("trainer.accumulate_grad_batches=2", "Slice G"),
+])
+def test_unported_options_raise_with_their_item(synth, tmp_path, override,
+                                                item):
+    with pytest.raises(NotImplementedError, match=item):
+        train_mod.main(_common(synth, tmp_path) + [override, "exp_name=x"])
+
+
+def test_unported_families_raise_in_build_model_and_task():
+    cfg = compose(CONFIG_DIR, "eval_zeroshot", ["experiment=zsseg_clip",
+                                                "ds_name=x"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        train_mod.build_model_and_task(cfg, device="cpu")
+
+
+def test_initializer_embeddings_set_num_context(synth):
+    """The context initializer ("a photo of a") through the token embedding
+    of pretrained weights: its token count becomes num_context, as the JAX
+    CLI does it."""
+    from tunevlseg_torch.data.tokenizer import CLIPTokenizer
+    cfg = compose(CONFIG_DIR, "train", ["experiment=coop/clipseg",
+                                        "ds_name=x", "+tiny_model=true",
+                                        "+trainer.device=cpu",
+                                        "trainer.precision=f32"])
+    tok = CLIPTokenizer(synth["vocab"])
+    table = np.random.default_rng(0).normal(size=(49408, 16)).astype(np.float32)
+    ids = tok.encode("a photo of a", add_special_tokens=False)
+    emb, n = train_mod._initializer_embeddings(
+        cfg, tok, {"text_model.token_embedding.weight": torch.from_numpy(table)})
+    assert n == len(ids) and emb.shape == (1, len(ids), 16)
+    np.testing.assert_array_equal(emb[0], table[np.asarray(ids)])
+    assert train_mod._initializer_embeddings(cfg, tok, None) == (None, 4)
+    model, _ = train_mod.build_model_and_task(
+        cfg, tok, {"text_model.token_embedding.weight": torch.from_numpy(table)},
+        device="cpu")
+    ctx = model.learner.context_vectors.detach()
+    assert ctx.shape[1] == len(ids)
+    np.testing.assert_array_equal(ctx[0].numpy(), table[np.asarray(ids)])

@@ -219,11 +219,13 @@ def test_port_config_is_its_own_copy_of_the_jax_one():
 
 
 def test_port_runs_without_jax():
-    """Every module of the port, chip_smoke and every scripts/torch_*.py
-    import, and a tiny eval and a tiny train step of CLIPSeg (CoOp and the
-    five other strategies) and of CRIS (CoOp, CoCoOp, flat, e2e) run, with
-    jax/flax/optax unimportable; afterwards no module of the JAX package has
-    been loaded either."""
+    """Every module of the port (the `train` and `eval` entry points
+    included), chip_smoke and every scripts/torch_*.py import, and a tiny
+    eval and a tiny train step of CLIPSeg (CoOp and the five other
+    strategies) and of CRIS (CoOp, CoCoOp, flat, e2e) and a tiny
+    `Trainer.fit` with its checkpoints run, with jax/flax/optax (and regex)
+    unimportable; afterwards neither a module of jax nor one of the JAX
+    package has been loaded."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -332,13 +334,50 @@ def test_port_runs_without_jax():
         key = "neck.aggr.bn.running_mean"
         assert not torch.equal(estate2.model_state[key], estate.model_state[key])
         assert torch.equal(e2e.neck.aggr.bn.running_mean, estate.model_state[key])
+        # the training and evaluation entry points and their modules: a tiny
+        # fit with checkpoints over the port's loader, then a restore
+        for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",
+                     "tunevlseg_torch.training.loop",
+                     "tunevlseg_torch.training.checkpoint",
+                     "tunevlseg_torch.data.tokenizer",
+                     "tunevlseg_torch.data.transforms",
+                     "tunevlseg_torch.data.datasets",
+                     "tunevlseg_torch.data.open_domain",
+                     "tunevlseg_torch.models.prompt.init_text",
+                     "tunevlseg_torch.config.composer",
+                     "tunevlseg_torch.config.instantiate",
+                     "tunevlseg_torch.utils.logging",
+                     "tunevlseg_torch.utils.config_tree",
+                     "tunevlseg_torch.utils.task_wrapper"):
+            assert name in sys.modules, name
+        import tempfile
+        import numpy as np
+        from tunevlseg_torch.data.pipeline import DataLoader
+        from tunevlseg_torch.training.checkpoint import CheckpointManager
+        from tunevlseg_torch.training.loop import Trainer
+        rng = np.random.default_rng(0)
+        row = ids[0].numpy()
+        samples = [{"image": rng.integers(0, 256, (3, 32, 32), dtype=np.uint8),
+                    "mask": np.ones((1, 32, 32), np.float32), "input_ids": row,
+                    "attention_mask": np.ones_like(row)} for _ in range(4)]
+        out = tempfile.mkdtemp()
+        fit_state = Trainer(task, out, max_epochs=1, log_image_num=0).fit(
+            task.init(), DataLoader(samples, 2, text_dedup=1),
+            DataLoader(samples, 2, text_dedup=1))
+        back = CheckpointManager(out + "/checkpoints", model).restore(
+            "last", task.init())
+        assert back.step == fit_state.step == 2
         loaded = [m for m in sys.modules
-                  if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")]
+                  if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")
+                  or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                  and sys.modules[m] is not None]
         assert not loaded, loaded
         print("no-jax ok", float(aux["loss_sum"]), float(metrics["loss"]),
               float(caux["loss_sum"]), float(cmetrics["loss"]))
     """)
-    env = {**os.environ, "PYTHONPATH": REPO}
+    # one OpenMP thread: the tiny models' small ops otherwise wait on
+    # descheduled threads when the test workers share the cores
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

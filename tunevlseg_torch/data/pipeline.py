@@ -1,18 +1,30 @@
-"""Host-side batch collation (numpy only).
+"""Host-side input pipeline: collation, threaded loading, device copies.
 
-The port's own copy of `collate`, `dedup_text` and `device_batch` from
-`tunevlseg_tpu/data/pipeline.py`: batches have fixed shapes, a partial final
-batch is padded with repeated samples and `valid = 0` flags, and
-`text_dedup=U` rewrites the text keys to the batch's unique prompt rows plus
-the inverse map `text_index`, so the text tower runs U times instead of
-batch_size times. The threaded `DataLoader` comes with the training loop.
+The port's own copy of `tunevlseg_tpu/data/pipeline.py`:
+  * `collate`: batches have fixed shapes, a partial final batch is padded
+    with repeated samples and `valid = 0` flags, and `text_dedup=U` rewrites
+    the text keys to the batch's unique prompt rows plus the inverse map
+    `text_index`, so the text tower runs U times instead of batch_size times;
+  * `DataLoader`: a thread pool decodes / augments samples, a background
+    producer keeps `prefetch` batches ready, and the epoch's order is a
+    function of (seed, epoch), the same order as the JAX loader's;
+  * `device_batch`: strips host-only metadata and, given a device, copies
+    the arrays there through pinned memory without blocking the host.
+
+Unlike the JAX module this one does not import cv2 (the JAX loader imports
+it only to set its thread count), so that loading from memory needs none.
 """
 from __future__ import annotations
 
 import logging
-from typing import Any
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Iterator, Optional
 
 import numpy as np
+import torch
 
 _ARRAY_KEYS = ("image", "mask", "input_ids", "attention_mask")
 _warned_dense_fallback = False
@@ -87,7 +99,149 @@ def dedup_text(batch: dict[str, Any], capacity: int) -> dict[str, Any]:
     return batch
 
 
-def device_batch(batch: dict[str, Any]) -> dict[str, Any]:
-    """Strip host-only metadata before shipping to device."""
-    return {k: v for k, v in batch.items()
-            if k in (*_ARRAY_KEYS, "valid", "text_index")}
+class DataLoader:
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        num_workers: int = 8,
+        drop_last: bool = False,
+        prefetch: int = 2,
+        num_shards: int = 1,
+        shard_index: int = 0,
+        text_dedup: int = 0,
+        strict_dedup: Optional[bool] = None,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.text_dedup = text_dedup
+        # a sharded loader (one shard per process) must give every process
+        # the same text layout every step, so capacity overflow stays an
+        # error there; one process falls back to dense with a warning
+        self.strict_dedup = (num_shards > 1 if strict_dedup is None
+                             else strict_dedup)
+        self.epoch = 0
+        self.start_batch = 0
+        # this loader yields every num_shards-th sample (DistributedSampler
+        # semantics: wraparound padding keeps every shard the same length)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+
+    def _shard_len(self) -> int:
+        return -(-len(self.dataset) // self.num_shards)
+
+    def __len__(self) -> int:
+        n = self._shard_len()
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """Position the loader at (epoch, start_batch). `start_batch` skips
+        that many leading batches of the epoch's deterministic order: a
+        step-level resume replays the tail of an interrupted epoch without
+        training its consumed batches again."""
+        self.epoch = epoch
+        self.start_batch = start_batch
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self.epoch))
+            rng.shuffle(idx)
+        if self.num_shards > 1:
+            total = self._shard_len() * self.num_shards
+            idx = np.concatenate([idx, idx[: total - len(idx)]])
+            idx = idx[self.shard_index::self.num_shards]
+        return idx
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        order = self._order()
+        nb = len(self)
+        out: "queue.Queue[Any]" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put_or_stop(item) -> bool:
+            # a blocking put that still sees a consumer that left early
+            # (limit_batches), which would otherwise wedge the producer
+            while not stop.is_set():
+                try:
+                    out.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            # a bounded window of batches in flight, so that decoded samples
+            # never pile up past ~(window + prefetch) batches of memory
+            window = self.prefetch + 2
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                pending: deque = deque()
+                b_next = min(self.start_batch, nb)
+                try:
+                    while pending or b_next < nb:
+                        while b_next < nb and len(pending) < window:
+                            lo = b_next * self.batch_size
+                            chunk = order[lo:lo + self.batch_size]
+                            pending.append([
+                                pool.submit(self.dataset.__getitem__, i)
+                                for i in chunk])
+                            b_next += 1
+                        futs = pending.popleft()
+                        try:
+                            item: Any = collate([f.result() for f in futs],
+                                                self.batch_size,
+                                                text_dedup=self.text_dedup,
+                                                strict_dedup=self.strict_dedup)
+                        except Exception as e:  # surface worker errors
+                            item = e
+                        if not put_or_stop(item) or isinstance(item, Exception):
+                            return
+                finally:
+                    for futs in pending:
+                        for f in futs:
+                            f.cancel()
+            put_or_stop(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+
+def device_batch(batch: dict[str, Any], device=None) -> dict[str, Any]:
+    """Strip host-only metadata before shipping to the device. Without a
+    device the arrays stay as they are; with one, each becomes a tensor
+    there: on a CUDA device pinned on the host, then copied with
+    `non_blocking=True`, so the host goes on while the copy runs."""
+    arrays = {k: v for k, v in batch.items()
+              if k in (*_ARRAY_KEYS, "valid", "text_index")}
+    if device is None:
+        return arrays
+    device = torch.device(device)
+    out = {}
+    for k, v in arrays.items():
+        t = torch.as_tensor(v)
+        if device.type == "cuda":
+            if not t.is_pinned():
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
+        else:
+            out[k] = t.to(device)
+    return out

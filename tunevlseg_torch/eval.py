@@ -1,0 +1,79 @@
+"""Evaluation entry point of the port (reference src/eval.py: test and
+predict from a checkpoint, no fit).
+
+    python -m tunevlseg_torch.eval experiment=coop/clipseg ds_name=... \
+        ckpt_path=logs/train/<exp>/checkpoints
+
+The counterpart of `tunevlseg_tpu/eval.py`, with its families and device
+rule from `tunevlseg_torch.train` (`+trainer.device=cpu` for the CPU).
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from typing import Optional
+
+from tunevlseg_torch.config.composer import compose
+from tunevlseg_torch.data.pipeline import DataLoader
+from tunevlseg_torch.data.tokenizer import load_default_tokenizer
+from tunevlseg_torch.train import (CONFIG_DIR, build_datasets,
+                                   build_model_and_task, resolve_device)
+from tunevlseg_torch.training.checkpoint import CheckpointManager
+from tunevlseg_torch.training.loop import Trainer
+from tunevlseg_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    overrides = argv if argv is not None else sys.argv[1:]
+    cfg = compose(CONFIG_DIR, "eval", overrides)
+    from tunevlseg_torch.utils.task_wrapper import run_guarded
+    return run_guarded(lambda: _run(cfg), cfg["paths"]["output_dir"])
+
+
+def _run(cfg: dict) -> dict:
+    from tunevlseg_torch.utils.config_tree import apply_extras
+    apply_extras(cfg, save_dir=cfg["paths"].get("output_dir"))
+    ckpt_path = cfg.get("ckpt_path")
+    if not cfg.get("disable_ckpt") and not ckpt_path:
+        # the reference refuses to evaluate without a checkpoint unless
+        # disable_ckpt: testing random weights by accident is silent garbage
+        raise ValueError(
+            "ckpt_path is required for evaluation; pass ckpt_path=... "
+            "or set disable_ckpt=true to evaluate initial weights "
+            "deliberately")
+    device = resolve_device(cfg)
+    tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
+                                       family=cfg.get("tokenizer_family", "clip"))
+    datasets = build_datasets(cfg, tokenizer)
+    model, task = build_model_and_task(cfg, tokenizer, device=device)
+    t = cfg["trainer"]
+    d = cfg["data"]
+    test_loader = DataLoader(datasets["test"], d["batch_size"], shuffle=False,
+                             num_workers=d.get("num_workers", 8),
+                             text_dedup=int(d.get("text_dedup", 0) or 0))
+    state = task.init()
+
+    if not cfg.get("disable_ckpt"):
+        ckpt = CheckpointManager(ckpt_path, model)
+        tag = "best" if (Path(ckpt_path) / "best").exists() else "last"
+        state = ckpt.restore(tag, state)
+        if (Path(ckpt_path) / "frozen").exists():
+            ckpt.restore_frozen()
+        else:
+            log.info("no frozen weights in the checkpoint; using the model's")
+
+    trainer = Trainer(task=task, output_dir=cfg["paths"]["output_dir"],
+                      limit_batches=t.get("limit_batches"))
+    result = trainer.test(state, test_loader, use_best=False)
+    if cfg.get("predict", True):
+        out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
+        trainer.predict(state, test_loader, save_dir=out_dir, use_best=False)
+        result["output_masks_dir"] = str(out_dir)
+    log.info(f"done: {result}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,378 @@
+"""Training entry point of the port.
+
+    python -m tunevlseg_torch.train experiment=coop/clipseg \
+        ds_name=kvasir_polyp prompt_index=0 paths.data_root=/data
+
+The counterpart of `tunevlseg_tpu/train.py`, reading the same `configs/`:
+builds the datasets and loaders, the model and its freeze spec from the
+`model` group, then runs fit -> test (best) -> predict. The run goes to the
+CUDA card; `+trainer.device=cpu` asks for the CPU, and without a card and
+without that key the CLI raises.
+
+It covers the families ported so far: CLIPSeg with the six prompt
+strategies (`coop/*`, `cocoop/*`, `vpt`, `maple`, `shared_*`), its e2e
+fine-tune and zero-shot-segmentation variant (`e2e_clipseg`,
+`clipseg_zss`), and CRIS (`coop/cris`, `cocoop/cris`, `e2e_cris`,
+`cris_zss`; `+model.layout=flat` runs its backbone through the flat
+convolution). Options of slices not ported yet raise and name their ROADMAP
+item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+from typing import Any, Optional
+
+import torch
+
+from tunevlseg_torch.config.composer import compose
+from tunevlseg_torch.data.datasets import ImageTextMaskDataset
+from tunevlseg_torch.data.pipeline import DataLoader
+from tunevlseg_torch.data.tokenizer import load_default_tokenizer
+from tunevlseg_torch.data.transforms import eval_transforms, train_transforms
+from tunevlseg_torch.models.presets import build_clipseg, build_cris
+from tunevlseg_torch.ops.losses import LOSS_REGISTRY
+from tunevlseg_torch.training.loop import EarlyStopping, Trainer
+from tunevlseg_torch.training.optim import ReduceLROnPlateau, count_params
+from tunevlseg_torch.training.task import SegmentationTask
+from tunevlseg_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
+
+# model families without a port yet, and the ROADMAP item each waits for
+UNPORTED_FAMILIES = {
+    "trans_segmentor": "ROADMAP Queue 1 item 6 (Slice D, TransformerSegmentor)",
+    "denseclip": "ROADMAP Queue 1 item 7 (Slice E, DenseCLIP)",
+    "zero_shot_ris": "ROADMAP Queue 1 item 8 (Slice F, zero-shot RIS)",
+}
+
+
+def check_ported(cfg: dict) -> None:
+    """Raise on an option of a slice that is not ported yet, naming its
+    ROADMAP item."""
+    m, t = cfg["model"], cfg["trainer"]
+    family = m.get("family", "clipseg")
+    if family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")
+    if family not in ("clipseg", "cris"):
+        raise NotImplementedError(f"model family {family}")
+    if cfg.get("pretrained_checkpoint"):
+        raise NotImplementedError(
+            "pretrained_checkpoint: the converters chained with "
+            "convert/from_jax.state_dict_from_jax come with ROADMAP Queue 1 "
+            "item 9 (Slice G, real weights)")
+    if int(t.get("model_parallel", 1) or 1) > 1 or t.get("seq_shard"):
+        raise NotImplementedError(
+            "model_parallel > 1 / seq_shard (GSPMD tensor and sequence "
+            'parallelism) are not ported: ROADMAP "Do not port"')
+    if t.get("fsdp") or t.get("multihost") or int(t.get("n_devices") or 1) > 1:
+        raise NotImplementedError(
+            "fsdp / multihost / n_devices > 1 (data parallel over GPUs, torch "
+            "FSDP) come with ROADMAP Queue 1 item 9 (Slice G)")
+    if cfg.get("export_dir"):
+        raise NotImplementedError(
+            "export_dir (torch.export of the predict step) comes with ROADMAP "
+            "Queue 1 item 9 (Slice G)")
+
+
+def resolve_device(cfg: dict) -> torch.device:
+    """`trainer.device` (default "cuda"); a CUDA device that is not there
+    raises, there is no fallback to the CPU."""
+    device = torch.device(cfg["trainer"].get("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this CLI runs on the card; pass "
+            "+trainer.device=cpu to run on the CPU")
+    return device
+
+
+def build_datasets(cfg: dict, tokenizer) -> dict[str, Any]:
+    d = cfg["data"]
+    img = cfg["img_size"]
+    mean, std = cfg["img_mean"], cfg["img_std"]
+    nod = d.get("normalize_on_device", True)
+    base = dict(insert_stop_at_last=cfg.get("insert_stop_at_last", True),
+                tokenizer=tokenizer, max_length=cfg.get("max_length", 77),
+                tokenizer_style=d.get("tokenizer_style", "hf"),
+                seed=cfg.get("seed", 0))
+
+    def dirs(split):
+        """Per-split directory overrides (`<split>_image_dir`): the camus
+        preset points train/val at images/train and test at images/test."""
+        return dict(image_dir=d.get(f"{split}_image_dir", d["image_dir"]),
+                    mask_dir=d.get(f"{split}_mask_dir", d["mask_dir"]))
+
+    ds_type = d.get("type", "image_text_mask")
+
+    if ds_type == "image_dir":
+        # binarized class-directory suites (class name = prompt)
+        from tunevlseg_torch.data.datasets import ImageDirTextMaskDataset
+
+        def make(split, tf):
+            return ImageDirTextMaskDataset(
+                mask_suffix=d.get("mask_suffix", ".png"),
+                image_suffix=d.get("image_suffix", ".png"),
+                transforms=tf, **dirs(split), **base)
+
+        eval_tf = eval_transforms(img, mean, std, nod)
+        if "train_image_dir" in d:
+            return {"train": make("train",
+                                  train_transforms(img, mean, std, nod)),
+                    "val": make("val", eval_tf),
+                    "test": make("test", eval_tf)}
+        ds = make("test", eval_tf)
+        return {"train": ds, "val": ds, "test": ds}
+    if ds_type in ("phrasecut", "refcoco"):
+        from tunevlseg_torch.data.open_domain import (PhraseCutDataset,
+                                                      RefCOCODataset)
+        cls = PhraseCutDataset if ds_type == "phrasecut" else RefCOCODataset
+        od = dict(base, prompt_method=d.get("prompt_method", "fixed"),
+                  neg_prob=d.get("neg_prob", 0.0))
+        # template prompts end in "." already
+        od.pop("insert_stop_at_last", None)
+        return {
+            "train": cls(task_path=d["train_task_path"],
+                         transforms=train_transforms(img, mean, std, nod),
+                         **dirs("train"), **od),
+            "val": cls(task_path=d["val_task_path"],
+                       transforms=eval_transforms(img, mean, std, nod),
+                       **dirs("val"), **dict(od, neg_prob=0.0)),
+            "test": cls(task_path=d["test_task_path"],
+                        transforms=eval_transforms(img, mean, std, nod),
+                        **dirs("test"), **dict(od, neg_prob=0.0)),
+        }
+
+    common = dict(base, prompt_index=cfg["prompt_index"],
+                  override_prompt=cfg.get("override_prompt"))
+    return {
+        "train": ImageTextMaskDataset(
+            task_path=d["train_task_path"],
+            transforms=train_transforms(img, mean, std, nod),
+            **dirs("train"), **common),
+        "val": ImageTextMaskDataset(
+            task_path=d["val_task_path"],
+            transforms=eval_transforms(img, mean, std, nod),
+            **dirs("val"), **common),
+        "test": ImageTextMaskDataset(
+            task_path=d["test_task_path"],
+            transforms=eval_transforms(img, mean, std, nod),
+            **dirs("test"), **common),
+    }
+
+
+def _initializer_embeddings(cfg: dict, tokenizer, pretrained):
+    """Embed the text context initializer ("a photo of a") through the
+    token embedding of the pretrained weights (a `state_dict`); the token
+    count overrides num_context. Returns (embeddings, num_context); without
+    pretrained weights the contexts stay random, as in the JAX CLI."""
+    m = cfg["model"]
+    init_text = m.get("context_initializer")
+    if not init_text or tokenizer is None or pretrained is None:
+        return None, m.get("num_context", 4)
+    key = ("text.token_embedding.weight" if m.get("family") == "cris"
+           else "text_model.token_embedding.weight")
+    if key not in pretrained:
+        return None, m.get("num_context", 4)
+    from tunevlseg_torch.models.prompt.init_text import (
+        compute_initializer_embeddings)
+    table = torch.as_tensor(pretrained[key]).float().cpu().numpy()
+    emb = compute_initializer_embeddings(table, tokenizer, init_text)
+    return emb, emb.shape[1]
+
+
+def build_model_and_task(cfg: dict, tokenizer=None, pretrained=None,
+                         device="cuda"):
+    """The model (seeded random weights on `device`) and its task from the
+    composed config. `pretrained` is a `state_dict` of converted weights
+    (ROADMAP item 9); only its token embedding is read here, to initialise
+    the context vectors from `model.context_initializer`."""
+    check_ported(cfg)
+    m = cfg["model"]
+    family = m.get("family", "clipseg")
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
+        cfg["trainer"].get("precision", "f32")]
+
+    init_emb, num_context = _initializer_embeddings(cfg, tokenizer, pretrained)
+    common = dict(
+        strategy=m.get("strategy", "coop"),
+        prompt_depth=m.get("prompt_depth", 1),
+        num_context=num_context,
+        use_new_last_layer=m.get("use_new_last_layer", True),
+        freeze_all=m.get("freeze_all", True),
+        no_freeze_last_layer=m.get("no_freeze_last_layer", False),
+        freeze_encoder=m.get("freeze_encoder"),  # zss: frozen towers
+        dtype=dtype,
+        learner_overrides=m.get("learner"),
+        initializer_embeddings=init_emb,
+        device=device,
+        seed=cfg.get("seed", 0),
+    )
+    if family == "clipseg":
+        from tunevlseg_torch.models.presets import clipseg_rd64_config
+        config = clipseg_rd64_config(m.get("complex_head", False))
+        if cfg.get("tiny_model"):  # test / debug hook
+            from tunevlseg_torch.models.clip.config import CLIPSegConfig
+            config = CLIPSegConfig.tiny()
+        model, spec = build_clipseg(config=config,
+                                    freeze_decoder=m.get("freeze_decoder",
+                                                         False), **common)
+    else:
+        from tunevlseg_torch.models.presets import cris_rn50_config
+        config = cris_rn50_config(cfg.get("img_size", 416))
+        if cfg.get("tiny_model"):
+            from tunevlseg_torch.models.cris.model import CRISConfig
+            config = CRISConfig.tiny(img_size=cfg.get("img_size", 64))
+        if "dropout" in m:  # decoder dropout (reference e2e_cris.yaml:32)
+            config = dataclasses.replace(config, dropout=m["dropout"])
+        model, spec = build_cris(config=config,
+                                 layout=m.get("layout", "nchw"), **common)
+    return model, _make_task(cfg, model, spec)
+
+
+def _make_task(cfg: dict, model, spec):
+    m = cfg["model"]
+    loss_cfg = dict(m.get("loss_fn", {"name": "dice_ce"}))
+    loss_fn = LOSS_REGISTRY[loss_cfg.pop("name")]
+    opt = m.get("optimizer", {})
+    mutable = (("batch_stats",) if getattr(model, "bn_train", False) else ())
+    return SegmentationTask(
+        model, spec, loss_fn=loss_fn, loss_kwargs=loss_cfg,
+        threshold=m.get("threshold", 0.5),
+        learning_rate=opt.get("lr", 2e-4),
+        weight_decay=m.get("weight_decay", 0.0),
+        grad_clip_norm=cfg["trainer"].get("gradient_clip_val"),
+        accumulate_grad_batches=int(
+            cfg["trainer"].get("accumulate_grad_batches", 1) or 1),
+        remat=bool(cfg["trainer"].get("remat", False)),
+        mutable_collections=mutable,
+        seed=cfg.get("seed", 0),
+        image_stats=(tuple(cfg.get("img_mean", (0.485, 0.456, 0.406))),
+                     tuple(cfg.get("img_std", (0.229, 0.224, 0.225)))))
+
+
+def save_composed_config(cfg: dict, output_dir: Path) -> None:
+    """The fully composed config next to the run outputs (the reference's
+    hydra `.hydra/config.yaml`)."""
+    import yaml
+
+    output_dir.mkdir(parents=True, exist_ok=True)
+    with open(output_dir / "config.yaml", "w") as fp:
+        yaml.safe_dump(cfg, fp, default_flow_style=False, sort_keys=False)
+
+
+def check_text_dedup(cfg: dict) -> int:
+    """`data.text_dedup` (U rows of unique prompts a batch), checked
+    against the model: CoCoOp's text stack is per image."""
+    td = int(cfg["data"].get("text_dedup", 0) or 0)
+    if td:
+        if cfg["model"].get("strategy") == "cocoop":
+            raise ValueError("data.text_dedup is incompatible with CoCoOp "
+                             "(image-conditioned text stack)")
+        if int(cfg.get("prompt_index", 0)) < 0:
+            log.warning(
+                "data.text_dedup=%d with prompt_index=-1 (random prompt "
+                "per sample): batches whose distinct prompts exceed the "
+                "capacity fall back to DENSE collation (slower). Set "
+                "data.text_dedup=0 to silence.", td)
+    return td
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    overrides = argv if argv is not None else sys.argv[1:]
+    cfg = compose(CONFIG_DIR, "train", overrides)
+    from tunevlseg_torch.utils.task_wrapper import run_guarded
+    return run_guarded(lambda: _run(cfg), cfg["paths"]["output_dir"])
+
+
+def _run(cfg: dict) -> dict:
+    from tunevlseg_torch.utils.config_tree import apply_extras
+    apply_extras(cfg, save_dir=cfg["paths"].get("output_dir"))
+    device = resolve_device(cfg)
+    if cfg.get("debug_nans"):
+        # reference debug/default.yaml detect_anomaly: fail fast on NaNs
+        torch.autograd.set_detect_anomaly(True)
+
+    seed = cfg.get("seed", 0)
+    tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
+                                       family=cfg.get("tokenizer_family", "clip"))
+    datasets = build_datasets(cfg, tokenizer)
+    model, task = build_model_and_task(cfg, tokenizer, device=device)
+
+    t = cfg["trainer"]
+    d = cfg["data"]
+    td = check_text_dedup(cfg)
+    loaders = {
+        split: DataLoader(ds, d["batch_size"], shuffle=(split == "train"),
+                          seed=seed, num_workers=d.get("num_workers", 8),
+                          drop_last=d.get("drop_last", False), text_dedup=td)
+        for split, ds in datasets.items()
+    }
+    state = task.init()
+
+    sched_cfg = cfg["model"].get("scheduler") or {}
+    scheduler = None
+    if sched_cfg.get("name") == "plateau":
+        scheduler = ReduceLROnPlateau(
+            factor=sched_cfg.get("factor", 0.2),
+            patience=sched_cfg.get("patience", 5),
+            mode=sched_cfg.get("mode", "min"))
+
+    es_cfg = t.get("early_stopping") or {}
+    trainer = Trainer(
+        task=task, output_dir=cfg["paths"]["output_dir"],
+        max_epochs=t.get("max_epochs", 20), min_epochs=t.get("min_epochs", 1),
+        log_every_n_steps=t.get("log_every_n_steps", 6),
+        scheduler=scheduler,
+        early_stopping=EarlyStopping(
+            patience=es_cfg.get("patience", 12),
+            min_delta=es_cfg.get("min_delta", 1e-4)),
+        limit_batches=t.get("limit_batches"),
+        loggers=tuple(t.get("loggers", ("jsonl", "csv"))),
+        log_image_num=t.get("log_image_num", 4),
+        steps_per_execution=t.get("steps_per_execution", 1),
+        ckpt_every_n_steps=int(t.get("ckpt_every_n_steps", 0) or 0),
+        exp_name=cfg.get("exp_name"), project=t.get("project"),
+        tags=tuple(cfg.get("tags") or ()))
+    save_composed_config(cfg, trainer.output_dir)
+    n_train = count_params(p for p in model.parameters() if p.requires_grad)
+    n_total = count_params(model.parameters())
+    trainer.metrics_log.log_hyperparams(cfg, {
+        "model/params/total": n_total,
+        "model/params/trainable": n_train,
+        "model/params/non_trainable": n_total - n_train,
+    })
+
+    result: dict[str, Any] = {}
+    if cfg.get("train", True):
+        # a tag ("last" / "best") or a checkpoints directory
+        resume_from = cfg.get("ckpt_path")
+        if cfg.get("profile"):
+            # reference debug/profiler.yaml: a profiler trace of the fit
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+            with profile(activities=activities) as prof:
+                state = trainer.fit(state, loaders["train"], loaders["val"],
+                                    resume_from=resume_from)
+            trace = trainer.output_dir / "profile" / "trace.json"
+            trace.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace))
+        else:
+            state = trainer.fit(state, loaders["train"], loaders["val"],
+                                resume_from=resume_from)
+    if cfg.get("test", True):
+        result.update(trainer.test(state, loaders["test"]))
+    if cfg.get("predict", False):
+        out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
+        trainer.predict(state, loaders["test"], save_dir=out_dir)
+        result["output_masks_dir"] = str(out_dir)
+    log.info(f"done: {result}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -36,6 +36,7 @@ module is written by a step.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Optional
 
 import torch
@@ -91,10 +92,26 @@ class SegmentationTask:
 
     # -- init ---------------------------------------------------------------
 
-    def init(self) -> TrainState:
+    def init(self, params: Optional[dict] = None) -> TrainState:
         """Apply the freeze spec to the model and build the optimizer over
         what is left trainable; with `mutable_collections`, copy the model's
-        buffers into the state."""
+        buffers into the state.
+
+        `params` (a partial `state_dict`, say a converted backbone) is
+        overlaid on the model's weights first; entries the model does not
+        have are dropped with a log line, as the JAX task drops checkpoint
+        tensors its model elides."""
+        if params is not None:
+            own = self.model.state_dict()
+            dropped = [k for k in params if k not in own]
+            if dropped:
+                logging.getLogger("tunevlseg").info(
+                    "dropping %d checkpoint tensors the model elides (e.g. %s)",
+                    len(dropped), dropped[0])
+            with torch.no_grad():
+                for name, value in params.items():
+                    if name in own:
+                        own[name].copy_(torch.as_tensor(value))
         optim_lib.apply_freeze(self.model, self.freeze_spec)
         model_state = {}
         if self.mutable_collections:
@@ -193,8 +210,8 @@ class SegmentationTask:
 
     def compile_train_multistep(self, *args, **kwargs):
         raise NotImplementedError(
-            "steps-per-execution comes with the training loop, ROADMAP "
-            "Queue 1 item 3 (Loop and CLI)")
+            "a captured multi-step program (one CUDA graph) is ROADMAP Queue 1 "
+            "item 2; Trainer(steps_per_execution=k) runs k eager steps a group")
 
     @torch.no_grad()
     def predict_step(self, batch: dict,
