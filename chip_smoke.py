@@ -131,9 +131,39 @@ Phases, each printing its numbers on lines of its own:
      epoch's train part) beside phase 6's bare step, the loader alone, the
      loop over batches made beforehand, a save's blocking and writing ms and
      bytes, `save_frozen`'s, and the peak device memory over the fit.
+ 19. kernel vs plain, K4 at the TransformerSegmentor's five upsampler
+     convolutions at b32 (512 -> 410 at 39^2 ... 104 -> 1 at 352^2), C and
+     Cout zero-padded to multiples of 8 around the launch: against its plain
+     version on the same flat tensors, the padded output channels exactly 0,
+     `conv3_flat` against `F.conv2d`, timed beside the nchw layout's
+     `F.conv2d` (phase 10's K4 numbers gain these shapes; phase 3's K1 / K2,
+     phase 4's yardstick and K3's cases gain the TransformerSegmentor's and
+     PhraseCut's attention shapes: b32·485·12·64, b32·485·8·64,
+     b16·576·12·64, b16·576·16·32 (D = 32), the cross-attentions 485 -> 77
+     and 576 -> 64 and SigLIP's 64 padded text tokens);
+ 20. serve and train, TransformerSegmentor (`bench.py`'s trans_seg row: CLIP
+     ViT-B/16 and text towers at 352^2, decoder 4 x 8 heads, upsampler 5
+     stages, everything trainable, AdamW lr 2e-4, seeded random weights):
+     b32 dense, b32 with one prompt and b1 through `task_predict_fn`, 16 K1
+     and 16 K3 per forward, the first request against the plain path; 2
+     warm-up + 5 timed b32 dense steps with 16 K1, 16 K2 and 16 K3 each, the
+     loss falls, every leaf with a gradient moves (the vision tower's
+     post_layernorm, which only the unread pooled output uses, has none and
+     keeps its value), the first step's loss and gradients against the plain
+     path; then the same model on `upsampler_layout="flat"`: one b32 request
+     (+5 K4) with its probabilities against "nchw", the first step's loss
+     against "nchw", 1 + 2 steps with 5 K4, 5 K4 dx and 5 prologue launches
+     each;
+ 21. serve and train, PhraseCut (`experiment=phrasecut`: SigLIP towers with
+     the existing projections, frozen, decoder 16 heads of 32, output bias,
+     DiceCE with BCE weight 5.8, 384^2): one b16 request with one prompt
+     against the plain path (16 K1, 16 K3), 1 + 2 b16 dense steps (16 K1, 4
+     K2, 16 K3), the towers' and projections' tensors bit-identical and
+     without a gradient, every decoder and upsampler leaf moved.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
-b64 and b1 forwards, on both layouts.
+b64 and b1 forwards, on both layouts, and of the TransformerSegmentor's b32
+and b1 requests.
 The second-to-last line is a JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero.
@@ -217,11 +247,15 @@ CRIS_FLAT_COOP_STEP = (3, 3, 15, RN50_FLAT_CONVS, 0, 0) + NO_VARIANTS
 CRIS_E2E_STEP = (3, 3, 15, 0, 0, 0) + NO_VARIANTS
 CRIS_E2E_FLAT_STEP = (3, 3, 15, RN50_FLAT_CONVS, RN50_FLAT_CONVS,
                       RN50_FLAT_CONVS) + NO_VARIANTS
-# K4 against its plain version, bf16 outputs: the same bf16 operands, f32
-# accumulation in another order, one rounding: one bf16 ulp (2^-8) of the
-# largest |reference|, 5e-3 with slack. Gradients of the Function against
-# autograd through the plain version (dy*scale rounded to bf16 for dx, bf16
-# operands in the dW products): 1e-2 of the largest entry.
+# K4's bf16 output against the plain version's f32 value on the same bf16
+# operands (`exact_conv_flat`): f32 accumulation in another order, then the
+# kernel's one rounding, at most half a bf16 ulp, 2^-8 of |y| <= 3.9e-3 of
+# the largest |reference|; 5e-3 with slack. (Against the plain version's own
+# bf16 output the two roundings may land a whole ulp apart, up to 2^-7 =
+# 7.8e-3 of a value at the bottom of its binade: over this bound.) Gradients
+# of the Function against autograd through the plain version (dy*scale
+# rounded to bf16 for dx, bf16 operands in the dW products): 1e-2 of the
+# largest entry.
 K4_REL_TOL = 5e-3
 K4_GRAD_REL_TOL = 1e-2
 # flat against nchw on the same weights, probabilities: the folded affine
@@ -241,6 +275,28 @@ FLAT_GRAD_REL_TOL = 0.25
 # it sends back decorrelate with it, so the step's loss is held to 0.15 and
 # the step's backbone gradients are printed, not held to a bound
 E2E_FLAT_LOSS_TOL = 0.15
+# TransformerSegmentor (`bench.py`'s trans_seg row: CLIP ViT-B/16 and text
+# towers, decoder 4 x 8 heads of 64, upsampler 512 -> 410 -> 308 -> 206 ->
+# 104 -> 1): K1 in the 12 vision layers (485 tokens) and the 4 decoder
+# self-attentions; K3 in the 12 text layers and the 4 cross-attentions into
+# the text; K2 for all 16 when everything trains. `upsampler_layout="flat"`
+# adds K4 for the 5 upsampler convolutions, and in a step their dx and
+# prologue (the decoder before them trains)
+TS_SERVE = (16, 0, 16, 0, 0, 0) + NO_VARIANTS
+TS_STEP = (16, 16, 16, 0, 0, 0) + NO_VARIANTS
+TS_CONVS = 5
+TS_FLAT_SERVE = (16, 0, 16, TS_CONVS, 0, 0) + NO_VARIANTS
+TS_FLAT_STEP = (16, 16, 16, TS_CONVS, TS_CONVS, TS_CONVS) + NO_VARIANTS
+# PhraseCut (SigLIP towers at 384^2: 576 tokens, no CLS; 64 text tokens with
+# a padding bias only; decoder 16 heads of 32): the same 16 K1 and 16 K3 a
+# forward; the towers are frozen, so K2 only for the 4 decoder layers
+PC_SERVE = (16, 0, 16, 0, 0, 0) + NO_VARIANTS
+PC_STEP = (16, 4, 16, 0, 0, 0) + NO_VARIANTS
+# flat against nchw upsampler on the same weights, probabilities: five
+# convolutions whose bf16 outputs round once each in both (K4: f32 sums and
+# the bias in f32, then one rounding; cuDNN likewise), in another summation
+# order, each followed by a LayerNorm over (C, H, W): predicted max ~5e-3
+TS_FLAT_PROB_TOL = (2e-2, 2e-3)
 IMG, BATCH, SEQ = 352, 64, 77
 CRIS_IMG = 416
 E2E_BATCH = 16
@@ -255,6 +311,11 @@ DECODER_CTX = (BATCH, 489, 4, 16)
 E2E_VISION = (E2E_BATCH, 485, 12, 64)
 E2E_DECODER = (E2E_BATCH, 485, 4, 16)
 CRIS_DECODER = (BATCH, 676, 8, 64)     # self-attention over 26 x 26 tokens
+TS_BATCH, PC_BATCH, PC_IMG, PC_SEQ = 32, 16, 384, 64
+TS_VISION = (TS_BATCH, 485, 12, 64)
+TS_DECODER = (TS_BATCH, 485, 8, 64)
+PC_VISION = (PC_BATCH, 576, 12, 64)    # SigLIP at 384^2: 24 x 24 tokens
+PC_DECODER = (PC_BATCH, 576, 16, 32)   # 512 wide, 16 heads: D = 32
 F32_MIN = -3.4028234663852886e38       # what the models' biases mask with
 
 
@@ -365,6 +426,12 @@ def attention_bound(n_tensors: int, flops_factor: int, b, s, h, d, t_valid,
             flops)
 
 
+TS_SHAPES = (("trans_seg vision", TS_VISION, None),
+             ("trans_seg decoder", TS_DECODER, None),
+             ("phrasecut vision", PC_VISION, None),
+             ("phrasecut decoder d32", PC_DECODER, None))
+
+
 def kernel_cases(gen):
     import torch
     for label, shape, kv in (("vision", VISION, None), ("decoder", DECODER, None),
@@ -373,7 +440,8 @@ def kernel_cases(gen):
                              ("vision kv_valid", (BATCH, 512, 12, 64), 485),
                              ("e2e vision", E2E_VISION, None),
                              ("e2e decoder", E2E_DECODER, None),
-                             ("cris decoder", CRIS_DECODER, None)):
+                             ("cris decoder", CRIS_DECODER, None),
+                             *TS_SHAPES):
         yield label, shape, kv, tuple(
             torch.randn(*shape, generator=gen, device="cuda").bfloat16()
             for _ in range(4))
@@ -393,6 +461,20 @@ def device_ms_by_kernel(fn, n: int = 5) -> dict:
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def kernel_device_ms(label: str, fn, keys: tuple) -> dict:
+    """{key: device time per call of the kernels whose names hold `key`}
+    for each of `keys`, from `device_ms_by_kernel`. A profiler window now
+    and then comes back without a kernel, so up to six windows of growing
+    length; fails if one of the kernels is still unseen."""
+    for attempt in range(6):
+        parts = device_ms_by_kernel(fn, n=5 * (attempt + 1))
+        found = {key: sum(v for n, v in parts.items() if key in n) for key in keys}
+        if all(v > 0 for v in found.values()):
+            return found
+    fail(f"{label}: torch.profiler saw no device time of "
+         f"{[k for k, v in found.items() if not v > 0]}")
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -431,8 +513,9 @@ def phase_kernels(fa):
             lambda: fa.flash_attention_ref(q, k, v, kv_valid=kv), 10)
         # the kernel's own duration: where a call's host time comes near it
         # (D = 16, b16), the event time above is the host's
-        device_ms = sum(x for n, x in device_ms_by_kernel(
-            lambda: fa.flash_attention(q, k, v, kv_valid=kv)).items() if "flash_attn_fwd" in n)
+        device_ms = kernel_device_ms(
+            f"K1 {label}", lambda: fa.flash_attention(q, k, v, kv_valid=kv),
+            ("flash_attn_fwd",))["flash_attn_fwd"]
         bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t)
         print(f"kernel K1 {label} q{(b, s, h, d)} kv_valid {kv}: "
               f"max_abs_err {err:.6g} (bound {KERNEL_TOL}), kernel {ms:.4f} ms "
@@ -457,8 +540,8 @@ def phase_kernels(fa):
         q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
         us = min(host_us_per_call(lambda: fa.flash_attention(q, k, v)) for _ in range(3))
-        device_ms = sum(ms for name, ms in device_ms_by_kernel(
-            lambda: fa.flash_attention(q, k, v)).items() if "flash_attn_fwd" in name)
+        device_ms = kernel_device_ms(f"K1 b1 D = {d}", lambda: fa.flash_attention(
+            q, k, v), ("flash_attn_fwd",))["flash_attn_fwd"]
         print(f"host K1 D = {d} q{shape}: {us:.2f} us per flash_attention call "
               f"(perf_counter over 1000 calls, no synchronize, the least of 3 "
               f"rounds); the kernel's device time {device_ms * 1e3:.2f} us")
@@ -511,10 +594,10 @@ def phase_kernels_bwd(fa):
             lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse), 50)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv, lse=lse), 5)
-        parts = device_ms_by_kernel(
-            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse))
-        by_pass = {key: sum(v for n, v in parts.items() if key in n)
-                   for key in ("bwd_dq", "dkdv")}
+        by_pass = kernel_device_ms(
+            f"K2 {label}",
+            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse),
+            ("bwd_dq", "dkdv"))
         # each input read once (q, k, v, g and the f32 lse), each output
         # written once (dq, dk, dv)
         nbytes = 7 * b * s * h * d * 2 + 4 * b * h * s
@@ -590,7 +673,16 @@ def k3_cases(gen):
             ("edge -inf over a key tile", (16, 300, 8, 64), 129, None,
              lambda: inf_tile(16, 8, 300, 129)),
             ("edge rows at dtype-min", (16, 300, 8, 32), SEQ, None,
-             lambda: min_rows(16, 8, 300, SEQ))):
+             lambda: min_rows(16, 8, 300, SEQ)),
+            # the TransformerSegmentor's cross-attention into the text
+            # (key-pad bias), CLIP at b32 and PhraseCut's SigLIP at b16, and
+            # SigLIP's 64 text tokens under a padding bias alone
+            ("trans_seg cross", (TS_BATCH, 485, 8, 64), SEQ, None,
+             lambda: key_pad(TS_BATCH)),
+            ("phrasecut cross d32", (PC_BATCH, 576, 16, 32), PC_SEQ, None,
+             lambda: key_pad(PC_BATCH, PC_SEQ)),
+            ("siglip text b16", (PC_BATCH, PC_SEQ, 12, 64), PC_SEQ, None,
+             lambda: key_pad(PC_BATCH, PC_SEQ))):
         yield label, (b, s, h, d), t, kv, make(), (rnd(b, s, h, d), rnd(b, t, h, d),
                                                    rnd(b, t, h, d))
 
@@ -622,16 +714,9 @@ def phase_kernels_k3(fa):
         if not torch.equal(out, fa.biased_attention(q, k, v, bias, kv_valid=kv)):
             fail(f"K3 {label}: two calls on the same inputs differ")
         ms = cuda_time_ms(lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv), 50)
-        device_ms = 0.0
-        for attempt in range(6):    # a profiler window now and then comes back empty
-            device_ms = sum(x for n, x in device_ms_by_kernel(
-                lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv),
-                n=5 * (attempt + 1)).items()
-                if "biased_attn" in n)
-            if device_ms > 0:
-                break
-        if not device_ms > 0:
-            fail(f"K3 {label}: torch.profiler saw no device time of the kernel")
+        device_ms = kernel_device_ms(
+            f"K3 {label}", lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv),
+            ("biased_attn",))["biased_attn"]
         plain_ms = cuda_time_ms(lambda: fa.biased_attention_ref(q, k, v, bias, kv_valid=kv), 10)
         # one PyTorch call for the same function: a mask of 0 / dtype-min as
         # booleans, any other bias added in q's dtype; kv_valid as masked keys
@@ -683,7 +768,8 @@ def phase_yardstick():
                              ("vision kv_valid", (BATCH, 512, 12, 64), 485),
                              ("e2e vision", E2E_VISION, None),
                              ("e2e decoder", E2E_DECODER, None),
-                             ("cris decoder", CRIS_DECODER, None)):
+                             ("cris decoder", CRIS_DECODER, None),
+                             *TS_SHAPES):
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       .bfloat16().transpose(1, 2) for _ in range(4))
         # kv_valid as a boolean key mask (True = attend)
@@ -1054,28 +1140,50 @@ def build_task(family: str, strategy: str, learning_rate: float,
     return task, state
 
 
+def first_step(task, start: dict, batch, leaves=()) -> tuple:
+    """The first train step from the weights `start` (the same dropout masks
+    on every call: they depend on the seed and the step alone); returns its
+    loss and {leaf: f32 gradient} for each of `leaves`."""
+    import torch
+    params = dict(task.model.named_parameters())
+    with torch.no_grad():
+        for name, p in params.items():
+            if p.requires_grad:
+                p.copy_(start[name])
+    _, metrics = task.train_step(task.init(), batch)
+    return metrics["loss"].item(), {
+        name: params[name].grad.detach().float().clone() for name in leaves}
+
+
+def worst_leaf(got: dict, want: dict) -> tuple:
+    """((least cosine, its leaf), (largest max abs diff over its leaf's
+    largest |entry|, its leaf)) of the gradients `got` against `want`.
+    Attention's k_proj biases are left out: their gradient is zero in exact
+    arithmetic (a softmax does not see a shift shared by all its keys), so
+    both sides hold rounding noise."""
+    import torch
+    worst_cos, worst_rel = (1.0, ""), (0.0, "")
+    for name, w in want.items():
+        if name.endswith("k_proj.bias"):
+            continue
+        a = got[name]
+        cos = torch.nn.functional.cosine_similarity(a.flatten(), w.flatten(),
+                                                    dim=0).item()
+        rel = ((a - w).abs().max() / w.abs().max()).item()
+        worst_cos, worst_rel = min(worst_cos, (cos, name)), max(worst_rel, (rel, name))
+    return worst_cos, worst_rel
+
+
 def first_step_kernel_vs_plain(fa, label: str, task, start: dict, batch,
                                leaves: tuple):
     """The first train step from the weights `start`, once on the kernel path
-    and once with every attention on the plain path (the same dropout masks:
-    they depend on the seed and the step alone): the loss and the gradient
-    of each leaf in `leaves` against the stated bounds."""
+    and once with every attention on the plain path: the loss and the
+    gradient of each leaf in `leaves` against the stated bounds."""
     import torch
-    params = dict(task.model.named_parameters())
-
-    def first_step():
-        with torch.no_grad():
-            for name, p in params.items():
-                if p.requires_grad:
-                    p.copy_(start[name])
-        _, metrics = task.train_step(task.init(), batch)
-        return metrics["loss"].item(), {
-            name: params[name].grad.detach().float().clone() for name in leaves}
-
-    loss_k, grads_k = first_step()
+    loss_k, grads_k = first_step(task, start, batch, leaves)
     with plain_path():
         before = counts(fa)
-        loss_p, grads_p = first_step()
+        loss_p, grads_p = first_step(task, start, batch, leaves)
         if counts(fa) != before:
             fail(f"{label}: the plain-path step launched a kernel")
     print(f"{label}: kernel path vs plain path, first step: loss {loss_k:.6f} vs "
@@ -1536,6 +1644,14 @@ def plain_conv_flat(cf, spec, relu, x, weight, scale, offset, res):
                             ones * 0 if offset is None else offset, res)
 
 
+def exact_conv_flat(cf, spec, relu, x, weight, scale, offset, res):
+    """The plain version's f32 value, before its one rounding to bf16:
+    `conv_flat_ref` on the same bf16 values held in f32 (the weight rounded
+    to bf16 first, as the kernel takes it)."""
+    return plain_conv_flat(cf, spec, relu, x.float(), weight.bfloat16().float(),
+                           scale, offset, None if res is None else res.float())
+
+
 def phase_kernels_k4(cf):
     """K4 against its plain version at the RN50's shapes, `F.conv2d` beside
     it; returns {label: numbers}."""
@@ -1553,9 +1669,9 @@ def phase_kernels_k4(cf):
             fail(f"K4 {label}: the wrapper did not count its launch")
         if out.shape != (BATCH, spec.rows, cout) or out.dtype != torch.bfloat16:
             fail(f"K4 {label}: output is {tuple(out.shape)} {out.dtype}")
-        ref = plain_conv_flat(cf, spec, relu, x, weight, scale, offset, res)
-        err = (out.float() - ref.float()).abs().max().item()
-        top = ref.float().abs().max().item()
+        ref = exact_conv_flat(cf, spec, relu, x, weight, scale, offset, res)
+        err = (out.float() - ref).abs().max().item()
+        top = ref.abs().max().item()
         if not err <= K4_REL_TOL * top:
             fail(f"K4 {label}: max abs error {err} > {K4_REL_TOL} x {top}")
         valid = cf._valid_rows(spec, x.device)
@@ -1579,7 +1695,8 @@ def phase_kernels_k4(cf):
         print(f"kernel K4 {label} x{tuple(x.shape)} (b{BATCH}, {hw}^2 pixels in "
               f"{spec.rows} rows, guard {spec.mb}: {1 - hw * hw / spec.rows:.3f} of "
               f"the rows hold no pixel) C {c} Cout {cout} k {k}: "
-              f"max_abs_err {err:.6g} (bound {K4_REL_TOL} x largest |reference| "
+              f"max_abs_err {err:.6g} against the plain version's f32 value "
+              f"(bound {K4_REL_TOL} x largest |reference| "
               f"{top:.4g}), {int((~valid).sum())} guard and ring rows exactly 0, "
               f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; its weight copy "
               f"alone {copy_ms:.4f} ms), plain "
@@ -1816,15 +1933,7 @@ def backbone_gradients_flat_vs_nchw(task, batch):
             grads[layout] = {n: p.grad.float().clone()
                              for n, p in net.named_parameters()}
     net.zero_grad(set_to_none=True)
-    worst_cos, worst_rel = (1.0, ""), (0.0, "")
-    for name, want in grads["nchw"].items():
-        if name.endswith("k_proj.bias"):
-            continue        # zero in exact arithmetic, rounding noise here
-        got = grads["flat"][name]
-        cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(),
-                                                    dim=0).item()
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        worst_cos, worst_rel = min(worst_cos, (cos, name)), max(worst_rel, (rel, name))
+    worst_cos, worst_rel = worst_leaf(grads["flat"], grads["nchw"])
     print(f"train cris e2e flat: the backbone's {len(grads['nchw'])} gradients for "
           f'a fixed cotangent on its pyramid, layout "flat" vs "nchw": least '
           f"cosine {worst_cos[0]:.6f} ({worst_cos[1]}; at least "
@@ -1887,25 +1996,15 @@ def phase_train_cris_e2e(fa, profile: bool):
              "visual.bn2.weight", "visual.layer2.1.bn2.bias",
              "visual.layer4.2.bn3.weight")
     start = {k: v.detach().clone() for k, v in model.named_parameters()}
-
-    def first_step():
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(start[name])
-        _, metrics = task.train_step(task.init(), batch)
-        return metrics["loss"].item(), {
-            name: dict(model.named_parameters())[name].grad.detach().float().clone()
-            for name in watch}
-
     before = counts(fa)
-    loss_f, grads_f = first_step()
+    loss_f, grads_f = first_step(task, start, batch, watch)
     grew = minus(counts(fa), before)
     if grew != CRIS_E2E_FLAT_STEP:
         fail(f"train cris e2e flat: the first step launched {grew}, expected "
              f"{CRIS_E2E_FLAT_STEP}")
     with switch_layout(model, "nchw"):
         before = counts(fa)
-        loss_n, grads_n = first_step()
+        loss_n, grads_n = first_step(task, start, batch, watch)
         if minus(counts(fa), before) != CRIS_E2E_STEP:
             fail("train cris e2e flat: the nchw reference step launched K4")
     print(f'train cris e2e flat: first step, layout "flat" vs "nchw" on the same '
@@ -1939,6 +2038,392 @@ def phase_train_cris_e2e(fa, profile: bool):
     if profile:
         profile_step("cris e2e flat", task, state, batch)
     return launches_a, launches_b
+
+
+# --- Slice D: the TransformerSegmentor ----------------------------------------
+
+def ts_config(**kw):
+    """`bench.py`'s trans_seg row: TransSegmentorConfig() at 352^2 with the
+    decoder's dropout off, as the bench builds it."""
+    from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
+    return TransSegmentorConfig(**{"image_size": IMG, "decoder_dropout": 0.0, **kw})
+
+
+def k4_upsampler_case(cf, gen, c: int, cout: int, side: int) -> dict:
+    """One upsampler convolution of phase 19, forward, then its backward
+    (`k4_upsampler_backward`); returns {label: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from tunevlseg_torch.models.trans_segmentor.model import (conv3_flat,
+                                                              flat_operands)
+    from tunevlseg_torch.nn.conv import Conv2d
+    from tunevlseg_torch.nn.layers import init_params
+    label = f"trans_seg upsampler {c}->{cout} {side}^2"
+    conv = Conv2d(c, cout, 3, bias=True)
+    init_params(conv, torch.Generator().manual_seed(side))
+    conv = conv.cuda()
+    x = torch.randn(TS_BATCH, c, side + 2, side + 2, generator=gen,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        flat, spec, weight, offset = flat_operands(x, conv)
+        cp, coutp = flat.shape[-1], weight.shape[0]
+        before = cf.launch_count()
+        out = cf.conv_flat(flat, spec, weight, offset=offset)
+        whole = conv3_flat(x, conv)
+        torch.cuda.synchronize()
+        if cf.launch_count() != before + 2:
+            fail(f"K4 {label}: the wrapper did not count its launches")
+        ref = exact_conv_flat(cf, spec, False, flat, weight, None, offset, None)
+        err = (out.float() - ref).abs().max().item()
+        top = ref.abs().max().item()
+        if not err <= K4_REL_TOL * top:
+            fail(f"K4 {label}: max abs error {err} > {K4_REL_TOL} x {top}")
+        if not bool((out[..., cout:] == 0).all()):
+            fail(f"K4 {label}: the padded output channels are not exactly zero")
+        conv_ref = F.conv2d(x.float(), conv.weight.bfloat16().float(), conv.bias)
+        whole_err = (whole.float() - conv_ref).abs().max().item()
+        if not whole_err <= K4_REL_TOL * conv_ref.abs().max().item():
+            fail(f"K4 {label}: conv3_flat is {whole_err} from F.conv2d")
+        del ref, conv_ref, out, whole
+        ms = cuda_time_ms(lambda: cf.conv_flat(flat, spec, weight, offset=offset), 20)
+        whole_ms = cuda_time_ms(lambda: conv3_flat(x, conv), 20)
+        plain_ms = cuda_time_ms(lambda: plain_conv_flat(
+            cf, spec, False, flat, weight, None, offset, None), 2, warmup=1)
+        w_b, b_b = conv.weight.detach().bfloat16(), conv.bias.detach().bfloat16()
+        lib_ms = cuda_time_ms(lambda: F.conv2d(x, w_b, b_b), 20)
+    bound_ms, bound_by, flops = conv_bound(TS_BATCH, side, 3, c, cout, False)
+    print(f"kernel K4 {label} (b{TS_BATCH}, C {c} -> {cp}, Cout {cout} -> "
+          f"{coutp}, {spec.rows} rows): max_abs_err {err:.6g} against the plain "
+          f"version's f32 value (bound {K4_REL_TOL} x largest |reference| "
+          f"{top:.4g}), padded output "
+          f"channels exactly 0, conv3_flat vs F.conv2d {whole_err:.4g}; "
+          f"kernel {ms:.4f} ms, conv3_flat with its copies {whole_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, F.conv2d bf16 NCHW (the nchw layout's "
+          f"convolution) {lib_ms:.4f} ms, K4 / F.conv2d {ms / lib_ms:.2f}, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% "
+          f"reached; {flops / ms / 1e9:.1f} TFLOP/s of the unpadded work)")
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+           "over_library": ms / lib_ms, "conv3_flat_ms": whole_ms}
+    row.update(k4_upsampler_backward(cf, gen, label, x, conv, flat, spec,
+                                     weight, offset))
+    return {label: row}
+
+
+def k4_upsampler_backward(cf, gen, label: str, x, conv, flat, spec, weight,
+                          offset) -> dict:
+    """The backward of that K4 launch at b32 on the same flat tensors, as
+    the train step runs it behind the trainable decoder: the prologue, dx
+    (one K4 launch from Cout to C, 8 -> 104 for the output convolution over
+    the 354^2 plane), dW and d_offset, against autograd through the plain
+    version in f32 on the same bf16 values (dx on the valid rows, as the
+    gradient contract of `conv_flat` has it, and exactly 0 on the guard and
+    ring rows), each within K4_GRAD_REL_TOL of its largest entry; the time
+    of all three beside `F.conv2d`'s backward (dgrad + wgrad) on the nchw
+    layout's input. Returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.detach().clone().requires_grad_() for t in (flat, weight, offset)]
+    before = cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()
+    out = cf.conv_flat(leaves[0], spec, leaves[1], offset=leaves[2])
+    g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    torch.cuda.synchronize()
+    if (cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()) != (
+            before[0] + 1, before[1] + 1, before[2] + 1):
+        fail(f"K4 backward {label}: expected one forward, one dx and one "
+             "prologue launch")
+    ref_leaves = [flat.detach().float().requires_grad_(),
+                  weight.detach().bfloat16().float().requires_grad_(),
+                  offset.detach().clone().requires_grad_()]
+    pre = plain_conv_flat(cf, spec, False, ref_leaves[0], ref_leaves[1], None,
+                          ref_leaves[2], None)
+    want = torch.autograd.grad(pre, ref_leaves, g.float())
+    del pre, ref_leaves
+    valid = cf._valid_rows(spec, flat.device)
+    if not bool((got[0][:, ~valid] == 0).all()):
+        fail(f"K4 backward {label}: dx is not exactly zero on guard and ring rows")
+    errs = {}
+    for name, a, w in zip(("dx", "dW", "d_offset"), got, want):
+        a, w = a.float(), w.float()
+        if name == "dx":
+            a, w = a[:, valid], w[:, valid]
+        top = w.abs().max().item()
+        errs[name] = (a - w).abs().max().item() / top
+        if not errs[name] <= K4_GRAD_REL_TOL:
+            fail(f"K4 backward {label}: {name} differs by {errs[name]} of its "
+                 f"largest entry {top} (bound {K4_GRAD_REL_TOL})")
+    del got, want
+    ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 5)
+    xl = x.detach().requires_grad_()
+    wl = conv.weight.detach().bfloat16().requires_grad_()
+    y = F.conv2d(xl, wl, conv.bias.detach().bfloat16())
+    gy = torch.randn(y.shape, generator=gen, device="cuda").bfloat16()
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(y, (xl, wl), gy,
+                                                      retain_graph=True), 5)
+    print(f"kernel K4 backward {label}: " + ", ".join(
+        f"{n} {e:.3g}" for n, e in errs.items())
+          + f" of the largest entry (bound {K4_GRAD_REL_TOL}), dx exactly 0 on "
+          f"guard and ring rows; prologue + dx + dW {ms:.4f} ms, F.conv2d "
+          f"backward {lib_ms:.4f} ms ({ms / lib_ms:.2f})")
+    return {"backward_rel_err": max(errs.values()), "backward_ms": ms,
+            "library_backward_ms": lib_ms}
+
+
+def phase_kernels_k4_upsampler(cf):
+    """K4 at the TransformerSegmentor's five upsampler convolutions at b32
+    (`conv3_flat`: the replicate-padded (s+2)^2 plane into flat space with C
+    zero-padded to a multiple of 8, one K4 launch with Cout padded likewise
+    and the bias as its offset, the interior sliced back): the launch against
+    its plain version on the same flat tensors, the whole `conv3_flat`
+    against the nchw layout's `F.conv2d` (cuDNN, VALID on the same padded
+    input), the bound from the unpadded work, and the launch's backward
+    against autograd through the plain version; returns {label: numbers}."""
+    import torch
+
+    from tunevlseg_torch.models.trans_segmentor.model import upsampler_stages
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    results = {}
+    for c, cout, side in upsampler_stages(ts_config()):
+        results.update(k4_upsampler_case(cf, gen, c, cout, side))
+    total = {k: sum(r[k] for r in results.values())
+             for k in ("ms", "conv3_flat_ms", "library_ms", "bound_ms",
+                       "backward_ms", "library_backward_ms")}
+    print(f"kernel K4 trans_seg upsampler, the 5 convolutions at b{TS_BATCH}: "
+          f"K4 {total['ms']:.4f} ms, conv3_flat {total['conv3_flat_ms']:.4f} ms, "
+          f"F.conv2d {total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} "
+          f"ms; backward (prologue + dx + dW) {total['backward_ms']:.4f} ms, "
+          f"F.conv2d backward {total['library_backward_ms']:.4f} ms")
+    return results
+
+
+def siglip_ids(gen, rows: int):
+    """SigLIP-style token ids (vocabulary 32000, 64 positions): 9 words,
+    `</s>` (id 1), then padding (id 1); the attention mask keeps 10."""
+    import torch
+    ids = torch.randint(3, 1000, (rows, PC_SEQ), generator=gen, dtype=torch.int32)
+    ids[:, 9:] = 1
+    mask = torch.zeros_like(ids)
+    mask[:, :10] = 1
+    return ids, mask
+
+
+def phase_trans_seg(fa, profile: bool) -> dict:
+    """The TransformerSegmentor of `bench.py`'s trans_seg row, whole model
+    trainable: three requests (b32 dense, b32 with one prompt, b1), kernel
+    path against plain path; 2 warm-up + 5 timed b32 full fine-tune steps
+    (the loss falls, every parameter with a gradient moves, the first step
+    against the plain path); then the same weights on the flat upsampler
+    (`build_trans_segmentor(upsampler_layout="flat")`): one b32 request and
+    1 + 2 steps, the probabilities, and the first step's loss and the
+    gradients of the last decoder layer and of the upsampler, against
+    "nchw". Returns {path: counts}."""
+    import torch
+
+    from tunevlseg_torch.models.presets import build_trans_segmentor
+    from tunevlseg_torch.serving import task_predict_fn
+    from tunevlseg_torch.training.optim import count_params
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    t0 = time.perf_counter()
+    model, spec = build_trans_segmentor(ts_config(), dtype=torch.bfloat16,
+                                        device="cuda", seed=0)
+    task = SegmentationTask(model, spec, learning_rate=2e-4)
+    flat_model, _ = build_trans_segmentor(ts_config(), upsampler_layout="flat",
+                                          dtype=torch.bfloat16, device="cuda")
+    flat_model.load_state_dict(model.state_dict())
+    flat_task = SegmentationTask(flat_model, spec, learning_rate=2e-4)
+    print(f"trans_seg: TransformerSegmentor (CLIP ViT-B/16 + text, decoder "
+          f"4 x 8 heads, FFN 2048, ReLU, upsampler 5 stages with the sample "
+          f"LayerNorm) at {IMG}^2, bf16 compute over f32 weights, "
+          f"{count_params(model.parameters())} params; the nchw and the flat "
+          f"upsampler's model built in {time.perf_counter() - t0:.1f} s")
+    by_path = {}
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    gen = torch.Generator().manual_seed(50)
+    requests = [("b32 dense", make_request(gen, TS_BATCH, TS_BATCH, IMG), TS_BATCH),
+                ("b32 dedup U=1", make_request(gen, TS_BATCH, 1, IMG), TS_BATCH),
+                ("b1", make_request(gen, 1, 1, IMG), 1)]
+    probs, by_path["serve_trans_seg"] = serve_requests(
+        fa, "serve trans_seg", predict, params, requests, IMG, TS_SERVE)
+    compare_with_plain_path(fa, "serve trans_seg", predict, params,
+                            requests[0][1], probs, "b32 dense")
+    flat_probs, by_path["serve_trans_seg_flat"] = serve_requests(
+        fa, "serve trans_seg flat", task_predict_fn(flat_task), params,
+        requests[:1], IMG, TS_FLAT_SERVE, reps=3)
+    diff = (flat_probs - probs).abs()
+    dmax, dmean = diff.max().item(), diff.mean().item()
+    print(f'serve trans_seg flat: upsampler "flat" vs "nchw" on the same weights, '
+          f"b32 dense probabilities: max abs diff {dmax:.6g} (bound "
+          f"{TS_FLAT_PROB_TOL[0]}), mean {dmean:.6g} (bound {TS_FLAT_PROB_TOL[1]})")
+    if not (dmax <= TS_FLAT_PROB_TOL[0] and dmean <= TS_FLAT_PROB_TOL[1]):
+        fail("serve trans_seg flat: the two upsampler layouts disagree beyond "
+             "the stated bounds")
+    if profile:
+        for label, req, _ in (requests[0], requests[2]):
+            profile_calls(f"serve trans_seg {label}", lambda: predict(params, req))
+    del probs, flat_probs, params
+
+    state = task.init()
+    batch = make_train_batch(TS_BATCH, text_dedup=0, seed=51, img=IMG)
+    if batch["input_ids"].shape[0] != TS_BATCH:
+        fail("train trans_seg: expected dense prompts")
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    print(f"train trans_seg: full fine-tune, {len(trainable)} of "
+          f"{len(start)} leaves trainable "
+          f"({count_params(p for p in model.parameters() if p.requires_grad)} "
+          "values), AdamW lr 2e-4")
+    if len(trainable) != len(start):
+        fail("train trans_seg: the full fine-tune froze parameters")
+    state, losses, by_path["train_trans_seg"] = timed_steps(
+        fa, task, state, batch, "train trans_seg", warmup=2, steps=5,
+        per_step=TS_STEP)
+    if not losses[-1] < losses[0]:
+        fail(f"train trans_seg: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    # the vision tower's post_layernorm feeds only the pooled output, which
+    # the model does not read: it exists (as in the JAX package), gets no
+    # gradient and keeps its value
+    named = dict(model.named_parameters())
+    unread = sorted(n for n in trainable if named[n].grad is None)
+    if unread != ["vision_model.post_layernorm.bias",
+                  "vision_model.post_layernorm.weight"]:
+        fail(f"train trans_seg: leaves without a gradient: {unread}")
+    for name in trainable:
+        if (name in unread) == (not torch.equal(named[name], start[name])):
+            fail(f"train trans_seg: {name} moved without a gradient or did not "
+                 "move with one")
+    print(f"train trans_seg: loss fell {losses[0]:.5f} -> {losses[-1]:.5f} on one "
+          f"fixed batch; {len(trainable) - len(unread)} leaves with a gradient "
+          f"moved, the {len(unread)} without one ({', '.join(unread)}) did not")
+    first_step_kernel_vs_plain(
+        fa, "train trans_seg", task, start, batch,
+        ("vision_model.layers.0.self_attn.q_proj.weight",
+         "text_model.layers.0.self_attn.q_proj.weight",
+         "decoder_layers.0.multihead_attn.q_proj.weight",
+         "decoder_layers.3.self_attn.out_proj.weight",
+         "upsampler.out_conv.weight"))
+    if profile:
+        profile_step("trans_seg", task, task.init(), batch)
+
+    # flat against nchw, the first step from the same weights: the loss, and
+    # the gradients of the upsampler and of the last decoder layer, which
+    # every K4 dx launch of the step lies in front of
+    leaves = tuple(n for n in trainable
+                   if n.startswith(("decoder_layers.3.", "upsampler.")))
+    before = counts(fa)
+    loss_flat, grads_flat = first_step(flat_task, start, batch, leaves)
+    grew = minus(counts(fa), before)
+    if grew != TS_FLAT_STEP:
+        fail(f"train trans_seg flat: the first step launched {grew}, "
+             f"expected {TS_FLAT_STEP}")
+    loss_nchw, grads_nchw = first_step(task, start, batch, leaves)
+    worst_cos, worst_rel = worst_leaf(grads_flat, grads_nchw)
+    print(f'train trans_seg flat: first step, upsampler "flat" vs "nchw" on the '
+          f"same weights: loss {loss_flat:.6f} vs {loss_nchw:.6f} (bound "
+          f"{LOSS_TOL}); over the {len(leaves)} gradients of decoder_layers.3 "
+          f"and the upsampler, least cosine {worst_cos[0]:.6f} ({worst_cos[1]}; "
+          f"at least {GRAD_COS_MIN}), largest max abs diff {worst_rel[0]:.4g} "
+          f"of its leaf's largest entry ({worst_rel[1]}; bound {GRAD_REL_TOL})")
+    if not (abs(loss_flat - loss_nchw) <= LOSS_TOL
+            and worst_cos[0] >= GRAD_COS_MIN and worst_rel[0] <= GRAD_REL_TOL):
+        fail("train trans_seg flat: the two layouts' first steps disagree "
+             "beyond the stated bounds")
+    del grads_flat, grads_nchw
+    _, _, by_path["train_trans_seg_flat"] = timed_steps(
+        fa, flat_task, flat_task.init(), batch, "train trans_seg flat",
+        warmup=1, steps=2, per_step=TS_FLAT_STEP)
+    if profile:
+        profile_step("trans_seg flat", flat_task, flat_task.init(), batch)
+    if torch.equal(flat_model.upsampler.block0_conv.weight,
+                   start["upsampler.block0_conv.weight"]):
+        fail("train trans_seg flat: the upsampler's first convolution did not move")
+    return by_path
+
+
+def phase_phrasecut(fa, profile: bool) -> dict:
+    """`experiment=phrasecut`: SigLIP towers with the existing projections
+    (frozen), decoder 4 x 16 heads of 32 with dropout 0.1, the output bias,
+    DiceCE with lambda_ce 0.2 and BCE weight 5.8, 384^2: one b16 request
+    (one prompt) against the plain path, 1 + 2 dense b16 steps; the towers'
+    and projections' tensors stay bit-identical. Returns {path: counts}."""
+    import torch
+
+    from tunevlseg_torch.models.presets import build_trans_segmentor
+    from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
+    from tunevlseg_torch.ops.losses import LOSS_REGISTRY
+    from tunevlseg_torch.serving import task_predict_fn
+    from tunevlseg_torch.training.optim import count_params
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    t0 = time.perf_counter()
+    config = TransSegmentorConfig.siglip_base(
+        use_existing_proj=True, decoder_num_heads=16, decoder_dropout=0.1,
+        output_bias=-1.748104048321891, image_size=PC_IMG)
+    model, spec = build_trans_segmentor(config, freeze_encoders=True,
+                                        dtype=torch.bfloat16, device="cuda",
+                                        seed=0)
+    task = SegmentationTask(
+        model, spec, loss_fn=LOSS_REGISTRY["dice_ce"],
+        loss_kwargs=dict(lambda_dice=1, lambda_ce=0.2, weight=5.8),
+        learning_rate=2e-5)
+    print(f"phrasecut: TransformerSegmentor with SigLIP towers (768 x 12, "
+          f"{PC_SEQ} text positions) and the existing projections at "
+          f"{PC_IMG}^2, decoder 4 x 16 heads of 32, output bias, bf16 compute, "
+          f"{count_params(model.parameters())} params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    by_path = {}
+    gen = torch.Generator().manual_seed(60)
+    ids, mask = siglip_ids(gen, 1)
+    request = {"image": torch.randint(0, 256, (PC_BATCH, 3, PC_IMG, PC_IMG),
+                                      generator=gen, dtype=torch.uint8),
+               "input_ids": ids, "attention_mask": mask,
+               "text_index": torch.zeros(PC_BATCH, dtype=torch.int32)}
+    request = {k: v.cuda() for k, v in request.items()}
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    probs, by_path["serve_phrasecut"] = serve_requests(
+        fa, "serve phrasecut", predict, params,
+        [("b16 dedup U=1", request, PC_BATCH)], PC_IMG, PC_SERVE, reps=3)
+    compare_with_plain_path(fa, "serve phrasecut", predict, params, request, probs,
+                            "b16 dedup")
+    del probs, params
+
+    state = task.init()
+    ids, mask = siglip_ids(gen, PC_BATCH)
+    batch = {"image": torch.randint(0, 256, (PC_BATCH, 3, PC_IMG, PC_IMG),
+                                    generator=gen, dtype=torch.uint8),
+             "mask": (torch.rand(PC_BATCH, 1, PC_IMG, PC_IMG, generator=gen)
+                      > 0.85).float(),
+             "input_ids": ids, "attention_mask": mask,
+             "valid": torch.ones(PC_BATCH)}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    frozen = [n for n in start if n not in trainable]
+    if not frozen or any(not n.startswith(("text_model.", "vision_model.",
+                                           "text_projection.",
+                                           "visual_projection."))
+                         for n in frozen):
+        fail(f"train phrasecut: frozen leaves {frozen[:4]}...")
+    state, losses, by_path["train_phrasecut"] = timed_steps(
+        fa, task, state, batch, "train phrasecut", warmup=1, steps=2,
+        per_step=PC_STEP)
+    named = dict(model.named_parameters())
+    for name in frozen:
+        if not torch.equal(named[name], start[name]) or named[name].grad is not None:
+            fail(f"train phrasecut: frozen tensor {name} changed or got a gradient")
+    for name in trainable:
+        if torch.equal(named[name], start[name]):
+            fail(f"train phrasecut: trainable leaf {name} did not change")
+    print(f"train phrasecut: {len(trainable)} decoder and upsampler leaves moved, "
+          f"{len(frozen)} tower and projection tensors bit-identical and without "
+          f"a gradient; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if profile:
+        profile_step("phrasecut", task, task.init(), batch)
+    return by_path
 
 
 # --- S1-S4, the variants of K1 that the attention sweeps time ----------------
@@ -2193,25 +2678,40 @@ def main() -> None:
 
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
+
+    def clock(done: str) -> None:
+        print(f"chip_smoke: {done} at {time.perf_counter() - t_start:.1f} s")
+
     name, count = phase_device()
     phase_build()
+    clock("kernels built")
     k1 = phase_kernels(fa)
     k2 = phase_kernels_bwd(fa)
     k3 = phase_kernels_k3(fa)
     library = phase_yardstick()
+    clock("attention kernels checked")
     k4 = phase_kernels_k4(cf)
+    k4.update(phase_kernels_k4_upsampler(cf))
     k4_backward, k4_prologue = phase_kernel_k4_backward(cf)
+    clock("K4 checked")
     by_path = {"serve": phase_serve(fa),
                "train_coop": phase_train_coop(fa, profile),
                "train_e2e": phase_train_e2e(fa, profile),
-               "train_fit_coop": phase_fit_coop(fa),
-               "serve_cris": phase_serve_cris(fa, profile),
-               "train_cris_coop": phase_train_cris(fa, profile),
-               "serve_cris_flat": phase_serve_cris_flat(fa, profile),
-               "train_cris_flat_coop": phase_train_cris_flat(fa)}
+               "train_fit_coop": phase_fit_coop(fa)}
+    clock("CLIPSeg paths")
+    by_path.update({"serve_cris": phase_serve_cris(fa, profile),
+                    "train_cris_coop": phase_train_cris(fa, profile),
+                    "serve_cris_flat": phase_serve_cris_flat(fa, profile),
+                    "train_cris_flat_coop": phase_train_cris_flat(fa)})
     by_path["train_cris_e2e"], by_path["train_cris_e2e_flat"] = \
         phase_train_cris_e2e(fa, profile)
+    clock("CRIS paths")
     by_path.update(phase_slice_b(fa, profile))
+    clock("slice B paths")
+    by_path.update(phase_trans_seg(fa, profile))
+    clock("trans_seg paths")
+    by_path.update(phase_phrasecut(fa, profile))
+    clock("phrasecut paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
@@ -2301,9 +2801,12 @@ def main() -> None:
             "max_abs_err": max(r["max_abs_err"] for r in numbers.values()),
             "main": main, "by_shape": numbers})
     # K1 and K3 run on every path, K2 on those that take a gradient, K4 on the
-    # flat paths, and as dx where the backbone trains
+    # flat paths, and as dx where the flat convolutions' inputs train (the
+    # CRIS backbone's full fine-tune, and the TransformerSegmentor's
+    # upsampler behind its trainable decoder)
     training = tuple(p for p in by_path if p.startswith("train"))
     flat = tuple(p for p in by_path if "flat" in p)
+    flat_training = ("train_cris_e2e_flat", "train_trans_seg_flat")
     for kernel, paths in zip(kernels[:4], (tuple(by_path), training,
                                            tuple(by_path), flat)):
         for path in paths:
@@ -2314,7 +2817,7 @@ def main() -> None:
             fail(f"{path} launched K2 {c[1]} times; it takes no gradient")
         if path not in flat and (c[3] or c[4]):
             fail(f"{path} launched K4; it does not run the flat layout")
-        if (c[4] > 0) != (path == "train_cris_e2e_flat"):
+        if (c[4] > 0) != (path in flat_training):
             fail(f"{path}: {c[4]} K4 dx launches")
         if c[5] != c[4]:
             fail(f"{path}: {c[5]} launches of K4's backward prologue for {c[4]} dx")

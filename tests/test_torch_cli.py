@@ -5,6 +5,7 @@ option of `configs/`, and train -> test -> predict cycles on the CPU
 synthetic BPE merges file as `vocab_path` (tiny configs keep the real
 vocabulary size, so its ids stay in range and `test_loss` stays finite).
 Options of slices not ported yet raise and name their ROADMAP item."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -156,6 +157,127 @@ def test_cris_train_cycle(synth, tmp_path):
     assert 0 <= result["test_dice"] <= 1 and np.isfinite(result["test_loss"])
 
 
+@pytest.mark.parametrize("layout", ["nchw", "flat"])
+def test_trans_segmentor_train_test_predict_then_eval(synth, tmp_path, layout):
+    """`model=trans_seg` (CLIP towers, the whole model trains) through fit ->
+    test -> predict, then the eval entry point from its best checkpoint;
+    `+model.layout=flat` runs the upsampler through the flat convolution."""
+    out = tmp_path / "logs"
+    extra = [] if layout == "nchw" else ["+model.layout=flat"]
+    result = train_mod.main(_common(synth, out) + [
+        "model=trans_seg", "trainer.max_epochs=2", "predict=true",
+        "exp_name=ts_smoke", *extra])
+    assert 0 <= result["test_dice"] <= 1 and np.isfinite(result["test_loss"])
+    assert len(list(Path(result["output_masks_dir"]).glob("*.png"))) == 8
+    run = out / "train" / "ts_smoke"
+    hparams = json.loads((run / "hparams.json").read_text())
+    assert hparams["model/params/trainable"] == hparams["model/params/total"]
+    assert ("layout: flat" in (run / "config.yaml").read_text()) == (
+        layout == "flat")
+    evaluated = eval_mod.main(_common(synth, out) + [
+        "model=trans_seg", f"ckpt_path={run / 'checkpoints'}",
+        "exp_name=ts_eval", *extra])
+    np.testing.assert_allclose(evaluated["test_loss"], result["test_loss"],
+                               rtol=1e-6)
+
+
+def _spiece(path: Path) -> Path:
+    """A synthetic sentencepiece model (tests/test_torch_data.py's pieces),
+    built through transformers' protobuf module: no file, no
+    sentencepiece."""
+    from transformers.convert_slow_tokenizer import import_protobuf
+
+    from tests.test_torch_data import SIGLIP_PIECES
+    proto = import_protobuf().ModelProto()
+    for piece, score, kind in SIGLIP_PIECES:
+        p = proto.pieces.add()
+        p.piece, p.score, p.type = piece, score, kind
+    proto.trainer_spec.model_type = 1   # unigram
+    proto.trainer_spec.unk_id = 0
+    path.write_bytes(proto.SerializeToString())
+    return path
+
+
+def test_trans_segmentor_siglip_train_cycle(synth, tmp_path):
+    """`model=trans_seg_siglip` with the sentencepiece tokenizer: SigLIP
+    towers fed real (synthetic-vocabulary) text, fit -> test."""
+    pytest.importorskip("transformers")
+    spiece = _spiece(tmp_path / "spiece.model")
+    args = [a for a in _common(synth, tmp_path / "logs")
+            if not a.startswith("vocab_path=")]
+    result = train_mod.main(args + [
+        "model=trans_seg_siglip", "tokenizer_family=siglip",
+        f"vocab_path={spiece}", "max_length=64", "predict=false",
+        "exp_name=ts_siglip_smoke"])
+    assert 0 <= result["test_dice"] <= 1 and np.isfinite(result["test_loss"])
+
+
+@pytest.mark.parametrize("overrides", [
+    ["model=trans_seg"], ["model=trans_seg", "+tiny_model=true"],
+    ["model=trans_seg_siglip"], ["experiment=phrasecut"],
+    ["model=trans_seg", "model.upsampler_norm=group", "img_size=416",
+     "model.add_pos_enc=true", "model.decoder_dropout=0.0"]],
+    ids=["trans_seg", "tiny", "siglip", "phrasecut", "options"])
+def test_trans_segmentor_config_matches_jax(overrides):
+    from tunevlseg_tpu.train import trans_segmentor_config as jconfig
+    cfg = compose(CONFIG_DIR, "train", ["ds_name=x", *overrides])
+    assert (dataclasses.asdict(train_mod.trans_segmentor_config(cfg))
+            == dataclasses.asdict(jconfig(cfg)))
+
+
+def test_trans_segmentor_head_dim_96_raises_on_the_card_and_runs_on_the_cpu():
+    """`model=trans_seg_siglip` runs its decoder at 768 / 8 = 96 dims a head,
+    which K1 and K3 are not built for: on a CUDA device the build raises
+    before anything is made (no card needed to see it), naming its ROADMAP
+    item. A tiny model with a 96-dim decoder head builds and runs on the
+    CPU."""
+    from tunevlseg_torch.models.presets import build_trans_segmentor
+    from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
+    cfg = compose(CONFIG_DIR, "train", ["model=trans_seg_siglip", "ds_name=x"])
+    assert train_mod.trans_segmentor_config(cfg).effective_projection_dim == 768
+    with pytest.raises(NotImplementedError, match=r"item 11.*head dim 96"):
+        train_mod.build_model_and_task(cfg, device="cuda")
+    tiny = TransSegmentorConfig.tiny(projection_dim=96, decoder_num_heads=1)
+    with pytest.raises(NotImplementedError, match="'decoder': 96"):
+        build_trans_segmentor(tiny, device=torch.device("cuda"))
+    model, _ = build_trans_segmentor(tiny, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    out = model(torch.randint(3, 999, (2, 12), generator=g),
+                torch.randn(2, 3, 32, 32, generator=g))
+    assert out.shape == (2, 1, 32, 32) and bool(out.isfinite().all())
+
+
+def test_loading_from_disk_leaves_cv2_on_one_thread(synth):
+    """One sample decoded from disk through the port's dataset and train
+    transforms, in a process of its own (cv2's thread count is global): cv2
+    was imported first with its default pool, and afterwards runs on one
+    thread, as the JAX pipeline sets it; the loader's worker threads each
+    decode a sample, so cv2's own threads would multiply with them."""
+    root = synth["data_root"] / "kvasir_polyp"
+    script = f"""
+import cv2
+default = cv2.getNumThreads()
+from tunevlseg_torch.data.datasets import ImageTextMaskDataset
+from tunevlseg_torch.data.tokenizer import CLIPTokenizer
+from tunevlseg_torch.data.transforms import train_transforms
+ds = ImageTextMaskDataset(
+    image_dir={str(root / "images")!r}, mask_dir={str(root / "masks")!r},
+    task_path={str(root / "anns" / "train.json")!r},
+    tokenizer=CLIPTokenizer({str(synth["vocab"])!r}),
+    transforms=train_transforms(32))
+item = ds[0]
+assert item["image"].shape == (3, 32, 32), item["image"].shape
+print("threads", default, cv2.getNumThreads())
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    _, default, after = proc.stdout.split()
+    assert int(after) == 1, (default, after)
+
+
 def test_module_entry_point_text_dedup_cycle(synth, tmp_path):
     """`python -m tunevlseg_torch.train experiment=coop/clipseg` (whose
     data.text_dedup is 1) in a process of its own."""
@@ -194,7 +316,6 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
 
 @pytest.mark.parametrize("override,item", [
     ("pretrained_checkpoint=/x.pt", "item 9"),
-    ("model=trans_seg", "item 6"),
     ("trainer.model_parallel=2", "Do not port"),
     ("trainer.seq_shard=true", "Do not port"),
     ("trainer.fsdp=true", "Slice G"),

@@ -222,10 +222,12 @@ def test_port_runs_without_jax():
     """Every module of the port (the `train` and `eval` entry points
     included), chip_smoke and every scripts/torch_*.py import, and a tiny
     eval and a tiny train step of CLIPSeg (CoOp and the five other
-    strategies) and of CRIS (CoOp, CoCoOp, flat, e2e) and a tiny
-    `Trainer.fit` with its checkpoints run, with jax/flax/optax (and regex)
-    unimportable; afterwards neither a module of jax nor one of the JAX
-    package has been loaded."""
+    strategies), of CRIS (CoOp, CoCoOp, flat, e2e) and of the
+    TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts)
+    and a tiny `Trainer.fit` with its checkpoints run, with jax/flax/optax
+    (and regex) unimportable; afterwards neither a module of jax nor one of
+    the JAX package has been loaded, and the fit from memory loaded no
+    cv2."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -334,6 +336,30 @@ def test_port_runs_without_jax():
         key = "neck.aggr.bn.running_mean"
         assert not torch.equal(estate2.model_state[key], estate.model_state[key])
         assert torch.equal(e2e.neck.aggr.bn.running_mean, estate.model_state[key])
+        # the TransformerSegmentor: both tower families serve and train; the
+        # flat upsampler serves from the same weights
+        from tunevlseg_torch.models.presets import build_trans_segmentor
+        from tunevlseg_torch.models.trans_segmentor.model import (
+            TransSegmentorConfig)
+        for name in ("tunevlseg_torch.models.trans_segmentor.model",
+                     "tunevlseg_torch.models.trans_segmentor.siglip"):
+            assert name in sys.modules, name
+        for family in ("clip", "siglip"):
+            ts_cfg = TransSegmentorConfig.tiny(encoder_family=family)
+            ts, ts_spec = build_trans_segmentor(ts_cfg, device="cpu")
+            ts_task = SegmentationTask(ts, ts_spec)
+            ts_probs = ts_task.predict_step(batch)
+            assert ts_probs.shape == (2, 1, 32, 32), family
+            ts_flat, _ = build_trans_segmentor(ts_cfg, upsampler_layout="flat",
+                                               device="cpu")
+            ts_flat.load_state_dict(ts.state_dict())
+            flat_probs = SegmentationTask(ts_flat).predict_step(batch)
+            assert (flat_probs - ts_probs).abs().max() < 1e-5, family
+            before = ts.vision_model.layers[0].mlp.fc1.weight.detach().clone()
+            ts_state, ts_metrics = ts_task.train_step(ts_task.init(), batch)
+            assert bool(ts_metrics["loss"].isfinite()), family
+            assert not torch.equal(ts.vision_model.layers[0].mlp.fc1.weight,
+                                   before), family
         # the training and evaluation entry points and their modules: a tiny
         # fit with checkpoints over the port's loader, then a restore
         for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",
@@ -342,6 +368,7 @@ def test_port_runs_without_jax():
                      "tunevlseg_torch.data.tokenizer",
                      "tunevlseg_torch.data.transforms",
                      "tunevlseg_torch.data.datasets",
+                     "tunevlseg_torch.data.opencv",
                      "tunevlseg_torch.data.open_domain",
                      "tunevlseg_torch.models.prompt.init_text",
                      "tunevlseg_torch.config.composer",
@@ -367,6 +394,7 @@ def test_port_runs_without_jax():
         back = CheckpointManager(out + "/checkpoints", model).restore(
             "last", task.init())
         assert back.step == fit_state.step == 2
+        assert "cv2" not in sys.modules     # loading from memory needs none
         loaded = [m for m in sys.modules
                   if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")
                   or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")

@@ -64,6 +64,9 @@ K1_EDGES = [
     *K1_EDGES,
     ((64, 676, 8, 64), 676, None),     # CRIS decoder
     ((16, 485, 4, 16), 485, None),     # CLIPSeg decoder in the e2e step (b16)
+    ((32, 485, 8, 64), 485, None),     # TransformerSegmentor decoder (b32)
+    ((16, 576, 12, 64), 576, None),    # SigLIP vision tower at 384^2 (b16)
+    ((16, 576, 16, 32), 576, None),    # PhraseCut's decoder, D = 32
 ])
 def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
     q, k, v = _qkv(cuda, *shape, t=t)
@@ -143,6 +146,8 @@ def _assert_k2_close(got, want):
     ((4, 130, 2, 32), 130, None),
     ((4, 489, 3, 64), 489, None),
     ((4, 485, 2, 16), 512, 485),       # S != T, masked keys, D = 16
+    ((32, 485, 8, 64), 485, None),     # TransformerSegmentor decoder (b32)
+    ((16, 576, 16, 32), 576, None),    # PhraseCut's decoder, D = 32
 ])
 @pytest.mark.parametrize("strided_g", [False, True], ids=["g", "strided_g"])
 def test_k2_matches_plain_version(cuda, shape, t, kv_valid, strided_g):
@@ -449,6 +454,11 @@ K3_EDGES = [
     ("text U=1", (1, 77, 8, 64), 77, None),
     ("text U=64", (64, 77, 8, 64), 77, None),
     ("cris cross", (64, 676, 8, 64), 77, None),
+    # the TransformerSegmentor's cross-attention into the text (key-pad
+    # bias): CLIP at b32, PhraseCut's SigLIP at b16; SigLIP's padded text
+    ("trans_seg cross", (32, 485, 8, 64), 77, None),
+    ("phrasecut cross d32", (16, 576, 16, 32), 64, None),
+    ("siglip pad-only text", (16, 64, 12, 64), 64, None),
     ("cross d32 kv_valid", (3, 70, 2, 32), 130, 99),
     ("full bias d16", (2, 100, 4, 16), 50, 45),
     ("no bias S != T", (3, 70, 2, 32), 130, None),
@@ -1019,3 +1029,42 @@ def test_small_strategy_step_kernel_path_matches_plain_path(cuda, strategy):
         among = worst_difference(grads_f, grads_p)
         print(f"cocoop: the two plain paths among themselves {among:.4f}")
         assert 2 * among >= worst
+
+
+@pytest.mark.parametrize("c,cout,side", [(104, 1, 40), (206, 104, 30),
+                                         (512, 410, 39)])
+def test_k4_upsampler_convolution_with_padded_channels(cuda, c, cout, side):
+    """The TransformerSegmentor's flat upsampler convolution (`conv3_flat`):
+    C and Cout zero-padded to multiples of 8 around one K4 launch (104 -> 1
+    as 104 -> 8), against `F.conv2d` on the same bf16-rounded operands in
+    f32, forward (K4_REL_TOL of the largest entry) and, through one dx and
+    one prologue launch, the input, weight and bias gradients (1e-2 of the
+    largest entry)."""
+    from tunevlseg_torch.models.trans_segmentor.model import conv3_flat
+    from tunevlseg_torch.nn.conv import Conv2d
+    from tunevlseg_torch.nn.layers import init_params
+    g = torch.Generator(device=cuda).manual_seed(4)
+    conv = Conv2d(c, cout, 3, bias=True)
+    init_params(conv, torch.Generator().manual_seed(4))
+    conv = conv.to(cuda)
+    x = torch.randn(2, c, side + 2, side + 2, generator=g, device=cuda).bfloat16()
+    x.requires_grad_()
+    counts = cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()
+    out = conv3_flat(x, conv)
+    dy = torch.randn(out.shape, generator=g, device=cuda).bfloat16()
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count()) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    assert out.shape == (2, cout, side, side) and out.dtype == torch.bfloat16
+    xr = x.detach().float().requires_grad_()
+    wr = conv.weight.detach().bfloat16().float().requires_grad_()
+    br = conv.bias.detach().float().requires_grad_()
+    ref = torch.nn.functional.conv2d(xr, wr, br)
+    top = ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= K4_REL_TOL * top
+    ref.backward(dy.float())
+    for name, got, want in (("dx", x.grad, xr.grad), ("dw", conv.weight.grad, wr.grad),
+                            ("db", conv.bias.grad, br.grad)):
+        top = want.abs().max().item()
+        assert (got.float() - want).abs().max().item() <= 1e-2 * top, name

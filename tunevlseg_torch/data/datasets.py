@@ -16,8 +16,8 @@ dynamic-padding collator of the reference (data_collator.py:8) is
 intentionally gone (SURVEY §2.3 consequence note).
 
 The port's own copy of `tunevlseg_tpu/data/datasets.py`. Images decode
-through cv2, imported at first use (the JAX package's native libjpeg /
-libpng codec is not ported: ROADMAP "Do not port").
+through cv2, imported at first use by `data/opencv.py` (the JAX package's
+native libjpeg / libpng codec is not ported: ROADMAP "Do not port").
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from typing import Any, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
+from tunevlseg_torch.data.opencv import cv2 as _cv2
 from tunevlseg_torch.data.tokenizer import CLIPTokenizer
 from tunevlseg_torch.data.transforms import Compose, to_chw
 
@@ -41,7 +42,7 @@ def load_image(path: StrOrPath, flags: int = IMREAD_COLOR,
                cvt_color: Optional[int] = COLOR_BGR2RGB) -> np.ndarray:
     """Decode an image to RGB (or grayscale, or cv2's BGR with
     `cvt_color=None`) with cv2."""
-    import cv2
+    cv2 = _cv2()
     img = cv2.imread(str(path), flags)
     if img is None:
         raise FileNotFoundError(f"could not read image: {path}")

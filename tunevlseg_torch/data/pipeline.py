@@ -12,7 +12,9 @@ The port's own copy of `tunevlseg_tpu/data/pipeline.py`:
     the arrays there through pinned memory without blocking the host.
 
 Unlike the JAX module this one does not import cv2 (the JAX loader imports
-it only to set its thread count), so that loading from memory needs none.
+it only to set its thread count), so that loading from memory needs none;
+the datasets and transforms that decode take cv2 from `data/opencv.py`,
+which sets that thread count.
 """
 from __future__ import annotations
 

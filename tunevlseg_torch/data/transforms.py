@@ -12,8 +12,9 @@ reproducibility (the reference relies on global seeding —
 src/train.py:67-68).
 
 The port's own copy of `tunevlseg_tpu/data/transforms.py`. cv2 is imported
-where a transform runs, so that importing this module needs none; the
-defaults name cv2's constants by their values."""
+where a transform runs (through `data/opencv.py`, which keeps it on one
+thread), so that importing this module needs none; the defaults name cv2's
+constants by their values."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,14 +22,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from tunevlseg_torch.data.opencv import cv2 as _cv2
+
 # cv2's values of the flags the defaults use (stable across OpenCV releases)
 INTER_NEAREST, INTER_CUBIC = 0, 2
 BORDER_REPLICATE = 1
-
-
-def _cv2():
-    import cv2
-    return cv2
 
 
 class Transform:

@@ -1,8 +1,11 @@
 """Named model presets.
 
 Counterpart of `tunevlseg_tpu/models/presets.py` for the CLIPSeg and CRIS
-families. The flagship model is CLIPSeg ViT-B/16 ("CIDAS/clipseg-rd64") with
-CoOp prompts; CRIS is CLIP RN50 with the FPN / decoder / projector head.
+families, and of the TransformerSegmentor's build in `tunevlseg_tpu/train.py`.
+The flagship model is CLIPSeg ViT-B/16 ("CIDAS/clipseg-rd64") with CoOp
+prompts; CRIS is CLIP RN50 with the FPN / decoder / projector head; the
+TransformerSegmentor is CLIP ViT-B/16 (or SigLIP) towers with a transformer
+decoder and a convolutional upsampler, fine-tuned whole.
 Weights are random, drawn from one seeded `torch.Generator` on the CPU (so a
 seed gives the same weights on every device), until converted weights are
 loaded over them (`tunevlseg_torch/convert/from_jax.py`).
@@ -20,7 +23,10 @@ from tunevlseg_torch.models.clipseg.model import (CLIPSegForSegmentation,
 from tunevlseg_torch.models.cris.model import CRISConfig, CRISForSegmentation
 from tunevlseg_torch.models.prompt.learners import (LEARNER_REGISTRY,
                                                     CoCoOpLearner, CoOpLearner)
+from tunevlseg_torch.models.trans_segmentor.model import (TransformerSegmentor,
+                                                          TransSegmentorConfig)
 from tunevlseg_torch.nn.layers import init_params
+from tunevlseg_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 from tunevlseg_torch.training.optim import FreezeSpec
 
 
@@ -178,3 +184,51 @@ def build_cris(strategy: Optional[str] = "coop", prompt_depth: int = 1,
     # tensors (models/cris/resnet.py); shapes and state_dict names stay
     model.to(device).visual.to(memory_format=torch.channels_last)
     return model, spec
+
+
+def trans_segmentor_head_dims(config: TransSegmentorConfig) -> dict[str, int]:
+    """The head dim of each attention of the model: the two towers' and the
+    decoder's (its width over `decoder_num_heads`)."""
+    c = config
+    return {"text tower": c.text.hidden_size // c.text.num_heads,
+            "vision tower": c.vision.hidden_size // c.vision.num_heads,
+            "decoder": c.effective_projection_dim // c.decoder_num_heads}
+
+
+def build_trans_segmentor(config: Optional[TransSegmentorConfig] = None,
+                          freeze_encoders: bool = False,
+                          upsampler_layout: str = "nchw",
+                          dtype: torch.dtype = torch.float32, device="cuda",
+                          seed: int = 0
+                          ) -> tuple[TransformerSegmentor, FreezeSpec]:
+    """The TransformerSegmentor (by default the CLIP ViT-B/16 one of
+    `bench.py`'s trans_seg row) with seeded random f32 weights on `device`,
+    and its freeze spec: `freeze_encoders` freezes the towers and the
+    existing projections; a fresh text projection (`use_existing_proj`
+    False) always trains; the decoder and the upsampler always train. The
+    device rule is `build_clipseg`'s. `upsampler_layout="flat"` runs the
+    upsampler's convolutions through K4 (channels padded to multiples of 8);
+    the default "nchw" through cuDNN.
+
+    On a CUDA device every attention of the model runs on K1 / K3, which
+    are built for head dims 16, 32 and 64: a model with another head dim
+    (`model=trans_seg_siglip`, whose decoder is 768 wide with 8 heads: 96)
+    raises here, before anything is built."""
+    cfg = config or TransSegmentorConfig()
+    if torch.device(device).type == "cuda":
+        unbuilt = {k: d for k, d in trans_segmentor_head_dims(cfg).items()
+                   if d not in SUPPORTED_HEAD_DIMS}
+        if unbuilt:
+            raise NotImplementedError(
+                f"head dims {unbuilt}: K1 and K3 are built for "
+                f"{SUPPORTED_HEAD_DIMS}; a TransformerSegmentor with another "
+                "head dim runs on the card with ROADMAP Queue 1 item 11 (K1, "
+                "K2 and K3 at head dim 96); on the CPU it builds and runs")
+    model = TransformerSegmentor(cfg, upsampler_layout=upsampler_layout,
+                                 dtype=dtype)
+    init_params(model, torch.Generator().manual_seed(seed))
+    spec = FreezeSpec(
+        freeze_all=False, freeze_encoder=freeze_encoders,
+        family="trans_segmentor",
+        always_trainable=(() if cfg.use_existing_proj else ("text_projection",)))
+    return model.to(device), spec

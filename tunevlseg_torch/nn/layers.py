@@ -86,9 +86,11 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """Flax `nn.LayerNorm(dtype=..., use_bias=bias)`: f32 statistics and
-    affine, output in the compute dtype."""
+    affine, output in the compute dtype. A tuple `dim` normalises over that
+    many trailing axes with an affine of that shape (torch's
+    `nn.LayerNorm((C, H, W))`)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5,
+    def __init__(self, dim: int | tuple[int, ...], eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__()
         self.dtype = dtype

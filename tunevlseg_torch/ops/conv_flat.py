@@ -147,15 +147,17 @@ def make_flat_spec(h: int, w: int, r: int = 1, mb: Optional[int] = None,
     return spec
 
 
-def flat_begin(x_nhwc: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+def flat_begin(x_nhwc: torch.Tensor, spec: FlatSpec,
+               channels: Optional[int] = None) -> torch.Tensor:
     """(B, H, W, C) -> flat (B, ROWS, C) with zero pads and guard bands: one
-    zero fill and one strided copy (any layout of `x_nhwc` is read in place)."""
+    zero fill and one strided copy (any layout of `x_nhwc` is read in place).
+    `channels` > C zero-pads the channels too, to (B, ROWS, channels)."""
     b, h, w, c = x_nhwc.shape
     assert (h, w) == (spec.h, spec.w), (tuple(x_nhwc.shape), spec)
     r = spec.r
-    flat = x_nhwc.new_zeros(b, spec.rows, c)
+    flat = x_nhwc.new_zeros(b, spec.rows, channels or c)
     plane = flat[:, spec.mb:spec.mb + spec.mp].unflatten(1, (spec.hp, spec.wp))
-    plane[:, r:spec.hp - r, r:spec.wp - r] = x_nhwc
+    plane[:, r:spec.hp - r, r:spec.wp - r, :c] = x_nhwc
     return flat
 
 

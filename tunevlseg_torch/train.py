@@ -12,10 +12,12 @@ without that key the CLI raises.
 It covers the families ported so far: CLIPSeg with the six prompt
 strategies (`coop/*`, `cocoop/*`, `vpt`, `maple`, `shared_*`), its e2e
 fine-tune and zero-shot-segmentation variant (`e2e_clipseg`,
-`clipseg_zss`), and CRIS (`coop/cris`, `cocoop/cris`, `e2e_cris`,
-`cris_zss`; `+model.layout=flat` runs its backbone through the flat
-convolution). Options of slices not ported yet raise and name their ROADMAP
-item.
+`clipseg_zss`), CRIS (`coop/cris`, `cocoop/cris`, `e2e_cris`, `cris_zss`;
+`+model.layout=flat` runs its backbone through the flat convolution), and
+the TransformerSegmentor (`model=trans_seg`, `model=trans_seg_siglip`,
+`experiment=phrasecut`; `+model.layout=flat` runs its upsampler through the
+flat convolution). Options of slices not ported yet raise and name their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from tunevlseg_torch.data.datasets import ImageTextMaskDataset
 from tunevlseg_torch.data.pipeline import DataLoader
 from tunevlseg_torch.data.tokenizer import load_default_tokenizer
 from tunevlseg_torch.data.transforms import eval_transforms, train_transforms
-from tunevlseg_torch.models.presets import build_clipseg, build_cris
+from tunevlseg_torch.models.presets import (build_clipseg, build_cris,
+                                            build_trans_segmentor)
+from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
 from tunevlseg_torch.ops.losses import LOSS_REGISTRY
 from tunevlseg_torch.training.loop import EarlyStopping, Trainer
 from tunevlseg_torch.training.optim import ReduceLROnPlateau, count_params
@@ -44,7 +48,6 @@ CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 # model families without a port yet, and the ROADMAP item each waits for
 UNPORTED_FAMILIES = {
-    "trans_segmentor": "ROADMAP Queue 1 item 6 (Slice D, TransformerSegmentor)",
     "denseclip": "ROADMAP Queue 1 item 7 (Slice E, DenseCLIP)",
     "zero_shot_ris": "ROADMAP Queue 1 item 8 (Slice F, zero-shot RIS)",
 }
@@ -58,7 +61,7 @@ def check_ported(cfg: dict) -> None:
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")
-    if family not in ("clipseg", "cris"):
+    if family not in ("clipseg", "cris", "trans_segmentor"):
         raise NotImplementedError(f"model family {family}")
     if cfg.get("pretrained_checkpoint"):
         raise NotImplementedError(
@@ -196,6 +199,15 @@ def build_model_and_task(cfg: dict, tokenizer=None, pretrained=None,
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[
         cfg["trainer"].get("precision", "f32")]
 
+    if family == "trans_segmentor":
+        # the towers train unless freeze_encoders; no prompt learner
+        model, spec = build_trans_segmentor(
+            trans_segmentor_config(cfg),
+            freeze_encoders=bool(m.get("freeze_encoders", False)),
+            upsampler_layout=m.get("layout", "nchw"), dtype=dtype,
+            device=device, seed=cfg.get("seed", 0))
+        return model, _make_task(cfg, model, spec)
+
     init_emb, num_context = _initializer_embeddings(cfg, tokenizer, pretrained)
     common = dict(
         strategy=m.get("strategy", "coop"),
@@ -231,6 +243,39 @@ def build_model_and_task(cfg: dict, tokenizer=None, pretrained=None,
         model, spec = build_cris(config=config,
                                  layout=m.get("layout", "nchw"), **common)
     return model, _make_task(cfg, model, spec)
+
+
+def trans_segmentor_config(cfg: dict) -> TransSegmentorConfig:
+    """The TransSegmentorConfig of the composed config (the JAX CLI's
+    `trans_segmentor_config`): the tiny, the SigLIP-base or the default
+    (CLIP ViT-B/16) base, with the `model` group's options over it; tiny
+    keeps its scaled-down decoder and upsampler."""
+    m = cfg["model"]
+    tiny = bool(cfg.get("tiny_model"))
+    if tiny:
+        base = TransSegmentorConfig.tiny()
+    elif m.get("encoder_family", "clip") == "siglip":
+        base = TransSegmentorConfig.siglip_base()
+    else:
+        base = TransSegmentorConfig()
+    overrides = dict(
+        encoder_family=m.get("encoder_family", "clip"),
+        use_existing_proj=m.get("use_existing_proj", True),
+        add_pos_enc=m.get("add_pos_enc", False),
+        decoder_dropout=m.get("decoder_dropout", 0.1),
+        decoder_activation=m.get("decoder_activation", "relu"),
+        upsampler_act=m.get("upsampler_act", "relu"),
+        upsampler_norm=m.get("upsampler_norm", "layer"),
+        num_output_channels=m.get("num_output_channels", 1),
+        output_bias=m.get("output_bias"),
+        image_size=cfg.get("img_size"))
+    if not tiny:
+        overrides.update(
+            decoder_num_layers=m.get("decoder_num_layers", 4),
+            decoder_num_heads=m.get("decoder_num_heads", 8),
+            decoder_dim_feedforward=m.get("decoder_dim_feedforward", 2048),
+            num_upsampler_layers=m.get("num_upsampler_layers", 5))
+    return dataclasses.replace(base, **overrides)
 
 
 def _make_task(cfg: dict, model, spec):

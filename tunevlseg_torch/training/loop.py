@@ -23,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from tunevlseg_torch.data.opencv import cv2 as _cv2
 from tunevlseg_torch.data.pipeline import DataLoader, device_batch
 from tunevlseg_torch.ops.metrics import SegMetricState, compute
 from tunevlseg_torch.training.checkpoint import CheckpointManager
@@ -396,7 +397,7 @@ class Trainer:
         at its sample's original resolution (bicubic, as the reference's
         save_utils), which needs cv2."""
         if save_dir is not None:
-            import cv2
+            cv2 = _cv2()
         if use_best and (self.ckpt.dir / "best").exists():
             state = self.ckpt.restore("best", state)
         outputs = []
