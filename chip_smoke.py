@@ -140,7 +140,11 @@ Phases, each printing its numbers on lines of its own:
      phase 4's yardstick and K3's cases gain the TransformerSegmentor's and
      PhraseCut's attention shapes: b32·485·12·64, b32·485·8·64,
      b16·576·12·64, b16·576·16·32 (D = 32), the cross-attentions 485 -> 77
-     and 576 -> 64 and SigLIP's 64 padded text tokens);
+     and 576 -> 64 and SigLIP's 64 padded text tokens; K4's backward there
+     against its bound; and DenseCLIP's: K1 / K2 at
+     b16·257·32·64, also with the keys from 129 on masked, and at
+     b2·1601·12·64; K3 at the text's 150·13·8·64 and 2400·13·8·64 under the
+     causal bias, and unbiased from 150 queries into 257 and 1601 keys);
  20. serve and train, TransformerSegmentor (`bench.py`'s trans_seg row: CLIP
      ViT-B/16 and text towers at 352^2, decoder 4 x 8 heads, upsampler 5
      stages, everything trainable, AdamW lr 2e-4, seeded random weights):
@@ -160,10 +164,28 @@ Phases, each printing its numbers on lines of its own:
      against the plain path (16 K1, 16 K3), 1 + 2 b16 dense steps (16 K1, 4
      K2, 16 K3), the towers' and projections' tensors bit-identical and
      without a gradient, every decoder and upsampler leaf moved.
+ 22. serve and train, DenseCLIP (the ADE-150 recipe: RN50 at 512^2, text 12
+     x 8 heads over 150 classes x 13 tokens, context decoder, FPN head,
+     AdamW 1e-4 with the backbone at x 0.1, poly + a 2-step warm-up, bn_train;
+     seeded random weights, synthetic class ids): a b16 whole-image request
+     and a 6-window slide request (one 512 x 2048 image, crop 512, stride 341)
+     through `models/denseclip/inference.py`, 1 K1 and 15 K3 per forward, the
+     class probabilities against the plain path, every K1 / K3 launch of a
+     forward against its plain version on the path's own tensors; the same
+     weights on `backbone_layout="flat"` (+54 K4), every K4 launch against
+     its plain version on the path's own tensors, the log-probabilities
+     against "nchw"; 1 + 3 b16 train steps (1 K1, 1 K2, 15 K3 a step):
+     contexts, gamma, backbone and head weights and the BatchNorm statistics
+     in the state move, the text encoder stays bit-identical, the first
+     step's loss (relative gap 1e-3) and gradients (cosine 0.999, max diff
+     0.1 of the largest entry; the context decoder's cross-attention v_proj
+     and output projection among them) against the plain path; then ViT-B/16
+     at 640^2, one b2 request (12 K1, 15 K3) against the plain path and on
+     its own tensors.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
-b64 and b1 forwards, on both layouts, and of the TransformerSegmentor's b32
-and b1 requests.
+b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
+and b1 requests and of DenseCLIP's b16 request.
 The second-to-last line is a JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero.
@@ -316,6 +338,12 @@ TS_VISION = (TS_BATCH, 485, 12, 64)
 TS_DECODER = (TS_BATCH, 485, 8, 64)
 PC_VISION = (PC_BATCH, 576, 12, 64)    # SigLIP at 384^2: 24 x 24 tokens
 PC_DECODER = (PC_BATCH, 576, 16, 32)   # 512 wide, 16 heads: D = 32
+# DenseCLIP (ADE-150): RN50 at 512^2 in batches of 16, ViT-B/16 at 640^2 in 2;
+# 150 class rows of 5 + 8 = 13 text tokens
+DC_BATCH, DC_IMG, DC_VIT_BATCH, DC_VIT_IMG = 16, 512, 2, 640
+DC_CLASSES, DC_TEXT = 150, 13
+DC_POOL = (DC_BATCH, 257, 32, 64)
+DC_VIT = (DC_VIT_BATCH, 1601, 12, 64)
 F32_MIN = -3.4028234663852886e38       # what the models' biases mask with
 
 
@@ -430,6 +458,13 @@ TS_SHAPES = (("trans_seg vision", TS_VISION, None),
              ("trans_seg decoder", TS_DECODER, None),
              ("phrasecut vision", PC_VISION, None),
              ("phrasecut decoder d32", PC_DECODER, None))
+# DenseCLIP: the RN50 attention pool at 512^2 (16^2 + 1 tokens, 32 heads: one
+# valid row in the last 128-row query tile, one valid key in the last 64-key
+# tile), the same with the keys from 129 on masked (masked dk / dv rows
+# exactly zero), and the ViT-B/16 at 640^2 (40^2 + 1 tokens)
+DC_SHAPES = (("denseclip pool", DC_POOL, None),
+             ("denseclip pool kv_valid 129", DC_POOL, 129),
+             ("denseclip vit", DC_VIT, None))
 
 
 def kernel_cases(gen):
@@ -441,7 +476,7 @@ def kernel_cases(gen):
                              ("e2e vision", E2E_VISION, None),
                              ("e2e decoder", E2E_DECODER, None),
                              ("cris decoder", CRIS_DECODER, None),
-                             *TS_SHAPES):
+                             *TS_SHAPES, *DC_SHAPES):
         yield label, shape, kv, tuple(
             torch.randn(*shape, generator=gen, device="cuda").bfloat16()
             for _ in range(4))
@@ -642,11 +677,14 @@ def k3_cases(gen):
         bias[..., first:] = F32_MIN
         return bias
 
-    causal = torch.triu(torch.full((SEQ, SEQ), F32_MIN, device="cuda"), 1)[None, None]
+    def causal(t):
+        return torch.triu(torch.full((t, t), F32_MIN, device="cuda"), 1)[None, None]
+
+    causal_77 = causal(SEQ)
     for label, b, s in (("text U=1", 1, SEQ), ("text U=64", BATCH, SEQ),
                         ("cris cross", BATCH, 676)):
         # min + min overflows to -inf where a key is both future and padding
-        bias = key_pad(b) + causal if s == SEQ else key_pad(b)
+        bias = key_pad(b) + causal_77 if s == SEQ else key_pad(b)
         yield label, (b, s, 8, 64), SEQ, None, bias, (
             rnd(b, s, 8, 64), rnd(b, SEQ, 8, 64), rnd(b, SEQ, 8, 64))
 
@@ -682,7 +720,21 @@ def k3_cases(gen):
             ("phrasecut cross d32", (PC_BATCH, 576, 16, 32), PC_SEQ, None,
              lambda: key_pad(PC_BATCH, PC_SEQ)),
             ("siglip text b16", (PC_BATCH, PC_SEQ, 12, 64), PC_SEQ, None,
-             lambda: key_pad(PC_BATCH, PC_SEQ))):
+             lambda: key_pad(PC_BATCH, PC_SEQ)),
+            # DenseCLIP's text encoder: 13 tokens under the causal bias, one
+            # 80-key tile with 67 keys masked, over the 150 class rows a
+            # forward runs (and over 16 x 150 rows); the context decoder's
+            # cross-attention, unbiased, from 150 class queries into the RN50
+            # pool's 257 tokens and the ViT's 1601 (streamed keys, S = 150 not
+            # a multiple of 128)
+            ("denseclip text", (DC_CLASSES, DC_TEXT, 8, 64), DC_TEXT, None,
+             lambda: causal(DC_TEXT)),
+            ("denseclip text 2400 rows", (DC_BATCH * DC_CLASSES, DC_TEXT, 8, 64),
+             DC_TEXT, None, lambda: causal(DC_TEXT)),
+            ("denseclip cross 257", (DC_BATCH, DC_CLASSES, 4, 64), 257, None,
+             lambda: None),
+            ("denseclip vit cross 1601", (DC_VIT_BATCH, DC_CLASSES, 4, 64), 1601,
+             None, lambda: None)):
         yield label, (b, s, h, d), t, kv, make(), (rnd(b, s, h, d), rnd(b, t, h, d),
                                                    rnd(b, t, h, d))
 
@@ -720,8 +772,9 @@ def phase_kernels_k3(fa):
         plain_ms = cuda_time_ms(lambda: fa.biased_attention_ref(q, k, v, bias, kv_valid=kv), 10)
         # one PyTorch call for the same function: a mask of 0 / dtype-min as
         # booleans, any other bias added in q's dtype; kv_valid as masked keys
-        masks_only = bool(((bias == 0) | (bias < -1e30)).all())
-        mask = (bias > -1e30) if masks_only else bias.to(q.dtype)
+        masks_only = bias is None or bool(((bias == 0) | (bias < -1e30)).all())
+        mask = (None if bias is None else (bias > -1e30) if masks_only
+                else bias.to(q.dtype))
         if kv is not None:
             keys = torch.arange(t, device="cuda") < kv
             mask = mask & keys if masks_only else mask.masked_fill(~keys, float("-inf"))
@@ -730,7 +783,8 @@ def phase_kernels_k3(fa):
             qt, kt, vt, attn_mask=mask), 50)
         # each input read once (the keys up to kv_valid), the output written
         # once; the bias at the size it is stored at, not at (B, H, S, T)
-        nbytes = 2 * (2 * q.numel() + 2 * b * t_valid * h * d) + 4 * bias.numel()
+        nbytes = 2 * (2 * q.numel() + 2 * b * t_valid * h * d) + (
+            0 if bias is None else 4 * bias.numel())
         bound_ms, bound_by, flops = attention_bound(0, 4, b, s, h, d, t_valid, nbytes)
         row = {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -743,8 +797,8 @@ def phase_kernels_k3(fa):
                 lambda: fa.biased_attention(q, k, v, bias)) for _ in range(3))
             host = (f", host {row['host_us']:.2f} us per biased_attention call "
                     "(perf_counter over 1000 calls, no synchronize, the least of 3 rounds)")
-        print(f"kernel K3 {label} q{(b, s, h, d)} k{tuple(k.shape)} kv_valid {kv} bias"
-              f"{tuple(bias.shape)}: max_abs_err {err:.6g} (bound {KERNEL_TOL}), two calls "
+        print(f"kernel K3 {label} q{(b, s, h, d)} k{tuple(k.shape)} kv_valid {kv} bias "
+              f"{None if bias is None else tuple(bias.shape)}: max_abs_err {err:.6g} (bound {KERNEL_TOL}), two calls "
               f"bit-identical, kernel {ms:.4f} ms by events, device {device_ms:.4f} ms by "
               f"torch.profiler ({flops / device_ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, scaled_dot_product_attention with the same "
@@ -769,7 +823,7 @@ def phase_yardstick():
                              ("e2e vision", E2E_VISION, None),
                              ("e2e decoder", E2E_DECODER, None),
                              ("cris decoder", CRIS_DECODER, None),
-                             *TS_SHAPES):
+                             *TS_SHAPES, *DC_SHAPES):
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       .bfloat16().transpose(1, 2) for _ in range(4))
         # kv_valid as a boolean key mask (True = attend)
@@ -811,15 +865,22 @@ def make_request(gen, batch: int, unique_prompts: int, img: int = IMG,
     return {k: v.cuda() for k, v in req.items()}
 
 
-def check_probs(label: str, probs, batch: int, img: int = IMG) -> None:
+def check_probs(label: str, probs, batch: int, img, classes: int = 1) -> None:
+    """(batch, classes, H, W) finite probabilities in [0, 1] (`img` is H = W
+    or (H, W)); with more than one class, each pixel's sum to 1."""
     import torch
-    if tuple(probs.shape) != (batch, 1, img, img):
+    hw = (img, img) if isinstance(img, int) else tuple(img)
+    if tuple(probs.shape) != (batch, classes, *hw):
         fail(f"{label}: output shape {tuple(probs.shape)}")
     if not bool(torch.isfinite(probs).all()):
         fail(f"{label}: non-finite probabilities")
     lo, hi = probs.min().item(), probs.max().item()
     if lo < 0.0 or hi > 1.0:
         fail(f"{label}: probabilities outside [0, 1]: [{lo}, {hi}]")
+    if classes > 1:
+        off = (probs.sum(dim=1) - 1).abs().max().item()
+        if not off <= 1e-3:
+            fail(f"{label}: class probabilities sum to 1 +- {off}")
 
 
 def plain_path(f32_scores: bool = False):
@@ -880,7 +941,7 @@ def kernels_on_path_inputs(fa, tag: str, run) -> None:
 
 
 def serve_requests(fa, tag: str, predict, params, requests, img: int,
-                   per_forward: tuple, reps: int = 5):
+                   per_forward: tuple, reps: int = 5, classes: int = 1):
     """Warm up, then `reps` timed forwards of each (label, request, batch)
     with the launch counts set to 0 just before and read just after; checks
     the per-forward launches (`COUNTED`) and the probabilities. Returns (the
@@ -904,7 +965,7 @@ def serve_requests(fa, tag: str, predict, params, requests, img: int,
             if grew != per_forward:
                 fail(f"{tag} {label}: one forward launched {COUNTED} = {grew}, "
                      f"expected {per_forward}")
-        check_probs(f"{tag} {label}", probs, batch, img)
+        check_probs(f"{tag} {label}", probs, batch, img, classes)
         if first_probs is None:
             first_probs = probs
         lat = statistics.median(times)
@@ -1175,29 +1236,54 @@ def worst_leaf(got: dict, want: dict) -> tuple:
 
 
 def first_step_kernel_vs_plain(fa, label: str, task, start: dict, batch,
-                               leaves: tuple):
+                               leaves: tuple, *, cos_min: float = GRAD_COS_MIN,
+                               loss_rel_tol: float | None = None,
+                               printed: tuple = ()):
     """The first train step from the weights `start`, once on the kernel path
-    and once with every attention on the plain path: the loss and the
-    gradient of each leaf in `leaves` against the stated bounds."""
+    and once with every attention on the plain path: the loss (within
+    `LOSS_TOL`, or a relative gap of `loss_rel_tol`) and the gradient of each
+    leaf in `leaves` (max abs diff within `GRAD_REL_TOL` of its largest entry,
+    cosine at least `cos_min`). `printed`: leaves whose gradient rounding
+    alone decides; their cosine is printed beside that of two kernel-free
+    paths (the plain one, and with f32 scores), and not held."""
     import torch
-    loss_k, grads_k = first_step(task, start, batch, leaves)
-    with plain_path():
-        before = counts(fa)
-        loss_p, grads_p = first_step(task, start, batch, leaves)
-        if counts(fa) != before:
-            fail(f"{label}: the plain-path step launched a kernel")
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                     dim=0).item()
+
+    names = leaves + printed
+    loss_k, grads_k = first_step(task, start, batch, names)
+    kernel_free = []
+    for f32_scores in (False, True) if printed else (False,):
+        with plain_path(f32_scores):
+            before = counts(fa)
+            kernel_free.append(first_step(task, start, batch, names))
+            if counts(fa) != before:
+                fail(f"{label}: a kernel-free step launched a kernel")
+    loss_p, grads_p = kernel_free[0]
+    if loss_rel_tol is None:
+        ok = abs(loss_k - loss_p) <= LOSS_TOL
+        bound = f"bound {LOSS_TOL}"
+    else:
+        gap = abs(loss_k - loss_p) / abs(loss_p)
+        ok = gap <= loss_rel_tol
+        bound = f"relative gap {gap:.3g}, bound {loss_rel_tol}"
     print(f"{label}: kernel path vs plain path, first step: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (bound {LOSS_TOL})")
-    ok = abs(loss_k - loss_p) <= LOSS_TOL
+          f"{loss_p:.6f} ({bound})")
     for name in leaves:
         top = grads_p[name].abs().max().item()
         gdiff = (grads_k[name] - grads_p[name]).abs().max().item()
-        cos = torch.nn.functional.cosine_similarity(
-            grads_k[name].flatten(), grads_p[name].flatten(), dim=0).item()
+        cos = cosine(grads_k[name], grads_p[name])
         print(f"{label}:   gradient of {name}: max abs diff {gdiff:.6g} against "
               f"largest entry {top:.6g} (bound {GRAD_REL_TOL} of it), cosine "
-              f"{cos:.6f} (at least {GRAD_COS_MIN})")
-        ok = ok and gdiff <= GRAD_REL_TOL * top and cos >= GRAD_COS_MIN
+              f"{cos:.6f} (at least {cos_min})")
+        ok = ok and gdiff <= GRAD_REL_TOL * top and cos >= cos_min
+    for name in printed:
+        print(f"{label}:   gradient of {name} (printed, not held: rounding decides "
+              f"it): cosine {cosine(grads_k[name], grads_p[name]):.6f} against the "
+              f"plain path; the two kernel-free paths "
+              f"{cosine(kernel_free[1][1][name], grads_p[name]):.6f}")
     if not ok:
         fail(f"{label}: kernel path and plain path disagree beyond the stated "
              "bounds")
@@ -1617,6 +1703,18 @@ def conv_bound(b, hw, k, c, cout, residual: bool):
             flops)
 
 
+def conv_backward_bound(b, hw, k, c, cout, w_itemsize: int):
+    """(bound_ms, bound_by) of a convolution's backward (dx and dW) from its
+    pixel work: twice the forward's 2*B*H*W*k*k*C*Cout operations over the
+    bf16 tensor-core rate against the bytes of dy and x read and dx (bf16)
+    and dW (at the weight's item size) written once over the memory rate."""
+    flops = 2 * 2 * b * hw * hw * k * k * c * cout
+    nbytes = 2 * b * hw * hw * (cout + 2 * c) + w_itemsize * k * k * c * cout
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def flat_case(cf, gen, b, hw, planes, c, cout, k, affine, residual, dx_form):
     import torch
 
@@ -1650,6 +1748,49 @@ def exact_conv_flat(cf, spec, relu, x, weight, scale, offset, res):
     to bf16 first, as the kernel takes it)."""
     return plain_conv_flat(cf, spec, relu, x.float(), weight.bfloat16().float(),
                            scale, offset, None if res is None else res.float())
+
+
+def k4_on_path_inputs(cf, tag: str, run) -> None:
+    """`run()` once with the ResNet's flat convolutions wrapped: each K4
+    launch's output is held against the plain version's f32 value on the very
+    tensors the path gave it (`exact_conv_flat`), at `K4_REL_TOL` of the
+    largest |reference|, its guard and ring rows exactly zero. Prints the
+    worst launch of each plane size."""
+    import torch
+    from unittest import mock
+    from tunevlseg_torch.models.cris import resnet
+    real = resnet.conv_flat
+    seen = {}       # (H, W) -> [launches, worst ratio, its |ref|, its shape]
+    broken = []
+
+    def held(flat, spec, weight, scale=None, offset=None, relu=False,
+             residual=None):
+        out = real(flat, spec, weight, scale, offset, relu, residual)
+        ref = exact_conv_flat(cf, spec, relu, flat, weight, scale, offset, residual)
+        top = ref.abs().max().item()
+        ratio = (out.float() - ref).abs().max().item() / top
+        cout, c, k, _ = weight.shape
+        shape = f"{k}x{k} {c}->{cout}{' +res' if residual is not None else ''}"
+        if not bool((out[:, ~cf._valid_rows(spec, out.device)] == 0).all()):
+            broken.append(f"{spec.h}x{spec.w} {shape}")
+        entry = seen.setdefault((spec.h, spec.w), [0, 0.0, 0.0, ""])
+        entry[0] += 1
+        if ratio >= entry[1]:
+            entry[1:] = [ratio, top, shape]
+        return out
+
+    with mock.patch.object(resnet, "conv_flat", held), torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+    for (h, w), (calls, ratio, top, shape) in sorted(seen.items(), reverse=True):
+        print(f"{tag}: K4 on the path's own inputs at {h}x{w} planes, {calls} "
+              f"launches against the plain version's f32 value: worst max abs "
+              f"error {ratio:.4g} of the largest |reference| ({top:.4g} there, "
+              f"{shape}; bound {K4_REL_TOL})")
+    worst = max((v[1] for v in seen.values()), default=float("inf"))
+    if not seen or broken or not worst <= K4_REL_TOL:
+        fail(f"{tag}: K4 disagrees with its plain version on the path's inputs, "
+             f"was not launched, or left guard or ring rows nonzero ({broken})")
 
 
 def phase_kernels_k4(cf):
@@ -2162,13 +2303,20 @@ def k4_upsampler_backward(cf, gen, label: str, x, conv, flat, spec, weight,
     gy = torch.randn(y.shape, generator=gen, device="cuda").bfloat16()
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(y, (xl, wl), gy,
                                                       retain_graph=True), 5)
+    # the unpadded work, as the forward's bound counts it
+    side = x.shape[-1] - 2
+    bound_ms, bound_by = conv_backward_bound(
+        x.shape[0], side, 3, conv.weight.shape[1], conv.weight.shape[0],
+        weight.element_size())
     print(f"kernel K4 backward {label}: " + ", ".join(
         f"{n} {e:.3g}" for n, e in errs.items())
           + f" of the largest entry (bound {K4_GRAD_REL_TOL}), dx exactly 0 on "
           f"guard and ring rows; prologue + dx + dW {ms:.4f} ms, F.conv2d "
-          f"backward {lib_ms:.4f} ms ({ms / lib_ms:.2f})")
+          f"backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}), bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({100 * bound_ms / ms:.1f}% reached)")
     return {"backward_rel_err": max(errs.values()), "backward_ms": ms,
-            "library_backward_ms": lib_ms}
+            "library_backward_ms": lib_ms, "backward_bound_ms": bound_ms,
+            "backward_bound_by": bound_by}
 
 
 def phase_kernels_k4_upsampler(cf):
@@ -2426,6 +2574,240 @@ def phase_phrasecut(fa, profile: bool) -> dict:
     return by_path
 
 
+# --- Slice E: DenseCLIP -------------------------------------------------------
+
+# DenseCLIP RN50 (ADE-150 recipe): K1 in the attention pool (257 tokens); K3
+# in the 12 text layers (13 tokens, causal bias) and the 3 cross-attentions
+# from the 150 class queries into the 257 visual tokens; the context decoder's
+# self-attention over the 150 classes stays under the gate's 256 (plain). A
+# train step adds K2 for the pool (the backbone trains at lr x 0.1); the text
+# encoder is frozen, but the contexts take their gradient through it by K3's
+# plain recompute. backbone_layout="flat" adds K4 for the RN50's 54
+# convolutions wherever the BatchNorms use running statistics.
+DC_SERVE = (1, 0, 15, 0, 0, 0) + NO_VARIANTS
+DC_STEP = (1, 1, 15, 0, 0, 0) + NO_VARIANTS
+DC_FLAT_SERVE = (1, 0, 15, RN50_FLAT_CONVS, 0, 0) + NO_VARIANTS
+# ViT-B/16 at 640^2: K1 in the 12 ViT layers (1601 tokens), K3 as above
+DC_VIT_SERVE = (12, 0, 15, 0, 0, 0) + NO_VARIANTS
+# mmseg's slide test of the RN50 recipe: crop 512, stride 341, over one
+# 512 x 2048 image: ceil((2048 - 512) / 341) + 1 = 6 windows
+DC_SLIDE_WIDTH, DC_STRIDE = 2048, 341
+# kernel path against plain path, first DenseCLIP step: the relative loss gap
+# and each held leaf's gradient cosine (beside GRAD_REL_TOL of its largest
+# entry). The context decoder's cross-attention q_proj is printed, not held:
+# over the near-identical visual tokens of a random backbone its gradient is
+# rounding (the two kernel-free paths agree only to a cosine of about 0.8 on
+# the H100); its v_proj and the decoder's output projection are held.
+DC_LOSS_REL_TOL = 1e-3
+DC_GRAD_COS_MIN = 0.999
+# flat against nchw backbone, 150-class softmax: the probability bounds that
+# CRIS's sigmoid masks hold (FLAT_PROB_*_TOL) carried to the logit scale
+# through the sigmoid's largest slope, 1/4, where they are tightest, and held
+# on the log-probabilities (the logits up to each pixel's shift), which do
+# not shrink with the class count as the probabilities (about 1/150) do
+DC_FLAT_LOGPROB_TOL = (FLAT_PROB_MAX_TOL / 0.25, FLAT_PROB_MEAN_TOL / 0.25)
+IMAGENET_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+def denseclip_class_ids(gen, vocab: int = 49408):
+    """Synthetic class tokens: 150 rows of 5 ids, the EOS (the largest id)
+    in the last slot."""
+    import torch
+    ids = torch.randint(1, vocab - 1, (DC_CLASSES, 5), generator=gen)
+    ids[:, -1] = vocab - 1
+    return ids
+
+
+def denseclip_predict(task, slide: bool = False):
+    """`predict(params, request)`: class probabilities (B, K, H, W) in f32 of
+    the model with the tensors `params`, by whole-image inference or by
+    mmseg's slide inference (crop 512, stride 341)."""
+    import torch
+    from torch.func import functional_call
+
+    from tunevlseg_torch.models.denseclip.inference import (slide_inference,
+                                                            whole_inference)
+
+    def predict(params, request):
+        with torch.no_grad():
+            def apply_fn(x):
+                return functional_call(task.model, params, (x,))
+            images = task._prep_image(request["image"])
+            logits = (slide_inference(apply_fn, images, (DC_IMG, DC_IMG),
+                                      (DC_STRIDE, DC_STRIDE)) if slide
+                      else whole_inference(apply_fn, images))
+            return torch.softmax(logits.float(), dim=1)
+    return predict
+
+
+def denseclip_train_batch(gen):
+    """uint8 images and ADE-style labels: 32 x 32 blocks of the 150 classes,
+    the top 16 rows ignored (255)."""
+    import torch
+    yy, xx = torch.meshgrid(torch.arange(DC_IMG), torch.arange(DC_IMG),
+                            indexing="ij")
+    labels = ((yy // 32) * 16 + xx // 32) % DC_CLASSES
+    labels = (labels[None] + torch.randint(0, DC_CLASSES, (DC_BATCH, 1, 1),
+                                           generator=gen)) % DC_CLASSES
+    labels[:, :16] = 255
+    return {"image": torch.randint(0, 256, (DC_BATCH, 3, DC_IMG, DC_IMG),
+                                   generator=gen, dtype=torch.uint8).cuda(),
+            "label": labels.cuda()}
+
+
+def phase_denseclip(fa, profile: bool) -> dict:
+    """DenseCLIP's ADE-150 recipe at full width and depth, seeded random
+    weights, synthetic class ids, bf16. RN50 at 512^2: a b16 whole-image
+    request and a slide request over one 512 x 2048 image (6 windows), the
+    class probabilities against the plain path, every K1 / K3 launch of a
+    forward against its plain version on the path's own tensors; the same
+    weights on `backbone_layout="flat"` (+54 K4), every K4 launch against its
+    plain version on the path's own tensors, against "nchw"; 1 + 3 b16
+    train steps (poly + short warm-up, AdamW, backbone lr x 0.1, bn_train):
+    the launches, contexts / gamma / a backbone convolution / the decode head
+    and the BatchNorm statistics in the state move, the text encoder stays
+    bit-identical, the first step's loss and gradients against the plain
+    path. Then ViT-B/16 at 640^2, one b2 request against the plain path.
+    Returns {path: counts}."""
+    import torch
+
+    from tunevlseg_torch.models.denseclip.inference import window_starts
+    from tunevlseg_torch.ops import conv_flat as cf
+    from tunevlseg_torch.models.denseclip.model import DenseCLIPConfig
+    from tunevlseg_torch.models.presets import build_denseclip
+    from tunevlseg_torch.training.denseclip_task import DenseCLIPTask
+    from tunevlseg_torch.training.optim import count_params
+
+    by_path = {}
+    gen = torch.Generator().manual_seed(70)
+    ids = denseclip_class_ids(gen)
+    t0 = time.perf_counter()
+    model = build_denseclip(DenseCLIPConfig(), ids, bn_train=True,
+                            dtype=torch.bfloat16, device="cuda", seed=0)
+    flat = build_denseclip(DenseCLIPConfig(), ids, bn_train=True,
+                           backbone_layout="flat", dtype=torch.bfloat16,
+                           device="cuda", seed=0)
+    flat.load_state_dict(model.state_dict())
+    task = DenseCLIPTask(model, learning_rate=1e-4, weight_decay=1e-4,
+                         warmup_iters=2, image_stats=IMAGENET_STATS)
+    print(f"denseclip: DenseCLIP RN50 (ADE-150 recipe: 512^2, text 12 x 8 heads "
+          f"over 150 classes x {DC_TEXT} tokens, context decoder 3 x 4 heads, FPN "
+          f"head, dropout 0.1), bf16 compute over f32 weights, "
+          f"{count_params(model.parameters())} params; the nchw and the flat "
+          f"backbone's model built in {time.perf_counter() - t0:.1f} s")
+    params = dict(model.state_dict())
+    predict = denseclip_predict(task)
+    request = {"image": torch.randint(0, 256, (DC_BATCH, 3, DC_IMG, DC_IMG),
+                                      generator=gen, dtype=torch.uint8).cuda()}
+    probs, whole = serve_requests(
+        fa, "serve denseclip", predict, params,
+        [("b16 whole image", request, DC_BATCH)], DC_IMG, DC_SERVE, reps=3,
+        classes=DC_CLASSES)
+    compare_with_plain_path(fa, "serve denseclip", predict, params, request, probs,
+                            "b16 whole-image class")
+    kernels_on_path_inputs(fa, "serve denseclip", lambda: predict(params, request))
+    windows = (len(window_starts(DC_IMG, DC_IMG, DC_STRIDE))
+               * len(window_starts(DC_SLIDE_WIDTH, DC_IMG, DC_STRIDE)))
+    if windows != 6:
+        fail(f"serve denseclip slide: {windows} windows, mmseg's grid gives 6")
+    slide_request = {"image": torch.randint(0, 256, (1, 3, DC_IMG, DC_SLIDE_WIDTH),
+                                            generator=gen, dtype=torch.uint8).cuda()}
+    _, slide = serve_requests(
+        fa, "serve denseclip slide", denseclip_predict(task, slide=True), params,
+        [(f"b1 slide 512 x {DC_SLIDE_WIDTH}, {windows} windows", slide_request, 1)],
+        (DC_IMG, DC_SLIDE_WIDTH), tuple(windows * n for n in DC_SERVE), reps=3,
+        classes=DC_CLASSES)
+    by_path["serve_denseclip"] = tuple(a + b for a, b in zip(whole, slide))
+    if profile:
+        profile_calls("serve denseclip b16", lambda: predict(params, request))
+
+    flat_predict = denseclip_predict(DenseCLIPTask(flat, image_stats=IMAGENET_STATS))
+    flat_probs, by_path["serve_denseclip_flat"] = serve_requests(
+        fa, "serve denseclip flat", flat_predict, params,
+        [("b16 whole image", request, DC_BATCH)], DC_IMG, DC_FLAT_SERVE, reps=2,
+        classes=DC_CLASSES)
+    k4_on_path_inputs(cf, "serve denseclip flat",
+                      lambda: flat_predict(params, request))
+    diff = (flat_probs.log() - probs.log()).abs()
+    dmax, dmean = diff.max().item(), diff.mean().item()
+    print(f'serve denseclip flat: backbone "flat" vs "nchw" on the same weights, '
+          f"b16 class log-probabilities: max abs diff {dmax:.6g} (bound "
+          f"{DC_FLAT_LOGPROB_TOL[0]}), mean {dmean:.6g} (bound "
+          f"{DC_FLAT_LOGPROB_TOL[1]}); probabilities: max abs diff "
+          f"{(flat_probs - probs).abs().max().item():.6g}")
+    if not (dmax <= DC_FLAT_LOGPROB_TOL[0] and dmean <= DC_FLAT_LOGPROB_TOL[1]):
+        fail("serve denseclip flat: the two backbone layouts disagree beyond the "
+             "stated bounds")
+    del probs, flat_probs, diff, flat, flat_predict, params
+
+    state = task.init()
+    batch = denseclip_train_batch(gen)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    named = dict(model.named_parameters())
+    text = [n for n in named if n.startswith("text_encoder.")]
+    trainable = [n for n, p in named.items() if p.requires_grad]
+    print(f"train denseclip: {len(trainable)} of {len(named)} leaves trainable "
+          f"({count_params(named[n] for n in trainable)} values; the text "
+          f"encoder's {len(text)} frozen), AdamW lr 1e-4 (backbone x 0.1), wd "
+          f"1e-4, poly + {task.warmup_iters}-step warm-up, batch statistics")
+    state, losses, by_path["train_denseclip"] = timed_steps(
+        fa, task, state, batch, "train denseclip", warmup=1, steps=3,
+        per_step=DC_STEP)
+    for name in ("contexts", "gamma", "backbone.layer1.0.conv1.weight",
+                 "backbone.attnpool.q_proj.weight", "decode_head.cls_seg.weight"):
+        if torch.equal(named[name], start[name]):
+            fail(f"train denseclip: {name} did not move")
+    for name in text:
+        if not torch.equal(named[name], start[name]) or named[name].grad is not None:
+            fail(f"train denseclip: text encoder tensor {name} changed or got a "
+                 "gradient")
+    stats = [k for k in state.model_state if k.endswith("running_mean")]
+    moved = [k for k in stats if not torch.equal(state.model_state[k], start[k])]
+    if not stats or len(moved) != len(stats) or any(
+            not torch.equal(b, start[n]) for n, b in model.named_buffers()
+            if n in start):
+        fail(f"train denseclip: {len(moved)} of {len(stats)} running means moved in "
+             "the state, or a module buffer changed")
+    print(f"train denseclip: contexts, gamma, backbone and head weights moved; the "
+          f"{len(stats)} backbone BatchNorms' running statistics moved in the state "
+          f"(the module's own buffers did not); the {len(text)} text-encoder "
+          f"tensors bit-identical and without a gradient; loss per step "
+          + " ".join(f"{x:.5f}" for x in losses))
+    first_step_kernel_vs_plain(
+        fa, "train denseclip", task, start, batch,
+        ("contexts", "gamma", "backbone.attnpool.q_proj.weight",
+         "backbone.layer4.2.conv3.weight",
+         "context_decoder.decoder.2.cross_attn.v_proj.weight",
+         "context_decoder.out_proj_1.weight", "decode_head.cls_seg.weight"),
+        cos_min=DC_GRAD_COS_MIN, loss_rel_tol=DC_LOSS_REL_TOL,
+        printed=("context_decoder.decoder.2.cross_attn.q_proj.weight",))
+    if profile:
+        profile_step("denseclip", task, task.init(), batch)
+    del task, model, state, batch, start
+
+    t0 = time.perf_counter()
+    vit = build_denseclip(DenseCLIPConfig.vitb16(), ids, dtype=torch.bfloat16,
+                          device="cuda", seed=0)
+    print(f"denseclip vit: DenseCLIP ViT-B/16 at {DC_VIT_IMG}^2 (drop_path 0.1 in "
+          f"training only), bf16, {count_params(vit.parameters())} params, built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    vit_task = DenseCLIPTask(vit, image_stats=IMAGENET_STATS)
+    vit_params = dict(vit.state_dict())
+    vit_predict = denseclip_predict(vit_task)
+    vit_request = {"image": torch.randint(
+        0, 256, (DC_VIT_BATCH, 3, DC_VIT_IMG, DC_VIT_IMG), generator=gen,
+        dtype=torch.uint8).cuda()}
+    vit_probs, by_path["serve_denseclip_vit"] = serve_requests(
+        fa, "serve denseclip vit", vit_predict, vit_params,
+        [("b2 whole image", vit_request, DC_VIT_BATCH)], DC_VIT_IMG, DC_VIT_SERVE,
+        reps=3, classes=DC_CLASSES)
+    compare_with_plain_path(fa, "serve denseclip vit", vit_predict, vit_params,
+                            vit_request, vit_probs, "b2 whole-image class")
+    kernels_on_path_inputs(fa, "serve denseclip vit",
+                           lambda: vit_predict(vit_params, vit_request))
+    return by_path
+
+
 # --- S1-S4, the variants of K1 that the attention sweeps time ----------------
 
 def phase_kernels_variants(sweeps, library):
@@ -2651,6 +3033,8 @@ def profile_step(label: str, task, state, batch, steps: int = 5):
         opt.zero_grad()
         marks[0].record()
         loss, _ = task._loss(batch, state.step, state.model_state, {})
+        if isinstance(loss, dict):      # DenseCLIPTask: the loss and its parts
+            loss = loss["loss"]
         marks[1].record()
         loss.backward()
         marks[2].record()
@@ -2712,6 +3096,8 @@ def main() -> None:
     clock("trans_seg paths")
     by_path.update(phase_phrasecut(fa, profile))
     clock("phrasecut paths")
+    by_path.update(phase_denseclip(fa, profile))
+    clock("denseclip paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 

@@ -337,6 +337,18 @@ def test_unported_families_raise_in_build_model_and_task():
         train_mod.build_model_and_task(cfg, device="cpu")
 
 
+def test_denseclip_family_names_its_trainer_script():
+    """DenseCLIP is ported, but trains through its own script, as in the JAX
+    package (whose CLI has no such family)."""
+    cfg = compose(CONFIG_DIR, "train", ["experiment=coop/clipseg", "ds_name=x",
+                                        "+model.family=denseclip"])
+    with pytest.raises(NotImplementedError,
+                       match="scripts/torch_train_denseclip.py") as raised:
+        train_mod.build_model_and_task(cfg, device="cpu")
+    assert "item 7" not in str(raised.value)
+    assert "denseclip" not in train_mod.UNPORTED_FAMILIES
+
+
 def test_initializer_embeddings_set_num_context(synth):
     """The context initializer ("a photo of a") through the token embedding
     of pretrained weights: its token count becomes num_context, as the JAX

@@ -222,9 +222,10 @@ def test_port_runs_without_jax():
     """Every module of the port (the `train` and `eval` entry points
     included), chip_smoke and every scripts/torch_*.py import, and a tiny
     eval and a tiny train step of CLIPSeg (CoOp and the five other
-    strategies), of CRIS (CoOp, CoCoOp, flat, e2e) and of the
+    strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts)
-    and a tiny `Trainer.fit` with its checkpoints run, with jax/flax/optax
+    and of DenseCLIP (its own task, batch statistics) and a tiny
+    `Trainer.fit` with its checkpoints run, with jax/flax/optax
     (and regex) unimportable; afterwards neither a module of jax nor one of
     the JAX package has been loaded, and the fit from memory loaded no
     cv2."""
@@ -360,6 +361,33 @@ def test_port_runs_without_jax():
             assert bool(ts_metrics["loss"].isfinite()), family
             assert not torch.equal(ts.vision_model.layers[0].mlp.fc1.weight,
                                    before), family
+        # DenseCLIP: a tiny bn_train step through its own task (uint8 images,
+        # labels with an ignored band); the text encoder stays as it was and
+        # the backbone's running statistics move in the state
+        from tunevlseg_torch.models.denseclip.model import DenseCLIPConfig
+        from tunevlseg_torch.models.presets import build_denseclip
+        from tunevlseg_torch.training.denseclip_task import DenseCLIPTask
+        for name in ("tunevlseg_torch.models.denseclip.loss",
+                     "tunevlseg_torch.models.denseclip.inference"):
+            assert name in sys.modules, name
+        dc_cfg = DenseCLIPConfig.tiny()
+        dc_ids = torch.randint(1, dc_cfg.vocab_size - 1, (dc_cfg.num_classes, 5),
+                               generator=g)
+        dc_ids[:, -1] = dc_cfg.vocab_size - 1
+        dc = build_denseclip(dc_cfg, dc_ids, bn_train=True, device="cpu")
+        dc_task = DenseCLIPTask(dc, image_stats=((0.5,) * 3, (0.25,) * 3),
+                                warmup_iters=1)
+        dc_state = dc_task.init()
+        labels = torch.randint(0, dc_cfg.num_classes, (2, 64, 64), generator=g)
+        labels[:, :4] = 255
+        dc_batch = {"image": torch.randint(0, 256, (2, 3, 64, 64), generator=g,
+                                           dtype=torch.uint8), "label": labels}
+        text_before = dc.text_encoder.resblocks[0].mlp.fc1.weight.detach().clone()
+        dc_state2, dc_metrics = dc_task.train_step(dc_state, dc_batch)
+        assert bool(dc_metrics["loss"].isfinite()) and dc_state2.step == 1
+        assert torch.equal(dc.text_encoder.resblocks[0].mlp.fc1.weight, text_before)
+        key = "backbone.bn1.running_mean"
+        assert not torch.equal(dc_state2.model_state[key], dc_state.model_state[key])
         # the training and evaluation entry points and their modules: a tiny
         # fit with checkpoints over the port's loader, then a restore
         for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",

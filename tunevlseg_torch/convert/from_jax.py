@@ -5,11 +5,14 @@ its checkpoint converters give them) map onto the port's parameter names
 mechanically:
 
   * path components `layers_3` / `reduces_0` / `resblocks_3` / `layer2_1` /
-    `decoder_layers_2` -> `layers.3` / `reduces.0` / `resblocks.3` /
-    `layer2.1` / `decoder_layers.2`; every other module name is the port's
-    own (the TransformerSegmentor's `block0_conv`, `block0_norm`,
-    `out_conv`, SigLIP's `head`, `head_attn`, `head_layernorm`,
-    `head_mlp_fc1` / `fc2`);
+    `decoder_layers_2` / `decoder_1` -> `layers.3` / `reduces.0` /
+    `resblocks.3` / `layer2.1` / `decoder_layers.2` / `decoder.1`; every
+    other module name is the port's own (the TransformerSegmentor's
+    `block0_conv`, `block0_norm`, `out_conv`, SigLIP's `head`, `head_attn`,
+    `head_layernorm`, `head_mlp_fc1` / `fc2`; DenseCLIP's `attnpool`,
+    `memory_proj_{0,1,2}`, `text_proj_{0,1}`, `out_proj_{0,1}`, `mlp_{0,3}`,
+    `lateral_{i}`, `output_{i}`, `scale_head_{i}`, `scale_gn_{i}`,
+    `fpn{1..4}_gn`, `fpn1_bn`, `fpn{1,2}_deconv*`, `cls_seg`);
   * Flax `Dense.kernel` (in, out) -> `weight` (out, in), transposed;
   * `LayerNorm.scale` -> `weight` (the upsampler's sample LayerNorm keeps
     its (C, H, W) shape), `GroupNorm.scale` -> `weight`;
@@ -18,7 +21,8 @@ mechanically:
     `weight`, BatchNorm `weight` / `bias`, `patch_proj` in its channel-major
     (C*p*p, D) layout, `class_embedding`, `position_embedding`,
     `positional_embedding`, `text_projection`, `context_vectors`,
-    `residual_ratio`, SigLIP's `patch_bias` and `probe`) is copied as it is;
+    `residual_ratio`, SigLIP's `patch_bias` and `probe`, DenseCLIP's
+    `contexts`, `gamma` and the ViT's `proj`) is copied as it is;
   * the `batch_stats` collection (`running_mean`, `running_var` of every
     BatchNorm, under the same module paths) fills the port's buffers, and
     the JAX `TrainState.model_state` (that collection, as a train step
@@ -40,12 +44,14 @@ import numpy as np
 import torch
 from torch import nn
 
-_INDEXED = re.compile(r"(layers|decoder_layers|reduces|resblocks|layer\d+)_(\d+)")
+_INDEXED = re.compile(
+    r"(layers|decoder_layers|decoder|reduces|resblocks|layer\d+)_(\d+)")
 _RENAMED_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _COPIED_LEAVES = {"bias", "weight", "class_embedding", "position_embedding",
                   "positional_embedding", "text_projection", "patch_proj",
                   "context_vectors", "residual_ratio", "running_mean",
-                  "running_var", "patch_bias", "probe"}
+                  "running_var", "patch_bias", "probe", "contexts", "gamma",
+                  "proj"}
 
 
 def flatten_params(params: Mapping[str, Any], prefix: tuple = ()) -> dict:

@@ -41,7 +41,7 @@ from torch import nn
 from tunevlseg_torch.models.clip.text import extend_text_mask, splice_text_context
 from tunevlseg_torch.models.cris.layers import (CRISTransformerDecoder, FPN,
                                                 Projector)
-from tunevlseg_torch.models.cris.resnet import ModifiedResNet
+from tunevlseg_torch.models.cris.resnet import ModifiedResNet, name_stats_updates
 from tunevlseg_torch.models.prompt.learners import BasePromptLearner
 from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.conv import Conv2d
@@ -243,11 +243,7 @@ class CRISForSegmentation(nn.Module):
                           generator=generator)
         pred = self.proj(fq, state, use_running_average=bn_ura, updates=updates)
         if updates:
-            for name, module in self.named_modules():
-                if module in updates:
-                    mean, var = updates[module]
-                    stats_updates[f"{name}.running_mean"] = mean
-                    stats_updates[f"{name}.running_var"] = var
+            name_stats_updates(self, updates, stats_updates)
         logits = resize_2d(pred, (c.img_size, c.img_size), "bicubic",
                            align_corners=True)
         if self.additive_mode == "residual":

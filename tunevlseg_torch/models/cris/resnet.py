@@ -115,6 +115,17 @@ class _BatchNorm(nn.Module):
         return s, self.bias - self.running_mean * s
 
 
+def name_stats_updates(model: nn.Module, updates: dict, stats_updates: dict) -> None:
+    """The new running statistics of `updates` ({BatchNorm module: (mean,
+    var)}, as `_BatchNorm.forward` fills it) into `stats_updates` under their
+    buffers' `state_dict` names in `model`."""
+    for name, module in model.named_modules():
+        if module in updates:
+            mean, var = updates[module]
+            stats_updates[f"{name}.running_mean"] = mean
+            stats_updates[f"{name}.running_var"] = var
+
+
 class BatchNorm2d(_BatchNorm):
     """On (B, C, H, W)."""
 
@@ -148,17 +159,25 @@ class Bottleneck(nn.Module):
             self.downsample_conv = Conv2d(inplanes, out, 1, bias=False, dtype=dtype)
             self.downsample_bn = BatchNorm2d(out, ura)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+    def forward(self, x: torch.Tensor,
+                use_running_average: Optional[bool] = None,
+                updates: Optional[dict] = None) -> torch.Tensor:
+        """`use_running_average` and `updates` go to every BatchNorm of the
+        block (`_BatchNorm.forward`): DenseCLIP's train step normalises its
+        backbone with batch statistics; CRIS never passes them."""
+        def bn(norm, y):
+            return norm(y, use_running_average, updates)
+
+        out = F.relu(bn(self.bn1, self.conv1(x)))
+        out = F.relu(bn(self.bn2, self.conv2(out)))
         if self.stride > 1:
             out = avg_pool_nchw(out, self.stride)
-        out = self.bn3(self.conv3(out))
+        out = bn(self.bn3, self.conv3(out))
         identity = x
         if self.has_downsample:
             if self.stride > 1:
                 identity = avg_pool_nchw(x, self.stride)
-            identity = self.downsample_bn(self.downsample_conv(identity))
+            identity = bn(self.downsample_bn, self.downsample_conv(identity))
         return F.relu(out + identity)
 
     def forward_flat(self, x: torch.Tensor, spec_in: FlatSpec,

@@ -5,7 +5,9 @@ families, and of the TransformerSegmentor's build in `tunevlseg_tpu/train.py`.
 The flagship model is CLIPSeg ViT-B/16 ("CIDAS/clipseg-rd64") with CoOp
 prompts; CRIS is CLIP RN50 with the FPN / decoder / projector head; the
 TransformerSegmentor is CLIP ViT-B/16 (or SigLIP) towers with a transformer
-decoder and a convolutional upsampler, fine-tuned whole.
+decoder and a convolutional upsampler, fine-tuned whole; DenseCLIP (RN50,
+RN101 or ViT-B/16 with the context decoder and the FPN head) trains end to
+end through its own task (`training/denseclip_task.py`).
 Weights are random, drawn from one seeded `torch.Generator` on the CPU (so a
 seed gives the same weights on every device), until converted weights are
 loaded over them (`tunevlseg_torch/convert/from_jax.py`).
@@ -21,6 +23,7 @@ from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
 from tunevlseg_torch.models.clipseg.model import (CLIPSegForSegmentation,
                                                   strategy_additive_mode)
 from tunevlseg_torch.models.cris.model import CRISConfig, CRISForSegmentation
+from tunevlseg_torch.models.denseclip.model import DenseCLIP, DenseCLIPConfig
 from tunevlseg_torch.models.prompt.learners import (LEARNER_REGISTRY,
                                                     CoCoOpLearner, CoOpLearner)
 from tunevlseg_torch.models.trans_segmentor.model import (TransformerSegmentor,
@@ -232,3 +235,33 @@ def build_trans_segmentor(config: Optional[TransSegmentorConfig] = None,
         family="trans_segmentor",
         always_trainable=(() if cfg.use_existing_proj else ("text_projection",)))
     return model.to(device), spec
+
+
+def build_denseclip(config: Optional[DenseCLIPConfig] = None,
+                    class_token_ids=None, *, bn_train: bool = False,
+                    backbone_layout: str = "nchw",
+                    dtype: torch.dtype = torch.float32, device="cuda",
+                    seed: int = 0) -> DenseCLIP:
+    """DenseCLIP (by default the ADE-150 RN50 512^2 recipe,
+    `DenseCLIPConfig()`) with seeded random f32 weights on `device`, and
+    `class_token_ids` (K, text_context_length) as its classes (or give them
+    to each call). `bn_train` normalises the backbone with batch statistics
+    in a train step (`DenseCLIPTask` keeps the running ones in its state).
+    `backbone_layout="flat"` runs the ResNet's stem tail and stages through
+    K4 whenever the BatchNorms use running statistics (serving, eval; a
+    `bn_train` train step runs "nchw"); the default "nchw" through cuDNN, its
+    convolution weights stored channels-last as CRIS's are. The device rule
+    is `build_clipseg`'s: the CUDA card unless the caller names another
+    device, no fallback to the CPU. Every published DenseCLIP configuration
+    has heads of 64, which K1 and K3 take (a bf16 model with heads of 8, as
+    the tiny test configs have, raises at its first kernel call on the
+    card). The text encoder's freezing and the paramwise groups are the
+    task's (`training/denseclip_task.py`)."""
+    cfg = config or DenseCLIPConfig()
+    model = DenseCLIP(cfg, class_token_ids, bn_train=bn_train,
+                      backbone_layout=backbone_layout, dtype=dtype)
+    init_params(model, torch.Generator().manual_seed(seed))
+    model.to(device)
+    if cfg.backbone_type == "resnet":
+        model.backbone.to(memory_format=torch.channels_last)
+    return model

@@ -60,7 +60,7 @@ from tunevlseg_torch.models.cris.layers import sincos_pos_1d
 from tunevlseg_torch.models.trans_segmentor.siglip import (SiglipTextTower,
                                                            SiglipVisionTower)
 from tunevlseg_torch.nn.conv import Conv2d
-from tunevlseg_torch.nn.layers import (ACT2FN, Dense, LayerNorm,
+from tunevlseg_torch.nn.layers import (ACT2FN, Dense, GroupNorm, LayerNorm,
                                        MultiHeadAttention, dropout)
 from tunevlseg_torch.ops.image import resize_2d
 
@@ -189,26 +189,6 @@ class TorchTransformerDecoderLayer(nn.Module):
         for norm, block in blocks:
             x = norm(x + block(x))
         return self.norm3(x + ff(x))
-
-
-class GroupNorm(nn.Module):
-    """Flax `nn.GroupNorm(num_groups)` on (B, C, H, W): f32 inside, a (C,)
-    affine, output in the compute dtype."""
-
-    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
-        self.weight = nn.Parameter(torch.empty(channels))
-        self.bias = nn.Parameter(torch.empty(channels))
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        self.weight.fill_(1.0)
-        self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
 
 
 def upsampler_stages(config: TransSegmentorConfig) -> list[tuple[int, int, int]]:

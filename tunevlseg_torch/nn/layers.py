@@ -51,15 +51,19 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            mask_shape: Optional[tuple] = None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from `generator` (which lives on
-    x's device): kept entries are x / (1 - rate), the rest 0."""
+    x's device): kept entries are x / (1 - rate), the rest 0. `mask_shape`
+    (broadcastable to x) drops whole slices: (B, C, 1, 1) is Dropout2d,
+    (B, 1, 1) a sample's residual branch (DropPath)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = torch.rand(mask_shape or x.shape, device=x.device,
+                      generator=generator) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -108,6 +112,26 @@ class LayerNorm(nn.Module):
                          None if self.bias is None else self.bias.float(),
                          self.eps)
         return y.to(self.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Flax `nn.GroupNorm(num_groups)` on (B, C, H, W): f32 inside, a (C,)
+    affine, output in the compute dtype."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(self.dtype)
 
 
 class Embed(nn.Module):

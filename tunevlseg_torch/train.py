@@ -48,16 +48,23 @@ CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 # model families without a port yet, and the ROADMAP item each waits for
 UNPORTED_FAMILIES = {
-    "denseclip": "ROADMAP Queue 1 item 7 (Slice E, DenseCLIP)",
     "zero_shot_ris": "ROADMAP Queue 1 item 8 (Slice F, zero-shot RIS)",
 }
+# DenseCLIP trains outside this CLI, in the port as in the JAX package
+DENSECLIP_SCRIPT = "scripts/torch_train_denseclip.py"
 
 
 def check_ported(cfg: dict) -> None:
     """Raise on an option of a slice that is not ported yet, naming its
-    ROADMAP item."""
+    ROADMAP item, and on `family: denseclip`, which trains through its own
+    script."""
     m, t = cfg["model"], cfg["trainer"]
     family = m.get("family", "clipseg")
+    if family == "denseclip":
+        raise NotImplementedError(
+            "model family 'denseclip' does not train through this CLI (the "
+            f"JAX CLI has no such family either): run {DENSECLIP_SCRIPT}, the "
+            "mmseg recipe's trainer over training/denseclip_task.py")
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")

@@ -1,0 +1,251 @@
+"""DenseCLIP training: the train and eval steps of the mmseg recipe.
+
+Counterpart of `tunevlseg_tpu/training/denseclip_task.py`. The recipe of
+denseclip_fpn_res50_512x512_80k.py:
+
+  * AdamW lr 1e-4, weight decay 1e-4, in four parameter groups: backbone /
+    base x decay / no_decay, the backbone at lr x `backbone_lr_mult` (0.1);
+    the decay labels are the port's `decay_labels` (Dense, convolution and
+    transposed-convolution weights decay; biases, norms, embeddings and bare
+    parameters such as `contexts`, `gamma`, the positional embeddings, the
+    ViT's `proj` and `text_projection` do not), which equal the JAX
+    package's `_group_label` leaf by leaf;
+  * the text encoder (lr_mult 0.0 in the reference) is frozen
+    (`requires_grad=False`) and holds no optimizer state; the context
+    vectors still take their gradient through it;
+  * mmcv's poly schedule (power 0.9, min_lr 1e-6) with a linear warm-up,
+    set on the host into every group before each step (the learning rate
+    of step s is `schedule(s)`, as optax's count starts at 0);
+  * the loss: decode CE + 0.4 x the identity head's CE
+    (`models/denseclip/loss.py`).
+
+Batch contract: {"image": (B, 3, H, W) f32 (normalised) or uint8, "label":
+(B, H, W) int with 255 = ignore}. uint8 images are normalised on the device
+with `image_stats` where it is set.
+
+With a `bn_train` model the backbone's BatchNorms use batch statistics in a
+train step and the running statistics live in `TrainState.model_state`
+(`init` copies them out of the model; a step reads them from the state and
+returns a state with the updated ones; `eval_step` reads them from the
+state), as the e2e CRIS task does. No buffer of the module is written by a
+step. Dropout (the head's Dropout2d, the ViT's DropPath) draws its masks from
+a generator seeded from (`seed`, step).
+
+The JAX task's jit / mesh entries are not ported: `compile_steps` and
+`state_fsdp_shardings` raise, and so do `remat` and
+`accumulate_grad_batches > 1` (ROADMAP Queue 1 item 9).
+`compile_train_multistep(k)` runs k eager steps and averages their metrics,
+the port's steps-per-execution (a captured CUDA graph is ROADMAP item 2).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from tunevlseg_torch.models.denseclip.loss import (IGNORE_INDEX,
+                                                   cross_entropy_seg,
+                                                   denseclip_losses)
+from tunevlseg_torch.training import optim as optim_lib
+from tunevlseg_torch.training.task import (TrainState, load_partial_state,
+                                           step_generator)
+
+UNPORTED = "ROADMAP Queue 1 item 9 (Slice G)"
+
+
+def poly_warmup_schedule(base_lr: float, total_iters: int, power: float = 0.9,
+                         min_lr: float = 1e-6, warmup_iters: int = 1500,
+                         warmup_ratio: float = 1e-6) -> Callable[[int], float]:
+    """mmcv's PolyLrUpdater with a linear warm-up: the poly learning rate
+    (base_lr - min_lr) * (1 - step / total_iters) ** power + min_lr (the
+    fraction clipped to [0, 1]), scaled during warm-up by
+    1 - (1 - step / warmup_iters) * (1 - warmup_ratio)."""
+
+    def fn(step: int) -> float:
+        s = float(step)
+        frac = min(max(s / total_iters, 0.0), 1.0)
+        regular = (base_lr - min_lr) * (1.0 - frac) ** power + min_lr
+        if s < warmup_iters:
+            return regular * (1.0 - (1.0 - s / warmup_iters) * (1.0 - warmup_ratio))
+        return regular
+
+    return fn
+
+
+def group_labels(model: nn.Module) -> dict[str, str]:
+    """{parameter name: "backbone_decay" | "backbone_no_decay" | "base_decay"
+    | "base_no_decay"} for every parameter of `model`."""
+    return {name: ("backbone" if name.startswith("backbone.") else "base")
+            + "_" + label for name, label in optim_lib.decay_labels(model).items()}
+
+
+def make_denseclip_optimizer(model: nn.Module, base_lr: float,
+                             weight_decay: float, backbone_lr_mult: float = 0.1,
+                             grad_clip_norm: Optional[float] = None
+                             ) -> optim_lib.ClippedOptimizer:
+    """AdamW over the trainable parameters in the four paramwise groups;
+    each group keeps its `lr_mult` beside its learning rate."""
+    labels = group_labels(model)
+    groups = []
+    for group in ("backbone_decay", "backbone_no_decay", "base_decay",
+                  "base_no_decay"):
+        params = [p for n, p in model.named_parameters()
+                  if p.requires_grad and labels[n] == group]
+        if params:
+            mult = backbone_lr_mult if group.startswith("backbone") else 1.0
+            groups.append({"params": params, "name": group, "lr_mult": mult,
+                           "lr": base_lr * mult,
+                           "weight_decay": (0.0 if group.endswith("no_decay")
+                                            else weight_decay)})
+    opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
+    return optim_lib.ClippedOptimizer(opt, grad_clip_norm)
+
+
+def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """mmseg's aAcc: the share of the non-ignored pixels whose argmax class is
+    the label."""
+    pred = logits.float().argmax(dim=1)
+    valid = labels != ignore_index
+    correct = (valid & (pred == labels)).sum()
+    return correct / valid.sum().clamp(min=1)
+
+
+@dataclasses.dataclass
+class DenseCLIPTask:
+    model: nn.Module                    # models.denseclip.model.DenseCLIP
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    backbone_lr_mult: float = 0.1
+    total_iters: int = 80_000
+    warmup_iters: int = 1500
+    warmup_ratio: float = 1e-6
+    power: float = 0.9
+    min_lr: float = 1e-6
+    grad_clip_norm: Optional[float] = None
+    accumulate_grad_batches: int = 1
+    remat: bool = False
+    # (mean, std) for the device-side normalisation of uint8 batches; None
+    # means images arrive as normalised floats
+    image_stats: Optional[tuple] = None
+    seed: int = 0     # of the dropout masks, with the step
+
+    def __post_init__(self):
+        if self.accumulate_grad_batches > 1:
+            raise NotImplementedError(
+                f"accumulate_grad_batches > 1 comes with {UNPORTED}")
+        if self.remat:
+            raise NotImplementedError(
+                f"remat=True (torch.utils.checkpoint) comes with {UNPORTED}")
+        self.schedule = poly_warmup_schedule(
+            self.learning_rate, self.total_iters, self.power, self.min_lr,
+            self.warmup_iters, self.warmup_ratio)
+        self.mutable_collections = (("batch_stats",)
+                                    if getattr(self.model, "bn_train", False) else ())
+
+    # -- init ---------------------------------------------------------------
+
+    def init(self, params: Optional[dict] = None) -> TrainState:
+        """Freeze the text encoder, build the optimizer over the rest and,
+        for a `bn_train` model, copy the BatchNorm running statistics into
+        the state. `params` (a partial `state_dict`, say converted weights)
+        is overlaid on the model's weights first (`load_partial_state`)."""
+        if params is not None:
+            load_partial_state(self.model, params)
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(not name.startswith("text_encoder."))
+        model_state = {}
+        if self.mutable_collections:
+            persistent = self.model.state_dict()
+            model_state = {n: b.detach().clone()
+                           for n, b in self.model.named_buffers() if n in persistent}
+        optimizer = make_denseclip_optimizer(
+            self.model, self.schedule(0), self.weight_decay,
+            self.backbone_lr_mult, self.grad_clip_norm)
+        return TrainState(0, optimizer, model_state)
+
+    # -- steps --------------------------------------------------------------
+
+    def _prep_image(self, image: torch.Tensor) -> torch.Tensor:
+        if image.dtype != torch.uint8 or self.image_stats is None:
+            return image
+        mean, std = (torch.tensor(s, dtype=torch.float32, device=image.device)
+                     .reshape(1, -1, 1, 1) for s in self.image_stats)
+        return (image.float() / 255.0 - mean) / std
+
+    def _forward(self, image: torch.Tensor, model_state: Optional[dict], **kwargs):
+        if model_state:
+            return functional_call(self.model, model_state, (image,), kwargs)
+        return self.model(image, **kwargs)
+
+    def _loss(self, batch: dict, step: int, model_state: dict, updates: dict):
+        """(losses, logits) of a train step: dropout on with the masks of
+        `step`, batch statistics for a `bn_train` model (the new running
+        statistics go into `updates`)."""
+        logits, score_map = self._forward(
+            self._prep_image(batch["image"]), model_state, deterministic=False,
+            with_score_map=True, generator=step_generator(self.model, self.seed, step),
+            stats_updates=updates)
+        c = self.model.config
+        return denseclip_losses(logits, score_map, batch["label"], tau=c.tau,
+                                identity_weight=c.identity_weight), logits
+
+    def set_learning_rate(self, optimizer: optim_lib.ClippedOptimizer,
+                          step: int) -> None:
+        """Each group's learning rate for `step`: schedule(step) x lr_mult."""
+        lr = self.schedule(step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+
+    def train_step(self, state: TrainState, batch: dict):
+        """One optimizer update. Returns (new state, {"loss", "loss_decode",
+        "loss_aux_identity", "acc"}) with the metrics as device tensors."""
+        opt = state.optimizer
+        self.set_learning_rate(opt, state.step)
+        opt.zero_grad()
+        updates = {}
+        with torch.enable_grad():
+            losses, logits = self._loss(batch, state.step, state.model_state, updates)
+        losses["loss"].backward()
+        opt.step()
+        with torch.no_grad():
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["acc"] = pixel_accuracy(logits.detach(), batch["label"])
+        model_state = ({**state.model_state, **updates}
+                       if self.mutable_collections else state.model_state)
+        return TrainState(state.step + 1, opt, model_state), metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict) -> dict:
+        """{"loss", "acc"} of a forward without dropout, with the running
+        statistics of `state.model_state`."""
+        logits = self._forward(self._prep_image(batch["image"]), state.model_state)
+        return {"loss": cross_entropy_seg(logits, batch["label"]),
+                "acc": pixel_accuracy(logits, batch["label"])}
+
+    def compile_train_multistep(self, num_steps: int):
+        """`multi(state, batches)` runs `num_steps` eager train steps over
+        batches stacked on a leading (num_steps, B, ...) axis and returns
+        (state, the metrics averaged over the steps)."""
+        def multi(state: TrainState, batches: dict):
+            per_step = []
+            for i in range(num_steps):
+                state, metrics = self.train_step(
+                    state, {k: v[i] for k, v in batches.items()})
+                per_step.append(metrics)
+            return state, {k: torch.stack([m[k] for m in per_step]).mean()
+                           for k in per_step[0]}
+        return multi
+
+    def compile_steps(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the steps run eagerly; mesh shardings (GSPMD) are not ported, data "
+            f"parallel over GPUs comes with {UNPORTED}")
+
+    def state_fsdp_shardings(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"FSDP of the state comes with {UNPORTED}; the GSPMD mesh rules are "
+            'ROADMAP "Do not port"')

@@ -48,6 +48,32 @@ from tunevlseg_torch.ops import metrics as metrics_lib
 from tunevlseg_torch.training import optim as optim_lib
 
 
+def load_partial_state(model: nn.Module, params: dict) -> None:
+    """Overlay `params` (a partial `state_dict`, say a converted backbone) on
+    the model's weights in place; entries the model does not have are
+    dropped with a log line, as the JAX task drops checkpoint tensors its
+    model elides."""
+    own = model.state_dict()
+    dropped = [k for k in params if k not in own]
+    if dropped:
+        logging.getLogger("tunevlseg").info(
+            "dropping %d checkpoint tensors the model elides (e.g. %s)",
+            len(dropped), dropped[0])
+    with torch.no_grad():
+        for name, value in params.items():
+            if name in own:
+                own[name].copy_(torch.as_tensor(value))
+
+
+def step_generator(model: nn.Module, seed: int, step: int) -> torch.Generator:
+    """The generator of one train step's dropout masks, on the model's
+    device, a function of (seed, step) alone."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * 1_000_003 + step) % 2 ** 63)
+    return gen
+
+
 @dataclasses.dataclass
 class TrainState:
     """The step count, the optimizer (its moments and learning rate) and,
@@ -98,20 +124,9 @@ class SegmentationTask:
         buffers into the state.
 
         `params` (a partial `state_dict`, say a converted backbone) is
-        overlaid on the model's weights first; entries the model does not
-        have are dropped with a log line, as the JAX task drops checkpoint
-        tensors its model elides."""
+        overlaid on the model's weights first (`load_partial_state`)."""
         if params is not None:
-            own = self.model.state_dict()
-            dropped = [k for k in params if k not in own]
-            if dropped:
-                logging.getLogger("tunevlseg").info(
-                    "dropping %d checkpoint tensors the model elides (e.g. %s)",
-                    len(dropped), dropped[0])
-            with torch.no_grad():
-                for name, value in params.items():
-                    if name in own:
-                        own[name].copy_(torch.as_tensor(value))
+            load_partial_state(self.model, params)
         optim_lib.apply_freeze(self.model, self.freeze_spec)
         model_state = {}
         if self.mutable_collections:
@@ -149,12 +164,7 @@ class SegmentationTask:
         return self.model(*args, **model_kwargs, **kwargs)
 
     def dropout_generator(self, step: int) -> torch.Generator:
-        """The generator of one train step's dropout masks, on the model's
-        device, a function of (seed, step) alone."""
-        device = next(self.model.parameters()).device
-        gen = torch.Generator(device=device)
-        gen.manual_seed((self.seed * 1_000_003 + step) % 2 ** 63)
-        return gen
+        return step_generator(self.model, self.seed, step)
 
     def _loss(self, batch: dict, step: int = 0, model_state: Optional[dict] = None,
               stats_updates: Optional[dict] = None
