@@ -182,10 +182,30 @@ Phases, each printing its numbers on lines of its own:
      and output projection among them) against the plain path; then ViT-B/16
      at 640^2, one b2 request (12 K1, 15 K3) against the plain path and on
      its own tensors.
+ 23. serve, zero-shot RIS (`eval_zeroshot.build_ris` in bf16 over seeded f32
+     weights at full width: CLIP ViT-B/16 (224^2, 197 tokens) and text
+     towers, FreeSOLO R101-FPN 256 with the zsseg heads, grids (40, 36, 24,
+     16, 12), nms_pre 500, max_per_img 100; alpha 0.95, beta 0.5, masking
+     from layer -3; one synthetic 1024^2 request with 2 x 77 text ids): the
+     valid proposals (at least one; the thresholds lowered, and so printed,
+     only if the defaults leave none) and the picked index; `predict_fused`
+     warm-up and median of 5 with 12 K3 and no other kernel a request, every
+     K3 launch against its plain version on the path's own tensors, the text
+     features against the plain path; one `__call__` through the host crop
+     loop (its picked proposal against the fused one where the similarity
+     margin is wide), the device crop-resize against the host crops of the
+     path's proposals; `predict_fused_many` at depth 2 over 6 requests; the
+     same weights on `layout="flat"` (+87 K4 a request, every one held
+     against its plain version on its own tensors, the raw outputs against
+     "nchw", the proposals' agreement printed); BiomedCLIP (timm ViT-B/16,
+     BERT-base) on the same proposals, 12 K3 a request against the plain
+     path. K4 is also held and timed alone at the R101's 12 stride-1
+     convolution shapes of a 1024^2 request, and K3 at the two text towers'.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
-and b1 requests and of DenseCLIP's b16 request.
+and b1 requests, of DenseCLIP's b16 request and of the zero-shot fused
+request.
 The second-to-last line is a JSON object describing each kernel of the
 paths; the last line is {"ok": true, "device": {...}}. Any failed phase exits
 nonzero.
@@ -343,6 +363,8 @@ PC_DECODER = (PC_BATCH, 576, 16, 32)   # 512 wide, 16 heads: D = 32
 DC_BATCH, DC_IMG, DC_VIT_BATCH, DC_VIT_IMG = 16, 512, 2, 640
 DC_CLASSES, DC_TEXT = 150, 13
 DC_POOL = (DC_BATCH, 257, 32, 64)
+# zero-shot RIS: the text towers run the [phrase, class name] pair of a request
+ZS_TEXT_ROWS = 2
 DC_VIT = (DC_VIT_BATCH, 1601, 12, 64)
 F32_MIN = -3.4028234663852886e38       # what the models' biases mask with
 
@@ -734,7 +756,14 @@ def k3_cases(gen):
             ("denseclip cross 257", (DC_BATCH, DC_CLASSES, 4, 64), 257, None,
              lambda: None),
             ("denseclip vit cross 1601", (DC_VIT_BATCH, DC_CLASSES, 4, 64), 1601,
-             None, lambda: None)):
+             None, lambda: None),
+            # zero-shot RIS: the CLIP text tower over its [phrase, class
+            # name] rows under the causal + padding bias, and BiomedCLIP's
+            # BERT tower (12 heads of 64) under a padding bias alone
+            ("zsseg text", (ZS_TEXT_ROWS, SEQ, 8, 64), SEQ, None,
+             lambda: key_pad(ZS_TEXT_ROWS, SEQ, 10) + causal_77),
+            ("zsseg biomed text", (ZS_TEXT_ROWS, SEQ, 12, 64), SEQ, None,
+             lambda: key_pad(ZS_TEXT_ROWS, SEQ, 10))):
         yield label, (b, s, h, d), t, kv, make(), (rnd(b, s, h, d), rnd(b, t, h, d),
                                                    rnd(b, t, h, d))
 
@@ -901,11 +930,12 @@ def plain_path(f32_scores: bool = False):
     return stack
 
 
-def kernels_on_path_inputs(fa, tag: str, run) -> None:
+def kernels_on_path_inputs(fa, tag: str, run, kernels=("K1", "K3")) -> None:
     """`run()` once with K1 and K3 wrapped: each launch's output is held
     against the kernel's plain version on the very tensors the path gave it,
-    at `KERNEL_TOL` of the largest |reference|. Says whether a difference
-    between the kernel path and the plain path is a kernel's own."""
+    at `KERNEL_TOL` of the largest |reference|; each of `kernels` must have
+    launched. Says whether a difference between the kernel path and the plain
+    path is a kernel's own."""
     import torch
     from unittest import mock
     from tunevlseg_torch.nn import attention
@@ -932,6 +962,8 @@ def kernels_on_path_inputs(fa, tag: str, run) -> None:
         run()
         torch.cuda.synchronize()
     for name, (calls, ratio, top) in seen.items():
+        if name not in kernels and calls == 0:
+            continue
         print(f"{tag}: {name} on the path's own inputs, {calls} launches against "
               f"the plain version: worst max abs error {ratio:.4g} of the largest "
               f"|reference| ({top:.4g} there; bound {KERNEL_TOL})")
@@ -1687,6 +1719,19 @@ K4_CASES = (
     ("stage1 3x3 64->64 104^2 dx form", 104, 64, 64, 64, 3, False, False, False, True),
 )
 K4_MAIN = "stage1 3x3 64->64 104^2"
+# FreeSOLO's R101 on layout="flat" at a 1024^2 request (b1): the three
+# convolutions of a stride-1 bottleneck of each stage, 2 / 3 / 22 / 2 such
+# blocks (87 launches a forward)
+ZS_K4_BLOCKS = (("res2", 256, 64, 2), ("res3", 128, 128, 3),
+                ("res4", 64, 256, 22), ("res5", 32, 512, 2))
+ZS_K4_CASES = tuple(
+    case for name, hw, planes, _ in ZS_K4_BLOCKS for case in (
+        (f"zsseg {name} 1x1 {4 * planes}->{planes} {hw}^2", hw, planes,
+         4 * planes, planes, 1, True, True, False, False),
+        (f"zsseg {name} 3x3 {planes}->{planes} {hw}^2", hw, planes, planes,
+         planes, 3, True, True, False, False),
+        (f"zsseg {name} 1x1 {planes}->{4 * planes} {hw}^2 +res", hw, planes,
+         planes, 4 * planes, 1, True, True, True, False)))
 
 
 def conv_bound(b, hw, k, c, cout, residual: bool):
@@ -1750,16 +1795,18 @@ def exact_conv_flat(cf, spec, relu, x, weight, scale, offset, res):
                            scale, offset, None if res is None else res.float())
 
 
-def k4_on_path_inputs(cf, tag: str, run) -> None:
-    """`run()` once with the ResNet's flat convolutions wrapped: each K4
-    launch's output is held against the plain version's f32 value on the very
-    tensors the path gave it (`exact_conv_flat`), at `K4_REL_TOL` of the
-    largest |reference|, its guard and ring rows exactly zero. Prints the
-    worst launch of each plane size."""
+def k4_on_path_inputs(cf, tag: str, run, module=None) -> int:
+    """`run()` once with the ResNet's flat convolutions wrapped (those that
+    `module` calls, by default CRIS's and DenseCLIP's `models/cris/resnet`):
+    each K4 launch's output is held against the plain version's f32 value on
+    the very tensors the path gave it (`exact_conv_flat`), at `K4_REL_TOL` of
+    the largest |reference|, its guard and ring rows exactly zero. Prints the
+    worst launch of each plane size; returns the number of launches held."""
     import torch
     from unittest import mock
-    from tunevlseg_torch.models.cris import resnet
-    real = resnet.conv_flat
+    if module is None:
+        from tunevlseg_torch.models.cris import resnet as module
+    real = module.conv_flat
     seen = {}       # (H, W) -> [launches, worst ratio, its |ref|, its shape]
     broken = []
 
@@ -1779,7 +1826,7 @@ def k4_on_path_inputs(cf, tag: str, run) -> None:
             entry[1:] = [ratio, top, shape]
         return out
 
-    with mock.patch.object(resnet, "conv_flat", held), torch.no_grad():
+    with mock.patch.object(module, "conv_flat", held), torch.no_grad():
         run()
         torch.cuda.synchronize()
     for (h, w), (calls, ratio, top, shape) in sorted(seen.items(), reverse=True):
@@ -1791,24 +1838,27 @@ def k4_on_path_inputs(cf, tag: str, run) -> None:
     if not seen or broken or not worst <= K4_REL_TOL:
         fail(f"{tag}: K4 disagrees with its plain version on the path's inputs, "
              f"was not launched, or left guard or ring rows nonzero ({broken})")
+    return sum(v[0] for v in seen.values())
 
 
-def phase_kernels_k4(cf):
-    """K4 against its plain version at the RN50's shapes, `F.conv2d` beside
-    it; returns {label: numbers}."""
+def phase_kernels_k4(cf, cases=K4_CASES, batch=BATCH, device_time=False):
+    """K4 against its plain version at the RN50's shapes at b64 (or at
+    `cases` and `batch`), `F.conv2d` beside it, with `device_time` also the
+    kernel's device time from torch.profiler (where the host launches slower
+    than the card runs); returns {label: numbers}."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(11)
     results = {}
-    for label, hw, planes, c, cout, k, relu, affine, residual, dx_form in K4_CASES:
+    for label, hw, planes, c, cout, k, relu, affine, residual, dx_form in cases:
         spec, x, weight, scale, offset, res = flat_case(
-            cf, gen, BATCH, hw, planes, c, cout, k, affine, residual, dx_form)
+            cf, gen, batch, hw, planes, c, cout, k, affine, residual, dx_form)
         before = cf.launch_count()
         out = cf.conv_flat(x, spec, weight, scale, offset, relu, res)
         torch.cuda.synchronize()
         if cf.launch_count() != before + 1:
             fail(f"K4 {label}: the wrapper did not count its launch")
-        if out.shape != (BATCH, spec.rows, cout) or out.dtype != torch.bfloat16:
+        if out.shape != (batch, spec.rows, cout) or out.dtype != torch.bfloat16:
             fail(f"K4 {label}: output is {tuple(out.shape)} {out.dtype}")
         ref = exact_conv_flat(cf, spec, relu, x, weight, scale, offset, res)
         err = (out.float() - ref).abs().max().item()
@@ -1832,8 +1882,18 @@ def phase_kernels_k4(cf):
         # layout); it is inside `ms`
         w_mat = weight.permute(2, 3, 1, 0).reshape(k * k * c, cout)
         copy_ms = cuda_time_ms(lambda: cf.kernel_weight(w_mat, c, torch.bfloat16), 20)
-        bound_ms, bound_by, flops = conv_bound(BATCH, hw, k, c, cout, residual)
-        print(f"kernel K4 {label} x{tuple(x.shape)} (b{BATCH}, {hw}^2 pixels in "
+        bound_ms, bound_by, flops = conv_bound(batch, hw, k, c, cout, residual)
+        device = {}
+        if device_time:
+            device["device_ms"] = kernel_device_ms(
+                f"K4 {label}", lambda: cf.conv_flat(x, spec, weight, scale, offset,
+                                                    relu, res),
+                ("conv_flat_kernel",))["conv_flat_kernel"]
+            # every kernel F.conv2d launches (an empty key is in every name)
+            device["lib_device_ms"] = kernel_device_ms(
+                f"F.conv2d {label}", lambda: F.conv2d(x_nchw, w_cl, padding=k // 2),
+                ("",))[""]
+        print(f"kernel K4 {label} x{tuple(x.shape)} (b{batch}, {hw}^2 pixels in "
               f"{spec.rows} rows, guard {spec.mb}: {1 - hw * hw / spec.rows:.3f} of "
               f"the rows hold no pixel) C {c} Cout {cout} k {k}: "
               f"max_abs_err {err:.6g} against the plain version's f32 value "
@@ -1844,11 +1904,16 @@ def phase_kernels_k4(cf):
               f"{plain_ms:.3f} ms, F.conv2d bf16 channels-last (the convolution "
               f"alone, no epilogue) {lib_ms:.4f} ms, K4 / F.conv2d "
               f"{ms / lib_ms:.2f}, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({100 * bound_ms / ms:.1f}% reached)")
+              f"{bound_by} ({100 * bound_ms / ms:.1f}% reached)"
+              + ("" if not device else
+                 f"; device time {device['device_ms']:.4f} ms "
+                 f"({100 * bound_ms / device['device_ms']:.1f}% of bound: over "
+                 "100% where the operands stay in the 50 MB L2 from launch to "
+                 f"launch), F.conv2d's {device['lib_device_ms']:.4f} ms"))
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms, "over_library": ms / lib_ms,
-                          "weight_copy_ms": copy_ms}
+                          "weight_copy_ms": copy_ms, **device}
         del out, x, res, x_nchw
     return results
 
@@ -2808,6 +2873,386 @@ def phase_denseclip(fa, profile: bool) -> dict:
     return by_path
 
 
+# --- zero-shot RIS (FreeSOLO proposals + masked / cropped CLIP features) ------
+
+# launches a request: K3 in the 12 layers of the text tower over the two text
+# rows (CLIP's causal + padding bias, BiomedCLIP's BERT padding bias); the
+# ViTs' 197 tokens stay under K1's gate (256) and take the plain path, the
+# masked CLIP and the crop CLIP alike; FreeSOLO's R101 on layout="flat" adds
+# K4 for the 3 convolutions of every stride-1 bottleneck
+R101_FLAT_CONVS = 3 * sum(n - 1 for n in (3, 4, 23, 3))
+ZS_SERVE = (0, 0, 12, 0, 0, 0) + NO_VARIANTS
+ZS_FLAT_SERVE = (0, 0, 12, R101_FLAT_CONVS, 0, 0) + NO_VARIANTS
+# eval_zeroshot.yaml's image size, CLIP's pixel statistics (the CLI
+# normalises the one image that feeds FreeSOLO and CLIP with them)
+ZS_IMG = 1024
+CLIP_STATS = ((0.48145466, 0.4578275, 0.40821073),
+              (0.26862954, 0.26130258, 0.27577711))
+# text features, kernel path against plain path: the plain path rounds the
+# scores to bf16 before the softmax, K3 does not; 12 layers, then a pooled
+# row and a projection (the same bounds as the other paths' probabilities)
+ZS_FEATURE_COS_MIN = 0.999
+ZS_FEATURE_REL_TOL = 2e-2
+# the device crop-resize against the host crops: the same f32 taps and
+# products, summed in another order (host: one canvas at a time through two
+# resize GEMMs; device: gathers over every proposal)
+ZS_CROP_REL_TOL = 1e-4
+# flat against nchw backbone on the same weights, FreeSOLO's raw outputs
+# (category logits, mask features), max and mean abs diff over the largest
+# |nchw| value: 101 layers whose bf16 outputs round once per convolution on
+# "flat" (the FrozenBN folded into K4's f32 epilogue) and twice on "nchw"
+# (cuDNN's output, then the affine), then the heads' GroupNorms: a few
+# roundings of 2^-9 relative per layer that do not cancel in a random
+# network; the mean of the differences stays a tenth of their maximum
+ZS_FLAT_RAW_TOL = (0.1, 1e-2)
+# the picked proposal is held equal across two paths only where the top-2
+# similarity margin exceeds this many times their measured difference
+ZS_MARGIN_FACTOR = 10
+
+
+def zs_k4_cases(cf) -> dict:
+    """K4 at the R101's 12 stride-1 convolution shapes of a 1024^2 request
+    (b1), then the 87 launches of a forward summed from them, beside
+    `F.conv2d`'s; returns {label: numbers}."""
+    numbers = phase_kernels_k4(cf, ZS_K4_CASES, batch=1, device_time=True)
+    total = {"ms": 0.0, "device_ms": 0.0, "library_ms": 0.0,
+             "lib_device_ms": 0.0, "bound_ms": 0.0}
+    for (name, hw, planes, blocks), i in zip(ZS_K4_BLOCKS, range(0, 12, 3)):
+        for case in ZS_K4_CASES[i:i + 3]:
+            for key in total:
+                total[key] += (blocks - 1) * numbers[case[0]][key]
+    print(f"zsseg: K4 over the R101's {R101_FLAT_CONVS} stride-1 convolutions of a "
+          f"request, summed from the shapes: {total['ms']:.3f} ms by events, "
+          f"{total['device_ms']:.3f} ms device time; F.conv2d {total['library_ms']:.3f} "
+          f"ms by events, {total['lib_device_ms']:.3f} device; bound "
+          f"{total['bound_ms']:.4f} ms")
+    return numbers
+
+
+def zs_image(gen):
+    """A 1024^2 RGB request as the CLI hands it over: uint8 pixels scaled to
+    [0, 1] and normalised with CLIP's statistics, (3, H, W) f32 numpy."""
+    import torch
+    mean, std = (torch.tensor(v).reshape(3, 1, 1) for v in CLIP_STATS)
+    pixels = torch.randint(0, 256, (3, ZS_IMG, ZS_IMG), generator=gen).float()
+    return ((pixels / 255 - mean) / std).numpy()
+
+
+def zs_text(gen, bos: int, eos: int, vocab: int):
+    """[phrase, class name] rows of 77 ids: BOS, 8 (resp. 3) words, EOS,
+    padding 0; and their attention masks."""
+    import torch
+    ids = torch.zeros(2, SEQ, dtype=torch.int32)
+    for row, words in enumerate((8, 3)):
+        ids[row, 0], ids[row, words + 1] = bos, eos
+        ids[row, 1:words + 1] = torch.randint(5, vocab - 3, (words,), generator=gen)
+    return ids.numpy(), (ids != 0).int().numpy()
+
+
+def zs_request_extras(ris, image, ids, mask):
+    """One fused request's picked mask and intermediates (proposals,
+    features, similarities), on the card."""
+    import torch
+    with torch.no_grad():
+        return ris._fused_forward(torch.from_numpy(image).cuda(),
+                                  torch.from_numpy(ids).cuda(),
+                                  torch.from_numpy(mask).cuda(), image.shape[-2:])
+
+
+def zs_fused_requests(fa, tag: str, ris, request, per_request: tuple,
+                      reps: int) -> tuple:
+    """A warm-up, then `reps` timed `predict_fused` requests (host clock to
+    the mask on the host) with the launch counts set to 0 just before and
+    read just after, each request's launches checked. Returns (the mask, the
+    counts, the median seconds)."""
+    import torch
+    ris.predict_fused(*request)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    times = []
+    for _ in range(reps):
+        before = counts(fa)
+        t = time.perf_counter()
+        out = ris.predict_fused(*request)
+        times.append(time.perf_counter() - t)
+        grew = minus(counts(fa), before)
+        if grew != per_request:
+            fail(f"{tag}: one request launched {COUNTED} = {grew}, expected "
+                 f"{per_request}")
+    launches = counts(fa)
+    if out.shape != (1, 1, ZS_IMG, ZS_IMG) or not ((out == 0) | (out == 1)).all():
+        fail(f"{tag}: the picked mask is {out.shape}, not a 0 / 1 mask")
+    lat = statistics.median(times)
+    print(f"{tag}: predict_fused latency median {lat * 1e3:.3f} ms over {reps} "
+          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+          f"{1 / lat:.2f} images/s; {COUNTED} launches {launches} ({reps} "
+          f"requests x {per_request})")
+    return out, launches, lat
+
+
+def zs_agreement(tag: str, extras_a, extras_b, what: str) -> None:
+    """The discrete outputs of two paths side by side: valid proposals,
+    the masks' IoU index by index, the picked index; the picked index is
+    held equal where the top-2 similarity margin exceeds ZS_MARGIN_FACTOR
+    times the paths' largest similarity difference."""
+    import torch
+    va, vb = extras_a["valid"], extras_b["valid"]
+    both = va & vb
+    ma, mb = extras_a["masks"][both].float(), extras_b["masks"][both].float()
+    inter = (ma * mb).flatten(1).sum(1)
+    union = ((ma + mb) > 0).float().flatten(1).sum(1).clamp(min=1)
+    iou = (inter / union).mean().item() if bool(both.any()) else float("nan")
+    sa, sb = extras_a["sims"], extras_b["sims"]
+    pa, pb = int(torch.argmax(sa)), int(torch.argmax(sb))
+    print(f"{tag}: {what}: valid proposals {int(va.sum())} / {int(vb.sum())}, "
+          f"{int(both.sum())} valid in both, mean mask IoU index by index "
+          f"{iou:.4f}, picked index {pa} / {pb}")
+    if bool((va == vb).all()) and int(va.sum()) > 0:
+        diff = (sa - sb)[va].abs().max().item()
+        top2 = sa[va].sort(descending=True).values
+        margin = (top2[0] - top2[1]).item() if top2.numel() > 1 else float("inf")
+        held = margin > ZS_MARGIN_FACTOR * diff
+        print(f"{tag}: {what}: similarities max abs diff {diff:.4g}, top-2 margin "
+              f"{margin:.4g}: the picked index is "
+              f"{'held equal' if held else 'printed only (margin too small)'}")
+        if held and pa != pb:
+            fail(f"{tag}: {what}: the picked proposal differs ({pa} vs {pb}) "
+                 "though the margin is wide")
+
+
+def zs_text_vs_plain(fa, tag: str, clip, ids, mask) -> None:
+    """The text features of the kernel path (K3) against the plain path."""
+    import torch
+    ids_t, mask_t = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        kern = clip.get_text_features(ids_t, mask_t).float()
+        with plain_path():
+            before = counts(fa)
+            plain = clip.get_text_features(ids_t, mask_t).float()
+            if counts(fa) != before:
+                fail(f"{tag}: the plain path launched a kernel")
+    cos = torch.nn.functional.cosine_similarity(kern, plain, dim=-1).min().item()
+    rel = ((kern - plain).abs().max() / plain.abs().max()).item()
+    print(f"{tag}: text features, kernel path vs plain path: least cosine "
+          f"{cos:.6f} (bound {ZS_FEATURE_COS_MIN}), max abs diff {rel:.4g} of the "
+          f"largest |plain| (bound {ZS_FEATURE_REL_TOL})")
+    if not (cos >= ZS_FEATURE_COS_MIN and rel <= ZS_FEATURE_REL_TOL):
+        fail(f"{tag}: text features disagree with the plain path")
+
+
+def phase_zero_shot(fa, cf, profile: bool) -> dict:
+    """Zero-shot RIS at full width (`build_ris` in bf16 over seeded f32
+    weights: CLIP ViT-B/16 and text towers, FreeSOLO R101-FPN with the zsseg
+    heads; BiomedCLIP's timm ViT-B/16 and BERT-base), one synthetic 1024^2
+    request, alpha 0.95, beta 0.5, masking from layer -3. Fused requests
+    (warm-up, median of 5), one `__call__` through the host crop loop, 6
+    requests through `predict_fused_many` at depth 2; the launches, every K3
+    launch and the text features against the plain path, the device
+    crop-resize against the host crops of the path's proposals; the same
+    weights on `layout="flat"` (every K4 launch held on its own tensors, the
+    raw outputs against "nchw"); BiomedCLIP on the same proposals. Returns
+    {path: counts}."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tunevlseg_torch.eval_zeroshot import build_ris
+    from tunevlseg_torch.models.solov2 import backbone as solo_backbone
+    from tunevlseg_torch.models.solov2.model import SOLOv2, preprocess_image
+    from tunevlseg_torch.models.zero_shot_ris.biomed_clip import (BiomedCLIP,
+                                                                  BiomedCLIPConfig)
+    from tunevlseg_torch.nn.layers import init_params
+    from tunevlseg_torch.ops.image import crop_resize_bicubic_masked
+    from tunevlseg_torch.training.optim import count_params
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    # BiomedCLIP's weights are drawn on the CPU in a thread of their own while
+    # the CLIP path runs
+    box = {}
+
+    def build_biomed():
+        try:
+            model = BiomedCLIP(BiomedCLIPConfig(), torch.bfloat16)
+            init_params(model, torch.Generator().manual_seed(2))
+            box["model"] = model
+        except BaseException as e:      # handed to the main thread at join
+            box["error"] = e
+
+    builder = threading.Thread(target=build_biomed)
+    builder.start()
+    cfg = {"model": {"alpha": 0.95, "beta": 0.5, "masking_block_idx": -3},
+           "seed": 0}
+    t0 = time.perf_counter()
+    ris = build_ris(cfg, device="cuda", dtype=torch.bfloat16)
+    print(f"zsseg: ZeroShotRIS (CLIP ViT-B/16 + text, {count_params(ris.clip.parameters())} "
+          f"params; FreeSOLO R101-FPN {ris.solo_config.fpn_channels}, instance head "
+          f"{ris.solo_config.num_instance_convs} x {ris.solo_config.instance_channels}, "
+          f"grids {tuple(ris.solo_config.num_grids)}, nms_pre {ris.solo_config.nms_pre}, "
+          f"max_per_img {ris.solo_config.max_per_img}, "
+          f"{count_params(ris.solo.parameters())} params), bf16 over f32 weights, "
+          f"alpha {ris.alpha}, beta {ris.beta}, masking_block_idx "
+          f"{ris.masking_block_idx}; built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(80)
+    image = zs_image(gen)
+    ids, mask = zs_text(gen, 49406, 49407, 49408)
+    request = (image, ids, mask)
+
+    torch.cuda.reset_peak_memory_stats()
+    picked, extras = zs_request_extras(ris, *request)
+    n_valid = int(extras["valid"].sum())
+    if n_valid == 0:
+        c = ris.solo_config
+        ris.solo_config = dataclasses.replace(c, score_threshold=0.005,
+                                              update_threshold=1e-4)
+        print(f"zsseg: DEVIATION: no valid proposal at score_threshold "
+              f"{c.score_threshold} / update_threshold {c.update_threshold}; "
+              "lowered to 0.005 / 1e-4 (tests/test_zero_shot_ris.py's values)")
+        picked, extras = zs_request_extras(ris, *request)
+        n_valid = int(extras["valid"].sum())
+    if n_valid < 1:
+        fail("zsseg: no valid proposal")
+    pick = int(torch.argmax(extras["sims"]))
+    print(f"zsseg: {n_valid} valid proposals of {ris.solo_config.max_per_img}, "
+          f"picked index {pick}, its mask covers {int(picked.sum())} pixels")
+
+    fused, by_path["serve_zsseg"], fused_s = zs_fused_requests(
+        fa, "serve zsseg", ris, request, ZS_SERVE, reps=5)
+    if not np.array_equal(fused, picked.cpu().numpy()):
+        fail("serve zsseg: predict_fused differs from the request's own mask")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve zsseg: peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    kernels_on_path_inputs(fa, "serve zsseg", lambda: ris.predict_fused(*request),
+                           kernels=("K3",))
+    zs_text_vs_plain(fa, "serve zsseg", ris.clip, ids, mask)
+    if profile:
+        profile_calls("serve zsseg fused", lambda: ris.predict_fused(*request),
+                      wall=fused_s)
+
+    # the host loop: the crops cut and resized on the host one proposal at a
+    # time; its crops and features are recorded on the way
+    seen = {}
+
+    def record(name, fn):
+        def call(*args, **kwargs):
+            seen[name] = (args, fn(*args, **kwargs))
+            return seen[name][1]
+        return call
+
+    for name in ("host_crop_canvases", "get_visual_feature", "get_text_ensemble"):
+        setattr(ris, name, record(name, getattr(ris, name)))
+    reset_counts(fa)
+    t = time.perf_counter()
+    host = ris(*request)
+    host_s = time.perf_counter() - t
+    for name in ("host_crop_canvases", "get_visual_feature", "get_text_ensemble"):
+        delattr(ris, name)
+    by_path["serve_zsseg_host"] = counts(fa)
+    if by_path["serve_zsseg_host"] != ZS_SERVE:
+        fail(f"serve zsseg host: {COUNTED} = {by_path['serve_zsseg_host']}, "
+             f"expected {ZS_SERVE}")
+    visual, text = seen["get_visual_feature"][1], seen["get_text_ensemble"][1]
+    (_, boxes, masks, valid, _), canvases = seen["host_crop_canvases"]
+    v = visual / visual.norm(dim=-1, keepdim=True)
+    sims = torch.where(torch.from_numpy(valid).to(v.device), v @ (text / text.norm()),
+                       torch.tensor(float("-inf"), device=v.device))
+    host_extras = {"valid": torch.from_numpy(valid).cuda(),
+                   "masks": torch.from_numpy(masks).cuda(), "sims": sims}
+    print(f"serve zsseg host: __call__ through the host crop loop {host_s * 1e3:.3f} "
+          f"ms ({int(valid.sum())} crops cut on the host), "
+          f"{'the same mask as' if np.array_equal(host, fused) else 'another mask than'}"
+          " the fused request")
+    zs_agreement("serve zsseg host", extras, host_extras, "fused vs host loop")
+    dev = crop_resize_bicubic_masked(torch.from_numpy(image).cuda(),
+                                     torch.from_numpy(masks).cuda(),
+                                     torch.from_numpy(boxes).cuda(),
+                                     ris.clip_image_size)[torch.from_numpy(valid).cuda()]
+    ref = torch.from_numpy(canvases[valid]).cuda()
+    crop_err = ((dev - ref).abs().max() / ref.abs().max()).item()
+    print(f"serve zsseg: device crop-resize of the path's {int(valid.sum())} valid "
+          f"proposals against the host crops: max abs diff {crop_err:.4g} of the "
+          f"largest |host| (bound {ZS_CROP_REL_TOL})")
+    if not crop_err <= ZS_CROP_REL_TOL:
+        fail("serve zsseg: the device crop-resize disagrees with the host crops")
+    del dev, ref, canvases, seen
+
+    # pipelined: 6 requests over 3 images, 2 in flight, after a pass over
+    # the 3 that sets the allocator up for requests in flight
+    images = [image, zs_image(gen), zs_image(gen)]
+    items = [{"image": images[i % 3], "input_ids": ids, "attention_mask": mask}
+             for i in range(6)]
+    for _ in ris.predict_fused_many(iter(items[:3]), depth=2):
+        pass
+    reset_counts(fa)
+    t = time.perf_counter()
+    outs = list(ris.predict_fused_many(iter(items), depth=2))
+    pipe_s = time.perf_counter() - t
+    by_path["serve_zsseg_pipelined"] = counts(fa)
+    if by_path["serve_zsseg_pipelined"] != tuple(6 * n for n in ZS_SERVE) or \
+            not np.array_equal(outs[0], fused) or not np.array_equal(outs[3], fused):
+        fail(f"serve zsseg pipelined: {COUNTED} = "
+             f"{by_path['serve_zsseg_pipelined']}, or another mask than "
+             "predict_fused on the same image")
+    print(f"serve zsseg pipelined: predict_fused_many depth 2 over 6 requests "
+          f"{pipe_s * 1e3:.3f} ms, {6 / pipe_s:.2f} images/s (sequential "
+          f"{1 / fused_s:.2f})")
+
+    # the same weights on layout="flat": K4 in the R101's stride-1 blocks
+    flat_solo = SOLOv2(ris.solo_config, layout="flat",
+                       dtype=ris.solo.backbone.stem_conv1.dtype)
+    flat_solo.load_state_dict(ris.solo.state_dict())
+    flat = dataclasses.replace(ris, solo=flat_solo.cuda().eval())
+    _, by_path["serve_zsseg_flat"], _ = zs_fused_requests(
+        fa, "serve zsseg flat", flat, request, ZS_FLAT_SERVE, reps=2)
+    held = k4_on_path_inputs(cf, "serve zsseg flat", lambda: flat.predict_fused(*request),
+                             module=solo_backbone)
+    if held != R101_FLAT_CONVS:
+        fail(f"serve zsseg flat: {held} K4 launches held, expected {R101_FLAT_CONVS}")
+    with torch.no_grad():
+        batched = preprocess_image(torch.from_numpy(image).cuda(), ris.solo_config)
+        raw_n, raw_f = ris.solo(batched), flat.solo(batched)
+    for what, a, b in (("category logits", torch.cat([x.flatten() for x in raw_n[0]]),
+                        torch.cat([x.flatten() for x in raw_f[0]])),
+                       ("mask features", raw_n[3], raw_f[3])):
+        top = a.float().abs().max().item()
+        diff = (a.float() - b.float()).abs()
+        dmax, dmean = diff.max().item() / top, diff.mean().item() / top
+        print(f'serve zsseg flat: "flat" vs "nchw" on the same weights, {what}: max '
+              f"abs diff {dmax:.4g} (bound {ZS_FLAT_RAW_TOL[0]}), mean {dmean:.4g} "
+              f"(bound {ZS_FLAT_RAW_TOL[1]}) of the largest |nchw| ({top:.4g})")
+        if not (dmax <= ZS_FLAT_RAW_TOL[0] and dmean <= ZS_FLAT_RAW_TOL[1]):
+            fail(f"serve zsseg flat: the two layouts' {what} disagree")
+    zs_agreement("serve zsseg flat", extras, zs_request_extras(flat, *request)[1],
+                 "nchw vs flat")
+    del flat, flat_solo, raw_n, raw_f, batched
+
+    # BiomedCLIP over the same proposals
+    builder.join()
+    if "error" in box:
+        raise box["error"]
+    biomed = box.pop("model").cuda().eval()
+    bris = dataclasses.replace(ris, clip=biomed, clip_config=biomed.config)
+    bids, bmask = zs_text(gen, 2, 3, biomed.config.text.vocab_size)
+    brequest = (image, bids, bmask)
+    print(f"zsseg biomed: BiomedCLIP (timm ViT-B/16 at 224^2, BERT-base, "
+          f"projection {biomed.config.projection_dim}), "
+          f"{count_params(biomed.parameters())} params, bf16 over f32 weights")
+    _, by_path["serve_zsseg_biomed"], _ = zs_fused_requests(
+        fa, "serve zsseg biomed", bris, brequest, ZS_SERVE, reps=2)
+    kernels_on_path_inputs(fa, "serve zsseg biomed",
+                           lambda: bris.predict_fused(*brequest), kernels=("K3",))
+    zs_text_vs_plain(fa, "serve zsseg biomed", biomed, bids, bmask)
+    _, bextras = zs_request_extras(bris, *brequest)
+    print(f"zsseg biomed: {int(bextras['valid'].sum())} valid proposals, picked "
+          f"index {int(torch.argmax(bextras['sims']))}")
+    del bris, biomed, ris
+    torch.cuda.empty_cache()
+    print(f"zsseg: phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 # --- S1-S4, the variants of K1 that the attention sweeps time ----------------
 
 def phase_kernels_variants(sweeps, library):
@@ -3098,6 +3543,9 @@ def main() -> None:
     clock("phrasecut paths")
     by_path.update(phase_denseclip(fa, profile))
     clock("denseclip paths")
+    k4.update(zs_k4_cases(cf))
+    by_path.update(phase_zero_shot(fa, cf, profile))
+    clock("zero-shot RIS paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
@@ -3193,11 +3641,17 @@ def main() -> None:
     training = tuple(p for p in by_path if p.startswith("train"))
     flat = tuple(p for p in by_path if "flat" in p)
     flat_training = ("train_cris_e2e_flat", "train_trans_seg_flat")
-    for kernel, paths in zip(kernels[:4], (tuple(by_path), training,
-                                           tuple(by_path), flat)):
+    # zero-shot RIS runs ViTs of 197 tokens, under K1's gate: no K1 there
+    zero_shot = tuple(p for p in by_path if p.startswith("serve_zsseg"))
+    with_k1 = tuple(p for p in by_path if p not in zero_shot)
+    for kernel, paths in zip(kernels[:4], (with_k1, training, tuple(by_path),
+                                           flat)):
         for path in paths:
             if kernel["launches_by_path"][path] <= 0:
                 fail(f"{kernel['name']} was never launched on the {path} path")
+    for path in zero_shot:
+        if by_path[path][0]:
+            fail(f"{path} launched K1 {by_path[path][0]} times")
     for path, c in by_path.items():
         if not path.startswith("train") and c[1] != 0:
             fail(f"{path} launched K2 {c[1]} times; it takes no gradient")

@@ -331,10 +331,32 @@ def test_unported_options_raise_with_their_item(synth, tmp_path, override,
 
 
 def test_unported_families_raise_in_build_model_and_task():
+    """Zero-shot RIS is ported, but is training-free: the train CLI's model
+    builder names its entry point, `tunevlseg_torch.eval_zeroshot`."""
     cfg = compose(CONFIG_DIR, "eval_zeroshot", ["experiment=zsseg_clip",
                                                 "ds_name=x"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError,
+                       match=r"python -m tunevlseg_torch\.eval_zeroshot"):
         train_mod.build_model_and_task(cfg, device="cpu")
+    assert "zero_shot_ris" not in train_mod.UNPORTED_FAMILIES
+
+
+def test_zsbench_script_on_the_cpu():
+    """scripts/torch_zsbench.py rehearsed on the CPU with the test models: a
+    pipelined fused pass, its JSON line naming the CPU (no device metric);
+    `--n-devices 2` names its ROADMAP item."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_zsbench", REPO / "scripts" / "torch_zsbench.py")
+    zsbench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(zsbench)
+    out = zsbench.main(["--tiny", "--device", "cpu", "--dtype", "f32", "--img",
+                        "64", "--images", "2", "--alpha", "0.95", "--fused",
+                        "--pipeline", "2"])
+    assert out["metric"] == "zsseg_imgs_per_sec_alpha0.95_fused_pipe2"
+    assert out["device"] == "cpu" and out["value"] > 0
+    with pytest.raises(NotImplementedError, match="item 9"):
+        zsbench.main(["--n-devices", "2"])
 
 
 def test_denseclip_family_names_its_trainer_script():

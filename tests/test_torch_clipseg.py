@@ -223,8 +223,9 @@ def test_port_runs_without_jax():
     included), chip_smoke and every scripts/torch_*.py import, and a tiny
     eval and a tiny train step of CLIPSeg (CoOp and the five other
     strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
-    TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts)
-    and of DenseCLIP (its own task, batch statistics) and a tiny
+    TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
+    of DenseCLIP (its own task, batch statistics) and a tiny zero-shot RIS
+    request (fused and host loop), and a tiny
     `Trainer.fit` with its checkpoints run, with jax/flax/optax
     (and regex) unimportable; afterwards neither a module of jax nor one of
     the JAX package has been loaded, and the fit from memory loaded no
@@ -388,6 +389,22 @@ def test_port_runs_without_jax():
         assert torch.equal(dc.text_encoder.resblocks[0].mlp.fc1.weight, text_before)
         key = "backbone.bn1.running_mean"
         assert not torch.equal(dc_state2.model_state[key], dc_state.model_state[key])
+        # zero-shot RIS: a tiny fused request (FreeSOLO's R50 on the flat
+        # layout, the device crop-resize at alpha 0.95) and the host loop
+        from tunevlseg_torch.eval_zeroshot import build_ris
+        for name in ("tunevlseg_torch.models.solov2.backbone",
+                     "tunevlseg_torch.models.solov2.model",
+                     "tunevlseg_torch.models.zero_shot_ris.model",
+                     "tunevlseg_torch.models.zero_shot_ris.biomed_clip"):
+            assert name in sys.modules, name
+        zs = build_ris({"model": {"layout": "flat"}, "tiny_model": True},
+                       device="cpu")
+        zs_image = torch.randn(3, 64, 64, generator=g).numpy()
+        zs_ids = ids[:1].expand(2, -1).numpy()
+        zs_mask = torch.ones_like(ids[:1]).expand(2, -1).numpy()
+        zs_fused = zs.predict_fused(zs_image, zs_ids, zs_mask)
+        assert zs_fused.shape == (1, 1, 64, 64)
+        assert (zs(zs_image, zs_ids, zs_mask) == zs_fused).all()
         # the training and evaluation entry points and their modules: a tiny
         # fit with checkpoints over the port's loader, then a restore
         for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",

@@ -1068,3 +1068,89 @@ def test_k4_upsampler_convolution_with_padded_channels(cuda, c, cout, side):
                             ("db", conv.bias.grad, br.grad)):
         top = want.abs().max().item()
         assert (got.float() - want).abs().max().item() <= 1e-2 * top, name
+
+
+@pytest.mark.parametrize("hw,c,o,k,res", [
+    (256, 64, 64, 3, False),       # FreeSOLO's R101 res2 at a 1024^2 request
+    (256, 64, 256, 1, True),
+    (64, 1024, 256, 1, False),     # res4
+    (32, 512, 2048, 1, True),      # res5
+])
+def test_k4_at_the_zero_shot_r101_shapes(cuda, hw, c, o, k, res):
+    spec, x, wt, scale, offset, residual = _flat_case(cuda, 1, hw, hw, c, o, k,
+                                                      res=res)
+    out = cf.conv_flat(x, spec, wt, scale, offset, True, residual)
+    ref = _k4_ref(spec, x.float(), wt.bfloat16().float(), scale, offset, True,
+                  None if residual is None else residual.float())
+    top = ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= K4_REL_TOL * top
+    assert bool((out[:, ~cf._valid_rows(spec, cuda)] == 0).all())
+
+
+def _small_zero_shot(cuda, layout):
+    """A narrow ZeroShotRIS on the card in bf16: text heads of 16 (K3 takes
+    them), the tiny FreeSOLO (full-width R50) on `layout`."""
+    from tunevlseg_torch.models.clip.config import (CLIPSegConfig, CLIPTextConfig,
+                                                    CLIPVisionConfig)
+    from tunevlseg_torch.models.solov2.model import SOLOv2, SOLOv2Config
+    from tunevlseg_torch.models.zero_shot_ris.model import MaskedCLIP, ZeroShotRIS
+    from tunevlseg_torch.nn.layers import init_params
+    ccfg = CLIPSegConfig(
+        text=CLIPTextConfig(hidden_size=32, num_layers=2, num_heads=2,
+                            intermediate_size=64),
+        vision=CLIPVisionConfig(hidden_size=32, num_layers=3, num_heads=2,
+                                intermediate_size=64, patch_size=8, image_size=32),
+        projection_dim=16)
+    scfg = SOLOv2Config.tiny(fpn_channels=32, num_kernels=32, num_masks=32,
+                             instance_channels=32, mask_channels=32)
+    clip = MaskedCLIP(ccfg, torch.bfloat16)
+    solo = SOLOv2(scfg, layout=layout, dtype=torch.bfloat16)
+    init_params(clip, torch.Generator().manual_seed(0))
+    init_params(solo, torch.Generator().manual_seed(1))
+    return ZeroShotRIS(ccfg, scfg, clip.to(cuda).eval(), solo.to(cuda).eval(),
+                       alpha=0.95, clip_image_size=32)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "flat"])
+def test_small_zero_shot_request_launches_k3_and_k4(cuda, layout, monkeypatch):
+    """A fused request: K3 in each text layer, K4 in the R50's 12 stride-1
+    bottlenecks on "flat", no K1 (197-token ViTs and these 17 tokens are
+    under its gate); the host loop gives a mask of the same shape, and its
+    text features match the plain path's."""
+    import numpy as np
+    ris = _small_zero_shot(cuda, layout)
+    g = torch.Generator().manual_seed(2)
+    image = torch.randn(3, 64, 64, generator=g).numpy()
+    ids = torch.randint(1, 1000, (2, 12), generator=g, dtype=torch.int32)
+    ids[:, -1] = 49407
+    ids, mask = ids.numpy(), np.ones((2, 12), np.int32)
+    fa.reset_launch_count()
+    cf.reset_launch_count()
+    out = ris.predict_fused(image, ids, mask)
+    assert (fa.launch_count(), fa.bias_launch_count(), cf.launch_count()) == (
+        0, 2, 36 if layout == "flat" else 0)
+    assert out.shape == (1, 1, 64, 64)
+    assert ris(image, ids, mask).shape[1:] == (1, 64, 64)
+    ids_t, mask_t = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
+    with torch.no_grad():
+        kern = ris.clip.get_text_features(ids_t, mask_t).float()
+        monkeypatch.setattr(attention, "_kernel_eligible", lambda *a: "")
+        plain = ris.clip.get_text_features(ids_t, mask_t).float()
+    assert (kern - plain).abs().max().item() <= 2e-2 * plain.abs().max().item()
+
+
+def test_crop_resize_on_the_card_matches_the_host_crops(cuda):
+    import numpy as np
+    from tunevlseg_torch.models.zero_shot_ris.model import ZeroShotRIS
+    from tunevlseg_torch.ops.image import crop_resize_bicubic_masked
+    rng = np.random.default_rng(3)
+    image = rng.normal(size=(3, 200, 240)).astype(np.float32)
+    masks = rng.random((6, 200, 240)) > 0.4
+    boxes = np.array([[4.7, 3.2, 130.9, 95.1], [-6, -3, 20, 12], [200, 150, 260, 215],
+                      [10, 10, 11, 11], [12, 5, 9, 30], [0, 0, 240, 200]], np.float32)
+    valid = np.ones(6, bool)
+    got = crop_resize_bicubic_masked(*(torch.from_numpy(a).to(cuda)
+                                       for a in (image, masks, boxes)), 224)
+    want = ZeroShotRIS.host_crop_canvases(image, boxes, masks, valid, 224)
+    assert (got.cpu() - torch.from_numpy(want)).abs().max().item() <= \
+        1e-4 * np.abs(want).max()

@@ -5,14 +5,18 @@ its checkpoint converters give them) map onto the port's parameter names
 mechanically:
 
   * path components `layers_3` / `reduces_0` / `resblocks_3` / `layer2_1` /
-    `decoder_layers_2` / `decoder_1` -> `layers.3` / `reduces.0` /
-    `resblocks.3` / `layer2.1` / `decoder_layers.2` / `decoder.1`; every
+    `decoder_layers_2` / `decoder_1` / `blocks_4` / `res4_22` -> `layers.3` /
+    `reduces.0` / `resblocks.3` / `layer2.1` / `decoder_layers.2` /
+    `decoder.1` / `blocks.4` / `res4.22`; every
     other module name is the port's own (the TransformerSegmentor's
     `block0_conv`, `block0_norm`, `out_conv`, SigLIP's `head`, `head_attn`,
     `head_layernorm`, `head_mlp_fc1` / `fc2`; DenseCLIP's `attnpool`,
     `memory_proj_{0,1,2}`, `text_proj_{0,1}`, `out_proj_{0,1}`, `mlp_{0,3}`,
     `lateral_{i}`, `output_{i}`, `scale_head_{i}`, `scale_gn_{i}`,
-    `fpn{1..4}_gn`, `fpn1_bn`, `fpn{1,2}_deconv*`, `cls_seg`);
+    `fpn{1..4}_gn`, `fpn1_bn`, `fpn{1,2}_deconv*`, `cls_seg`; SOLOv2's
+    `stem_conv1`, `fpn_lateral{i}`, `{cate,kernel}_tower_{i}`,
+    `level{i}_conv{j}`, `conv_pred_*`; BiomedCLIP's `visual_head`,
+    `text_proj_fc{1,2}`, `embed_norm`);
   * Flax `Dense.kernel` (in, out) -> `weight` (out, in), transposed;
   * `LayerNorm.scale` -> `weight` (the upsampler's sample LayerNorm keeps
     its (C, H, W) shape), `GroupNorm.scale` -> `weight`;
@@ -22,7 +26,9 @@ mechanically:
     (C*p*p, D) layout, `class_embedding`, `position_embedding`,
     `positional_embedding`, `text_projection`, `context_vectors`,
     `residual_ratio`, SigLIP's `patch_bias` and `probe`, DenseCLIP's
-    `contexts`, `gamma` and the ViT's `proj`) is copied as it is;
+    `contexts`, `gamma` and the ViT's `proj`, BiomedCLIP's `cls_token` and
+    `token_type_embedding`, and SOLOv2's FrozenBN `running_mean` /
+    `running_var`, which are parameters in both packages) is copied as it is;
   * the `batch_stats` collection (`running_mean`, `running_var` of every
     BatchNorm, under the same module paths) fills the port's buffers, and
     the JAX `TrainState.model_state` (that collection, as a train step
@@ -45,13 +51,13 @@ import torch
 from torch import nn
 
 _INDEXED = re.compile(
-    r"(layers|decoder_layers|decoder|reduces|resblocks|layer\d+)_(\d+)")
+    r"(layers|decoder_layers|decoder|reduces|resblocks|blocks|layer\d+|res\d)_(\d+)")
 _RENAMED_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _COPIED_LEAVES = {"bias", "weight", "class_embedding", "position_embedding",
                   "positional_embedding", "text_projection", "patch_proj",
                   "context_vectors", "residual_ratio", "running_mean",
                   "running_var", "patch_bias", "probe", "contexts", "gamma",
-                  "proj"}
+                  "proj", "cls_token", "token_type_embedding"}
 
 
 def flatten_params(params: Mapping[str, Any], prefix: tuple = ()) -> dict:

@@ -16,7 +16,10 @@ kernels' backward adds with atomics), and on an H100 the f32 bilinear
 
 Users: the vision position-embedding resizes (bicubic), the CRIS neck's and
 projector's bilinear upsamples, the CRIS final bicubic `align_corners=True`
-upsample and the additive head's bilinear resize.
+upsample and the additive head's bilinear resize, FreeSOLO's heads and
+masks, zero-shot RIS's CLIP inputs and mask downsample ("nearest").
+`crop_resize_bicubic_masked` (the counterpart of the JAX op of that name)
+cuts and resizes every proposal's crop of the mask-filled image at once.
 """
 from __future__ import annotations
 
@@ -96,3 +99,83 @@ def upsample_scale(img: torch.Tensor, scale: int,
     """`nn.Upsample(scale_factor=scale, mode=method)` on (..., H, W)."""
     h, w = img.shape[-2:]
     return resize_2d(img, (h * scale, w * scale), method)
+
+
+def _cubic_kernel_t(x: torch.Tensor, a: float = -0.75) -> torch.Tensor:
+    """`_cubic_kernel` on a tensor."""
+    x = x.abs()
+    x2, x3 = x * x, x * x * x
+    return torch.where(
+        x <= 1.0, (a + 2.0) * x3 - (a + 3.0) * x2 + 1.0,
+        torch.where(x < 2.0, a * x3 - 5.0 * a * x2 + 8.0 * a * x - 4.0 * a,
+                    torch.zeros_like(x)))
+
+
+def _crop_axis_taps(start: torch.Tensor, clen: torch.Tensor, n_in: int,
+                    out_size: int):
+    """Per-proposal bicubic taps for one axis of a crop-resize.
+
+    `start` / `clen` (P,) int canvas origin and length in source
+    coordinates. Returns (idx, weight, ok), each (4, P, out_size): the source
+    index (clamped into the image), the cubic weight, and whether the CANVAS
+    tap lands inside the image. Taps outside the canvas clamp to its edge
+    first (the accumulation of `resize_matrix`), and the canvas is zero
+    wherever it lies outside the image. Positions and weights are computed
+    in f64 and rounded to f32 once, as `resize_matrix` builds its matrices:
+    the JAX op's f32 source positions move the weights by ~1e-4 of the
+    largest value at a 1024-px canvas (measured against the host crops)."""
+    j = torch.arange(out_size, dtype=torch.float64, device=start.device)
+    clen_f = clen[:, None].double()
+    src = (j[None] + 0.5) * (clen_f / out_size) - 0.5       # (P, S), canvas space
+    base = torch.floor(src)
+    frac = src - base
+    idxs, wgts, oks = [], [], []
+    for m in range(-1, 3):
+        cidx = torch.minimum(torch.clamp(base + m, min=0.0), clen_f - 1)
+        aidx = start[:, None].double() + cidx
+        oks.append(((aidx >= 0) & (aidx < n_in)).float())
+        idxs.append(aidx.clamp(0, n_in - 1).long())
+        wgts.append(_cubic_kernel_t(frac - m).float())
+    return torch.stack(idxs), torch.stack(wgts), torch.stack(oks)
+
+
+def crop_resize_bicubic_masked(image: torch.Tensor, masks: torch.Tensor,
+                               boxes: torch.Tensor,
+                               out_size: int) -> torch.Tensor:
+    """`torchvision.resized_crop` of the mask-filled image for EVERY proposal
+    at once, on the image's device: the zero-shot crop-feature path without
+    the per-crop host loop (counterpart of
+    `tunevlseg_tpu/ops/image.py:crop_resize_bicubic_masked`).
+
+    image (C, H, W), masks (P, H, W) {0, 1}, boxes (P, 4) x1 y1 x2 y2.
+    The crop canvas is the mask-filled image (fill = the image's per-channel
+    mean) inside the image and ZERO outside it; bicubic (A = -0.75) with the
+    taps clamped to the canvas edge; boxes truncated toward zero; degenerate
+    boxes clamped to 1 px. Gathers and products over all P proposals in f32
+    (the taps' positions and weights from f64, as `resize_matrix` builds
+    them); returns (P, C, out_size, out_size) f32. Matches
+    `ZeroShotRIS.host_crop_canvases` on the valid proposals."""
+    c, h, w = image.shape
+    image = image.float()
+    masks = masks.float()
+    p = masks.shape[0]
+    mean = image.mean(dim=(1, 2))                           # (C,)
+    bi = boxes.to(torch.int32)                              # trunc toward zero
+    x1, y1, x2, y2 = bi.unbind(1)
+    cw = torch.clamp(x2 - x1, min=1)
+    ch = torch.clamp(y2 - y1, min=1)
+    xi, xw, xo = _crop_axis_taps(x1, cw, w, out_size)       # (4, P, S)
+    yi, yw, yo = _crop_axis_taps(y1, ch, h, out_size)
+    s = out_size
+    acc_w = torch.zeros(p, c, h, s, dtype=torch.float32, device=image.device)
+    for m in range(4):
+        img_cols = image[:, :, xi[m]].permute(2, 0, 1, 3)   # (P, C, H, S)
+        m_cols = torch.gather(masks, 2, xi[m][:, None, :].expand(p, h, s))
+        m_cols = m_cols[:, None]                            # (P, 1, H, S)
+        fill = img_cols * m_cols + (1.0 - m_cols) * mean[None, :, None, None]
+        acc_w = acc_w + fill * (xw[m] * xo[m])[:, None, None, :]
+    acc = torch.zeros(p, c, s, s, dtype=torch.float32, device=image.device)
+    for m in range(4):
+        rows = torch.gather(acc_w, 2, yi[m][:, None, :, None].expand(p, c, s, s))
+        acc = acc + rows * (yw[m] * yo[m])[:, None, :, None]
+    return acc

@@ -17,7 +17,8 @@ fine-tune and zero-shot-segmentation variant (`e2e_clipseg`,
 the TransformerSegmentor (`model=trans_seg`, `model=trans_seg_siglip`,
 `experiment=phrasecut`; `+model.layout=flat` runs its upsampler through the
 flat convolution). Options of slices not ported yet raise and name their
-ROADMAP item.
+ROADMAP item; DenseCLIP trains through `scripts/torch_train_denseclip.py`
+and zero-shot RIS is evaluated by `python -m tunevlseg_torch.eval_zeroshot`.
 """
 from __future__ import annotations
 
@@ -46,18 +47,20 @@ log = get_logger(__name__)
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
-# model families without a port yet, and the ROADMAP item each waits for
-UNPORTED_FAMILIES = {
-    "zero_shot_ris": "ROADMAP Queue 1 item 8 (Slice F, zero-shot RIS)",
-}
-# DenseCLIP trains outside this CLI, in the port as in the JAX package
+# model families without a port yet, and the ROADMAP item each waits for:
+# none left, every family of the JAX package is ported
+UNPORTED_FAMILIES: dict[str, str] = {}
+# DenseCLIP trains outside this CLI, in the port as in the JAX package, and
+# zero-shot RIS does not train: it has an entry point of its own
 DENSECLIP_SCRIPT = "scripts/torch_train_denseclip.py"
+ZERO_SHOT_ENTRY = "python -m tunevlseg_torch.eval_zeroshot"
 
 
 def check_ported(cfg: dict) -> None:
     """Raise on an option of a slice that is not ported yet, naming its
-    ROADMAP item, and on `family: denseclip`, which trains through its own
-    script."""
+    ROADMAP item, on `family: denseclip`, which trains through its own
+    script, and on `family: zero_shot_ris`, which is evaluated through its
+    own entry point."""
     m, t = cfg["model"], cfg["trainer"]
     family = m.get("family", "clipseg")
     if family == "denseclip":
@@ -65,6 +68,11 @@ def check_ported(cfg: dict) -> None:
             "model family 'denseclip' does not train through this CLI (the "
             f"JAX CLI has no such family either): run {DENSECLIP_SCRIPT}, the "
             "mmseg recipe's trainer over training/denseclip_task.py")
+    if family == "zero_shot_ris":
+        raise NotImplementedError(
+            "model family 'zero_shot_ris' is training-free and does not run "
+            f"through this CLI: evaluate it with {ZERO_SHOT_ENTRY} (the JAX "
+            "package's eval_zeroshot)")
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")
