@@ -201,6 +201,29 @@ Phases, each printing its numbers on lines of its own:
      BERT-base) on the same proposals, 12 K3 a request against the plain
      path. K4 is also held and timed alone at the R101's 12 stride-1
      convolution shapes of a 1024^2 request, and K3 at the two text towers'.
+ 24. real-layout checkpoints (`phase_checkpoints`): synthetic full-width
+     checkpoints drawn on the real key sets (`tunevlseg_torch/convert/
+     keysets/`, `tests/fixtures/keysets/`) from a seeded generator on the
+     CPU, written to a temporary directory in the real files' formats and
+     loaded through the port's entry points: CIDAS CLIPSeg rd64-refined as
+     `.safetensors` (written by this script's own few lines) through
+     `train.load_pretrained` into CLIPSeg CoOp (depth 3, the contexts
+     embedded from "a photo of a" through the loaded table: 4), one b64
+     dedup request (13 K1 + 12 K3) and 2 + 3 b64 CoOp steps (13 / 3 / 12),
+     frozen tensors bit-identical, the first step against the plain path;
+     the same weights as the reference wrapper's Lightning `.ckpt` with a
+     CoOp learner, loaded over them; OpenAI RN50 as a TorchScript `.pt`
+     under CRIS CoOp, a b64 request on "nchw" (3 K1 + 15 K3) and on "flat"
+     (+54 K4, every launch held against its plain version, flat against
+     nchw); FreeSOLO R101 as `{"model": sd}` and the rd64-refined file as
+     `clip_checkpoint` in `eval_zeroshot.build_ris`, fused 1024^2 requests
+     (12 K3, each held; text features against the plain path); SigLIP-base
+     as `.bin` under the PhraseCut segmentor, one b16 request (16 K1 + 16
+     K3) against the plain path. For each file: every key read or in the
+     converter's named ignorable set, every converted tensor on the card
+     bit-identical in f32 to its source after the documented transform,
+     every other tensor of the model under a named fresh prefix; load and
+     convert seconds and GB; the phase's peak memory.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -3255,6 +3278,411 @@ def phase_zero_shot(fa, cf, profile: bool) -> dict:
 
 # --- S1-S4, the variants of K1 that the attention sweeps time ----------------
 
+# --- Slice G1: real-layout checkpoints ------------------------------------------
+
+# OpenAI CLIP's BPE ids of "a photo of a" (without BOS / EOS), the default
+# context initializer of the CoOp configs: constants, so the phase needs no
+# vocabulary file
+A_PHOTO_OF_A = (320, 1125, 539, 320)
+CKPT_SEED = 240
+
+
+class InitializerIds:
+    """The tokenizer `train._initializer_embeddings` asks for the
+    initializer's ids: here the constant ids of "a photo of a"."""
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        if text != "a photo of a" or add_special_tokens:
+            fail(f"checkpoints: no constant ids for {text!r}")
+        return list(A_PHOTO_OF_A)
+
+
+def torch_holder():
+    import torch
+
+    class TensorHolder(torch.nn.Module):
+        """A module that only holds tensors."""
+    return TensorHolder
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """f32 tensors in the safetensors format: an 8-byte little-endian header
+    length, a JSON header of {name: {dtype, shape, data_offsets}} padded to
+    8 bytes, then the raw little-endian buffers in the header's order."""
+    import struct
+
+    import torch
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            fail(f"write_safetensors: {name} is {t.dtype}")
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + 4 * t.numel()]}
+        offset += 4 * t.numel()
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().data)
+
+
+def write_torchscript(path, tensors: dict) -> None:
+    """The tensors as a TorchScript archive, OpenAI's RN50.pt layout: modules
+    nested along the keys' dots, BatchNorm statistics as buffers."""
+    import torch
+    holder = torch_holder()
+    root = holder()
+    for key, value in tensors.items():
+        *mods, leaf = key.split(".")
+        node = root
+        for part in mods:
+            if part not in node._modules:
+                node.add_module(part, holder())
+            node = node._modules[part]
+        if "running" in leaf or "num_batches" in leaf:
+            node.register_buffer(leaf, value)
+        else:
+            node.register_parameter(leaf, torch.nn.Parameter(value, requires_grad=False))
+    torch.jit.save(torch.jit.script(root), str(path))
+
+
+def drawn_checkpoint(keyset: str, seed: int) -> dict:
+    """A full-width checkpoint on a real key set, drawn on the CPU from a
+    seeded torch.Generator at an initialisation's scale (norm weights
+    1 +- 0.02, BatchNorm variances in [0.5, 1.5], the rest N(0, 0.02))."""
+    import torch
+    from tunevlseg_torch.convert.coverage import read_keyset, synthetic_state_dict
+    return synthetic_state_dict(read_keyset(keyset),
+                                torch.Generator().manual_seed(seed))
+
+
+def checkpoint_landed(tag: str, written: dict, convert, module, ignored: tuple,
+                      fresh: tuple = ()) -> None:
+    """The checkpoint `written` (the tensors put in the file) against
+    `module` on the card: every key read by `convert` or ignorable (by
+    suffix); each module tensor converted from a key equal, bit for bit in
+    f32, to that key's tensor after the documented transform (identity, the
+    patch embedding's reshape, a q / k / v third); every other module tensor
+    under `fresh`. Keys whose tensors the module elides are counted."""
+    import torch
+    from tunevlseg_torch.convert.checkpoint_io import TrackingDict, to_numpy
+    from tunevlseg_torch.convert.coverage import (expected_tensor, sources,
+                                                  unread_keys)
+    sd = TrackingDict(to_numpy(written))
+    tree = convert(sd)
+    origin = sources(tree, sd)
+    unread = unread_keys(tree, sd, ignored)
+    own = module.state_dict()
+    compared = 0
+    for name, key in origin.items():
+        if name not in own:
+            continue
+        got = own[name]
+        want = expected_tensor(name, got.shape, written[key]).to(got.device)
+        if got.dtype != torch.float32 or not torch.equal(got, want):
+            fail(f"{tag}: {name} differs from {key} after its documented transform")
+        compared += 1
+    landed = {origin[n] for n in origin if n in own}
+    elided = set(origin.values()) - landed
+    unfilled = [n for n in own if n not in origin and not n.startswith(fresh)]
+    ignorable = sum(k.endswith(ignored) for k in sd)
+    print(f"{tag}: {len(sd)} checkpoint keys: {len(landed)} landed in {compared} "
+          f"tensors on the card, bit-identical in f32 after the documented "
+          f"transform; {len(elided)} read and elided by the named rule; "
+          f"{ignorable} ignorable ({', '.join(ignored)}); {len(unread)} unread; "
+          f"{len(own) - compared} module tensors fresh "
+          f"({', '.join(fresh) or 'none'})")
+    if unread or unfilled or not compared:
+        fail(f"{tag}: unread keys {unread[:4]}, unfilled tensors {unfilled[:4]}")
+
+
+def file_gb(path) -> float:
+    import os
+    return os.path.getsize(path) / 1e9
+
+
+def timed_load(tag: str, path, load):
+    """`load()` (read and convert a checkpoint) timed; prints its seconds,
+    the file's GB and the rate."""
+    t = time.perf_counter()
+    out = load()
+    secs = time.perf_counter() - t
+    print(f"{tag}: load and convert {secs:.3f} s for {file_gb(path):.3f} GB "
+          f"({file_gb(path) / secs:.2f} GB/s) from {path.name}")
+    return out
+
+
+def checkpoint_cfg(path, model: dict, **top) -> dict:
+    """A composed config as the train CLI sees it, for `load_pretrained` and
+    `build_model_and_task` (bf16 compute over f32 weights)."""
+    return {"pretrained_checkpoint": str(path), "seed": 0,
+            "trainer": {"precision": "bf16"}, "model": model, **top}
+
+
+def initializer_landed(tag: str, model, table_name: str, written: dict) -> None:
+    """The first depth's context vectors are the checkpoint's token
+    embeddings of "a photo of a", bit for bit, and there are 4 of them."""
+    import torch
+    ctx = model.learner.context_vectors.detach()
+    want = written[table_name][list(A_PHOTO_OF_A)].to(ctx.device)
+    if ctx.shape[1] != len(A_PHOTO_OF_A) or not torch.equal(ctx[0], want):
+        fail(f"{tag}: the context vectors are not the initializer's embeddings")
+    print(f"{tag}: context vectors {tuple(ctx.shape)}, depth 0 = the checkpoint's "
+          f"embeddings of \"a photo of a\" {A_PHOTO_OF_A}, bit-identical")
+
+
+def phase_checkpoints(fa, cf) -> dict:
+    """Synthetic full-width checkpoints in the real files' layouts, loaded
+    through the port's entry points on the card: CIDAS CLIPSeg rd64-refined
+    as `.safetensors` (CoOp, depth 3, contexts from "a photo of a") and the
+    same weights as a reference-wrapper Lightning `.ckpt` with a CoOp
+    learner, both through `train.load_pretrained`; OpenAI RN50 as a
+    TorchScript `.pt` under CRIS CoOp ("nchw", then "flat": every K4 launch
+    held, flat against nchw); FreeSOLO R101 as `{"model": sd}` with the
+    CLIPSeg-layout file in `eval_zeroshot.build_ris`; SigLIP-base as `.bin`
+    under the PhraseCut segmentor. Each: every key read or named, every
+    converted tensor on the card bit-identical to its source, load seconds.
+    Returns {path: counts}."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tunevlseg_torch import eval_zeroshot, train
+    from tunevlseg_torch.convert import clipseg as clipseg_conv
+    from tunevlseg_torch.convert import cris as cris_conv
+    from tunevlseg_torch.convert import solov2 as solo_conv
+    from tunevlseg_torch.convert import trans_segmentor as ts_conv
+    from tunevlseg_torch.convert.coverage import merged
+    from tunevlseg_torch.models.presets import clipseg_rd64_config, cris_rn50_config
+    from tunevlseg_torch.models.solov2.model import SOLOv2Config
+    from tunevlseg_torch.serving import task_predict_fn
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = []      # the serve / step helpers reset the peak: read after each
+
+    def peak_so_far():
+        peaks.append(torch.cuda.max_memory_allocated())
+    by_path = {}
+    tmp = tempfile.TemporaryDirectory(prefix="tvs_ckpt_")
+    folder = Path(tmp.name)
+
+    # --- CLIPSeg rd64-refined + CoOp from the safetensors file -------------------
+    t = time.perf_counter()
+    rd64 = drawn_checkpoint("clipseg_rd64_refined", CKPT_SEED)
+    st_path = folder / "clipseg-rd64-refined.safetensors"
+    write_safetensors(st_path, rd64)
+    print(f"checkpoints: CIDAS rd64-refined key set ({len(rd64)} keys) drawn and "
+          f"written as safetensors in {time.perf_counter() - t:.2f} s")
+    model_cfg = {"family": "clipseg", "strategy": "coop", "prompt_depth": 3,
+                 "num_context": 4, "context_initializer": "a photo of a",
+                 "complex_head": True, "optimizer": {"lr": 2e-4}}
+    cfg = checkpoint_cfg(st_path, model_cfg)
+    loaded = timed_load("checkpoints clipseg", st_path,
+                        lambda: train.load_pretrained(cfg))
+    t = time.perf_counter()
+    model, task = train.build_model_and_task(cfg, InitializerIds(), pretrained=loaded,
+                                             device="cuda")
+    state = task.init(**train.init_kwargs(loaded))
+    torch.cuda.synchronize()
+    print(f"checkpoints clipseg: CoOp model built (seeded) and loaded on the card "
+          f"in {time.perf_counter() - t:.2f} s")
+    rcfg = clipseg_rd64_config(complex_head=True)
+    checkpoint_landed("checkpoints clipseg", rd64,
+                      lambda sd: clipseg_conv.convert_hf_clipseg(sd, rcfg), model,
+                      clipseg_conv.CLIPSEG_IGNORED, ("learner.", "residual_ratio"))
+    initializer_landed("checkpoints clipseg", model,
+                       "clip.text_model.embeddings.token_embedding.weight", rd64)
+    request = three_requests(240, IMG, 49407)[0]
+    params = dict(model.named_parameters())
+    predict = task_predict_fn(task)
+    probs, by_path["serve_ckpt_clipseg"] = serve_requests(
+        fa, "checkpoints clipseg serve", predict, params, [request], IMG,
+        CLIPSEG_SERVE, reps=3)
+    peak_so_far()
+    compare_with_plain_path(fa, "checkpoints clipseg serve", predict, params,
+                            request[1], probs)
+    del probs, params
+    batch = make_train_batch(BATCH, text_dedup=1, seed=241)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    state, _, by_path["train_ckpt_clipseg_coop"] = timed_steps(
+        fa, task, state, batch, "checkpoints clipseg train coop", warmup=2, steps=3,
+        per_step=CLIPSEG_COOP_STEP)
+    peak_so_far()
+    for name, p in model.named_parameters():
+        if not p.requires_grad and not torch.equal(p, start[name]):
+            fail(f"checkpoints clipseg: frozen tensor {name} changed")
+    if torch.equal(model.learner.context_vectors, start["learner.context_vectors"]):
+        fail("checkpoints clipseg: the context vectors did not move")
+    print("checkpoints clipseg train coop: context vectors moved, every frozen "
+          "tensor (the checkpoint's) bit-identical")
+    first_step_kernel_vs_plain(fa, "checkpoints clipseg train coop", task, start,
+                               batch, ("learner.context_vectors",))
+    del batch, start, state
+
+    # --- the same weights as the reference wrapper's Lightning checkpoint --------
+    ctx = 0.02 * torch.randn(tuple(model.learner.context_vectors.shape),
+                             generator=torch.Generator().manual_seed(CKPT_SEED + 1))
+    wrapper = {f"model.{k}": v for k, v in rd64.items()}
+    wrapper.update({"context_learner.context_vectors": ctx,
+                    "residual_ratio": torch.tensor(0.5)})
+    ckpt_path = folder / "coop_clipseg.ckpt"
+    t = time.perf_counter()
+    torch.save({"state_dict": wrapper, "epoch": 12, "global_step": 3456}, ckpt_path)
+    print(f"checkpoints clipseg ckpt: reference wrapper written in "
+          f"{time.perf_counter() - t:.2f} s")
+    cfg = checkpoint_cfg(ckpt_path, model_cfg)
+    loaded = timed_load("checkpoints clipseg ckpt", ckpt_path,
+                        lambda: train.load_pretrained(cfg))
+    task.init(**train.init_kwargs(loaded))
+    checkpoint_landed("checkpoints clipseg ckpt", wrapper,
+                      lambda sd: clipseg_conv.load_checkpoint_params(
+                          None, rcfg, "coop", sd=sd), model,
+                      clipseg_conv.CLIPSEG_IGNORED)
+    os.remove(ckpt_path)
+    del model, task, predict, loaded, wrapper
+    torch.cuda.empty_cache()
+
+    # --- CRIS CoOp from OpenAI's RN50 TorchScript archive ------------------------
+    t = time.perf_counter()
+    rn50 = drawn_checkpoint("clip_rn50", CKPT_SEED + 2)
+    rn_path = folder / "RN50.pt"
+    write_torchscript(rn_path, rn50)
+    print(f"checkpoints cris: RN50 key set ({len(rn50)} keys) drawn and written "
+          f"as a TorchScript archive in {time.perf_counter() - t:.2f} s")
+    cfg = checkpoint_cfg(rn_path, {**model_cfg, "family": "cris"}, img_size=CRIS_IMG)
+    del cfg["model"]["complex_head"]
+    loaded = timed_load("checkpoints cris", rn_path, lambda: train.load_pretrained(cfg))
+    model, task = train.build_model_and_task(cfg, InitializerIds(), pretrained=loaded,
+                                             device="cuda")
+    task.init(**train.init_kwargs(loaded))
+    checkpoint_landed("checkpoints cris", rn50,
+                      lambda sd: merged(cris_conv.convert_cris(
+                          sd, cris_rn50_config(CRIS_IMG))),
+                      model, cris_conv.CRIS_IGNORED,
+                      ("neck.", "decoder.", "proj.", "learner.", "additive_",
+                       "residual_ratio"))
+    initializer_landed("checkpoints cris", model, "token_embedding.weight", rn50)
+    request = three_requests(242, CRIS_IMG, 0)[0]
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    probs, by_path["serve_ckpt_cris"] = serve_requests(
+        fa, "checkpoints cris serve", predict, params, [request], CRIS_IMG,
+        CRIS_SERVE, reps=3)
+    peak_so_far()
+    compare_with_plain_path(fa, "checkpoints cris serve", predict, params,
+                            request[1], probs)
+    with switch_layout(model, "flat"):
+        flat, by_path["serve_ckpt_cris_flat"] = serve_requests(
+            fa, "checkpoints cris flat serve", predict, params, [request], CRIS_IMG,
+            CRIS_FLAT_SERVE, reps=3)
+        peak_so_far()
+        held = k4_on_path_inputs(cf, "checkpoints cris flat serve",
+                                 lambda: predict(params, request[1]))
+        with torch.no_grad():
+            logits_flat = task._forward(request[1]).float()
+    with torch.no_grad():
+        logits = task._forward(request[1]).float()
+    diff = (flat - probs).abs()
+    ldiff = (logits_flat - logits).abs().max().item() / logits.abs().max().item()
+    print(f"checkpoints cris flat serve: {held} K4 launches held on their own "
+          f"tensors (the converted BatchNorm statistics folded in); flat vs nchw "
+          f"probabilities max abs diff {diff.max().item():.6g} (bound "
+          f"{FLAT_PROB_MAX_TOL}), mean {diff.mean().item():.6g} (bound "
+          f"{FLAT_PROB_MEAN_TOL}); logits max abs diff {ldiff:.4g} of the largest")
+    if not (diff.max().item() <= FLAT_PROB_MAX_TOL
+            and diff.mean().item() <= FLAT_PROB_MEAN_TOL):
+        fail("checkpoints cris: flat and nchw disagree beyond the stated bounds")
+    os.remove(rn_path)
+    del model, task, predict, params, probs, flat, loaded, rn50
+    torch.cuda.empty_cache()
+
+    # --- zero-shot RIS: FreeSOLO's payload and the CLIPSeg-layout file -----------
+    t = time.perf_counter()
+    solo = drawn_checkpoint("freesolo_r101", CKPT_SEED + 3)
+    solo_path = folder / "FreeSOLO_R101_30k.pt"
+    torch.save({"model": solo, "iteration": 30000}, solo_path)
+    print(f"checkpoints zsseg: FreeSOLO R101 key set ({len(solo)} keys) drawn and "
+          f"written in {time.perf_counter() - t:.2f} s")
+    zcfg = {"model": {"solo_checkpoint": str(solo_path),
+                      "clip_checkpoint": str(st_path)}, "seed": 0}
+    ris = timed_load("checkpoints zsseg", solo_path, lambda: eval_zeroshot.build_ris(
+        zcfg, device="cuda", dtype=torch.bfloat16))
+    print(f"checkpoints zsseg: clip_checkpoint {file_gb(st_path):.3f} GB read in "
+          "the same call")
+    checkpoint_landed("checkpoints zsseg solo", solo,
+                      lambda sd: solo_conv.convert_solov2(sd, SOLOv2Config()),
+                      ris.solo, solo_conv.SOLOV2_IGNORED)
+    checkpoint_landed("checkpoints zsseg clip", rd64,
+                      lambda sd: clipseg_conv.convert_hf_clipseg(sd, rcfg), ris.clip,
+                      clipseg_conv.CLIPSEG_IGNORED)
+    gen = torch.Generator().manual_seed(243)
+    image = zs_image(gen)
+    ids, mask = zs_text(gen, 49406, 49407, 49408)
+    _, by_path["serve_zsseg_ckpt"], _ = zs_fused_requests(
+        fa, "checkpoints zsseg", ris, (image, ids, mask), ZS_SERVE, reps=3)
+    kernels_on_path_inputs(fa, "checkpoints zsseg", lambda: ris.predict_fused(
+        image, ids, mask), kernels=("K3",))
+    peak_so_far()
+    zs_text_vs_plain(fa, "checkpoints zsseg", ris.clip, ids, mask)
+    os.remove(solo_path)
+    del ris, solo, rd64
+    torch.cuda.empty_cache()
+
+    # --- PhraseCut on SigLIP-base ------------------------------------------------
+    t = time.perf_counter()
+    siglip = drawn_checkpoint("siglip_base_patch16_224", CKPT_SEED + 4)
+    sig_path = folder / "siglip-base-patch16-224.bin"
+    torch.save(siglip, sig_path)
+    print(f"checkpoints phrasecut: SigLIP-base key set ({len(siglip)} keys) drawn "
+          f"and written in {time.perf_counter() - t:.2f} s")
+    cfg = checkpoint_cfg(sig_path, {
+        "family": "trans_segmentor", "encoder_family": "siglip",
+        "use_existing_proj": True, "freeze_encoders": True, "decoder_num_heads": 16,
+        "decoder_num_layers": 4, "decoder_dropout": 0.1, "num_upsampler_layers": 5,
+        "output_bias": -1.748104048321891, "optimizer": {"lr": 2e-5},
+        "loss_fn": {"name": "dice_ce", "lambda_dice": 1, "lambda_ce": 0.2,
+                    "weight": 5.8}}, img_size=PC_IMG)
+    loaded = timed_load("checkpoints phrasecut", sig_path,
+                        lambda: train.load_pretrained(cfg))
+    model, task = train.build_model_and_task(cfg, None, pretrained=loaded,
+                                             device="cuda")
+    task.init(**train.init_kwargs(loaded))
+    checkpoint_landed("checkpoints phrasecut", siglip,
+                      lambda sd: ts_conv.convert_encoder(
+                          sd, train.trans_segmentor_config(cfg)), model,
+                      ts_conv.TRANS_SEGMENTOR_IGNORED,
+                      ("decoder_layers.", "decoder_norm.", "upsampler.",
+                       "text_projection.", "visual_projection."))
+    ids, mask = siglip_ids(gen, 1)
+    req = {"image": torch.randint(0, 256, (PC_BATCH, 3, PC_IMG, PC_IMG),
+                                  generator=gen, dtype=torch.uint8),
+           "input_ids": ids, "attention_mask": mask,
+           "text_index": torch.zeros(PC_BATCH, dtype=torch.int32)}
+    req = {k: v.cuda() for k, v in req.items()}
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    probs, by_path["serve_ckpt_phrasecut"] = serve_requests(
+        fa, "checkpoints phrasecut serve", predict, params,
+        [("b16 dedup U=1", req, PC_BATCH)], PC_IMG, PC_SERVE, reps=3)
+    peak_so_far()
+    compare_with_plain_path(fa, "checkpoints phrasecut serve", predict, params, req,
+                            probs, "b16 dedup")
+    del model, task, predict, params, probs, loaded, siglip
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    peak_so_far()
+    peak = max(peaks)
+    print(f"checkpoints: peak device memory over the phase {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); phase {time.perf_counter() - t_phase:.1f} s "
+          f"({CARD[0]})")
+    return by_path
+
+
 def phase_kernels_variants(sweeps, library):
     """The sweeps' entry points, one pass per sweep: every variant against
     its plain version on q, k, v apart and standard normal (`check_variants`:
@@ -3546,6 +3974,8 @@ def main() -> None:
     k4.update(zs_k4_cases(cf))
     by_path.update(phase_zero_shot(fa, cf, profile))
     clock("zero-shot RIS paths")
+    by_path.update(phase_checkpoints(fa, cf))
+    clock("checkpoint paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 

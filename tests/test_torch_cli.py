@@ -315,7 +315,7 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("pretrained_checkpoint=/x.pt", "item 9"),
+    ("trainer.n_devices=2", "Slice G"),
     ("trainer.model_parallel=2", "Do not port"),
     ("trainer.seq_shard=true", "Do not port"),
     ("trainer.fsdp=true", "Slice G"),

@@ -8,6 +8,7 @@ no JAX."""
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import numpy as np
@@ -176,9 +177,9 @@ def test_context_vectors_init_overwrites_leading_depths():
 
 def test_unported_paths_raise():
     """What the port still does not take: an unknown strategy or additive
-    mode, the refined head, and prompt dedup under an image-conditioned
-    learner (CoCoOp), which the JAX package refuses too. The strategies and
-    additive modes that used to raise here now build."""
+    mode, and prompt dedup under an image-conditioned learner (CoCoOp),
+    which the JAX package refuses too. The strategies, additive modes and
+    the rd64-refined head that used to raise here now build."""
     cfg = tconfig.CLIPSegConfig.tiny()
     for mode in ("plain", "residual"):
         assert hasattr(CLIPSegForSegmentation(cfg, additive_mode=mode),
@@ -187,9 +188,10 @@ def test_unported_paths_raise():
         CLIPSegForSegmentation(cfg, additive_mode="blend")
     with pytest.raises(ValueError, match="unknown strategy"):
         tpresets.build_clipseg("lora", config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="refined head"):
-        CLIPSegForSegmentation(
-            tconfig.CLIPSegConfig.tiny(complex_transposed_convolution=True))
+    refined = CLIPSegForSegmentation(
+        tconfig.CLIPSegConfig.tiny(complex_transposed_convolution=True))
+    assert not hasattr(refined.decoder, "head_up")
+    assert refined.decoder.head_up1.weight.shape == (8, 4, 4, 4)
     tpresets.build_clipseg("vpt", config=cfg, device="cpu")
 
     model, _ = tpresets.build_clipseg("cocoop", prompt_depth=2, config=cfg,
@@ -225,11 +227,13 @@ def test_port_runs_without_jax():
     strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
     of DenseCLIP (its own task, batch statistics) and a tiny zero-shot RIS
-    request (fused and host loop), and a tiny
-    `Trainer.fit` with its checkpoints run, with jax/flax/optax
-    (and regex) unimportable; afterwards neither a module of jax nor one of
-    the JAX package has been loaded, and the fit from memory loaded no
-    cv2."""
+    request (fused and host loop), a tiny
+    `Trainer.fit` with its checkpoints run, and converted checkpoints (a
+    safetensors file through `train.load_pretrained` into a CoOp train step,
+    the rd64-refined head's file into its forward), with jax/flax/optax
+    (and regex) unimportable; afterwards neither a module of jax, nor one of
+    the JAX package, nor transformers or safetensors has been loaded, and
+    the fit from memory loaded no cv2."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "jaxlib", "flax", "optax", "regex"):
@@ -440,17 +444,60 @@ def test_port_runs_without_jax():
             "last", task.init())
         assert back.step == fit_state.step == 2
         assert "cv2" not in sys.modules     # loading from memory needs none
+        # converted checkpoints: a tiny HF CLIPSeg file in the safetensors
+        # format through `train.load_pretrained` into a CoOp model, and one
+        # with the rd64-refined head into the refined model's forward
+        import dataclasses, os
+        from tunevlseg_torch.convert.clipseg import (CLIPSEG_ELIDABLE,
+                                                     load_checkpoint_params)
+        from tunevlseg_torch.convert.from_jax import tensors_from_jax
+        from tunevlseg_torch.train import (build_model_and_task, init_kwargs,
+                                           load_pretrained)
+        plain_file, refined_file = os.environ["NO_JAX_CHECKPOINTS"].split(os.pathsep)
+        pcfg = {"pretrained_checkpoint": plain_file, "tiny_model": True,
+                "trainer": {}, "model": {"family": "clipseg", "strategy": "coop",
+                                         "prompt_depth": 2}}
+        pre = load_pretrained(pcfg)
+        pmodel, ptask = build_model_and_task(pcfg, None, pretrained=pre,
+                                             device="cpu")
+        pstate, pmetrics = ptask.train_step(ptask.init(**init_kwargs(pre)), batch)
+        assert bool(pmetrics["loss"].isfinite())
+        assert torch.equal(pmodel.text_model.token_embedding.weight,
+                           pre["params"]["text_model.token_embedding.weight"])
+        rcfg = dataclasses.replace(CLIPSegConfig.tiny(),
+                                   complex_transposed_convolution=True)
+        refined, rspec = build_clipseg("coop", prompt_depth=2, num_context=4,
+                                       config=rcfg, device="cpu")
+        rtask = SegmentationTask(refined, rspec)
+        rtask.init(params=tensors_from_jax(load_checkpoint_params(
+            refined_file, rcfg)), elidable=CLIPSEG_ELIDABLE)
+        rprobs = rtask.predict_step(batch)
+        assert rprobs.shape == (2, 1, 32, 32) and bool(rprobs.isfinite().all())
+        assert refined.decoder.head_up1.weight.shape == (8, 4, 4, 4)
         loaded = [m for m in sys.modules
                   if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")
-                  or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                  or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                         "transformers", "safetensors")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
         print("no-jax ok", float(aux["loss_sum"]), float(metrics["loss"]),
               float(caux["loss_sum"]), float(cmetrics["loss"]))
     """)
+    # the tiny HF CLIPSeg checkpoints the script loads, written here where
+    # transformers and safetensors are
+    pytest.importorskip("transformers")
+    st_torch = pytest.importorskip("safetensors.torch")
+    from tests.test_torch_convert import hf_clipseg
+    folder = tempfile.mkdtemp()
+    files = (os.path.join(folder, "clipseg.safetensors"),
+             os.path.join(folder, "clipseg_refined.pt"))
+    st_torch.save_file({k: v.contiguous() for k, v in
+                        hf_clipseg(False)[0].state_dict().items()}, files[0])
+    torch.save(hf_clipseg(True)[0].state_dict(), files[1])
     # one OpenMP thread: the tiny models' small ops otherwise wait on
     # descheduled threads when the test workers share the cores
-    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1",
+           "NO_JAX_CHECKPOINTS": os.pathsep.join(files)}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -534,15 +534,37 @@ def _cfg(**model):
     return {"model": dict(model), "tiny_model": True, "seed": 0}
 
 
-def test_failure_cases():
-    """n_devices > 1 and the checkpoint loaders name ROADMAP item 9; without
-    a card `build_ris` raises unless given the CPU; the train CLI names this
+def test_failure_cases(tmp_path):
+    """n_devices > 1 names ROADMAP item 9; the checkpoint loaders fill the
+    models from their files (FreeSOLO's detectron2 payload, a CLIPSeg-layout
+    CLIP), each beside the other model's seeded weights; without a card
+    `build_ris` raises unless given the CPU; the train CLI names this
     family's entry point."""
+    pytest.importorskip("transformers")
+    from tests.test_torch_convert import (hf_clipseg, ris_clip_cfg,
+                                          tiny_freesolo, to_torch)
     with pytest.raises(NotImplementedError, match="item 9"):
         eval_zeroshot.build_ris(dict(_cfg(), n_devices=2), device="cpu")
-    for key in ("solo_checkpoint", "clip_checkpoint"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eval_zeroshot.build_ris(_cfg(**{key: "/x.pt"}), device="cpu")
+    solo_sd = tiny_freesolo()
+    torch.save({"model": to_torch(solo_sd)}, tmp_path / "solo.pt")
+    hf, clip_sd = hf_clipseg(False, ris_clip_cfg())
+    torch.save(hf.state_dict(), tmp_path / "clip.bin")
+    seeded = eval_zeroshot.build_ris(_cfg(), device="cpu")
+    for key, name in (("solo_checkpoint", "solo.pt"), ("clip_checkpoint", "clip.bin")):
+        loaded = eval_zeroshot.build_ris(_cfg(**{key: str(tmp_path / name)}),
+                                         device="cpu")
+        solo_w = loaded.solo.backbone.res3[1].conv2.weight.detach().numpy()
+        clip_w = loaded.clip.vision_model.layers[1].mlp.fc1.weight.detach().numpy()
+        if key == "solo_checkpoint":
+            np.testing.assert_array_equal(
+                solo_w, solo_sd["backbone.bottom_up.res3.1.conv2.weight"])
+            np.testing.assert_array_equal(
+                clip_w, seeded.clip.vision_model.layers[1].mlp.fc1.weight.detach())
+        else:
+            np.testing.assert_array_equal(
+                clip_w, clip_sd["clip.vision_model.encoder.layers.1.mlp.fc1.weight"])
+            np.testing.assert_array_equal(
+                solo_w, seeded.solo.backbone.res3[1].conv2.weight.detach())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             eval_zeroshot.build_ris(_cfg())

@@ -83,6 +83,23 @@ def port_name(path: tuple[str, ...]) -> tuple[str, bool]:
     return ".".join(parts + [_RENAMED_LEAVES.get(leaf, leaf)]), leaf == "kernel"
 
 
+def _tensor(leaf, transpose: bool) -> torch.Tensor:
+    arr = np.asarray(leaf, dtype=np.float32)
+    return torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
+
+
+def tensors_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Every leaf of a JAX tree (a converted checkpoint, say) as an f32 CPU
+    tensor under its port name, transposed where the name map says, with no
+    model to check the names against. `None` leaves are skipped."""
+    out = {}
+    for path, leaf in flatten_params(tree).items():
+        if leaf is not None:
+            name, transpose = port_name(path)
+            out[name] = _tensor(leaf, transpose)
+    return out
+
+
 def trainable_from_jax(tree: Mapping[str, Any],
                        model: nn.Module) -> dict[str, torch.Tensor]:
     """A JAX trainable, gradient or full param tree -> f32 CPU tensors under
@@ -99,8 +116,7 @@ def trainable_from_jax(tree: Mapping[str, Any],
         if name not in expected:
             raise KeyError(f"JAX leaf {'/'.join(path)} maps to {name!r}, "
                            "which the port model does not have")
-        arr = np.asarray(leaf, dtype=np.float32)
-        tensor = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
+        tensor = _tensor(leaf, transpose)
         if tuple(tensor.shape) != expected[name]:
             raise ValueError(f"{'/'.join(path)} -> {name}: shape "
                              f"{tuple(tensor.shape)} != {expected[name]}")

@@ -6,6 +6,8 @@ predict from a checkpoint, no fit).
 
 The counterpart of `tunevlseg_tpu/eval.py`, with its families and device
 rule from `tunevlseg_torch.train` (`+trainer.device=cpu` for the CPU).
+`pretrained_checkpoint` loads converted weights first, as in the train CLI;
+the checkpoint of `ckpt_path` is restored over them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from tunevlseg_torch.config.composer import compose
 from tunevlseg_torch.data.pipeline import DataLoader
 from tunevlseg_torch.data.tokenizer import load_default_tokenizer
 from tunevlseg_torch.train import (CONFIG_DIR, build_datasets,
-                                   build_model_and_task, resolve_device)
+                                   build_model_and_task, init_kwargs,
+                                   load_pretrained, resolve_device)
 from tunevlseg_torch.training.checkpoint import CheckpointManager
 from tunevlseg_torch.training.loop import Trainer
 from tunevlseg_torch.utils.logging import get_logger
@@ -47,13 +50,15 @@ def _run(cfg: dict) -> dict:
     tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
                                        family=cfg.get("tokenizer_family", "clip"))
     datasets = build_datasets(cfg, tokenizer)
-    model, task = build_model_and_task(cfg, tokenizer, device=device)
+    pretrained = load_pretrained(cfg)
+    model, task = build_model_and_task(cfg, tokenizer, pretrained=pretrained,
+                                       device=device)
     t = cfg["trainer"]
     d = cfg["data"]
     test_loader = DataLoader(datasets["test"], d["batch_size"], shuffle=False,
                              num_workers=d.get("num_workers", 8),
                              text_dedup=int(d.get("text_dedup", 0) or 0))
-    state = task.init()
+    state = task.init(**init_kwargs(pretrained))
 
     if not cfg.get("disable_ckpt"):
         ckpt = CheckpointManager(ckpt_path, model)

@@ -16,13 +16,20 @@ in f32, as the JAX package's do; `build_ris(dtype=torch.bfloat16)` runs them
 in bf16 over f32 weights. `+model.layout=flat` runs FreeSOLO's ResNet
 through the flat convolution.
 
-The weights are random, seeded from `seed`: `model.solo_checkpoint` and
-`model.clip_checkpoint` (FreeSOLO, HF CLIP, BiomedCLIP loaders) raise and
-name their ROADMAP item, as `pretrained_checkpoint` does in the train CLI.
+`model.solo_checkpoint` (FreeSOLO's detectron2 payload) and
+`model.clip_checkpoint` load converted weights: a CLIPSeg-layout file
+(`clip.text_model.*`, `clip.vision_model.*`, the projections; its decoder is
+dropped), which is what the JAX `build_ris` reads there, or, with
+`model.is_hf_model: false`, an open_clip BiomedCLIP state dict. A bare HF
+`CLIPModel` file raises a ValueError that names the layout expected (the
+JAX package fails on it with a KeyError). Without a checkpoint the weights
+are random, seeded from `seed` (CLIP) and 1 (FreeSOLO), and a warning says
+so.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import sys
 from typing import Optional
 
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from tunevlseg_torch.config.composer import compose
+from tunevlseg_torch.convert.from_jax import tensors_from_jax
 from tunevlseg_torch.data.datasets import ZeroShotDataset
 from tunevlseg_torch.data.tokenizer import (WordPieceTokenizer,
                                             load_default_tokenizer)
@@ -43,13 +51,11 @@ from tunevlseg_torch.models.zero_shot_ris.model import MaskedCLIP, ZeroShotRIS
 from tunevlseg_torch.nn.layers import init_params
 from tunevlseg_torch.ops.metrics import SegMetricState, compute, update_state
 from tunevlseg_torch.train import CONFIG_DIR, resolve_device
+from tunevlseg_torch.training.task import load_partial_state
 from tunevlseg_torch.utils.logging import MetricLogger, get_logger
 
 log = get_logger(__name__)
 
-UNPORTED_WEIGHTS = ("the FreeSOLO / HF CLIP / BiomedCLIP checkpoint loaders "
-                    "onto convert/from_jax.state_dict_from_jax come with "
-                    "ROADMAP Queue 1 item 9 (Slice G, real weights)")
 
 
 def ris_configs(cfg: dict):
@@ -77,16 +83,58 @@ def ris_configs(cfg: dict):
     return clip_cfg, solo_cfg, size
 
 
+def load_converted(module: torch.nn.Module, tree: dict,
+                   elidable: tuple = ()) -> torch.nn.Module:
+    """A converted tree onto `module`: every tensor of the module filled
+    (it raises and names the ones the checkpoint lacks), and the
+    checkpoint's tensors the module does not build dropped where `elidable`
+    names them (`load_partial_state`)."""
+    tensors = tensors_from_jax(tree)
+    unfilled = sorted(set(module.state_dict()) - set(tensors))
+    if unfilled:
+        raise KeyError(f"{type(module).__name__} tensors the checkpoint does "
+                       f"not fill: {unfilled[:8]}")
+    load_partial_state(module, tensors, elidable)
+    return module
+
+
+def clip_checkpoint_tree(path, clip_cfg) -> dict:
+    """`model.clip_checkpoint` -> the tree: a BiomedCLIP state dict for a
+    `BiomedCLIPConfig`, else a CLIPSeg-layout file, as the JAX `build_ris`
+    reads it. A bare HF CLIPModel file (`text_model.*` / `vision_model.*`
+    at the top) raises a ValueError naming the layout expected. The
+    decoder's head converts in the layout the file has (rd64 or
+    rd64-refined; the JAX `build_ris` takes only the plain one): MaskedCLIP
+    drops the decoder either way."""
+    if isinstance(clip_cfg, BiomedCLIPConfig):
+        from tunevlseg_torch.convert.biomed_clip import load_biomedclip_checkpoint
+        return load_biomedclip_checkpoint(path, clip_cfg)
+    from tunevlseg_torch.convert.clipseg import (clipseg_layout,
+                                                 load_checkpoint_params,
+                                                 read_clipseg_state_dict)
+    sd = read_clipseg_state_dict(path)
+    if not clipseg_layout(sd):
+        raise ValueError(
+            f"clip_checkpoint {path}: expected a CLIPSeg-layout checkpoint "
+            "(clip.text_model.*, clip.vision_model.*, clip.text_projection, "
+            "clip.visual_projection; the decoder is dropped), which is what "
+            "the JAX eval_zeroshot reads there; this file has "
+            f"{sorted(sd)[:2]}..., a bare CLIPModel layout perhaps, which "
+            "neither package converts here")
+    refined = any(k.endswith("decoder.transposed_convolution.0.weight") for k in sd)
+    return load_checkpoint_params(path, dataclasses.replace(
+        clip_cfg, complex_transposed_convolution=refined), sd=sd)
+
+
 def build_ris(cfg: dict, device="cuda",
               dtype: torch.dtype = torch.float32) -> ZeroShotRIS:
-    """`ZeroShotRIS` of the composed config with seeded random f32 weights
-    (drawn on the CPU: CLIP from `seed`, FreeSOLO from 1, as the JAX CLI
-    keys them) on `device`, computing in `dtype`. The CUDA card unless the
-    caller names another device; without one it raises."""
+    """`ZeroShotRIS` of the composed config on `device`, computing in
+    `dtype`, with the weights of `model.clip_checkpoint` and
+    `model.solo_checkpoint`, or, where one is not given, seeded random f32
+    weights (drawn on the CPU: CLIP from `seed`, FreeSOLO from 1, as the JAX
+    CLI keys them; logged). The CUDA card unless the caller names another
+    device; without one it raises."""
     m = cfg["model"]
-    if m.get("solo_checkpoint") or m.get("clip_checkpoint"):
-        raise NotImplementedError(f"solo_checkpoint / clip_checkpoint: "
-                                  f"{UNPORTED_WEIGHTS}")
     if int(cfg.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError(
             "n_devices > 1 (the proposal batch sharded over several devices) "
@@ -96,12 +144,24 @@ def build_ris(cfg: dict, device="cuda",
         raise RuntimeError("no CUDA device: build_ris puts the models on the "
                            'card unless given device="cpu"')
     clip_cfg, solo_cfg, size = ris_configs(cfg)
-    clip = (MaskedCLIP(clip_cfg, dtype) if isinstance(clip_cfg, CLIPSegConfig)
-            else BiomedCLIP(clip_cfg, dtype))
+    hf = isinstance(clip_cfg, CLIPSegConfig)
+    clip = MaskedCLIP(clip_cfg, dtype) if hf else BiomedCLIP(clip_cfg, dtype)
     solo = SOLOv2(solo_cfg, layout=m.get("layout", "nchw"), dtype=dtype)
-    init_params(clip, torch.Generator().manual_seed(cfg.get("seed", 0)))
-    init_params(solo, torch.Generator().manual_seed(1))
-    log.warning("no clip_checkpoint / solo_checkpoint: RANDOM weights")
+    if m.get("clip_checkpoint"):
+        from tunevlseg_torch.convert.clipseg import MASKED_CLIP_ELIDABLE
+        load_converted(clip, clip_checkpoint_tree(m["clip_checkpoint"], clip_cfg),
+                       MASKED_CLIP_ELIDABLE if hf else ())
+    else:
+        init_params(clip, torch.Generator().manual_seed(cfg.get("seed", 0)))
+        log.warning("no clip_checkpoint given: using RANDOM %s weights",
+                    "clip" if hf else "BiomedCLIP")
+    if m.get("solo_checkpoint"):
+        from tunevlseg_torch.convert.solov2 import load_freesolo_checkpoint
+        load_converted(solo, load_freesolo_checkpoint(m["solo_checkpoint"],
+                                                      solo_cfg))
+    else:
+        init_params(solo, torch.Generator().manual_seed(1))
+        log.warning("no solo_checkpoint given: using RANDOM FreeSOLO weights")
     return ZeroShotRIS(
         clip_cfg, solo_cfg, clip.to(device).eval(), solo.to(device).eval(),
         masking_block_idx=m.get("masking_block_idx", -3),

@@ -5,12 +5,14 @@ reversed extract-layer activations, each reduced to reduce_dim and summed;
 FiLM conditioning (film_mul(cond) * x + film_add(cond)) at
 `conditional_layer`; post-norm ReLU blocks; the CLS token (and trailing
 visual prompt tokens) stripped AFTER the blocks; the transposed-convolution
-head. The three blocks run self-attention at 485 tokens, or 485 + num_ctx
+head: one ConvTranspose(patch, stride=patch), or, with
+`complex_transposed_convolution` (the CIDAS rd64-refined head), a 3x3
+convolution 64 -> 64 with ReLU, ConvTranspose(patch/4) 64 -> 32 with ReLU and
+ConvTranspose(patch/4) 32 -> 1. The three blocks run self-attention at 485 tokens, or 485 + num_ctx
 with visual prompts (4 heads x 16 dims at rd64), which goes through kernel K1
 on the card. `AdditiveHead` is the `use_new_last_layer` head over the
 pre-head feature: a bilinear upsample by the patch size and a k5 convolution
-with replicate padding. The refined head (3x3 conv + two transposed convs)
-is not ported yet (no rd64 path uses it).
+with replicate padding.
 """
 from __future__ import annotations
 
@@ -29,10 +31,6 @@ class CLIPSegDecoder(nn.Module):
     def __init__(self, config: CLIPSegConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = self.config = config
-        if c.complex_transposed_convolution:
-            raise NotImplementedError(
-                "the rd64-refined head (complex_transposed_convolution) is not "
-                "ported yet")
         n = len(c.extract_layers)
         self.reduces = nn.ModuleList(
             Dense(c.vision.hidden_size, c.reduce_dim, dtype=dtype) for _ in range(n))
@@ -43,7 +41,23 @@ class CLIPSegDecoder(nn.Module):
                                  c.decoder_intermediate_size, act="relu",
                                  dtype=dtype)
             for _ in range(n))
-        self.head_up = ConvTranspose2d(c.reduce_dim, 1, c.vision.patch_size, dtype)
+        if c.complex_transposed_convolution:
+            k = c.vision.patch_size // 4
+            self.head_conv = Conv2d(c.reduce_dim, c.reduce_dim, 3, padding=1,
+                                    dtype=dtype)
+            self.head_up1 = ConvTranspose2d(c.reduce_dim, c.reduce_dim // 2, k,
+                                            dtype)
+            self.head_up2 = ConvTranspose2d(c.reduce_dim // 2, 1, k, dtype)
+        else:
+            self.head_up = ConvTranspose2d(c.reduce_dim, 1, c.vision.patch_size,
+                                           dtype)
+
+    def transposed_convolution(self, x: torch.Tensor) -> torch.Tensor:
+        if self.config.complex_transposed_convolution:
+            x = torch.relu(self.head_conv(x))
+            x = torch.relu(self.head_up1(x))
+            return self.head_up2(x)
+        return self.head_up(x)
 
     def forward(self, activations: Sequence[torch.Tensor],
                 conditional_embeddings: torch.Tensor, num_visual_ctx: int = 0):
@@ -66,7 +80,7 @@ class CLIPSegDecoder(nn.Module):
         b, ch, hw = output.shape
         size = int(round(hw ** 0.5))
         feat = output.reshape(b, ch, size, size)
-        logits = self.head_up(feat)[:, 0]
+        logits = self.transposed_convolution(feat)[:, 0]
         return logits, feat
 
 

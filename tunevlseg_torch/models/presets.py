@@ -10,7 +10,8 @@ RN101 or ViT-B/16 with the context decoder and the FPN head) trains end to
 end through its own task (`training/denseclip_task.py`).
 Weights are random, drawn from one seeded `torch.Generator` on the CPU (so a
 seed gives the same weights on every device), until converted weights are
-loaded over them (`tunevlseg_torch/convert/from_jax.py`).
+loaded over them (`tunevlseg_torch/convert/`: a checkpoint's converter, then
+`from_jax.py`'s name map; `train.load_pretrained`).
 """
 from __future__ import annotations
 

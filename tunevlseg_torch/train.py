@@ -16,9 +16,14 @@ fine-tune and zero-shot-segmentation variant (`e2e_clipseg`,
 `+model.layout=flat` runs its backbone through the flat convolution), and
 the TransformerSegmentor (`model=trans_seg`, `model=trans_seg_siglip`,
 `experiment=phrasecut`; `+model.layout=flat` runs its upsampler through the
-flat convolution). Options of slices not ported yet raise and name their
-ROADMAP item; DenseCLIP trains through `scripts/torch_train_denseclip.py`
-and zero-shot RIS is evaluated by `python -m tunevlseg_torch.eval_zeroshot`.
+flat convolution). `pretrained_checkpoint=<file>` loads a converted
+checkpoint (`load_pretrained`: CIDAS CLIPSeg rd64 / rd64-refined with
+`model.complex_head=true`, the reference's wrapper checkpoints, OpenAI's
+RN50 for CRIS, CLIPModel / SiglipModel or a whole TransformerSegmentor)
+over the seeded weights. Options of slices not ported yet raise and name
+their ROADMAP item; DenseCLIP trains through
+`scripts/torch_train_denseclip.py` and zero-shot RIS is evaluated by
+`python -m tunevlseg_torch.eval_zeroshot`.
 """
 from __future__ import annotations
 
@@ -78,11 +83,6 @@ def check_ported(cfg: dict) -> None:
             f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")
     if family not in ("clipseg", "cris", "trans_segmentor"):
         raise NotImplementedError(f"model family {family}")
-    if cfg.get("pretrained_checkpoint"):
-        raise NotImplementedError(
-            "pretrained_checkpoint: the converters chained with "
-            "convert/from_jax.state_dict_from_jax come with ROADMAP Queue 1 "
-            "item 9 (Slice G, real weights)")
     if int(t.get("model_parallel", 1) or 1) > 1 or t.get("seq_shard"):
         raise NotImplementedError(
             "model_parallel > 1 / seq_shard (GSPMD tensor and sequence "
@@ -184,13 +184,15 @@ def build_datasets(cfg: dict, tokenizer) -> dict[str, Any]:
 
 def _initializer_embeddings(cfg: dict, tokenizer, pretrained):
     """Embed the text context initializer ("a photo of a") through the
-    token embedding of the pretrained weights (a `state_dict`); the token
-    count overrides num_context. Returns (embeddings, num_context); without
-    pretrained weights the contexts stay random, as in the JAX CLI."""
+    token embedding of the pretrained weights (`load_pretrained`'s result,
+    or a `state_dict`); the token count overrides num_context. Returns
+    (embeddings, num_context); without pretrained weights the contexts stay
+    random, as in the JAX CLI."""
     m = cfg["model"]
     init_text = m.get("context_initializer")
     if not init_text or tokenizer is None or pretrained is None:
         return None, m.get("num_context", 4)
+    pretrained = pretrained.get("params", pretrained)
     key = ("text.token_embedding.weight" if m.get("family") == "cris"
            else "text_model.token_embedding.weight")
     if key not in pretrained:
@@ -205,9 +207,10 @@ def _initializer_embeddings(cfg: dict, tokenizer, pretrained):
 def build_model_and_task(cfg: dict, tokenizer=None, pretrained=None,
                          device="cuda"):
     """The model (seeded random weights on `device`) and its task from the
-    composed config. `pretrained` is a `state_dict` of converted weights
-    (ROADMAP item 9); only its token embedding is read here, to initialise
-    the context vectors from `model.context_initializer`."""
+    composed config. `pretrained` is `load_pretrained`'s result (or a
+    `state_dict`); only its token embedding is read here, to initialise the
+    context vectors from `model.context_initializer`. The weights themselves
+    go in at `task.init(**init_kwargs(pretrained))`."""
     check_ported(cfg)
     m = cfg["model"]
     family = m.get("family", "clipseg")
@@ -314,6 +317,71 @@ def _make_task(cfg: dict, model, spec):
                      tuple(cfg.get("img_std", (0.229, 0.224, 0.225)))))
 
 
+def load_pretrained(cfg: dict) -> Optional[dict]:
+    """Read and convert `pretrained_checkpoint` where one is configured (the
+    JAX CLI's `load_pretrained`): {"params": {name: f32 CPU tensor},
+    "batch_stats": {name: tensor} (CRIS's BatchNorm statistics, else empty),
+    "elidable": the name prefixes of checkpoint tensors the model may not
+    build}, in the port's names; None without a checkpoint, and the model
+    keeps its seeded weights (logged).
+
+    clipseg: `convert/clipseg.load_checkpoint_params` at
+    `clipseg_rd64_config(model.complex_head)` (the tiny config with
+    `tiny_model`); cris: `convert/cris.load_cris_checkpoint` at
+    `cris_rn50_config(img_size)` (the tiny config with `tiny_model`) with
+    the strategy's learner; trans_segmentor: the reference's whole
+    checkpoint or a bare CLIPModel / SiglipModel at
+    `trans_segmentor_config(cfg)`, the dimensions the model is built
+    with."""
+    from tunevlseg_torch.convert.from_jax import tensors_from_jax
+    path = cfg.get("pretrained_checkpoint")
+    m = cfg["model"]
+    family = m.get("family", "clipseg")
+    if not path:
+        if family in ("clipseg", "cris", "trans_segmentor"):
+            log.warning("no pretrained_checkpoint given: the towers keep their "
+                        "RANDOM seeded weights")
+        return None
+    check_ported(cfg)
+    if family == "cris":
+        from tunevlseg_torch.convert.cris import (CRIS_ELIDABLE,
+                                                  load_cris_checkpoint)
+        from tunevlseg_torch.models.cris.model import CRISConfig
+        from tunevlseg_torch.models.presets import cris_rn50_config
+        config = (CRISConfig.tiny(img_size=cfg.get("img_size", 64))
+                  if cfg.get("tiny_model")
+                  else cris_rn50_config(cfg.get("img_size", 416)))
+        trees = load_cris_checkpoint(path, config, m.get("strategy"))
+        elidable = CRIS_ELIDABLE
+    elif family == "trans_segmentor":
+        from tunevlseg_torch.convert.trans_segmentor import (
+            TRANS_SEGMENTOR_ELIDABLE, load_trans_segmentor_checkpoint)
+        trees = {"params": load_trans_segmentor_checkpoint(
+            path, trans_segmentor_config(cfg))}
+        elidable = TRANS_SEGMENTOR_ELIDABLE
+    else:
+        from tunevlseg_torch.convert.clipseg import (CLIPSEG_ELIDABLE,
+                                                     load_checkpoint_params)
+        from tunevlseg_torch.models.clip.config import CLIPSegConfig
+        from tunevlseg_torch.models.presets import clipseg_rd64_config
+        config = (CLIPSegConfig.tiny() if cfg.get("tiny_model")
+                  else clipseg_rd64_config(m.get("complex_head", False)))
+        trees = {"params": load_checkpoint_params(path, config, m.get("strategy"))}
+        elidable = CLIPSEG_ELIDABLE
+    return {"params": tensors_from_jax(trees["params"]),
+            "batch_stats": tensors_from_jax(trees.get("batch_stats", {})),
+            "elidable": elidable}
+
+
+def init_kwargs(pretrained: Optional[dict]) -> dict:
+    """`SegmentationTask.init`'s arguments for `load_pretrained`'s result."""
+    if pretrained is None:
+        return {}
+    return {"params": pretrained["params"],
+            "variables": {"batch_stats": pretrained["batch_stats"]},
+            "elidable": pretrained["elidable"]}
+
+
 def save_composed_config(cfg: dict, output_dir: Path) -> None:
     """The fully composed config next to the run outputs (the reference's
     hydra `.hydra/config.yaml`)."""
@@ -360,7 +428,9 @@ def _run(cfg: dict) -> dict:
     tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
                                        family=cfg.get("tokenizer_family", "clip"))
     datasets = build_datasets(cfg, tokenizer)
-    model, task = build_model_and_task(cfg, tokenizer, device=device)
+    pretrained = load_pretrained(cfg)
+    model, task = build_model_and_task(cfg, tokenizer, pretrained=pretrained,
+                                       device=device)
 
     t = cfg["trainer"]
     d = cfg["data"]
@@ -371,7 +441,7 @@ def _run(cfg: dict) -> dict:
                           drop_last=d.get("drop_last", False), text_dedup=td)
         for split, ds in datasets.items()
     }
-    state = task.init()
+    state = task.init(**init_kwargs(pretrained))
 
     sched_cfg = cfg["model"].get("scheduler") or {}
     scheduler = None

@@ -48,17 +48,28 @@ from tunevlseg_torch.ops import metrics as metrics_lib
 from tunevlseg_torch.training import optim as optim_lib
 
 
-def load_partial_state(model: nn.Module, params: dict) -> None:
-    """Overlay `params` (a partial `state_dict`, say a converted backbone) on
-    the model's weights in place; entries the model does not have are
-    dropped with a log line, as the JAX task drops checkpoint tensors its
-    model elides."""
+def load_partial_state(model: nn.Module, params: dict,
+                       elidable: tuple[str, ...] = ()) -> None:
+    """Overlay `params` (a partial `state_dict`, say a converted checkpoint)
+    on the model's weights and buffers in place. An entry the model does not
+    have is dropped, with a log line, when its name starts with one of
+    `elidable` (the places a converter names: the vision layers an early
+    exit does not build, say), as the JAX task drops checkpoint tensors its
+    model elides; any other raises and names it, as does a shape mismatch."""
     own = model.state_dict()
     dropped = [k for k in params if k not in own]
+    stray = [k for k in dropped if not k.startswith(tuple(elidable))]
+    if stray:
+        raise KeyError(f"{len(stray)} checkpoint tensors have no place in the "
+                       f"model and none that the converter names: {stray[:8]}")
     if dropped:
         logging.getLogger("tunevlseg").info(
-            "dropping %d checkpoint tensors the model elides (e.g. %s)",
-            len(dropped), dropped[0])
+            "dropping %d checkpoint tensors the model does not build, under "
+            "%s (e.g. %s)", len(dropped), "/".join(elidable), dropped[0])
+    for name, value in params.items():
+        if name in own and tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(f"checkpoint tensor {name}: shape "
+                             f"{tuple(value.shape)} != {tuple(own[name].shape)}")
     with torch.no_grad():
         for name, value in params.items():
             if name in own:
@@ -118,15 +129,22 @@ class SegmentationTask:
 
     # -- init ---------------------------------------------------------------
 
-    def init(self, params: Optional[dict] = None) -> TrainState:
+    def init(self, params: Optional[dict] = None,
+             variables: Optional[dict] = None,
+             elidable: tuple[str, ...] = ()) -> TrainState:
         """Apply the freeze spec to the model and build the optimizer over
         what is left trainable; with `mutable_collections`, copy the model's
         buffers into the state.
 
-        `params` (a partial `state_dict`, say a converted backbone) is
-        overlaid on the model's weights first (`load_partial_state`)."""
-        if params is not None:
-            load_partial_state(self.model, params)
+        `params` (a partial `state_dict`, say a converted checkpoint) and
+        the buffers of `variables["batch_stats"]` (its BatchNorm statistics,
+        by `state_dict` name) are overlaid on the model's first
+        (`load_partial_state`, which drops what the model lacks under
+        `elidable` and raises on anything else it lacks)."""
+        overlay = dict(params or {})
+        overlay.update((variables or {}).get("batch_stats", {}))
+        if overlay:
+            load_partial_state(self.model, overlay, elidable)
         optim_lib.apply_freeze(self.model, self.freeze_spec)
         model_state = {}
         if self.mutable_collections:
