@@ -224,6 +224,24 @@ Phases, each printing its numbers on lines of its own:
      bit-identical in f32 to its source after the documented transform,
      every other tensor of the model under a named fresh prefix; load and
      convert seconds and GB; the phase's peak memory.
+ 25. K1, K2 and K3 at head dim 96 and `model=trans_seg_siglip`
+     (`phase_trans_seg_siglip`): the three kernels against their plain
+     versions at the decoder's shapes (b32 x 484 x 8 x 96 self-attention,
+     484 -> 64 cross-attention under the key-pad bias) and with keys short
+     of T, event and device times, `scaled_dot_product_attention` beside
+     them; then the model at full width (SigLIP-base towers, fresh
+     projections, a 768-wide decoder of 8 heads of 96, 352^2), its parameter
+     count, a b32 dense and a b1 request (16 K1 + 16 K3) against the plain
+     path, 2 + 5 b32 full fine-tune steps (16 K1, 16 K2, 16 K3 each; finite
+     losses, step ms, peak memory), the first step against the plain path.
+ 26. the serving export (`phase_export`): `serving.export_task_predict`,
+     `load_fn` and the loaded program against eager `task_predict_fn`, bit
+     for bit, with the same launches a forward, the graph naming its
+     `tunevlseg::` ops, latency beside eager and the artifact's bytes beside
+     the weights': CLIPSeg CoOp rd64 b64 dedup (K1, K3) and b1 (exported for
+     ("cuda", "cpu"); the cpu program run on the host against the card's),
+     CRIS CoOp b64 on `layout="flat"` (K1, K3, K4), trans_seg b32 and
+     trans_seg_siglip b32 (phase 25's model, K1 and K3 at D = 96).
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -512,16 +530,16 @@ DC_SHAPES = (("denseclip pool", DC_POOL, None),
              ("denseclip vit", DC_VIT, None))
 
 
-def kernel_cases(gen):
+ATTN_SHAPES = (("vision", VISION, None), ("decoder", DECODER, None),
+               ("vision 489", VISION_CTX, None), ("decoder 489", DECODER_CTX, None),
+               ("vision kv_valid", (BATCH, 512, 12, 64), 485),
+               ("e2e vision", E2E_VISION, None), ("e2e decoder", E2E_DECODER, None),
+               ("cris decoder", CRIS_DECODER, None), *TS_SHAPES, *DC_SHAPES)
+
+
+def kernel_cases(gen, shapes=ATTN_SHAPES):
     import torch
-    for label, shape, kv in (("vision", VISION, None), ("decoder", DECODER, None),
-                             ("vision 489", VISION_CTX, None),
-                             ("decoder 489", DECODER_CTX, None),
-                             ("vision kv_valid", (BATCH, 512, 12, 64), 485),
-                             ("e2e vision", E2E_VISION, None),
-                             ("e2e decoder", E2E_DECODER, None),
-                             ("cris decoder", CRIS_DECODER, None),
-                             *TS_SHAPES, *DC_SHAPES):
+    for label, shape, kv in shapes:
         yield label, shape, kv, tuple(
             torch.randn(*shape, generator=gen, device="cuda").bfloat16()
             for _ in range(4))
@@ -571,14 +589,14 @@ def host_us_per_call(fn, calls: int = 1000) -> float:
     return elapsed / calls * 1e6
 
 
-def phase_kernels(fa):
-    """K1 against its plain version, with and without the log-sum-exp that
-    a backward asks for, and the host time of a K1 call; returns {label:
-    numbers}."""
+def phase_kernels(fa, shapes=ATTN_SHAPES, host: bool = True):
+    """K1 against its plain version at `shapes`, with and without the
+    log-sum-exp that a backward asks for, and (with `host`) the host time of
+    a K1 call; returns {label: numbers}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for label, (b, s, h, d), kv, (q, k, v, _) in kernel_cases(gen):
+    for label, (b, s, h, d), kv, (q, k, v, _) in kernel_cases(gen, shapes):
         t = kv or s
         out = fa.flash_attention(q, k, v, kv_valid=kv)
         with_lse, lse = fa._launch(q, k, v, t, with_lse=True)
@@ -614,6 +632,8 @@ def phase_kernels(fa):
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "ms_with_lse": lse_ms, "device_ms": device_ms}
+    if not host:
+        return results
     # the b1 request's shapes, where the card finishes a call before the host
     # has launched the next: the wrapper's host time (ctypes, three tensor maps)
     for d, shape in ((64, (1, 485, 12, 64)), (16, (1, 485, 4, 16))):
@@ -629,13 +649,13 @@ def phase_kernels(fa):
     return results
 
 
-def phase_kernels_bwd(fa):
-    """K2 against its plain version on the lse that K1 wrote, as a train
-    step calls it, and without it; returns {label: numbers}."""
+def phase_kernels_bwd(fa, shapes=ATTN_SHAPES):
+    """K2 against its plain version at `shapes` on the lse that K1 wrote, as
+    a train step calls it, and without it; returns {label: numbers}."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    for label, (b, s, h, d), kv, (q, k, v, g) in kernel_cases(gen):
+    for label, (b, s, h, d), kv, (q, k, v, g) in kernel_cases(gen, shapes):
         t = kv or s
         _, lse = fa._launch(q, k, v, t, with_lse=True)
         before = fa.bwd_launch_count(), fa.launch_count()
@@ -791,16 +811,17 @@ def k3_cases(gen):
                                                    rnd(b, t, h, d))
 
 
-def phase_kernels_k3(fa):
-    """K3 against its plain version, with `scaled_dot_product_attention`
-    under the same mask beside it, its device time from torch.profiler
-    beside the event time, and the host time of a `biased_attention` call
-    at the U = 1 shape; returns {label: numbers}."""
+def phase_kernels_k3(fa, cases=None):
+    """K3 against its plain version at `cases` (a generator like `k3_cases`,
+    the default), with `scaled_dot_product_attention` under the same mask
+    beside it, its device time from torch.profiler beside the event time,
+    and the host time of a `biased_attention` call at the U = 1 shape;
+    returns {label: numbers}."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
     results = {}
-    for label, (b, s, h, d), t, kv, bias, (q, k, v) in k3_cases(gen):
+    for label, (b, s, h, d), t, kv, bias, (q, k, v) in (cases or k3_cases)(gen):
         t_valid = kv or t
         before = fa.bias_launch_count()
         out = fa.biased_attention(q, k, v, bias, kv_valid=kv)
@@ -860,22 +881,16 @@ def phase_kernels_k3(fa):
     return results
 
 
-def phase_yardstick():
-    """One PyTorch call for the same functions: scaled_dot_product_attention
-    forward, and its backward alone on a kept graph. Timed here, used
-    nowhere in the port. Returns {label: (forward ms, backward ms)}."""
+def phase_yardstick(shapes=ATTN_SHAPES):
+    """One PyTorch call for the same functions at `shapes`:
+    scaled_dot_product_attention forward, and its backward alone on a kept
+    graph. Timed here, used nowhere in the port. Returns {label: (forward
+    ms, backward ms)}."""
     import torch
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
-    for label, shape, kv in (("vision", VISION, None), ("decoder", DECODER, None),
-                             ("vision 489", VISION_CTX, None),
-                             ("decoder 489", DECODER_CTX, None),
-                             ("vision kv_valid", (BATCH, 512, 12, 64), 485),
-                             ("e2e vision", E2E_VISION, None),
-                             ("e2e decoder", E2E_DECODER, None),
-                             ("cris decoder", CRIS_DECODER, None),
-                             *TS_SHAPES, *DC_SHAPES):
+    for label, shape, kv in shapes:
         q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
                       .bfloat16().transpose(1, 2) for _ in range(4))
         # kv_valid as a boolean key mask (True = attend)
@@ -3683,6 +3698,367 @@ def phase_checkpoints(fa, cf) -> dict:
     return by_path
 
 
+# --- Slice G2: trans_seg_siglip (D = 96) and the serving export ----------------
+
+# model=trans_seg_siglip: SigLIP-base towers (12 heads of 64) with fresh
+# projections, so a decoder 768 wide with 8 heads of 96, at 352^2 (22^2 = 484
+# tokens, no CLS) over the SigLIP text's 64 tokens: K1 in the 12 vision layers
+# and the 4 decoder self-attentions (D = 96), K3 in the 12 text layers
+# (padding bias) and the 4 cross-attentions into the text (D = 96), K2 for
+# all 16 in the full fine-tune
+TSS_DECODER = (TS_BATCH, 484, 8, 96)
+D96_SHAPES = (("trans_seg_siglip decoder d96", TSS_DECODER, None),
+              ("d96 kv_valid 485 of 512", (4, 512, 8, 96), 485))
+TSS_SERVE = (16, 0, 16, 0, 0, 0) + NO_VARIANTS
+TSS_STEP = (16, 16, 16, 0, 0, 0) + NO_VARIANTS
+# the SigLIP text's padding: 10 real tokens of 64 (`siglip_ids`)
+TSS_TEXT_VALID = 10
+
+
+def k3_cases_d96(gen):
+    """K3 at D = 96: trans_seg_siglip's cross-attention (484 queries into the
+    64 text keys under the key-pad bias), the same with keys short of T
+    (kv_valid 10), and a full bias over streamed keys (T = 245: four 80-key
+    tiles through the ring). Yields what `k3_cases` does."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    def key_pad(rows, t, first):
+        bias = torch.zeros(rows, 1, 1, t, device="cuda")
+        bias[..., first:] = F32_MIN
+        return bias
+
+    b, s, h, d = TSS_DECODER
+    for label, (b, s, h, d), t, kv, bias in (
+            ("trans_seg_siglip cross d96", TSS_DECODER, PC_SEQ, None,
+             key_pad(b, PC_SEQ, TSS_TEXT_VALID)),
+            ("cross d96 kv_valid 10 of 64", TSS_DECODER, PC_SEQ, TSS_TEXT_VALID,
+             key_pad(b, PC_SEQ, TSS_TEXT_VALID)),
+            ("cross d96 full bias T=245 streamed", (4, 300, 8, 96), 245, None,
+             torch.randn(4, 8, 300, 245, generator=gen, device="cuda"))):
+        yield label, (b, s, h, d), t, kv, bias, (rnd(b, s, h, d), rnd(b, t, h, d),
+                                                 rnd(b, t, h, d))
+
+
+def tss_config():
+    """model=trans_seg_siglip as the train CLI composes it at img_size 352
+    (`train.trans_segmentor_config`), with the decoder's dropout off, as
+    `bench.py` builds its trans_seg row (so that the kernel path and the
+    plain path take the same step)."""
+    from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
+    return TransSegmentorConfig.siglip_base(image_size=IMG, decoder_dropout=0.0)
+
+
+def siglip_request(gen, batch: int, unique_prompts: int):
+    """A SigLIP request: uint8 images and `siglip_ids` rows (one deduplicated
+    row with text_index, or one a sample), on the card."""
+    import torch
+    ids, mask = siglip_ids(gen, 1 if unique_prompts == 1 else batch)
+    req = {"image": torch.randint(0, 256, (batch, 3, IMG, IMG), generator=gen,
+                                  dtype=torch.uint8),
+           "input_ids": ids, "attention_mask": mask}
+    if unique_prompts == 1:
+        req["text_index"] = torch.zeros(batch, dtype=torch.int32)
+    return {k: v.cuda() for k, v in req.items()}
+
+
+def phase_trans_seg_siglip(fa, profile: bool) -> tuple:
+    """Phase 25: K1, K2 and K3 at D = 96 against their plain versions (the
+    kernel phases' checks and times at `D96_SHAPES` / `k3_cases_d96`, with
+    `scaled_dot_product_attention` beside them), then model=trans_seg_siglip
+    at full width: b32 and b1 requests against the plain path, 2 warm-up + 5
+    timed b32 full fine-tune steps (finite losses, step ms, peak memory, the
+    launches a step), the first step against the plain path. Returns (the
+    kernels' numbers (K1, K2, K3, SDPA), {path: counts}, the task and its
+    weights, the b32 request) for phase 26."""
+    import torch
+
+    from tunevlseg_torch.models.presets import (build_trans_segmentor,
+                                                trans_segmentor_head_dims)
+    from tunevlseg_torch.serving import task_predict_fn
+    from tunevlseg_torch.training.optim import count_params
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    k1 = phase_kernels(fa, D96_SHAPES, host=False)
+    k2 = phase_kernels_bwd(fa, D96_SHAPES)
+    k3 = phase_kernels_k3(fa, k3_cases_d96)
+    library = phase_yardstick(D96_SHAPES)
+
+    t0 = time.perf_counter()
+    config = tss_config()
+    heads = trans_segmentor_head_dims(config)
+    if heads["decoder"] != 96:
+        fail(f"trans_seg_siglip: head dims {heads}, expected the decoder at 96")
+    model, spec = build_trans_segmentor(config, dtype=torch.bfloat16,
+                                        device="cuda", seed=0)
+    task = SegmentationTask(model, spec, learning_rate=2e-5)
+    print(f"trans_seg_siglip: TransformerSegmentor with SigLIP-base towers "
+          f"(768 x 12, {PC_SEQ} text positions) and fresh projections at "
+          f"{IMG}^2 (484 tokens), decoder 4 x 8 heads of 96 (head dims {heads}), "
+          f"FFN 2048, upsampler 5 stages, bf16 compute over f32 weights, "
+          f"{count_params(model.parameters())} params, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    by_path = {}
+    params = dict(model.state_dict())
+    predict = task_predict_fn(task)
+    gen = torch.Generator().manual_seed(70)
+    requests = [("b32 dense", siglip_request(gen, TS_BATCH, TS_BATCH), TS_BATCH),
+                ("b1", siglip_request(gen, 1, 1), 1)]
+    probs, by_path["serve_trans_seg_siglip"] = serve_requests(
+        fa, "serve trans_seg_siglip", predict, params, requests, IMG, TSS_SERVE,
+        reps=3)
+    compare_with_plain_path(fa, "serve trans_seg_siglip", predict, params,
+                            requests[0][1], probs, "b32 dense")
+    if profile:
+        for label, req, _ in requests:
+            profile_calls(f"serve trans_seg_siglip {label}",
+                          lambda: predict(params, req))
+    del probs
+
+    state = task.init()
+    ids, mask = siglip_ids(gen, TS_BATCH)
+    batch = {"image": torch.randint(0, 256, (TS_BATCH, 3, IMG, IMG),
+                                    generator=gen, dtype=torch.uint8),
+             "mask": (torch.rand(TS_BATCH, 1, IMG, IMG, generator=gen)
+                      > 0.85).float(),
+             "input_ids": ids, "attention_mask": mask,
+             "valid": torch.ones(TS_BATCH)}
+    batch = {k: v.cuda() for k, v in batch.items()}
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    if len(trainable) != len(start):
+        fail("train trans_seg_siglip: the full fine-tune froze parameters")
+    state, losses, by_path["train_trans_seg_siglip"] = timed_steps(
+        fa, task, state, batch, "train trans_seg_siglip", warmup=2, steps=5,
+        per_step=TSS_STEP)
+    print(f"train trans_seg_siglip: b{TS_BATCH} full fine-tune ({len(trainable)} "
+          f"leaves, AdamW lr 2e-5) fits in 80 GB: launches a step (K1, K2, K3) "
+          f"= {TSS_STEP[:3]}; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    first_step_kernel_vs_plain(
+        fa, "train trans_seg_siglip", task, start, batch,
+        ("vision_model.layers.0.self_attn.q_proj.weight",
+         "text_model.layers.0.self_attn.q_proj.weight",
+         "decoder_layers.0.multihead_attn.q_proj.weight",
+         "decoder_layers.3.self_attn.out_proj.weight",
+         "upsampler.out_conv.weight"))
+    if profile:
+        profile_step("trans_seg_siglip", task, task.init(), batch)
+    del state, batch, start, params
+    return (k1, k2, k3, library), by_path, task, requests[0][1]
+
+
+def latency_ms(fn, reps: int = 5) -> float:
+    """Median wall time of `fn()` with a synchronize after each call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def exported_vs_eager(fa, tag: str, task, params: dict, request, per_forward: tuple,
+                      want_ops: tuple, out_dir, platforms=("cuda",), reps: int = 3,
+                      profile: bool = False):
+    """Export the task's predict step at `request`'s shapes, load it (the
+    program alone) and hold it against the eager `task_predict_fn`: the
+    probabilities bit for bit (else the largest difference, and the
+    `tunevlseg::` op that differs, by running each of the graph's op calls
+    against its eager launch on the same inputs), the launches of a
+    forward equal to eager's `per_forward`, the graph naming `want_ops`.
+    Returns (the counts of `reps` forwards of the program, counted from 0,
+    {numbers})."""
+    import torch
+
+    from tunevlseg_torch import serving
+
+    eager = serving.task_predict_fn(task)
+    t0 = time.perf_counter()
+    serving.export_task_predict(task, params, request, out_dir, platforms=platforms)
+    export_s = time.perf_counter() - t0
+    meta = serving.read_meta(out_dir)
+    t0 = time.perf_counter()
+    program = serving.load_fn(out_dir, device="cuda")
+    load_s = time.perf_counter() - t0
+    ops = serving.graph_ops(program.module)
+    if sorted(want_ops) != ops:
+        fail(f"{tag}: the program's graph calls {ops}, expected {want_ops}")
+    if meta["tunevlseg_ops"]["cuda"] != sorted(want_ops):
+        fail(f"{tag}: meta.json names {meta['tunevlseg_ops']}")
+    want = eager(params, request)
+    got = program(params, request)
+    torch.cuda.synchronize()
+    diff = (got - want).abs().max().item()
+    same = torch.equal(got, want)
+    if not same:
+        for op_name, op_diff in op_differences(program, eager, params, request):
+            print(f"{tag}: {op_name}'s output in the exported program against "
+                  f"the same launch in eager task_predict_fn: max abs diff "
+                  f"{op_diff:.6g}")
+        fail(f"{tag}: the exported program's probabilities differ from the eager "
+             f"task_predict_fn's by up to {diff:.6g}")
+    reset_counts(fa)
+    for _ in range(reps):
+        program(params, request)
+    torch.cuda.synchronize()
+    launches = counts(fa)
+    if launches != tuple(reps * n for n in per_forward):
+        fail(f"{tag}: {reps} forwards of the program launched {COUNTED} = "
+             f"{launches}, eager launches {per_forward} a forward")
+    weight_bytes = sum(v.numel() * v.element_size() for v in params.values())
+    numbers = {"program_ms": latency_ms(lambda: program(params, request)),
+               "eager_ms": latency_ms(lambda: eager(params, request)),
+               "graph_bytes": meta["graph_bytes"], "weight_bytes": weight_bytes,
+               "export_s": export_s, "load_s": load_s, "ops": ops}
+    batch = request["image"].shape[0]
+    print(f"{tag}: exported for {meta['platforms']} in {export_s:.1f} s, loaded "
+          f"in {load_s:.2f} s; the graph calls {ops}; b{batch} probabilities "
+          f"bit-identical to eager task_predict_fn ({same}); {reps} forwards "
+          f"launched {COUNTED} = {launches} ({per_forward} a forward, as eager); "
+          f"latency (synchronized, median of 5) program {numbers['program_ms']:.3f} "
+          f"ms vs eager {numbers['eager_ms']:.3f} ms "
+          f"({numbers['program_ms'] / numbers['eager_ms']:.3f}x); artifact "
+          f"{meta['graph_bytes']} bytes vs {weight_bytes} bytes of weights "
+          f"({meta['graph_bytes'] / weight_bytes:.4f}x)")
+    if not meta["graph_bytes"] < weight_bytes:
+        fail(f"{tag}: the artifact is not smaller than the weights it serves")
+    if profile:
+        profile_calls(f"{tag} program", lambda: program(params, request))
+        profile_calls(f"{tag} eager", lambda: eager(params, request))
+    return launches, numbers
+
+
+def op_differences(program, eager, params, request) -> list:
+    """The `tunevlseg::` op launches of one forward of the program and one of
+    the eager function, recorded in order by a dispatch mode and paired up:
+    (op, largest difference of its first output) for each pair, in order, so
+    that the first launch that differs names the op where the two part."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "tunevlseg":
+                first = out[0] if isinstance(out, tuple) else out
+                self.outs.append((str(func), first.detach().float().clone()))
+            return out
+
+    runs = []
+    for fn in (program, eager):
+        with Record() as rec:
+            fn(params, request)
+        torch.cuda.synchronize()
+        runs.append(rec.outs)
+    if len(runs[0]) != len(runs[1]):
+        return [("the launch sequences", float(len(runs[0]) - len(runs[1])))]
+    return [(f"launch {i} ({name})", (a - b).abs().max().item())
+            for i, ((name, a), (_, b)) in enumerate(zip(*runs))]
+
+
+def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
+    """Phase 26: the serving export on the card, at full width, in one
+    process: CLIPSeg CoOp rd64 b64 dedup (K1 and K3 in the graph), CRIS CoOp
+    b64 on the flat backbone (K1, K3 and K4), trans_seg b32 (`bench.py`'s
+    row) and trans_seg_siglip b32 (phase 25's model: K1 and K3 at D = 96). Each program is exported, loaded and
+    held against eager `task_predict_fn` (`exported_vs_eager`); CLIPSeg also
+    at b1, exported for ("cuda", "cpu"), and the cpu program run on CPU
+    copies of the weights and the request against the card's program.
+    Returns ({path: counts}, {label: numbers})."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from tunevlseg_torch import serving
+    from tunevlseg_torch.models.presets import build_cris, build_trans_segmentor
+
+    from tunevlseg_torch.models.presets import build_clipseg
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    by_path, numbers = {}, {}
+    root = Path(tempfile.mkdtemp(prefix="export_"))
+    model, _ = build_clipseg("coop", prompt_depth=3, num_context=4,
+                             dtype=torch.bfloat16, device="cuda", seed=0)
+    task = SegmentationTask(model.eval())
+    params = dict(model.state_dict())
+    requests = three_requests(80, IMG, 49407)
+    by_path["export_clipseg_coop"], numbers["clipseg coop b64"] = exported_vs_eager(
+        fa, "export clipseg coop b64 dedup", task, params, requests[0][1],
+        CLIPSEG_SERVE, ("biased_attn_fwd", "flash_attn_fwd"), root / "clipseg_b64",
+        profile=profile)
+    _, numbers["clipseg coop b1"] = exported_vs_eager(
+        fa, "export clipseg coop b1", task, params, requests[2][1], CLIPSEG_SERVE,
+        ("biased_attn_fwd", "flash_attn_fwd"), root / "clipseg_b1",
+        platforms=("cuda", "cpu"), profile=profile)
+    meta = serving.read_meta(root / "clipseg_b1")
+    if meta["platforms"] != ["cuda", "cpu"] or meta["tunevlseg_ops"]["cpu"]:
+        fail(f"export clipseg coop b1: meta.json {meta['platforms']}, "
+             f"{meta['tunevlseg_ops']}")
+    cpu_program = serving.load_fn(root / "clipseg_b1", device="cpu")
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_request = {k: v.cpu() for k, v in requests[2][1].items()}
+    t0 = time.perf_counter()
+    before = counts(fa)
+    cpu_probs = cpu_program(cpu_params, cpu_request)
+    cpu_s = time.perf_counter() - t0
+    if counts(fa) != before:
+        fail("export clipseg coop b1: the cpu program launched a kernel")
+    card = serving.load_fn(root / "clipseg_b1", device="cuda")(params, requests[2][1])
+    check_probs("export clipseg coop b1 cpu program", cpu_probs, 1, IMG)
+    diff = (cpu_probs - card.cpu()).abs()
+    print(f"export clipseg coop b1: the cpu program of the same artifact on the "
+          f"host ({cpu_s:.2f} s, the plain path, no launch) against the card's "
+          f"program: max abs diff {diff.max().item():.6g} (bound {PROB_MAX_TOL}), "
+          f"mean {diff.mean().item():.6g} (bound {PROB_MEAN_TOL})")
+    if not (diff.max().item() <= PROB_MAX_TOL and diff.mean().item() <= PROB_MEAN_TOL):
+        fail("export clipseg coop b1: the cpu and the cuda programs disagree")
+    numbers["clipseg coop b1"]["cpu_program_s"] = cpu_s
+    del task, params, cpu_params, model
+
+    model, _ = build_cris("coop", prompt_depth=3, num_context=4, layout="flat",
+                          dtype=torch.bfloat16, device="cuda", seed=0)
+    task = SegmentationTask(model)
+    params = dict(model.state_dict())
+    request = three_requests(81, CRIS_IMG, 0)[0][1]
+    by_path["export_cris_flat_coop"], numbers["cris coop flat b64"] = \
+        exported_vs_eager(fa, "export cris coop flat b64 dedup", task, params,
+                          request, CRIS_FLAT_SERVE,
+                          ("biased_attn_fwd", "conv_flat", "flash_attn_fwd"),
+                          root / "cris_flat_b64")
+    del task, params, model
+
+    model, _ = build_trans_segmentor(ts_config(), dtype=torch.bfloat16,
+                                     device="cuda", seed=0)
+    task = SegmentationTask(model)
+    params = dict(model.state_dict())
+    request = make_request(torch.Generator().manual_seed(82), TS_BATCH, TS_BATCH, IMG)
+    by_path["export_trans_seg"], numbers["trans_seg b32"] = exported_vs_eager(
+        fa, "export trans_seg b32", task, params, request, TS_SERVE,
+        ("biased_attn_fwd", "flash_attn_fwd"), root / "ts_b32")
+    del task, params, model
+
+    params = dict(tss_task.model.state_dict())
+    by_path["export_trans_seg_siglip"], numbers["trans_seg_siglip b32"] = \
+        exported_vs_eager(fa, "export trans_seg_siglip b32", tss_task, params,
+                          tss_request, TSS_SERVE,
+                          ("biased_attn_fwd", "flash_attn_fwd"), root / "tss_b32",
+                          profile=profile)
+    shutil.rmtree(root)
+    return by_path, numbers
+
+
 def phase_kernels_variants(sweeps, library):
     """The sweeps' entry points, one pass per sweep: every variant against
     its plain version on q, k, v apart and standard normal (`check_variants`:
@@ -3976,6 +4352,15 @@ def main() -> None:
     clock("zero-shot RIS paths")
     by_path.update(phase_checkpoints(fa, cf))
     clock("checkpoint paths")
+    d96, tss_paths, tss_task, tss_request = phase_trans_seg_siglip(fa, profile)
+    by_path.update(tss_paths)
+    for numbers, more in zip((k1, k2, k3, library), d96):
+        numbers.update(more)
+    clock("trans_seg_siglip paths")
+    export_paths, _ = phase_export(fa, tss_task, tss_request, profile)
+    by_path.update(export_paths)
+    del tss_task, tss_request
+    clock("export paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 

@@ -194,17 +194,18 @@ def test_bias_takes_no_gradient():
 
 
 def test_bias_strides_are_zero_on_broadcast_dimensions():
+    """The wrapper's check of a bias (`_check_bias`, before the op) and the
+    strides K3's launcher passes (`_bias_strides`)."""
     q = torch.zeros(4, 10, 2, 16)
-    pad = torch.zeros(4, 1, 1, 7)
-    assert list(fa._bias_strides(pad, q, 7)) == [7, 0, 0, 1]
-    text = torch.zeros(1, 1, 10, 7)
-    assert list(fa._bias_strides(text, q, 7)) == [0, 0, 7, 1]
-    expanded = torch.zeros(1, 2, 1, 7).expand(4, 2, 10, 7)
-    assert list(fa._bias_strides(expanded, q, 7)) == [0, 7, 0, 1]
+    for bias, strides in ((torch.zeros(4, 1, 1, 7), [7, 0, 0, 1]),
+                          (torch.zeros(1, 1, 10, 7), [0, 0, 7, 1]),
+                          (torch.zeros(1, 2, 1, 7).expand(4, 2, 10, 7), [0, 7, 0, 1])):
+        fa._check_bias(bias, q, 7)
+        assert list(fa._bias_strides(bias)) == strides
     with pytest.raises(ValueError, match="broadcast"):
-        fa._bias_strides(torch.zeros(4, 1, 3, 7), q, 7)
+        fa._check_bias(torch.zeros(4, 1, 3, 7), q, 7)
     with pytest.raises(ValueError, match="float32"):
-        fa._bias_strides(torch.zeros(4, 1, 1, 7, dtype=torch.bfloat16), q, 7)
+        fa._check_bias(torch.zeros(4, 1, 1, 7, dtype=torch.bfloat16), q, 7)
 
 
 def test_gate_keeps_cpu_and_f32_on_the_plain_path(monkeypatch):
@@ -233,13 +234,20 @@ def test_k3_runs_wgmma_from_tma_with_no_mma_sync():
     """K3 (csrc/flash_attn_bias_fwd.cu) runs both products on wgmma from
     shared memory that a producer warp fills by TMA, on the building blocks
     in csrc/attn_hopper.cuh, with no mma.sync path left; the headers it
-    includes are part of its library's build hash."""
+    includes are part of its library's build hash. The TMA loads and the
+    P V product go through attn_hopper.cuh's column-chunk helpers (one
+    chunk at D <= 64, three of 32 at D = 96), which issue `tma_load_4d` and
+    `wgmma_rs`."""
     from tunevlseg_torch.ops import build
     source = build.SOURCES["bias"]
     text = source.read_text()
-    for needed in ("tma_load_4d", "mbar_wait", "wgmma_m64k16<kBN>", "wgmma_rs<D, 1>",
-                   "acc_to_a<kBN>", '#include "attn_fwd_hopper.cuh"'):
+    for needed in ("tma_load_rows<D>", "mbar_wait", "wgmma_m64k16<kBN>",
+                   "wgmma_rs_cols<D>", "acc_to_a<kBN>",
+                   '#include "attn_fwd_hopper.cuh"'):
         assert needed in text, needed
+    blocks = (source.parent / "attn_hopper.cuh").read_text()
+    for needed in ("tma_load_4d(dst + c * pitch", "wgmma_rs<C::kW, 1>"):
+        assert needed in blocks, needed
     for gone in ("mma.sync", "mma_bf16_16816", "load_tile", "pack_raw"):
         assert gone not in text, gone
     csrc = source.parent

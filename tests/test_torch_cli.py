@@ -151,6 +151,49 @@ def test_train_test_predict_then_eval_from_best(synth, tmp_path):
                                rtol=1e-6)
 
 
+def test_export_dir_in_train_and_eval(synth, tmp_path):
+    """`export_dir` in both CLIs (tests/test_cli.py's export check): the
+    train CLI exports the inference step after test and predict, the eval
+    CLI the checkpoint-restored one; each program serves the weights of the
+    checkpoint the train run wrote, and the two agree bit for bit (the
+    artifacts carry no weights, so it does not matter that `Trainer.test`
+    restored the best ones into the model in place)."""
+    from tunevlseg_torch import serving
+    out = tmp_path / "logs"
+    trained = train_mod.main(_common(synth, out) + [
+        "trainer.max_epochs=1", "exp_name=export",
+        f"+export_dir={tmp_path / 'train_art'}"])
+    evaluated = eval_mod.main(_common(synth, out) + [
+        f"ckpt_path={out / 'train' / 'export' / 'checkpoints'}", "predict=false",
+        "exp_name=export_eval", f"+export_dir={tmp_path / 'eval_art'}",
+        "+export_platforms=[cpu]"])
+    ckpt = out / "train" / "export" / "checkpoints"
+    params = {**torch.load(ckpt / "frozen" / "frozen.pt"),
+              **torch.load(ckpt / "best" / "state.pt")["trainable"]}
+    probs = []
+    for result in (trained, evaluated):
+        meta = serving.read_meta(result["export_dir"])
+        assert meta["kind"] == "segmentation_task_predict"
+        assert meta["model"] == "CLIPSegForSegmentation"
+        assert meta["platforms"] == ["cpu"] and meta["tunevlseg_ops"] == {"cpu": []}
+        assert (Path(result["export_dir"]) / "predict.cpu.pt2").exists()
+        shapes = {s["name"][2:]: s["shape"] for s in meta["in_specs"]
+                  if s["name"].startswith("1.")}
+        assert shapes["image"] == [4, 3, 32, 32]
+        g = torch.Generator().manual_seed(0)
+        batch = {"image": torch.randint(0, 256, shapes["image"], generator=g,
+                                        dtype=torch.uint8),
+                 "input_ids": torch.full(shapes["input_ids"], 320, dtype=torch.int32),
+                 "attention_mask": torch.ones(shapes["attention_mask"],
+                                              dtype=torch.int32)}
+        batch["input_ids"][:, 0], batch["input_ids"][:, 3] = 49406, 49407
+        if "text_index" in shapes:
+            batch["text_index"] = torch.zeros(shapes["text_index"], dtype=torch.int32)
+        probs.append(serving.load_fn(result["export_dir"], device="cpu")(params, batch))
+    assert probs[0].shape == (4, 1, 32, 32) and bool(probs[0].isfinite().all())
+    torch.testing.assert_close(probs[1], probs[0], rtol=0, atol=0)
+
+
 def test_cris_train_cycle(synth, tmp_path):
     result = train_mod.main(_common(synth, tmp_path / "logs", img=64) + [
         "experiment=coop/cris", "predict=false", "exp_name=cris_smoke"])
@@ -227,24 +270,37 @@ def test_trans_segmentor_config_matches_jax(overrides):
 
 def test_trans_segmentor_head_dim_96_raises_on_the_card_and_runs_on_the_cpu():
     """`model=trans_seg_siglip` runs its decoder at 768 / 8 = 96 dims a head,
-    which K1 and K3 are not built for: on a CUDA device the build raises
-    before anything is made (no card needed to see it), naming its ROADMAP
-    item. A tiny model with a 96-dim decoder head builds and runs on the
-    CPU."""
-    from tunevlseg_torch.models.presets import build_trans_segmentor
+    which K1, K2 and K3 are built for: its configuration passes the card's
+    head-dim gate. A head dim still unbuilt (48, as
+    `test_gate_raises_on_head_dim_k1_lacks` uses) raises on a CUDA device
+    before anything is made (no card needed to see it), naming the head
+    dim. Tiny models with a 96- and a 48-dim decoder head build and run on
+    the CPU."""
+    from tunevlseg_torch.models.presets import (build_trans_segmentor,
+                                                trans_segmentor_head_dims,
+                                                unbuilt_head_dims)
     from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
+    from tunevlseg_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+    assert SUPPORTED_HEAD_DIMS == (16, 32, 64, 96)
     cfg = compose(CONFIG_DIR, "train", ["model=trans_seg_siglip", "ds_name=x"])
-    assert train_mod.trans_segmentor_config(cfg).effective_projection_dim == 768
-    with pytest.raises(NotImplementedError, match=r"item 11.*head dim 96"):
-        train_mod.build_model_and_task(cfg, device="cuda")
-    tiny = TransSegmentorConfig.tiny(projection_dim=96, decoder_num_heads=1)
-    with pytest.raises(NotImplementedError, match="'decoder': 96"):
-        build_trans_segmentor(tiny, device=torch.device("cuda"))
-    model, _ = build_trans_segmentor(tiny, device="cpu")
+    siglip = train_mod.trans_segmentor_config(cfg)
+    assert siglip.effective_projection_dim == 768
+    assert trans_segmentor_head_dims(siglip) == {
+        "text tower": 64, "vision tower": 64, "decoder": 96}
+    assert unbuilt_head_dims(siglip) == {}
+    tiny96 = TransSegmentorConfig.tiny(projection_dim=96, decoder_num_heads=1)
+    tiny48 = TransSegmentorConfig.tiny(projection_dim=96, decoder_num_heads=2)
+    # the tiny towers' heads (8 and 12 dims) are unbuilt on the card too
+    assert "decoder" not in unbuilt_head_dims(tiny96)
+    assert unbuilt_head_dims(tiny48)["decoder"] == 48
+    with pytest.raises(NotImplementedError, match="'decoder': 48"):
+        build_trans_segmentor(tiny48, device=torch.device("cuda"))
     g = torch.Generator().manual_seed(0)
-    out = model(torch.randint(3, 999, (2, 12), generator=g),
-                torch.randn(2, 3, 32, 32, generator=g))
-    assert out.shape == (2, 1, 32, 32) and bool(out.isfinite().all())
+    for tiny in (tiny96, tiny48):
+        model, _ = build_trans_segmentor(tiny, device="cpu")
+        out = model(torch.randint(3, 999, (2, 12), generator=g),
+                    torch.randn(2, 3, 32, 32, generator=g))
+        assert out.shape == (2, 1, 32, 32) and bool(out.isfinite().all())
 
 
 def test_loading_from_disk_leaves_cv2_on_one_thread(synth):
@@ -320,7 +376,6 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
     ("trainer.seq_shard=true", "Do not port"),
     ("trainer.fsdp=true", "Slice G"),
     ("trainer.multihost=true", "Slice G"),
-    ("+export_dir=/x", "Slice G"),
     ("trainer.remat=true", "Slice G"),
     ("trainer.accumulate_grad_batches=2", "Slice G"),
 ])

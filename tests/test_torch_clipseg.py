@@ -221,8 +221,10 @@ def test_port_config_is_its_own_copy_of_the_jax_one():
 
 
 def test_port_runs_without_jax():
-    """Every module of the port (the `train` and `eval` entry points
-    included), chip_smoke and every scripts/torch_*.py import, and a tiny
+    """Every module of the port (the `train` and `eval` entry points, the
+    serving export and the ops' registrations included), chip_smoke and
+    every scripts/torch_*.py (`torch_export_model.py` and
+    `torch_servebench.py` among them) import, and a tiny
     eval and a tiny train step of CLIPSeg (CoOp and the five other
     strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
@@ -247,6 +249,8 @@ def test_port_runs_without_jax():
         import glob, importlib.util, os
         scripts = sorted(glob.glob(os.path.join("scripts", "torch_*.py")))
         assert "scripts/torch_micro_attn.py" in scripts and len(scripts) >= 4
+        assert {"scripts/torch_export_model.py",
+                "scripts/torch_servebench.py"} <= set(scripts)
         for path in scripts:
             spec = importlib.util.spec_from_file_location(
                 os.path.basename(path)[:-3], path)
@@ -309,6 +313,17 @@ def test_port_runs_without_jax():
         assert cprobs.shape == (2, 1, 32, 32) and bool(cprobs.isfinite().all())
         served = task_predict_fn(ctask)(dict(cris.state_dict()), batch)
         assert torch.equal(served, cprobs)
+        # the serving export: CRIS's predict step exported for the CPU and
+        # loaded back (the ops' registrations come with the loader)
+        import tempfile as _tempfile
+        from tunevlseg_torch import serving
+        art = _tempfile.mkdtemp()
+        serving.export_task_predict(ctask, dict(cris.state_dict()), batch, art,
+                                    platforms=("cpu",))
+        exported = serving.load_fn(art, device="cpu")(dict(cris.state_dict()), batch)
+        assert torch.equal(exported, cprobs)
+        for name in ("tunevlseg_torch.serving", "tunevlseg_torch.ops.library"):
+            assert name in sys.modules, name
         before = cris.learner.context_vectors.detach().clone()
         stats = cris.visual.bn1.running_var.clone()
         train_state, cmetrics = ctask.train_step(ctask.init(), batch)

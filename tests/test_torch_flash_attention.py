@@ -211,12 +211,19 @@ def test_k1_and_the_variants_run_the_hopper_forward_body():
     """K1 and the sweeps' S1 / S2 / S4 kernel are instances of one forward
     body (csrc/attn_fwd_hopper.cuh: wgmma on operands a producer warp brings
     in by TMA through an mbarrier ring), with no mma.sync path left beside
-    it; the body's header is part of every library's build hash."""
+    it; the body's header is part of every library's build hash. Its TMA
+    loads and its P V product go through attn_hopper.cuh's column-chunk
+    helpers (one chunk at D <= 64, three of 32 at D = 96), which issue
+    `tma_load_4d` and `wgmma_rs`."""
     from tunevlseg_torch.ops import build
     csrc = build.SOURCES["fwd"].parent
     body = (csrc / "attn_fwd_hopper.cuh").read_text()
-    for needed in ("tma_load_4d", "mbar_wait", "wgmma_m64n64k16", "wgmma_rs<D, 1>"):
+    for needed in ("tma_load_rows<D>", "mbar_wait", "wgmma_m64n64k16",
+                   "wgmma_rs_cols<D>"):
         assert needed in body, needed
+    blocks = (csrc / "attn_hopper.cuh").read_text()
+    for needed in ("tma_load_4d(dst + c * pitch", "wgmma_rs<C::kW, 1>"):
+        assert needed in blocks, needed
     for source in (build.SOURCES["fwd"], build.SWEEP_SOURCES["variants"]):
         text = source.read_text()
         assert '#include "attn_fwd_hopper.cuh"' in text

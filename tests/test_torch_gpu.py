@@ -67,6 +67,12 @@ K1_EDGES = [
     ((32, 485, 8, 64), 485, None),     # TransformerSegmentor decoder (b32)
     ((16, 576, 12, 64), 576, None),    # SigLIP vision tower at 384^2 (b16)
     ((16, 576, 16, 32), 576, None),    # PhraseCut's decoder, D = 32
+    # D = 96, three column chunks of 32: model=trans_seg_siglip's decoder
+    # (b32, 22^2 tokens), keys short of S, and K1's tile edges
+    ((32, 484, 8, 96), 484, None),
+    ((4, 512, 8, 96), 512, 485),
+    ((3, 129, 2, 96), 65, 64),
+    ((2, 300, 2, 96), 200, 150),
 ])
 def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
     q, k, v = _qkv(cuda, *shape, t=t)
@@ -85,6 +91,8 @@ def test_k1_matches_plain_version(cuda, shape, t, kv_valid):
     *K1_EDGES,
     ((8, 676, 8, 64), 676, None),      # CRIS decoder, cut in batch
     ((16, 485, 4, 16), 485, None),
+    ((8, 484, 8, 96), 484, None),      # trans_seg_siglip's decoder, cut in batch
+    ((2, 150, 2, 96), 130, 129),
 ])
 def test_k1_log_sum_exp_matches_plain_version(cuda, shape, t, kv_valid):
     """With the lse a backward asks for, K1's output keeps its bits and the
@@ -102,7 +110,7 @@ def test_k1_log_sum_exp_matches_plain_version(cuda, shape, t, kv_valid):
 
 @pytest.mark.parametrize("shape,t,kv_valid", [
     ((64, 485, 12, 64), 485, None), ((64, 485, 4, 16), 485, None),
-    ((2, 150, 2, 32), 130, 129),
+    ((2, 150, 2, 32), 130, 129), ((32, 484, 8, 96), 484, None),
 ])
 def test_k1_two_calls_are_bit_identical(cuda, shape, t, kv_valid):
     """No atomics and a fixed order of the sums: the same inputs give the
@@ -148,6 +156,9 @@ def _assert_k2_close(got, want):
     ((4, 485, 2, 16), 512, 485),       # S != T, masked keys, D = 16
     ((32, 485, 8, 64), 485, None),     # TransformerSegmentor decoder (b32)
     ((16, 576, 16, 32), 576, None),    # PhraseCut's decoder, D = 32
+    ((32, 484, 8, 96), 484, None),     # trans_seg_siglip's decoder, D = 96
+    ((4, 512, 8, 96), 512, 485),       # D = 96 with keys short of S
+    ((3, 300, 2, 96), 300, None),      # D = 96, ragged tails (dq blocks of 128)
 ])
 @pytest.mark.parametrize("strided_g", [False, True], ids=["g", "strided_g"])
 def test_k2_matches_plain_version(cuda, shape, t, kv_valid, strided_g):
@@ -459,6 +470,12 @@ K3_EDGES = [
     ("trans_seg cross", (32, 485, 8, 64), 77, None),
     ("phrasecut cross d32", (16, 576, 16, 32), 64, None),
     ("siglip pad-only text", (16, 64, 12, 64), 64, None),
+    # trans_seg_siglip's cross-attention at D = 96: 484 queries into the 64
+    # SigLIP text keys, key-pad bias; and with keys short of T
+    ("trans_seg_siglip cross d96", (32, 484, 8, 96), 64, None),
+    ("cross d96 kv_valid", (4, 484, 8, 96), 64, 10),
+    ("cross d96 T=245, streamed", (2, 300, 2, 96), 245, 200),
+    ("full bias d96", (2, 150, 2, 96), 129, None),
     ("cross d32 kv_valid", (3, 70, 2, 32), 130, 99),
     ("full bias d16", (2, 100, 4, 16), 50, 45),
     ("no bias S != T", (3, 70, 2, 32), 130, None),
@@ -487,6 +504,7 @@ def test_k3_matches_plain_version(cuda, label, shape, t, kv_valid):
     ("text U=64", (64, 77, 8, 64), 77, None),
     ("cris cross", (64, 676, 8, 64), 77, None),
     ("cross T=400 kv_valid 333 d32, streamed", (2, 520, 2, 32), 400, 333),
+    ("trans_seg_siglip cross d96", (32, 484, 8, 96), 64, None),
 ])
 def test_k3_two_calls_are_bit_identical(cuda, label, shape, t, kv_valid):
     """No atomics and a fixed order of the sums: the same inputs give the
@@ -601,6 +619,48 @@ def test_small_cris_kernel_path_matches_plain_path(cuda):
         loss_p, grad_p = step()
     assert abs(loss_k - loss_p) <= 2e-2
     assert (grad_k - grad_p).abs().max().item() <= 0.1 * grad_p.abs().max().item()
+
+
+@pytest.mark.parametrize("op,d", [("K1", 96), ("K1 lse", 64), ("K3", 96),
+                                  ("K3 no bias", 32), ("K4", 0), ("K4 dx", 0)])
+def test_op_fake_implementation_matches_the_launch(cuda, op, d):
+    """Each `tunevlseg::` op's fake implementation (what a torch.export
+    trace reads) gives the shapes and dtypes of its CUDA launch's outputs;
+    a call of the op counts one launch of its kernel, a traced call none."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from tunevlseg_torch.ops import library
+    if op.startswith("K4"):
+        spec = cf.make_flat_spec(12, 12, 1)
+        x = torch.randn(2, spec.rows, 16, device=cuda).bfloat16()
+        w = torch.randn(24, 9, 16, device=cuda).bfloat16()
+        scale = torch.ones(24, device=cuda)
+        args = (x, w, scale, torch.zeros_like(scale), None, spec.rows, 3, spec.wp,
+                spec.hp, spec.r, spec.mb, True, op == "K4 dx", 0)
+        fn, count = library.conv_flat, (cf.dx_launch_count if op == "K4 dx"
+                                        else cf.launch_count)
+    else:
+        q, k, v = _qkv(cuda, 2, 150, 2, d, t=77)
+        if op.startswith("K1"):
+            q, k, v = _qkv(cuda, 2, 150, 2, d)
+            args, fn, count = (q, k, v, 150, op == "K1 lse"), library.flash_attn_fwd, \
+                fa.launch_count
+        else:
+            bias = None if op == "K3 no bias" else _key_pad(cuda, 2, 77, 14)
+            args, fn, count = (q, k, v, bias, 77), library.biased_attn_fwd, \
+                fa.bias_launch_count
+    before = count()
+    real = fn(*args)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = fn(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                    for a in args))
+    assert count() == before + 1
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(t.shape, t.dtype, t.device) for t in fake] == \
+        [(t.shape, t.dtype, t.device) for t in real]
 
 
 def test_gate_raises_on_head_dim_k1_lacks(cuda):

@@ -1,8 +1,12 @@
 // The attention forward body for Hopper (sm_90a) that K1 (flash_attn_fwd.cu)
 // and the sweeps' variants S1, S2 and S4 (attn_variant_kernel in
 // flash_attn_fwd_variants.cu) instantiate: o = softmax(q k^T * scale) v for
-// bf16 (B, S, H, D) tensors, D = 16, 32 or 64, with the softmax's choices
-// as a compile-time policy.
+// bf16 (B, S, H, D) tensors, D = 16, 32, 64 or 96, with the softmax's
+// choices as a compile-time policy. A 96-wide tile is kept as three column
+// chunks of 32 (attn_hopper.cuh, `Cols`): three TMA boxes a tile, the score
+// product's six k-steps walking them, o += p v as three n32 products a
+// k-step; one block per SM there (the Q tile, the rings and the staging take
+// 125 KB of shared memory).
 //
 // A block is one producer warp and two consumer warpgroups and owns 128
 // query rows (64 per warpgroup) of each of its (batch, head) pairs; which
@@ -104,6 +108,12 @@ constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kMinBlocks = 2;              // blocks per SM the registers are fitted to
 
+// the blocks per SM an instance at head dim D is fitted to: at D = 96 the
+// shared memory holds one block, and its registers (a 48-value output
+// accumulator) get the room of one
+template <int D>
+constexpr int min_blocks() { return D == 96 ? 1 : kMinBlocks; }
+
 // The softmax's choices. EXP2: the scale carries log2(e) and p = exp2,
 // otherwise exp. MAX: the online maximum and the rescale, otherwise
 // p = exp(s * scale) as it is (an experiment of the sweeps: it overflows on
@@ -119,10 +129,12 @@ struct Policy {
 // destination sits at a multiple of 1024 bytes from the aligned base.
 template <int D>
 struct Smem {
-  static constexpr int kSwizzle = 2 * D;          // bytes of a tile row: the maps' swizzle
-  static constexpr int kTileBytes = kBN * D * 2;  // a K or V tile
+  static constexpr int kSwizzle = Cols<D>::kSwizzle;      // bytes of a chunk row: the maps' swizzle
+  static constexpr int kTileBytes = kBN * D * 2;          // a K or V tile
+  static constexpr int kKvPitch = kBN * Cols<D>::kW * 2;  // a chunk of it
   static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kWgQBytes = 64 * D * 2;    // a warpgroup's rows of the Q tile
+  static constexpr int kQPitch = kBM * Cols<D>::kW * 2;   // a chunk of the Q tile
+  static constexpr int kWgQBytes = 64 * Cols<D>::kW * 2;  // a warpgroup's rows of a Q chunk
   static constexpr int kOutStride = D + 8;        // bf16 staging rows, padded against bank conflicts
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + kQBytes;
@@ -130,8 +142,6 @@ struct Smem {
   static constexpr int kOutOff = kVOff + kStages * kTileBytes;
   static constexpr int kBarOff = kOutOff + 2 * 64 * kOutStride * 2;
   static constexpr int kBytes = kBarOff + (2 * kStages + 2) * 8 + 1024;  // + alignment slack
-  // a k-step (16 keys) of the MN-major V operand, in descriptor units of 16 bytes
-  static constexpr int kMnStep = (16 * 2 * D) >> 4;
 };
 
 // What a launch passes besides the tensor maps and the pointers.
@@ -193,13 +203,15 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
         const int h = cell.hgi * bl.hg + pair % bl.hg;
         mbar_wait(q_empty, (pair & 1) ^ 1);
         mbar_arrive_expect_tx(q_full, L::kQBytes);
-        tma_load_4d(smem + L::kQOff, tm_q, q_full, 0, h, cell.qt * kBM, b);
+        tma_load_rows<D>(smem + L::kQOff, L::kQPitch, tm_q, q_full, h, cell.qt * kBM, b);
         for (int n = 0; n < p.n_tiles; ++n, ++it) {
           const int s = it % kStages;
           mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
           mbar_arrive_expect_tx(&full[s], 2 * L::kTileBytes);
-          tma_load_4d(smem + L::kKOff + s * L::kTileBytes, tm_k, &full[s], 0, h, n * kBN, b);
-          tma_load_4d(smem + L::kVOff + s * L::kTileBytes, tm_v, &full[s], 0, h, n * kBN, b);
+          tma_load_rows<D>(smem + L::kKOff + s * L::kTileBytes, L::kKvPitch, tm_k, &full[s], h,
+                           n * kBN, b);
+          tma_load_rows<D>(smem + L::kVOff + s * L::kTileBytes, L::kKvPitch, tm_v, &full[s], h,
+                           n * kBN, b);
         }
       }
     }
@@ -232,7 +244,9 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
       wgmma_fence();
       const uint64_t desc_k = kmajor_desc(smem + L::kKOff + s * L::kTileBytes, L::kSwizzle);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16(sc, kstep_desc<D>(desc_q, L::kQPitch, kk),
+                        kstep_desc<D>(desc_k, L::kKvPitch, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(sc);
@@ -281,7 +295,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap* tm_q, const CUt
       wgmma_fence();
       const uint64_t mn_v = mnmajor_desc(smem + L::kVOff + s * L::kTileBytes, L::kSwizzle);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(acc, pa[kk], mn_v + kk * L::kMnStep);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_cols<D>(acc, pa[kk], mn_v, L::kKvPitch, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(acc);

@@ -6,7 +6,7 @@
 //     o = softmax(q k^T * D^-1/2 + bias) v,   keys at index >= t_valid get p = 0,
 //
 // for q (B, S, H, D) against k, v (B, T, H, D) with S != T allowed, D = 16,
-// 32 or 64, and an optional f32 bias broadcastable to (B, H, S, T), with the
+// 32, 64 or 96, and an optional f32 bias broadcastable to (B, H, S, T), with the
 // same numerics: scores, the bias add and the softmax in f32, p = exp(x - m)
 // cast to bf16 for the PV product (f32 accumulation), the denominator the f32
 // sum of the UNROUNDED p, o = acc times the row's reciprocal denominator,
@@ -46,7 +46,11 @@
 // there); the keys >= t_valid are then set to -inf by compare-and-select. p is
 // repacked in registers as the A operand of the PV wgmma, V read MN-major
 // through the transpose bit; the epilogue stages the rows in shared memory
-// and stores 16 bytes a thread. Two blocks per SM.
+// and stores 16 bytes a thread. One block per SM. At D = 96 (the
+// TransformerSegmentor's SigLIP decoder, 484 queries into 64 text keys) a
+// tile is three column chunks of 32 (attn_hopper.cuh, `Cols`: a 192-byte row
+// has no swizzle mode): three TMA boxes a tile, the score product's six
+// k-steps walking them, o += p v as three n32 products a k-step.
 //
 // Where the bias makes the softmax differ from K1's:
 //   * the maximum is taken over x = s * scale + bias, element by element (K1
@@ -99,10 +103,13 @@ constexpr int round_1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 // destination sits at a multiple of 1024 bytes from the aligned base.
 template <int D>
 struct Smem {
-  static constexpr int kSwizzle = 2 * D;          // bytes of a tile row: the maps' swizzle
+  static constexpr int kSwizzle = Cols<D>::kSwizzle;      // bytes of a chunk row: the maps' swizzle
   static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kWgQBytes = 64 * D * 2;    // a warpgroup's rows of a Q tile
-  static constexpr int kKvBytes = kBN * D * 2;    // a K or V tile
+  static constexpr int kQPitch = kBM * Cols<D>::kW * 2;   // a column chunk of a Q tile
+  static constexpr int kWgQBytes = 64 * Cols<D>::kW * 2;  // a warpgroup's rows of a Q chunk
+  static constexpr int kKvBytes = kBN * D * 2;            // a K or V tile
+  static constexpr int kKvChunk = kBN * Cols<D>::kW * 2;  // a column chunk of it
+  static_assert(Cols<D>::kN == 1 || kKvChunk % 1024 == 0, "chunks 1024-byte aligned");
   static constexpr int kKvPitch = round_1k(kKvBytes);
   static constexpr int kOutStride = D + 8;        // bf16 staging rows, padded against bank conflicts
   static constexpr int kQOff = 0;
@@ -111,8 +118,6 @@ struct Smem {
   static constexpr int kOutOff = kVOff + kKvStages * kKvPitch;
   static constexpr int kBarOff = kOutOff + 2 * 64 * kOutStride * 2;
   static constexpr int kBytes = kBarOff + 2 * (kKvStages + kQStages) * 8 + 1024;  // + alignment slack
-  // a k-step (16 keys) of the MN-major V operand, in descriptor units of 16 bytes
-  static constexpr int kMnStep = (16 * 2 * D) >> 4;
 };
 
 struct Params {
@@ -172,8 +177,10 @@ biased_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (resident) {
         for (int n = 0; n < p.n_kt; ++n) {
           mbar_arrive_expect_tx(&kv_full[n], 2 * L::kKvBytes);
-          tma_load_4d(smem + L::kKOff + n * L::kKvPitch, &tm_k, &kv_full[n], 0, h, n * kBN, b);
-          tma_load_4d(smem + L::kVOff + n * L::kKvPitch, &tm_v, &kv_full[n], 0, h, n * kBN, b);
+          tma_load_rows<D>(smem + L::kKOff + n * L::kKvPitch, L::kKvChunk, &tm_k, &kv_full[n], h,
+                           n * kBN, b);
+          tma_load_rows<D>(smem + L::kVOff + n * L::kKvPitch, L::kKvChunk, &tm_v, &kv_full[n], h,
+                           n * kBN, b);
         }
       }
       int it = 0;
@@ -181,15 +188,17 @@ biased_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int qs = j % kQStages;
         mbar_wait(&q_empty[qs], ((j / kQStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qs], L::kQBytes);
-        tma_load_4d(smem + L::kQOff + qs * L::kQBytes, &tm_q, &q_full[qs], 0, h,
-                    (qt0 + j) * kBM, b);
+        tma_load_rows<D>(smem + L::kQOff + qs * L::kQBytes, L::kQPitch, &tm_q, &q_full[qs], h,
+                         (qt0 + j) * kBM, b);
         if (resident) continue;
         for (int n = 0; n < p.n_kt; ++n, ++it) {
           const int s = it % kKvStages;
           mbar_wait(&kv_empty[s], ((it / kKvStages) & 1) ^ 1);
           mbar_arrive_expect_tx(&kv_full[s], 2 * L::kKvBytes);
-          tma_load_4d(smem + L::kKOff + s * L::kKvPitch, &tm_k, &kv_full[s], 0, h, n * kBN, b);
-          tma_load_4d(smem + L::kVOff + s * L::kKvPitch, &tm_v, &kv_full[s], 0, h, n * kBN, b);
+          tma_load_rows<D>(smem + L::kKOff + s * L::kKvPitch, L::kKvChunk, &tm_k, &kv_full[s], h,
+                           n * kBN, b);
+          tma_load_rows<D>(smem + L::kVOff + s * L::kKvPitch, L::kKvChunk, &tm_v, &kv_full[s], h,
+                           n * kBN, b);
         }
       }
     }
@@ -240,7 +249,9 @@ biased_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
       const uint64_t desc_k = kmajor_desc(smem + L::kKOff + s * L::kKvPitch, L::kSwizzle);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_m64k16<kBN>(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64k16<kBN>(sc, kstep_desc<D>(desc_q, L::kQPitch, kk),
+                          kstep_desc<D>(desc_k, L::kKvChunk, kk));
       wgmma_commit();
       const int key0 = n * kBN;
       if (kBias && !bias_once) load_bias(m0, key0);  // while the product runs
@@ -286,7 +297,7 @@ biased_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
       const uint64_t mn_v = mnmajor_desc(smem + L::kVOff + s * L::kKvPitch, L::kSwizzle);
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs<D, 1>(acc, pa[kk], mn_v + kk * L::kMnStep);
+      for (int kk = 0; kk < kBN / 16; ++kk) wgmma_rs_cols<D>(acc, pa[kk], mn_v, L::kKvChunk, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(acc);
@@ -403,6 +414,9 @@ extern "C" int tvs_biased_attn_fwd(const void* q, const void* k, const void* v, 
     case 64:
       return static_cast<int>(
           launch_d<64>(q, k, v, bias, o, B, S, H, t_valid, strides, bias_strides, st));
+    case 96:
+      return static_cast<int>(
+          launch_d<96>(q, k, v, bias, o, B, S, H, t_valid, strides, bias_strides, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

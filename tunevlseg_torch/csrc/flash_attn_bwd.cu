@@ -52,8 +52,14 @@
 //
 // q, k, v and g are read in place in their (B, S, H, D) layout through TMA
 // tensor maps over their strides (g is often a strided view); rows past S or
-// T come back as zeros. D is 16, 32 or 64: a tile row is 32, 64 or 128 bytes,
-// the swizzle of its tensor map and descriptors.
+// T come back as zeros. D is 16, 32, 64 or 96: a tile row is 32, 64 or 128
+// bytes, the swizzle of its tensor map and descriptors, or at D = 96 three
+// column chunks of 32 with the 64-byte swizzle (a 192-byte row has none;
+// attn_hopper.cuh, `Cols`): three TMA boxes a tile, the k-steps of the score
+// products walking the chunks, and dq, dk, dv as three n32 products a k-step
+// into their 48-value accumulators. The dq pass takes two consumer
+// warpgroups there (128 query rows a block): three would leave a thread 152
+// registers, too few for the wider accumulator.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see tunevlseg_torch/ops/build.py). Plain C entry point,
@@ -73,11 +79,15 @@ constexpr int kStages = 2;
 constexpr int kStatBytes = kRows * 8;      // (lse2, delta) of a streamed tile's 64 rows
 // The dq pass takes three consumer warpgroups (152 registers a thread, 1
 // block per SM): more warps to hide its latencies than two, 1-9% faster on
-// the card (PERF.md); the dk/dv pass's 168 registers allow two.
-constexpr int kDqWgs = 3;
-constexpr int kDqRows = kDqWgs * kRows;        // query rows a dq block owns
-constexpr int kDqConsumers = kDqWgs * 128;
-constexpr int kDqThreads = kDqConsumers + 32;
+// the card (PERF.md); the dk/dv pass's 168 registers allow two. At D = 96
+// the dq pass takes two (its accumulator is half as large again).
+template <int D>
+struct Dq {
+  static constexpr int kWgs = D == 96 ? 2 : 3;
+  static constexpr int kRowsPerBlock = kWgs * kRows;  // query rows a dq block owns
+  static constexpr int kConsumers = kWgs * 128;
+  static constexpr int kThreads = kConsumers + 32;
+};
 
 // (batch, sequence, head) strides of one tensor, in elements; unit stride on D.
 struct Strides {
@@ -89,15 +99,14 @@ struct Strides {
 // rows' statistics), the barriers.
 template <int D, int WGS = 2>
 struct Smem {
-  static constexpr int kSwizzle = 2 * D;
-  static constexpr int kTile = kRows * D * 2;  // bytes of a 64-row tile
+  static constexpr int kSwizzle = Cols<D>::kSwizzle;
+  static constexpr int kTile = kRows * D * 2;            // bytes of a 64-row tile
+  static constexpr int kPitch = kRows * Cols<D>::kW * 2;  // a column chunk of it
   static constexpr int kOwned = 2 * WGS * kTile;
   static constexpr int kRing = kStages * 2 * kTile;
   static constexpr int kStats = kStages * kStatBytes;
   static constexpr int kBars = kOwned + kRing + kStats;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
-  // a k-step (16 rows) of an MN-major operand, in descriptor units of 16 bytes
-  static constexpr int kMnStep = (16 * 2 * D) >> 4;
 };
 
 // The dk/dv pass: dk and dv of 128 keys.
@@ -160,15 +169,15 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch_map(&tm_stats);
       mbar_arrive_expect_tx(kv_full, 4 * L::kTile);
       for (int half = 0; half < 2; ++half) {
-        tma_load_4d(sK + half * L::kTile, &tm_k, kv_full, 0, h, n0 + half * kRows, b);
-        tma_load_4d(sV + half * L::kTile, &tm_v, kv_full, 0, h, n0 + half * kRows, b);
+        tma_load_rows<D>(sK + half * L::kTile, L::kPitch, &tm_k, kv_full, h, n0 + half * kRows, b);
+        tma_load_rows<D>(sV + half * L::kTile, L::kPitch, &tm_v, kv_full, h, n0 + half * kRows, b);
       }
       for (int m = 0; m < n_tiles; ++m) {
         const int s = m % kStages;
         mbar_wait(&empty[s], ((m / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * L::kTile + kStatBytes);
-        tma_load_4d(sQ + s * 2 * L::kTile, &tm_q, &full[s], 0, h, m * kRows, b);
-        tma_load_4d(sG + s * 2 * L::kTile, &tm_g, &full[s], 0, h, m * kRows, b);
+        tma_load_rows<D>(sQ + s * 2 * L::kTile, L::kPitch, &tm_q, &full[s], h, m * kRows, b);
+        tma_load_rows<D>(sG + s * 2 * L::kTile, L::kPitch, &tm_g, &full[s], h, m * kRows, b);
         tma_load_3d(sStat + s * kStatBytes, &tm_stats, &full[s], 2 * m * kRows, h, b);
       }
     }
@@ -203,9 +212,13 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t desc_q = kmajor_desc(q_tile, L::kSwizzle);
     const uint64_t desc_g = kmajor_desc(g_tile, L::kSwizzle);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(st, desc_k + 2 * kk, desc_q + 2 * kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16(st, kstep_desc<D>(desc_k, L::kPitch, kk),
+                      kstep_desc<D>(desc_q, L::kPitch, kk));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(dpt, desc_v + 2 * kk, desc_g + 2 * kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16(dpt, kstep_desc<D>(desc_v, L::kPitch, kk),
+                      kstep_desc<D>(desc_g, L::kPitch, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(st);
@@ -239,8 +252,8 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t mn_q = mnmajor_desc(q_tile, L::kSwizzle);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<D, 1>(dv_acc, pa[kk], mn_g + kk * L::kMnStep);
-      wgmma_rs<D, 1>(dk_acc, dsa[kk], mn_q + kk * L::kMnStep);
+      wgmma_rs_cols<D>(dv_acc, pa[kk], mn_g, L::kPitch, kk);
+      wgmma_rs_cols<D>(dk_acc, dsa[kk], mn_q, L::kPitch, kk);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -262,13 +275,16 @@ flash_attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // The dq pass: delta, then dq, of kDqRows query rows.
 template <int D>
-__global__ void __launch_bounds__(kDqThreads, 1)
+__global__ void __launch_bounds__(Dq<D>::kThreads, 1)
 flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_g, const float* __restrict__ lse,
                          float2* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int S,
                          int S_pad, int t_valid, float scale, float scale_log2, Strides dqs) {
+  constexpr int kDqWgs = Dq<D>::kWgs;
+  constexpr int kDqRows = Dq<D>::kRowsPerBlock;
+  constexpr int kDqConsumers = Dq<D>::kConsumers;
   using L = Smem<D, kDqWgs>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -302,8 +318,8 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch_map(&tm_v);
       mbar_arrive_expect_tx(qg_full, 2 * kDqWgs * L::kTile);
       for (int half = 0; half < kDqWgs; ++half) {
-        tma_load_4d(sQ + half * L::kTile, &tm_q, qg_full, 0, h, m0 + half * kRows, b);
-        tma_load_4d(sG + half * L::kTile, &tm_g, qg_full, 0, h, m0 + half * kRows, b);
+        tma_load_rows<D>(sQ + half * L::kTile, L::kPitch, &tm_q, qg_full, h, m0 + half * kRows, b);
+        tma_load_rows<D>(sG + half * L::kTile, L::kPitch, &tm_g, qg_full, h, m0 + half * kRows, b);
       }
       // the key tiles twice: once for delta, once for dq
       for (int it = 0; it < 2 * n_tiles; ++it) {
@@ -311,8 +327,8 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int n = it % n_tiles;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
-        tma_load_4d(sK + s * 2 * L::kTile, &tm_k, &full[s], 0, h, n * kRows, b);
-        tma_load_4d(sV + s * 2 * L::kTile, &tm_v, &full[s], 0, h, n * kRows, b);
+        tma_load_rows<D>(sK + s * 2 * L::kTile, L::kPitch, &tm_k, &full[s], h, n * kRows, b);
+        tma_load_rows<D>(sV + s * 2 * L::kTile, L::kPitch, &tm_v, &full[s], h, n * kRows, b);
       }
     }
     return;
@@ -354,9 +370,13 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint64_t desc_k = kmajor_desc(k_tile, L::kSwizzle);
     const uint64_t desc_v = kmajor_desc(v_tile, L::kSwizzle);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(sc, desc_q + 2 * kk, desc_k + 2 * kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16(sc, kstep_desc<D>(desc_q, L::kPitch, kk),
+                      kstep_desc<D>(desc_k, L::kPitch, kk));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16(dp, desc_g + 2 * kk, desc_v + 2 * kk);
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16(dp, kstep_desc<D>(desc_g, L::kPitch, kk),
+                      kstep_desc<D>(desc_v, L::kPitch, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(sc);
@@ -400,7 +420,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     const uint64_t mn_k = mnmajor_desc(k_tile, L::kSwizzle);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D, 1>(acc, dsa[kk], mn_k + kk * L::kMnStep);
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_cols<D>(acc, dsa[kk], mn_k, L::kPitch, kk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -423,6 +443,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g, c
                    void* dq, void* dk, void* dv, float2* stats, int B, int S, int S_pad, int T,
                    int H, int t_valid, const long long* st, cudaStream_t stream) {
   using L = Smem<D>;
+  if (S_pad % Dq<D>::kRowsPerBlock != 0) return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   const float scale_log2 = scale * 1.4426950408889634f;
   Strides ss[7];  // q, k, v, g, dq, dk, dv
@@ -439,10 +460,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g, c
       !encode_f32_3d(&tm_stats, stats, 2 * uint64_t(S_pad), H, B, 2 * kRows))
     return cudaErrorNotSupported;
 
-  using Lq = Smem<D, kDqWgs>;
+  using Lq = Smem<D, Dq<D>::kWgs>;
   if ((err = set_smem(flash_attn_bwd_dq_kernel<D>, Lq::kBytes)) != cudaSuccess) return err;
-  const dim3 grid_q((S + kDqRows - 1) / kDqRows, H, B);
-  flash_attn_bwd_dq_kernel<D><<<grid_q, kDqThreads, Lq::kBytes, stream>>>(
+  const dim3 grid_q((S + Dq<D>::kRowsPerBlock - 1) / Dq<D>::kRowsPerBlock, H, B);
+  flash_attn_bwd_dq_kernel<D><<<grid_q, Dq<D>::kThreads, Lq::kBytes, stream>>>(
       tm_q, tm_k, tm_v, tm_g, lse, stats, static_cast<__nv_bfloat16*>(dq), S, S_pad, t_valid,
       scale, scale_log2, ss[4]);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -461,7 +482,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g, c
 // stride on D, 16-byte aligned bases and strides that are multiples of 8
 // elements (TMA reads them in place); lse (B, H, S) f32 from K1; stats f32
 // scratch of B * H * S_pad * 2 elements, S_pad >= S a multiple of both
-// passes' block rows (STATS_ROWS in ops/flash_attention.py).
+// passes' block rows at every head dim, 384 (STATS_ROWS in
+// ops/flash_attention.py).
 // `strides` holds the (batch, seq, head) strides in elements of q, k, v, g,
 // dq, dk and dv, in that order (21 values). Keys at index >= t_valid are
 // masked (t_valid = kv_valid, or T). The two kernels are enqueued on
@@ -472,7 +494,7 @@ extern "C" int tvs_flash_attn_bwd(const void* q, const void* k, const void* v, c
                                   int B, int S, int S_pad, int T, int H, int D, int t_valid,
                                   const long long* strides, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || B > 65535 || H > 65535 || t_valid < 1 ||
-      t_valid > T || S_pad < S || S_pad % kDqRows != 0 || S_pad % kRows != 0)
+      t_valid > T || S_pad < S || S_pad % kRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
@@ -487,6 +509,9 @@ extern "C" int tvs_flash_attn_bwd(const void* q, const void* k, const void* v, c
     case 64:
       return static_cast<int>(
           launch<64>(q, k, v, g, lp, dq, dk, dv, sp, B, S, S_pad, T, H, t_valid, strides, st));
+    case 96:
+      return static_cast<int>(
+          launch<96>(q, k, v, g, lp, dq, dk, dv, sp, B, S, S_pad, T, H, t_valid, strides, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,7 +23,9 @@
 // tower's h12 d64 does 4*B*H*S*T*D = 46 GFLOP per layer against 191 MB of q,
 // k, v and o: 57 us of HBM traffic at 3.35 TB/s against 46 us of bf16 tensor
 // cores at 989 TFLOP/s, bound by bytes by a small margin; the decoder (h4 d16)
-// has the same ratio. The S x T scores never reach HBM.
+// has the same ratio; so has the TransformerSegmentor's SigLIP decoder (b32,
+// S = T = 484, h8 d96: 23.0 GFLOP against 95.2 MB a layer, 23.3 against 28.4
+// us). The S x T scores never reach HBM.
 //
 // Design: the shared Hopper forward body of attn_fwd_hopper.cuh (which the
 // sweeps' variants S1, S2 and S4 instantiate too), with K1's softmax: exp2
@@ -37,7 +39,9 @@
 // strides: rows past S and keys past t_valid come back as zeros (the keys
 // past t_valid are masked to -inf before the softmax), so there are no
 // padding copies and no row predicates but the output's. Two blocks per SM
-// (the registers are fitted to it: __launch_bounds__).
+// (the registers are fitted to it: __launch_bounds__), one at D = 96, whose
+// tiles are three column chunks of 32 (a 192-byte row has no swizzle mode;
+// attn_hopper.cuh, `Cols`).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see tunevlseg_torch/ops/build.py). Plain C entry point,
@@ -52,7 +56,7 @@ using namespace tvs;
 using K1Softmax = fwd::Policy</*EXP2=*/true, /*MAX=*/true, /*SOFTMAX=*/true>;
 
 template <int D>
-__global__ void __launch_bounds__(fwd::kThreads, fwd::kMinBlocks)
+__global__ void __launch_bounds__(fwd::kThreads, fwd::min_blocks<D>())
 flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
@@ -98,6 +102,7 @@ extern "C" int tvs_flash_attn_fwd(const void* q, const void* k, const void* v, v
     case 16: return static_cast<int>(launch<16>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
     case 32: return static_cast<int>(launch<32>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
     case 64: return static_cast<int>(launch<64>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
+    case 96: return static_cast<int>(launch<96>(q, k, v, o, lp, B, S, H, t_valid, strides, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,9 @@ predict from a checkpoint, no fit).
 The counterpart of `tunevlseg_tpu/eval.py`, with its families and device
 rule from `tunevlseg_torch.train` (`+trainer.device=cpu` for the CPU).
 `pretrained_checkpoint` loads converted weights first, as in the train CLI;
-the checkpoint of `ckpt_path` is restored over them.
+the checkpoint of `ckpt_path` is restored over them. `export_dir` (and
+`export_platforms`) exports the inference step for serving, as in the train
+CLI (`train.export_serving`).
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ from tunevlseg_torch.config.composer import compose
 from tunevlseg_torch.data.pipeline import DataLoader
 from tunevlseg_torch.data.tokenizer import load_default_tokenizer
 from tunevlseg_torch.train import (CONFIG_DIR, build_datasets,
-                                   build_model_and_task, init_kwargs,
-                                   load_pretrained, resolve_device)
+                                   build_model_and_task, export_serving,
+                                   init_kwargs, load_pretrained,
+                                   resolve_device)
 from tunevlseg_torch.training.checkpoint import CheckpointManager
 from tunevlseg_torch.training.loop import Trainer
 from tunevlseg_torch.utils.logging import get_logger
@@ -76,6 +79,10 @@ def _run(cfg: dict) -> dict:
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
         trainer.predict(state, test_loader, save_dir=out_dir, use_best=False)
         result["output_masks_dir"] = str(out_dir)
+    if cfg.get("export_dir"):
+        # the (checkpoint-restored) inference step, for serving
+        result["export_dir"] = export_serving(cfg, task, state, test_loader,
+                                              device)
     log.info(f"done: {result}")
     return result
 

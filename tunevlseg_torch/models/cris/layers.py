@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _disable_current_modes
 
 from tunevlseg_torch.models.cris.resnet import (BatchNorm1d, BatchNorm2d,
                                                 avg_pool_nchw)
@@ -146,9 +147,13 @@ def sincos_pos_2d(d_model: int, height: int, width: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _pos_tensor(kind: str, dims: tuple, device: torch.device,
                 dtype: torch.dtype) -> torch.Tensor:
-    """A position encoding on its device, built once per shape."""
+    """A position encoding on its device, built once per shape, outside
+    every dispatch mode: a real tensor also when the first call comes inside
+    a `torch.export` trace, which would otherwise leave its fake tensor in
+    the cache for every later call (as `ops/image.py`'s resize matrices)."""
     pe = sincos_pos_2d(*dims) if kind == "2d" else sincos_pos_1d(*dims)
-    return torch.from_numpy(pe)[None].to(device=device, dtype=dtype)
+    with _disable_current_modes():
+        return torch.from_numpy(pe)[None].to(device=device, dtype=dtype)
 
 
 class MHA(nn.Module):

@@ -199,6 +199,14 @@ def trans_segmentor_head_dims(config: TransSegmentorConfig) -> dict[str, int]:
             "decoder": c.effective_projection_dim // c.decoder_num_heads}
 
 
+def unbuilt_head_dims(config: TransSegmentorConfig) -> dict[str, int]:
+    """The attentions of the model whose head dim K1, K2 and K3 are not
+    built for (`SUPPORTED_HEAD_DIMS`), by name; empty for every
+    configuration in `configs/model/`."""
+    return {k: d for k, d in trans_segmentor_head_dims(config).items()
+            if d not in SUPPORTED_HEAD_DIMS}
+
+
 def build_trans_segmentor(config: Optional[TransSegmentorConfig] = None,
                           freeze_encoders: bool = False,
                           upsampler_layout: str = "nchw",
@@ -214,20 +222,18 @@ def build_trans_segmentor(config: Optional[TransSegmentorConfig] = None,
     upsampler's convolutions through K4 (channels padded to multiples of 8);
     the default "nchw" through cuDNN.
 
-    On a CUDA device every attention of the model runs on K1 / K3, which
-    are built for head dims 16, 32 and 64: a model with another head dim
-    (`model=trans_seg_siglip`, whose decoder is 768 wide with 8 heads: 96)
-    raises here, before anything is built."""
+    On a CUDA device every attention of the model runs on K1 / K3 (and K2),
+    which are built for head dims 16, 32, 64 and 96 (`model=trans_seg_siglip`,
+    whose decoder is 768 wide with 8 heads: 96): a model with another head
+    dim raises here, before anything is built."""
     cfg = config or TransSegmentorConfig()
     if torch.device(device).type == "cuda":
-        unbuilt = {k: d for k, d in trans_segmentor_head_dims(cfg).items()
-                   if d not in SUPPORTED_HEAD_DIMS}
+        unbuilt = unbuilt_head_dims(cfg)
         if unbuilt:
             raise NotImplementedError(
-                f"head dims {unbuilt}: K1 and K3 are built for "
+                f"head dims {unbuilt}: K1, K2 and K3 are built for "
                 f"{SUPPORTED_HEAD_DIMS}; a TransformerSegmentor with another "
-                "head dim runs on the card with ROADMAP Queue 1 item 11 (K1, "
-                "K2 and K3 at head dim 96); on the CPU it builds and runs")
+                "head dim builds and runs on the CPU only")
     model = TransformerSegmentor(cfg, upsampler_layout=upsampler_layout,
                                  dtype=dtype)
     init_params(model, torch.Generator().manual_seed(seed))

@@ -31,6 +31,11 @@ dy and the sum of dy; dx is a flat convolution with the transposed weight and
 its taps reversed and goes through the same dispatch (so on the card dx
 launches K4); dW is one matrix product per tap over the whole batch, outside
 any kernel.
+
+K4 is the `torch.library` custom op `tunevlseg::conv_flat` (`ops/library.py`),
+whose CUDA implementation is `k4_cuda` here: a `torch.export` trace keeps it
+in the program, and the launch counts are kept by that implementation (a
+loaded program's launches count, a trace's do not).
 """
 from __future__ import annotations
 
@@ -245,9 +250,10 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _check_cuda(x: torch.Tensor, tensors) -> None:
+def _check_cuda(x: torch.Tensor, tensors, aligned: bool = True) -> None:
     """Raise unless every (name, tensor, dtype) lies on x's CUDA device with
-    that dtype, contiguous and 16-byte aligned."""
+    that dtype, contiguous and, with `aligned` (real tensors only: a traced
+    call has no addresses), 16-byte aligned."""
     for name, t, dtype in tensors:
         if t.device != x.device or not t.is_cuda:
             raise ValueError(f"K4 needs every tensor on x's CUDA device; "
@@ -256,12 +262,12 @@ def _check_cuda(x: torch.Tensor, tensors) -> None:
             raise ValueError(f"K4 takes a {dtype} {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"K4 takes contiguous tensors; {name} is not")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError(f"K4 needs 16-byte aligned tensors; {name} is not")
 
 
 def _check_kernel_inputs(spec, x, w_b, scale, offset, residual) -> None:
-    """Raise on anything K4 does not take."""
+    """Raise on anything K4 does not take (the alignment `k4_cuda` checks)."""
     b, rows, c = x.shape
     cout = w_b.shape[0]
     tensors = [("x", x, torch.bfloat16), ("weight", w_b, torch.bfloat16)]
@@ -269,7 +275,7 @@ def _check_kernel_inputs(spec, x, w_b, scale, offset, residual) -> None:
         tensors += [("scale", scale, torch.float32), ("offset", offset, torch.float32)]
     if residual is not None:
         tensors.append(("residual", residual, torch.bfloat16))
-    _check_cuda(x, tensors)
+    _check_cuda(x, tensors, aligned=False)
     if rows != spec.rows:
         raise ValueError(f"K4: x has {rows} rows, the spec {spec.rows}")
     if c % 8 or cout % 8:
@@ -298,11 +304,11 @@ def kernel_weight(w_mat: torch.Tensor, c: int, dtype: torch.dtype,
 
 def _launch(spec: FlatSpec, relu: bool, x, w_mat, scale, offset, residual,
             k: int, for_dx: bool, block_n: int = 0) -> torch.Tensor:
-    """One K4 launch. `w_mat` is the forward's (k*k*C, Cout) weight in both
-    cases; for the input gradient (`for_dx`) x is the scaled cotangent and
-    the kernel reads the weight transposed with its taps reversed.
-    `block_n` forces the tile width (64, 128, 256; 0 chooses by Cout)."""
-    global _launches, _dx_launches
+    """One K4 launch, through its op. `w_mat` is the forward's (k*k*C, Cout)
+    weight in both cases; for the input gradient (`for_dx`) x is the scaled
+    cotangent and the kernel reads the weight transposed with its taps
+    reversed. `block_n` forces the tile width (64, 128, 256; 0 chooses by
+    Cout)."""
     if k % 2 != 1 or k // 2 > spec.r:
         raise ValueError(f"K4: kernel size {k} does not fit a spec of radius "
                          f"{spec.r}")
@@ -311,17 +317,34 @@ def _launch(spec: FlatSpec, relu: bool, x, w_mat, scale, offset, residual,
     if w_b.shape[2] != x.shape[-1]:
         raise ValueError(f"K4: x has {x.shape[-1]} channels, the weight "
                          f"{w_b.shape[2]}")
+    return library.conv_flat(x, w_b, scale, offset, residual, spec.rows, k,
+                             spec.wp, spec.hp, spec.r, spec.mb, relu, for_dx,
+                             block_n)
+
+
+def k4_cuda(x: torch.Tensor, w_b: torch.Tensor, scale: Optional[torch.Tensor],
+            offset: Optional[torch.Tensor], residual: Optional[torch.Tensor],
+            rows: int, k: int, wp: int, hp: int, r: int, mb: int, relu: bool,
+            for_dx: bool, block_n: int) -> torch.Tensor:
+    """One K4 launch: the CUDA implementation of `tunevlseg::conv_flat` on
+    inputs `_launch` took; (B, rows, Cout) out, every row written (guard and
+    ring rows as zeros). A forward launch counts in `launch_count`, an
+    input gradient's (`for_dx`) in `dx_launch_count`."""
+    global _launches, _dx_launches
+    for name, t in (("x", x), ("weight", w_b), ("scale", scale),
+                    ("offset", offset), ("residual", residual)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"K4 needs 16-byte aligned tensors; {name} is not")
     lib = load_library()
     cout = w_b.shape[0]
-    # every row is written by the kernel, guard and ring rows as zeros
-    out = torch.empty(x.shape[0], spec.rows, cout, dtype=x.dtype, device=x.device)
+    out = torch.empty(x.shape[0], rows, cout, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         err = lib.tvs_conv_flat(
             x.data_ptr(), w_b.data_ptr(), ptr(scale), ptr(offset), ptr(residual),
-            out.data_ptr(), x.shape[0], spec.rows, x.shape[-1], cout, k, spec.wp,
-            spec.hp, spec.r, spec.mb, int(relu), int(for_dx), block_n, stream)
+            out.data_ptr(), x.shape[0], rows, x.shape[-1], cout, k, wp, hp, r,
+            mb, int(relu), int(for_dx), block_n, stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
     if for_dx:
@@ -546,3 +569,7 @@ def conv2d_same_flat(x: torch.Tensor, weight_oihw: torch.Tensor,
     if layout == "nchw":
         out = out.permute(0, 3, 1, 2)
     return out
+
+
+# the op `_launch` calls; registering it needs this module's launcher
+from tunevlseg_torch.ops import library  # noqa: E402

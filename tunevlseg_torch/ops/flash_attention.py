@@ -11,7 +11,12 @@ its 80-key tiles resident while the query tiles stream past them; the wgmma /
 TMA building blocks all three share in `attn_hopper.cuh` and `hopper.cuh`);
 all are built with `nvcc` for `sm_90a` into plain C shared libraries at
 first use (`ops/build.py`) and called through `ctypes` on PyTorch's current
-stream.
+stream. K1 and K3 are `torch.library` custom ops (`ops/library.py`:
+`tunevlseg::flash_attn_fwd`, `tunevlseg::biased_attn_fwd`) whose CUDA
+implementations are `k1_cuda` and `k3_cuda` here, so that a `torch.export`
+trace (on fake tensors, which have no data pointer) keeps them in the
+program; the launch counts are kept by those implementations, so they count
+the launches of a loaded program too and none of a trace.
 
 `flash_attention` takes K1 for CUDA tensors and raises on anything the kernel
 does not take; its gradient is K2 (`flash_attention_bwd`), launched by the
@@ -36,7 +41,7 @@ import torch
 
 from tunevlseg_torch.ops import build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 96)
 
 _libs: Optional[dict[str, ctypes.CDLL]] = None
 _launches = 0
@@ -189,8 +194,6 @@ def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{kernel} takes contiguous inputs; {name} is not")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{kernel} needs 16-byte aligned inputs; {name} is not")
         st = x.stride()
         if st[0] % 8 or st[1] % 8 or st[2] % 8:
             # TMA reads every row through the strides, 16-byte steps only (a
@@ -214,28 +217,48 @@ def _check_kernel_inputs(q, k, v, kv_valid, kernel: str = "K1") -> int:
     return t_valid
 
 
+def _check_aligned(kernel: str, **tensors) -> None:
+    """Raise unless every tensor given (None is skipped) starts at a 16-byte
+    aligned address, as TMA reads it. The launchers call it on real tensors:
+    a traced call has no addresses."""
+    for name, x in tensors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{kernel} needs 16-byte aligned inputs; {name} is not")
+
+
 def _seq_strides(*tensors) -> ctypes.Array:
     """(batch, seq, head) strides in elements of each (B, S, H, D) tensor."""
     values = [n for x in tensors for n in x.stride()[:3]]
     return (ctypes.c_longlong * len(values))(*values)
 
 
-def _launch(q, k, v, t_valid, with_lse: bool = False):
-    """K1: the output, or (output, lse) with `with_lse`."""
+def k1_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_valid: int,
+            with_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One K1 launch: the CUDA implementation of `tunevlseg::flash_attn_fwd`
+    on inputs `_check_kernel_inputs` took. Returns (o, lse): lse the f32
+    (B, H, S) log2-domain log-sum-exp with `with_lse`, else an empty f32
+    tensor (an op returns tensors only)."""
     global _launches
+    _check_aligned("K1", q=q, k=k, v=v)
     lib = load_library()["fwd"]
     o = torch.empty_like(q)
     b, s, h, d = q.shape
-    lse = (torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    lse = torch.empty((b, h, s) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.tvs_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     o.data_ptr(), None if lse is None else lse.data_ptr(),
+                                     o.data_ptr(), lse.data_ptr() if with_lse else None,
                                      b, s, h, d, t_valid, _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
     _launches += 1
+    return o, lse
+
+
+def _launch(q, k, v, t_valid, with_lse: bool = False):
+    """K1 through its op: the output, or (output, lse) with `with_lse`."""
+    o, lse = library.flash_attn_fwd(q, k, v, t_valid, with_lse)
     return (o, lse) if with_lse else o
 
 
@@ -246,7 +269,9 @@ def _kernel_readable(g: torch.Tensor) -> bool:
             and all(g.stride(i) % 8 == 0 for i in range(3)))
 
 
-STATS_ROWS = 192   # K2 pads its per-row (lse, δ) scratch to whole blocks of its dq pass
+# K2 pads its per-row (lse, δ) scratch to whole blocks of its dq pass: 192
+# rows at D <= 64, 128 at D = 96
+STATS_ROWS = 384
 
 
 def _launch_bwd(q, k, v, g, t_valid, lse):
@@ -307,8 +332,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q kᵀ / √D) v for (B, S, H, D) inputs, keys >= kv_valid masked.
 
-    CUDA tensors go through K1 (bf16, D in {16, 32, 64}, contiguous, no
-    bias) or raise, and differentiate through K2; CPU tensors take
+    CUDA tensors go through K1 (bf16, D in {16, 32, 64, 96}, contiguous, no
+    bias) or raise, and differentiate through K2 (the autograd.Function,
+    taken only when a gradient is wanted); CPU tensors take
     `flash_attention_ref`."""
     if bias is not None:
         raise ValueError("K1 takes no bias; biased attention is K3, "
@@ -316,7 +342,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kv_valid)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid)
-    return _FlashAttention.apply(q, k, v, t_valid)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, t_valid)
+    return _launch(q, k, v, t_valid)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -337,9 +366,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch_bwd(q, k, v, g, t_valid, lse)
 
 
-def _bias_strides(bias: torch.Tensor, q: torch.Tensor, t: int) -> ctypes.Array:
-    """Raise on a bias K3 does not take; return its (batch, head, query, key)
-    strides in elements, 0 on every dimension it broadcasts over."""
+def _check_bias(bias: torch.Tensor, q: torch.Tensor, t: int) -> None:
+    """Raise on a bias K3 does not take."""
     b, s, h, _ = q.shape
     if bias.device != q.device:
         raise ValueError(f"K3: bias on {bias.device}, q on {q.device}")
@@ -349,13 +377,29 @@ def _bias_strides(bias: torch.Tensor, q: torch.Tensor, t: int) -> ctypes.Array:
     if bias.dim() != 4 or any(n not in (1, m) for n, m in zip(bias.shape, full)):
         raise ValueError(f"K3: bias {tuple(bias.shape)} does not broadcast to "
                          f"(B, H, S, T) = {full}")
+
+
+def _bias_strides(bias: torch.Tensor) -> ctypes.Array:
+    """The (batch, head, query, key) strides in elements of a bias that
+    `_check_bias` took, 0 on every dimension it broadcasts over."""
     values = [0 if n == 1 else st for n, st in zip(bias.shape, bias.stride())]
     return (ctypes.c_longlong * 4)(*values)
 
 
 def _launch_biased(q, k, v, bias, t_valid) -> torch.Tensor:
+    """K3 through its op, on inputs `_check_kernel_inputs` took."""
+    if bias is not None:
+        _check_bias(bias, q, k.shape[1])
+    return library.biased_attn_fwd(q, k, v, bias, t_valid)
+
+
+def k3_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], t_valid: int) -> torch.Tensor:
+    """One K3 launch: the CUDA implementation of `tunevlseg::biased_attn_fwd`
+    on inputs `_launch_biased` took."""
     global _bias_launches
-    bias_strides = None if bias is None else _bias_strides(bias, q, k.shape[1])
+    _check_aligned("K3", q=q, k=k, v=v)
+    bias_strides = None if bias is None else _bias_strides(bias)
     lib = load_library()["bias"]
     o = torch.empty_like(q)
     b, s, h, d = q.shape
@@ -408,12 +452,20 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys >= kv_valid masked; `bias` is None or f32, broadcastable to
     (B, H, S, T), and takes no gradient.
 
-    CUDA tensors go through K3 (bf16, D in {16, 32, 64}, contiguous q, k, v;
-    the bias through its own strides) or raise; CPU tensors take
+    CUDA tensors go through K3 (bf16, D in {16, 32, 64, 96}, contiguous q,
+    k, v; the bias through its own strides) or raise; CPU tensors take
     `biased_attention_ref`. The gradient recomputes through
-    `plain_attention` on either device."""
+    `plain_attention` on either device (the autograd.Function, taken on the
+    card only when a gradient is wanted)."""
     if bias is not None and bias.requires_grad:
         raise ValueError("K3 gives the bias no gradient")
     if q.device.type != "cpu":
-        _check_kernel_inputs(q, k, v, kv_valid, kernel="K3")
+        t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="K3")
+        if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                             or v.requires_grad)):
+            return _launch_biased(q, k, v, bias, t_valid)
     return _BiasedAttention.apply(q, k, v, bias, kv_valid)
+
+
+# the ops the wrappers call; registering them needs this module's launchers
+from tunevlseg_torch.ops import library  # noqa: E402

@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 from tunevlseg_torch.ops import build
-from tunevlseg_torch.ops.flash_attention import _check_kernel_inputs, _seq_strides
+from tunevlseg_torch.ops.flash_attention import (_check_aligned, _check_kernel_inputs,
+                                                 _seq_strides)
 
 HEAD_DIM = 64          # the only head dim the variants are instantiated for
 KEY_TILE = 64          # keys per ring stage of S3's kernel; its mask row is padded to it
@@ -181,6 +182,7 @@ def attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_variant_ref(q, k, v, kv_valid, use_exp2=use_exp2,
                                      skip_max=skip_max, gemm_only=gemm_only)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="S1/S2/S4")
+    _check_aligned("S1/S2/S4", q=q, k=k, v=v)
     lib = load_library()
     o = torch.empty_like(q)
     b, s, h, d = q.shape
@@ -212,6 +214,7 @@ def attention_ones_column(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_ones_column_ref(q, k, v, kv_valid, skip_max=skip_max)
     t_valid = _check_kernel_inputs(q, k, v, kv_valid, kernel="S3")
+    _check_aligned("S3", q=q, k=k, v=v)
     lib = load_library()
     row = mask_row(k.shape[1], t_valid, q.device)
     o = torch.empty_like(q)

@@ -27,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 RESIZE_METHODS = ("bilinear", "bicubic", "nearest")
 
@@ -70,8 +71,16 @@ def resize_matrix(in_size: int, out_size: int, mode: str,
 
 @functools.lru_cache(maxsize=128)
 def _matrix_on(device: torch.device, *key) -> torch.Tensor:
-    """The resize matrix of `key` as an f32 tensor on `device`, built once."""
-    return torch.from_numpy(resize_matrix(*key)).to(device)
+    """The resize matrix of `key` as an f32 tensor on `device`, built once.
+
+    Built outside every dispatch mode, so always a real tensor, also when
+    the first call comes inside a `torch.export` trace: there the copy to
+    `device` would otherwise give a fake tensor, which the cache would then
+    hand to every later call (an eager call fails on it, and so does the
+    next export). A trace takes the real matrix in as a constant of its
+    program."""
+    with _disable_current_modes():
+        return torch.from_numpy(resize_matrix(*key)).to(device)
 
 
 def resize_2d(img: torch.Tensor, out_hw: tuple[int, int],

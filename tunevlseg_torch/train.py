@@ -91,10 +91,6 @@ def check_ported(cfg: dict) -> None:
         raise NotImplementedError(
             "fsdp / multihost / n_devices > 1 (data parallel over GPUs, torch "
             "FSDP) come with ROADMAP Queue 1 item 9 (Slice G)")
-    if cfg.get("export_dir"):
-        raise NotImplementedError(
-            "export_dir (torch.export of the predict step) comes with ROADMAP "
-            "Queue 1 item 9 (Slice G)")
 
 
 def resolve_device(cfg: dict) -> torch.device:
@@ -500,8 +496,29 @@ def _run(cfg: dict) -> dict:
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
         trainer.predict(state, loaders["test"], save_dir=out_dir)
         result["output_masks_dir"] = str(out_dir)
+    if cfg.get("export_dir"):
+        result["export_dir"] = export_serving(cfg, task, state, loaders["test"],
+                                              device)
     log.info(f"done: {result}")
     return result
+
+
+def export_serving(cfg: dict, task: SegmentationTask, state, loader,
+                   device: torch.device) -> str:
+    """`export_dir`: the inference step exported for serving
+    (`serving.export_task_predict`) at the shapes of the loader's first
+    batch, for `export_platforms` (default: the run's device). The program
+    takes the weights as arguments and holds none, so the checkpoint the run
+    wrote serves with it (`Trainer.test` restoring the best weights into the
+    model first changes nothing in it). Returns the directory."""
+    from tunevlseg_torch import serving
+    from tunevlseg_torch.data.pipeline import device_batch
+    sample = device_batch(next(iter(loader)), device)
+    graph = serving.export_task_predict(
+        task, state, sample, cfg["export_dir"],
+        platforms=tuple(cfg.get("export_platforms") or ()) or (device.type,))
+    log.info(f"exported serving program: {graph}")
+    return str(graph.parent)
 
 
 if __name__ == "__main__":
