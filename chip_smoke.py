@@ -31,10 +31,15 @@ Phases, each printing its numbers on lines of its own:
      against the stated bound, two calls bit-identical, times from CUDA
      events beside the device time from torch.profiler, the host time of a
      call at U = 1, and each kernel's bound (the larger of bytes over the
-     memory rate and operations over the bf16 tensor-core rate);
+     memory rate and operations over the bf16 tensor-core rate); K1, K2 and
+     K3 at D = 96 (phase 25's shapes). A device time (`kernel_device_ms`)
+     is each kernel's recorded time over its recorded launches, with the
+     L2 flushed before each call; the launches recorded must be the calls
+     made times the launches a call, and the time at least the bound. The
+     device times are all taken before phase 4 and the model paths;
   4. yardstick: `F.scaled_dot_product_attention` forward and backward at the
      same shapes (with the same mask for K3 and for kv_valid), printed beside
-     the kernels and used nowhere in the port;
+     the kernels and used nowhere in the port, after the K4 checks;
   5. serve, CLIPSeg: three requests through `serving.task_predict_fn` on the
      full-width bf16 CLIPSeg rd64 + CoOp (depth 3, 4 contexts) model with
      seeded random weights: batch 64 with one deduplicated prompt, batch 64
@@ -224,12 +229,12 @@ Phases, each printing its numbers on lines of its own:
      bit-identical in f32 to its source after the documented transform,
      every other tensor of the model under a named fresh prefix; load and
      convert seconds and GB; the phase's peak memory.
- 25. K1, K2 and K3 at head dim 96 and `model=trans_seg_siglip`
-     (`phase_trans_seg_siglip`): the three kernels against their plain
-     versions at the decoder's shapes (b32 x 484 x 8 x 96 self-attention,
-     484 -> 64 cross-attention under the key-pad bias) and with keys short
-     of T, event and device times, `scaled_dot_product_attention` beside
-     them; then the model at full width (SigLIP-base towers, fresh
+ 25. K1, K2 and K3 at head dim 96 and `model=trans_seg_siglip`: the three
+     kernels against their plain versions at the decoder's shapes (b32 x
+     484 x 8 x 96 self-attention, 484 -> 64 cross-attention under the
+     key-pad bias) and with keys short of T, event and device times,
+     `scaled_dot_product_attention` beside them (`phase_kernels_d96`, run
+     with phase 3); then (`phase_trans_seg_siglip`) the model at full width (SigLIP-base towers, fresh
      projections, a 768-wide decoder of 8 heads of 96, 352^2), its parameter
      count, a b32 dense and a b1 request (16 K1 + 16 K3) against the plain
      path, 2 + 5 b32 full fine-tune steps (16 K1, 16 K2, 16 K3 each; finite
@@ -242,6 +247,17 @@ Phases, each printing its numbers on lines of its own:
      ("cuda", "cpu"); the cpu program run on the host against the card's),
      CRIS CoOp b64 on `layout="flat"` (K1, K3, K4), trans_seg b32 and
      trans_seg_siglip b32 (phase 25's model, K1 and K3 at D = 96).
+ 27. gradient accumulation and per-layer remat (`phase_accumulate_remat`):
+     `bench.py`'s trans_seg b32 full fine-tune with the config's decoder
+     dropout 0.1, 3 steps with remat off and 3 on from the same weights and
+     seed (32 K1 + 16 K2 + 32 K3 a rematted step: the first loss
+     bit-identical, the weights within the common bounds, peak memory and
+     step ms of both); the flagship CLIPSeg CoOp b64 dedup step against two
+     b32 micro-steps with `accumulate_grad_batches=2` (the gradient each
+     update applies, the weights after it); DenseCLIP RN50 512^2 b16
+     `bn_train` with remat off and on (one checkpoint of the loss: 2 K1 + 1
+     K2 + 30 K3 a step; peak memory, step ms, the BatchNorm statistics in
+     the state against the plain steps').
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -545,34 +561,75 @@ def kernel_cases(gen, shapes=ATTN_SHAPES):
             for _ in range(4))
 
 
+# a write of this many bytes between profiled calls evicts the card's 50 MB
+# L2, so that a call reads its inputs from HBM as a bytes bound counts them
+L2_FLUSH_BYTES = 256 * 2 ** 20
+
+
 def device_ms_by_kernel(fn, n: int = 5) -> dict:
-    """Device time per call of each kernel `fn` launches, by kernel name,
-    from torch.profiler over `n` calls after a warm-up call."""
+    """{kernel name: (device ms per launch, launches)} of the kernels `fn`
+    launches, from torch.profiler over `n` calls after a warm-up call, each
+    call after an L2 flush: each kernel's recorded device time divided by
+    its own recorded launches (`count`), which a caller holds against the
+    calls made. The flush's kernels (named by a window of its own, which
+    must see them) are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def recorded(prof) -> dict:
+        return {e.key: (e.self_device_time_total / e.count / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     fn()
+    flush.zero_()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flush.zero_()
+        torch.cuda.synchronize()
+    flush_names = set(recorded(prof))
+    if not flush_names:
+        return {}       # the window saw nothing: the caller takes another
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            flush.zero_()
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    return {k: v for k, v in recorded(prof).items() if k not in flush_names}
 
 
-def kernel_device_ms(label: str, fn, keys: tuple) -> dict:
-    """{key: device time per call of the kernels whose names hold `key`}
-    for each of `keys`, from `device_ms_by_kernel`. A profiler window now
-    and then comes back without a kernel, so up to six windows of growing
-    length; fails if one of the kernels is still unseen."""
+def kernel_device_ms(label: str, fn, keys: dict, bound_ms: float) -> tuple:
+    """({key: device ms per call of the kernels whose names hold `key`},
+    {key: launches recorded}) for `keys` = {key: launches a call, or None
+    for any whole number a call (a library call's kernels)}, from
+    `device_ms_by_kernel` with a cold L2. A window must record every launch
+    of the calls it made (calls x launches a call) or another is taken, up
+    to six of growing length; then it fails, as it does when the time of
+    all the keys together is under `bound_ms`, the least time the work can
+    take on the card."""
     for attempt in range(6):
-        parts = device_ms_by_kernel(fn, n=5 * (attempt + 1))
-        found = {key: sum(v for n, v in parts.items() if key in n) for key in keys}
-        if all(v > 0 for v in found.values()):
-            return found
-    fail(f"{label}: torch.profiler saw no device time of "
-         f"{[k for k, v in found.items() if not v > 0]}")
+        calls = 5 * (attempt + 1)
+        parts = device_ms_by_kernel(fn, n=calls)
+        ms, launches = {}, {}
+        for key in keys:
+            found = [v for name, v in parts.items() if key in name]
+            launches[key] = sum(c for _, c in found)
+            ms[key] = sum(t * c for t, c in found) / calls
+        if all(launches[key] == calls * per_call if per_call is not None
+               else launches[key] > 0 and launches[key] % calls == 0
+               for key, per_call in keys.items()):
+            break
+    else:
+        fail(f"{label}: torch.profiler recorded {launches} launches of {keys} "
+             f"a call over {calls} calls, not every one of them")
+    total = sum(ms.values())
+    if not total >= bound_ms:
+        fail(f"{label}: device time {total:.5f} ms a call by torch.profiler is "
+             f"under the bound {bound_ms:.5f} ms ({launches} launches over "
+             f"{calls} calls)")
+    return ms, launches
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -609,16 +666,17 @@ def phase_kernels(fa, shapes=ATTN_SHAPES, host: bool = True):
         lse_ms = cuda_time_ms(lambda: fa._launch(q, k, v, t, with_lse=True), 50)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_ref(q, k, v, kv_valid=kv), 10)
+        bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t)
         # the kernel's own duration: where a call's host time comes near it
         # (D = 16, b16), the event time above is the host's
         device_ms = kernel_device_ms(
             f"K1 {label}", lambda: fa.flash_attention(q, k, v, kv_valid=kv),
-            ("flash_attn_fwd",))["flash_attn_fwd"]
-        bound_ms, bound_by, flops = attention_bound(4, 4, b, s, h, d, t)
+            {"flash_attn_fwd": 1}, bound_ms)[0]["flash_attn_fwd"]
         print(f"kernel K1 {label} q{(b, s, h, d)} kv_valid {kv}: "
               f"max_abs_err {err:.6g} (bound {KERNEL_TOL}), kernel {ms:.4f} ms "
               f"({flops / ms / 1e9:.1f} TFLOP/s; device {device_ms:.4f} ms by "
-              f"torch.profiler), with the lse write {lse_ms:.4f} ms "
+              f"torch.profiler, the L2 flushed before each call), with the lse "
+              f"write {lse_ms:.4f} ms "
               f"({100 * (lse_ms / ms - 1):+.1f}%; output bit-identical {same}, lse "
               f"error {lse_err:.3g} of max(1, |lse|), bound {LSE_REL_TOL}), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
@@ -640,8 +698,10 @@ def phase_kernels(fa, shapes=ATTN_SHAPES, host: bool = True):
         q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
                    for _ in range(3))
         us = min(host_us_per_call(lambda: fa.flash_attention(q, k, v)) for _ in range(3))
-        device_ms = kernel_device_ms(f"K1 b1 D = {d}", lambda: fa.flash_attention(
-            q, k, v), ("flash_attn_fwd",))["flash_attn_fwd"]
+        device_ms = kernel_device_ms(
+            f"K1 b1 D = {d}", lambda: fa.flash_attention(q, k, v),
+            {"flash_attn_fwd": 1}, attention_bound(4, 4, *shape, shape[1])[0]
+        )[0]["flash_attn_fwd"]
         print(f"host K1 D = {d} q{shape}: {us:.2f} us per flash_attention call "
               f"(perf_counter over 1000 calls, no synchronize, the least of 3 "
               f"rounds); the kernel's device time {device_ms * 1e3:.2f} us")
@@ -694,14 +754,14 @@ def phase_kernels_bwd(fa, shapes=ATTN_SHAPES):
             lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse), 50)
         plain_ms = cuda_time_ms(
             lambda: fa.flash_attention_bwd_ref(q, k, v, g, kv_valid=kv, lse=lse), 5)
-        by_pass = kernel_device_ms(
-            f"K2 {label}",
-            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse),
-            ("bwd_dq", "dkdv"))
         # each input read once (q, k, v, g and the f32 lse), each output
         # written once (dq, dk, dv)
         nbytes = 7 * b * s * h * d * 2 + 4 * b * h * s
         bound_ms, bound_by, flops = attention_bound(0, 10, b, s, h, d, t, nbytes)
+        by_pass = kernel_device_ms(
+            f"K2 {label}",
+            lambda: fa.flash_attention_bwd(q, k, v, g, kv_valid=kv, lse=lse),
+            {"bwd_dq": 1, "dkdv": 1}, bound_ms)[0]
         masked = "" if kv is None else f", {s - kv} masked dk/dv rows exactly 0"
         print(f"kernel K2 {label} q{(b, s, h, d)} kv_valid {kv}: max_abs_err "
               f"dq {errs[0]:.6g} dk {errs[1]:.6g} dv {errs[2]:.6g} (bound "
@@ -839,9 +899,14 @@ def phase_kernels_k3(fa, cases=None):
         if not torch.equal(out, fa.biased_attention(q, k, v, bias, kv_valid=kv)):
             fail(f"K3 {label}: two calls on the same inputs differ")
         ms = cuda_time_ms(lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv), 50)
+        # each input read once (the keys up to kv_valid), the output written
+        # once; the bias at the size it is stored at, not at (B, H, S, T)
+        nbytes = 2 * (2 * q.numel() + 2 * b * t_valid * h * d) + (
+            0 if bias is None else 4 * bias.numel())
+        bound_ms, bound_by, flops = attention_bound(0, 4, b, s, h, d, t_valid, nbytes)
         device_ms = kernel_device_ms(
             f"K3 {label}", lambda: fa.biased_attention(q, k, v, bias, kv_valid=kv),
-            ("biased_attn",))["biased_attn"]
+            {"biased_attn": 1}, bound_ms)[0]["biased_attn"]
         plain_ms = cuda_time_ms(lambda: fa.biased_attention_ref(q, k, v, bias, kv_valid=kv), 10)
         # one PyTorch call for the same function: a mask of 0 / dtype-min as
         # booleans, any other bias added in q's dtype; kv_valid as masked keys
@@ -854,11 +919,6 @@ def phase_kernels_k3(fa, cases=None):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), 50)
-        # each input read once (the keys up to kv_valid), the output written
-        # once; the bias at the size it is stored at, not at (B, H, S, T)
-        nbytes = 2 * (2 * q.numel() + 2 * b * t_valid * h * d) + (
-            0 if bias is None else 4 * bias.numel())
-        bound_ms, bound_by, flops = attention_bound(0, 4, b, s, h, d, t_valid, nbytes)
         row = {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": lib_ms}
@@ -873,7 +933,8 @@ def phase_kernels_k3(fa, cases=None):
         print(f"kernel K3 {label} q{(b, s, h, d)} k{tuple(k.shape)} kv_valid {kv} bias "
               f"{None if bias is None else tuple(bias.shape)}: max_abs_err {err:.6g} (bound {KERNEL_TOL}), two calls "
               f"bit-identical, kernel {ms:.4f} ms by events, device {device_ms:.4f} ms by "
-              f"torch.profiler ({flops / device_ms / 1e9:.2f} TFLOP/s), plain "
+              f"torch.profiler, the L2 flushed before each call "
+              f"({flops / device_ms / 1e9:.2f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, scaled_dot_product_attention with the same "
               f"mask {lib_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({100 * bound_ms / device_ms:.1f}% reached by device time){host}")
@@ -1926,11 +1987,12 @@ def phase_kernels_k4(cf, cases=K4_CASES, batch=BATCH, device_time=False):
             device["device_ms"] = kernel_device_ms(
                 f"K4 {label}", lambda: cf.conv_flat(x, spec, weight, scale, offset,
                                                     relu, res),
-                ("conv_flat_kernel",))["conv_flat_kernel"]
-            # every kernel F.conv2d launches (an empty key is in every name)
+                {"conv_flat_kernel": 1}, bound_ms)[0]["conv_flat_kernel"]
+            # every kernel F.conv2d launches (an empty key is in every name),
+            # held to the bound of the convolution alone
             device["lib_device_ms"] = kernel_device_ms(
                 f"F.conv2d {label}", lambda: F.conv2d(x_nchw, w_cl, padding=k // 2),
-                ("",))[""]
+                {"": None}, conv_bound(batch, hw, k, c, cout, False)[0])[0][""]
         print(f"kernel K4 {label} x{tuple(x.shape)} (b{batch}, {hw}^2 pixels in "
               f"{spec.rows} rows, guard {spec.mb}: {1 - hw * hw / spec.rows:.3f} of "
               f"the rows hold no pixel) C {c} Cout {cout} k {k}: "
@@ -1944,10 +2006,9 @@ def phase_kernels_k4(cf, cases=K4_CASES, batch=BATCH, device_time=False):
               f"{ms / lib_ms:.2f}, bound {bound_ms:.4f} ms by "
               f"{bound_by} ({100 * bound_ms / ms:.1f}% reached)"
               + ("" if not device else
-                 f"; device time {device['device_ms']:.4f} ms "
-                 f"({100 * bound_ms / device['device_ms']:.1f}% of bound: over "
-                 "100% where the operands stay in the 50 MB L2 from launch to "
-                 f"launch), F.conv2d's {device['lib_device_ms']:.4f} ms"))
+                 f"; device time {device['device_ms']:.4f} ms with the L2 "
+                 f"flushed before each call ({100 * bound_ms / device['device_ms']:.1f}% "
+                 f"of bound), F.conv2d's {device['lib_device_ms']:.4f} ms"))
         results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": lib_ms, "over_library": ms / lib_ms,
@@ -3764,15 +3825,21 @@ def siglip_request(gen, batch: int, unique_prompts: int):
     return {k: v.cuda() for k, v in req.items()}
 
 
+def phase_kernels_d96(fa) -> tuple:
+    """K1, K2 and K3 at D = 96 against their plain versions (the kernel
+    phases' checks and times at `D96_SHAPES` / `k3_cases_d96`). Returns the
+    kernels' numbers (K1, K2, K3)."""
+    return (phase_kernels(fa, D96_SHAPES, host=False),
+            phase_kernels_bwd(fa, D96_SHAPES), phase_kernels_k3(fa, k3_cases_d96))
+
+
 def phase_trans_seg_siglip(fa, profile: bool) -> tuple:
-    """Phase 25: K1, K2 and K3 at D = 96 against their plain versions (the
-    kernel phases' checks and times at `D96_SHAPES` / `k3_cases_d96`, with
-    `scaled_dot_product_attention` beside them), then model=trans_seg_siglip
-    at full width: b32 and b1 requests against the plain path, 2 warm-up + 5
-    timed b32 full fine-tune steps (finite losses, step ms, peak memory, the
-    launches a step), the first step against the plain path. Returns (the
-    kernels' numbers (K1, K2, K3, SDPA), {path: counts}, the task and its
-    weights, the b32 request) for phase 26."""
+    """Phase 25: model=trans_seg_siglip at full width (its kernels at D = 96
+    checked by `phase_kernels_d96`): b32 and b1 requests against the plain
+    path, 2 warm-up + 5 timed b32 full fine-tune steps (finite losses, step
+    ms, peak memory, the launches a step), the first step against the plain
+    path. Returns ({path: counts}, the task and its weights, the b32
+    request) for phase 26."""
     import torch
 
     from tunevlseg_torch.models.presets import (build_trans_segmentor,
@@ -3780,11 +3847,6 @@ def phase_trans_seg_siglip(fa, profile: bool) -> tuple:
     from tunevlseg_torch.serving import task_predict_fn
     from tunevlseg_torch.training.optim import count_params
     from tunevlseg_torch.training.task import SegmentationTask
-
-    k1 = phase_kernels(fa, D96_SHAPES, host=False)
-    k2 = phase_kernels_bwd(fa, D96_SHAPES)
-    k3 = phase_kernels_k3(fa, k3_cases_d96)
-    library = phase_yardstick(D96_SHAPES)
 
     t0 = time.perf_counter()
     config = tss_config()
@@ -3846,7 +3908,7 @@ def phase_trans_seg_siglip(fa, profile: bool) -> tuple:
     if profile:
         profile_step("trans_seg_siglip", task, task.init(), batch)
     del state, batch, start, params
-    return (k1, k2, k3, library), by_path, task, requests[0][1]
+    return by_path, task, requests[0][1]
 
 
 def latency_ms(fn, reps: int = 5) -> float:
@@ -4057,6 +4119,292 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
                           profile=profile)
     shutil.rmtree(root)
     return by_path, numbers
+
+
+# --- Slice G3: gradient accumulation and per-layer remat -----------------------
+
+# remat reruns each rematted layer's forward in the backward: a
+# TransformerSegmentor step runs K1 again in its 12 vision layers and 4
+# decoder self-attentions and K3 in its 12 text layers and 4
+# cross-attentions; K2 stays one a K1 of the first forward. DenseCLIP's one
+# checkpoint of the loss reruns the whole forward: the pool's K1, the text
+# encoder's 12 and the context decoder's 3 K3
+TS_REMAT_STEP = (32, 16, 32, 0, 0, 0) + NO_VARIANTS
+DC_REMAT_STEP = (2, 1, 30, 0, 0, 0) + NO_VARIANTS
+# `configs/model/trans_seg.yaml`'s decoder dropout, so that masks are drawn
+# inside the rematted decoder layers
+TS_DROPOUT = 0.1
+# remat on against off from the same weights and masks: the first forward is
+# the same computation, so its loss is bit-identical; the backward adds up
+# the same products (held to the kernel path's common bounds on the first
+# step's gradients, and the later losses to LOSS_TOL). The DenseCLIP step's
+# BatchNorm statistics (f32, from bf16 activations): 1e-3 of each tensor's
+# largest entry
+REMAT_STATS_REL_TOL = 1e-3
+
+
+def trainable_snapshot(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+
+def restore_trainable(model, start: dict) -> None:
+    import torch
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, value in start.items():
+            params[name].copy_(value)
+
+
+def steps_from(fa, task, start: dict, batches: list, label: str, per_step: tuple,
+               leaves: tuple = ()) -> dict:
+    """Train steps on `batches` from the weights `start` with a fresh
+    optimizer (its moments made in the first step): the launch counts set to
+    0 before and read after, each step's launches held to `per_step`, its
+    host ms (the device drained), the peak device memory of the run and
+    above what was allocated at its start, the losses, the first step's
+    gradients of `leaves`, the weights after (on the host), the state's
+    buffers."""
+    import torch
+    restore_trainable(task.model, start)
+    task.model.zero_grad(set_to_none=True)     # the last run's gradients
+    state = task.init()
+    named = dict(task.model.named_parameters())
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    times, losses, grads = [], [], {}
+    for i, batch in enumerate(batches):
+        before = counts(fa)
+        t = time.perf_counter()
+        state, metrics = task.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(metrics["loss"].item())
+        grew = minus(counts(fa), before)
+        if grew != per_step:
+            fail(f"{label}: a step launched {COUNTED} = {grew}, expected {per_step}")
+        if i == 0:
+            grads = {n: named[n].grad.detach().float().clone() for n in leaves}
+    launches = counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"{label}: non-finite loss in {losses}")
+    run = {"losses": losses, "ms": statistics.median(times) * 1e3, "peak": peak,
+           "above": peak - resident, "grads": grads, "launches": launches,
+           # on the host, so that the next run's peak does not hold them
+           "weights": {n: p.detach().to("cpu", copy=True) for n, p in named.items()
+                       if p.requires_grad},
+           "model_state": {k: v.clone() for k, v in state.model_state.items()}}
+    print(f"{label}: {len(batches)} steps, ms a step (host clock, device drained) "
+          + " ".join(f"{x * 1e3:.3f}" for x in times)
+          + f", median {run['ms']:.3f}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB; {run['above'] / 2**30:.3f} GiB above the "
+          f"{resident / 2**30:.3f} GiB resident at the start); launches "
+          f"{launches} ({per_step} a step); losses "
+          + " ".join(f"{x:.6f}" for x in losses))
+    del state
+    return run
+
+
+def remat_against_plain(label: str, plain: dict, remat: dict, lr: float,
+                        steps: int, witness: float | None = None) -> None:
+    """The rematted run against the plain one from the same weights and
+    masks: the first loss bit-identical (or, where `witness` is the first
+    loss of a second plain run, within LOSS_TOL, printed beside how far the
+    two plain runs are apart), the later ones within LOSS_TOL, the first
+    step's gradients within the kernel path's common bounds, the weights
+    after the steps within twice Adam's travel (printed: how many leaves
+    are bit-identical, the first that is not)."""
+    import torch
+    first = remat["losses"][0] - plain["losses"][0]
+    if witness is None and first != 0:
+        fail(f"{label}: the first step's loss {remat['losses'][0]!r} is not the "
+             f"plain step's {plain['losses'][0]!r}")
+    if witness is not None:
+        print(f"{label}: first loss {remat['losses'][0]!r} with remat, "
+              f"{plain['losses'][0]!r} plain, {witness!r} in a second plain run "
+              f"(remat - plain {first:.3g}, plain - plain "
+              f"{witness - plain['losses'][0]:.3g}; bound {LOSS_TOL})")
+    later = max(abs(a - b) for a, b in zip(remat["losses"], plain["losses"]))
+    worst_cos, worst_rel = worst_leaf(remat["grads"], plain["grads"])
+    same = [n for n, w in plain["weights"].items() if torch.equal(w, remat["weights"][n])]
+    differ = [n for n in plain["weights"] if n not in same]
+    top = max(((remat["weights"][n] - plain["weights"][n]).abs().max().item(), n)
+              for n in differ) if differ else (0.0, "")
+    travel = steps * lr * 1.05
+    print(f"{label}: remat on vs off, first loss "
+          + ("bit-identical " if first == 0 else f"apart by {first:.3g} ")
+          + f"({plain['losses'][0]!r}); losses within {later:.3g} (bound "
+          f"{LOSS_TOL}); first step's gradients: least cosine {worst_cos[0]:.6f} "
+          f"({worst_cos[1]}; at least {GRAD_COS_MIN}), largest max abs diff "
+          f"{worst_rel[0]:.4g} of its leaf's largest entry ({worst_rel[1]}; bound "
+          f"{GRAD_REL_TOL}); weights after {steps} steps: {len(same)} of "
+          f"{len(plain['weights'])} leaves bit-identical, the first that is not "
+          f"{differ[0] if differ else 'none'}, the largest difference "
+          f"{top[0]:.4g} ({top[1] or 'none'}; bound twice Adam's travel "
+          f"{2 * travel:.4g})")
+    if not (later <= LOSS_TOL and worst_cos[0] >= GRAD_COS_MIN
+            and worst_rel[0] <= GRAD_REL_TOL and top[0] <= 2 * travel):
+        fail(f"{label}: remat on and off disagree beyond the stated bounds")
+
+
+def phase_accumulate_remat(fa, profile: bool) -> dict:
+    """Phase 27: per-layer remat and gradient accumulation at full width.
+    (a) `bench.py`'s trans_seg row (b32, 352^2, full fine-tune) with the
+    config's decoder dropout 0.1: 3 steps with remat off and 3 with remat
+    on from the same weights and seed (peak memory, step ms, launches a
+    step; `remat_against_plain`). (b) The flagship, CLIPSeg CoOp b64 dedup
+    352^2: one b64 step against two b32 micro-steps with
+    `accumulate_grad_batches=2` from the same weights (the first micro-step
+    moves nothing; the gradient each update applies and the weights after
+    it). (c) DenseCLIP RN50 512^2 b16 `bn_train`: 3 steps with remat off
+    and on (the monolithic checkpoint of the loss; peak memory, step ms, the
+    BatchNorm statistics in the state against the plain step's). Returns
+    {path: counts}."""
+    import torch
+
+    from tunevlseg_torch.models.denseclip.model import DenseCLIPConfig
+    from tunevlseg_torch.models.presets import build_denseclip, build_trans_segmentor
+    from tunevlseg_torch.training.denseclip_task import DenseCLIPTask
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    by_path = {}
+    t0 = time.perf_counter()
+    model, spec = build_trans_segmentor(ts_config(decoder_dropout=TS_DROPOUT),
+                                        dtype=torch.bfloat16, device="cuda", seed=0)
+    plain = SegmentationTask(model, spec, learning_rate=2e-4)
+    rematted = SegmentationTask(model, spec, learning_rate=2e-4, remat=True)
+    plain.init()
+    start = trainable_snapshot(model)
+    batches = [make_train_batch(TS_BATCH, text_dedup=0, seed=91, img=IMG)] * 3
+    print(f"remat trans_seg: bench's trans_seg row with decoder dropout "
+          f"{TS_DROPOUT}, b{TS_BATCH} {IMG}^2 full fine-tune, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    leaves = ("vision_model.layers.0.self_attn.q_proj.weight",
+              "text_model.layers.0.self_attn.q_proj.weight",
+              "decoder_layers.0.multihead_attn.q_proj.weight",
+              "decoder_layers.3.self_attn.out_proj.weight",
+              "upsampler.out_conv.weight")
+    runs = {}
+    for key, task, per_step in (("plain", plain, TS_STEP),
+                                ("remat", rematted, TS_REMAT_STEP)):
+        runs[key] = steps_from(fa, task, start, batches, f"remat trans_seg {key}",
+                               per_step, leaves)
+    by_path["train_trans_seg_dropout"] = runs["plain"]["launches"]
+    by_path["train_trans_seg_remat"] = runs["remat"]["launches"]
+    remat_against_plain("remat trans_seg", runs["plain"], runs["remat"], 2e-4, 3)
+    print(f"remat trans_seg: peak {runs['plain']['peak'] / 2**30:.3f} -> "
+          f"{runs['remat']['peak'] / 2**30:.3f} GiB "
+          f"({runs['remat']['peak'] / runs['plain']['peak']:.3f}x), step "
+          f"{runs['plain']['ms']:.3f} -> {runs['remat']['ms']:.3f} ms "
+          f"({runs['remat']['ms'] / runs['plain']['ms']:.3f}x)")
+    if profile:
+        for key, t in (("dropout", plain), ("dropout remat", rematted)):
+            profile_step(f"trans_seg {key}", t, t.init(), batches[0])
+    del model, plain, rematted, start, runs, batches
+
+    # (b) the flagship: one b64 step against two b32 micro-steps
+    task, _ = build_task("CLIPSeg rd64", "coop", 2e-4)
+    model = task.model
+    accumulating = SegmentationTask(model, task.freeze_spec, learning_rate=2e-4,
+                                    accumulate_grad_batches=2)
+    batch = make_train_batch(BATCH, text_dedup=1, seed=3)
+    # the per-sample tensors split in two; the one prompt row stays whole
+    halves = [{k: v[i * BATCH // 2:(i + 1) * BATCH // 2] if v.shape[0] == BATCH
+               else v for k, v in batch.items()} for i in range(2)]
+    start = trainable_snapshot(model)
+    applied = {}
+    for key, t, micro in (("b64", task, [batch]), ("2 x b32", accumulating, halves)):
+        restore_trainable(model, start)
+        state = t.init()
+        seen = []
+        names = {id(p): n for n, p in model.named_parameters()}
+        state.optimizer.optimizer.register_step_pre_hook(lambda o, a, k: seen.append(
+            {names[id(p)]: p.grad.float().clone() for g in o.param_groups
+             for p in g["params"] if p.grad is not None}))
+        reset_counts(fa)
+        for i, b in enumerate(micro):
+            before = counts(fa)
+            state, metrics = t.train_step(state, b)
+            grew = minus(counts(fa), before)
+            if grew != CLIPSEG_COOP_STEP:
+                fail(f"accumulate coop {key}: a micro-step launched {grew}, "
+                     f"expected {CLIPSEG_COOP_STEP}")
+            if i < len(micro) - 1 and any(
+                    not torch.equal(p, start[n]) for n, p in trainable_snapshot(model).items()):
+                fail(f"accumulate coop {key}: a micro-step inside the window moved "
+                     "the weights")
+        torch.cuda.synchronize()
+        if len(seen) != 1:
+            fail(f"accumulate coop {key}: {len(seen)} updates, expected 1")
+        applied[key] = (seen[0], trainable_snapshot(model), counts(fa))
+        del state
+    by_path["train_coop_accumulate"] = applied["2 x b32"][2]
+    worst_cos, worst_rel = worst_leaf(applied["2 x b32"][0], applied["b64"][0])
+    wdiff = max((applied["2 x b32"][1][n] - w).abs().max().item()
+                for n, w in applied["b64"][1].items())
+    print(f"accumulate coop: one b64 step against two b32 micro-steps "
+          f"(accumulate_grad_batches=2) from the same weights: the gradient each "
+          f"update applied, least cosine {worst_cos[0]:.6f} ({worst_cos[1]}; at "
+          f"least {GRAD_COS_MIN}), largest max abs diff {worst_rel[0]:.4g} of its "
+          f"leaf's largest entry (bound {GRAD_REL_TOL}); trainable weights after "
+          f"the update: largest difference {wdiff:.4g} (bound twice Adam's "
+          f"step {2 * 2e-4 * 1.05:.4g}); launches {applied['2 x b32'][2]}")
+    if not (worst_cos[0] >= GRAD_COS_MIN and worst_rel[0] <= GRAD_REL_TOL
+            and wdiff <= 2 * 2e-4 * 1.05):
+        fail("accumulate coop: two micro-steps and one full step disagree beyond "
+             "the stated bounds")
+    del task, accumulating, model, batch, halves, start, applied
+
+    # (c) DenseCLIP bn_train under the one checkpoint of its loss
+    gen = torch.Generator().manual_seed(71)
+    t0 = time.perf_counter()
+    model = build_denseclip(DenseCLIPConfig(), denseclip_class_ids(gen), bn_train=True,
+                            dtype=torch.bfloat16, device="cuda", seed=0)
+    kw = dict(learning_rate=1e-4, weight_decay=1e-4, warmup_iters=2,
+              image_stats=IMAGENET_STATS)
+    plain, rematted = DenseCLIPTask(model, **kw), DenseCLIPTask(model, remat=True, **kw)
+    plain.init()
+    start = trainable_snapshot(model)
+    batches = [denseclip_train_batch(gen)] * 3
+    print(f"remat denseclip: RN50 512^2 b{DC_BATCH} bn_train, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for key, task, per_step in (("plain", plain, DC_STEP),
+                                ("remat", rematted, DC_REMAT_STEP)):
+        runs[key] = steps_from(fa, task, start, batches, f"remat denseclip {key}",
+                               per_step, ("contexts", "decode_head.cls_seg.weight"))
+    by_path["train_denseclip_bn_train"] = runs["plain"]["launches"]
+    by_path["train_denseclip_remat"] = runs["remat"]["launches"]
+    # a witness: the first plain step once more, for how far two plain runs
+    # of the same step are apart
+    witness = steps_from(fa, plain, start, batches[:1], "remat denseclip plain again",
+                         DC_STEP)["losses"][0]
+    remat_against_plain("remat denseclip", runs["plain"], runs["remat"], 1e-4, 3,
+                        witness)
+    stats_same, stats_worst = 0, (0.0, "")
+    for name, want in runs["plain"]["model_state"].items():
+        got = runs["remat"]["model_state"][name]
+        stats_same += int(torch.equal(got, want))
+        rel = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+        stats_worst = max(stats_worst, (rel, name))
+    n_stats = len(runs["plain"]["model_state"])
+    print(f"remat denseclip: BatchNorm statistics in the state after 3 steps, remat "
+          f"against plain: {stats_same} of {n_stats} tensors bit-identical, the "
+          f"largest difference {stats_worst[0]:.4g} of its tensor's largest entry "
+          f"({stats_worst[1] or 'none'}; bound {REMAT_STATS_REL_TOL}); peak "
+          f"{runs['plain']['peak'] / 2**30:.3f} -> {runs['remat']['peak'] / 2**30:.3f} "
+          f"GiB ({runs['remat']['peak'] / runs['plain']['peak']:.3f}x), step "
+          f"{runs['plain']['ms']:.3f} -> {runs['remat']['ms']:.3f} ms "
+          f"({runs['remat']['ms'] / runs['plain']['ms']:.3f}x)")
+    if not n_stats or stats_worst[0] > REMAT_STATS_REL_TOL:
+        fail("remat denseclip: the BatchNorm statistics of the rematted steps "
+             "differ from the plain steps' beyond the stated bound")
+    if profile:
+        profile_step("denseclip remat", rematted, rematted.init(), batches[0])
+    return by_path
 
 
 def phase_kernels_variants(sweeps, library):
@@ -4318,15 +4666,23 @@ def main() -> None:
     name, count = phase_device()
     phase_build()
     clock("kernels built")
+    # every kernel's device time by torch.profiler is taken first: once the
+    # yardstick's scaled_dot_product_attention had run, the profiler's short
+    # windows came back without the launches they made, for the rest of the
+    # run (a diagnostic call on the card)
     k1 = phase_kernels(fa)
     k2 = phase_kernels_bwd(fa)
     k3 = phase_kernels_k3(fa)
-    library = phase_yardstick()
+    for numbers, more in zip((k1, k2, k3), phase_kernels_d96(fa)):
+        numbers.update(more)
     clock("attention kernels checked")
     k4 = phase_kernels_k4(cf)
     k4.update(phase_kernels_k4_upsampler(cf))
+    k4.update(zs_k4_cases(cf))
     k4_backward, k4_prologue = phase_kernel_k4_backward(cf)
     clock("K4 checked")
+    library = phase_yardstick()
+    library.update(phase_yardstick(D96_SHAPES))
     by_path = {"serve": phase_serve(fa),
                "train_coop": phase_train_coop(fa, profile),
                "train_e2e": phase_train_e2e(fa, profile),
@@ -4347,20 +4703,19 @@ def main() -> None:
     clock("phrasecut paths")
     by_path.update(phase_denseclip(fa, profile))
     clock("denseclip paths")
-    k4.update(zs_k4_cases(cf))
     by_path.update(phase_zero_shot(fa, cf, profile))
     clock("zero-shot RIS paths")
     by_path.update(phase_checkpoints(fa, cf))
     clock("checkpoint paths")
-    d96, tss_paths, tss_task, tss_request = phase_trans_seg_siglip(fa, profile)
+    tss_paths, tss_task, tss_request = phase_trans_seg_siglip(fa, profile)
     by_path.update(tss_paths)
-    for numbers, more in zip((k1, k2, k3, library), d96):
-        numbers.update(more)
     clock("trans_seg_siglip paths")
     export_paths, _ = phase_export(fa, tss_task, tss_request, profile)
     by_path.update(export_paths)
     del tss_task, tss_request
     clock("export paths")
+    by_path.update(phase_accumulate_remat(fa, profile))
+    clock("accumulation and remat paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 

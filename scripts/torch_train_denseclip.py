@@ -19,9 +19,12 @@ vocabulary grows to the tokenizer's where that is larger.
     python3 scripts/torch_train_denseclip.py --synthetic --tiny --iters 20 \\
         --batch 8 --device cpu
 
-needs no data and no vocabulary. `--fsdp`, `--remat` and `--accumulate > 1`
-raise (ROADMAP Queue 1 item 9). The last line of the output is the JSON
-object {"final": {metric: value}, "ckpt": directory}.
+needs no data and no vocabulary. `--accumulate k` averages k micro-batches'
+gradients before each update (`--iters` counts micro-steps, as the JAX
+script's loop does; the poly schedule counts updates); `--remat` recomputes
+the loss's forward in the backward. `--fsdp` raises (ROADMAP Queue 1 item
+9.2). The last line of the output is the JSON object {"final": {metric:
+value}, "ckpt": directory}.
 """
 from __future__ import annotations
 
@@ -146,13 +149,9 @@ def config_for(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    unported = "ROADMAP Queue 1 item 9 (Slice G)"
     if args.fsdp:
-        raise NotImplementedError(f"--fsdp: FSDP of the state comes with {unported}")
-    if args.remat:
-        raise NotImplementedError(f"--remat comes with {unported}")
-    if args.accumulate > 1:
-        raise NotImplementedError(f"--accumulate > 1 comes with {unported}")
+        raise NotImplementedError("--fsdp: FSDP of the state comes with ROADMAP "
+                                  "Queue 1 item 9.2 (Slice G, multi-device)")
     import torch
 
     from tunevlseg_torch.models.presets import build_denseclip
@@ -192,6 +191,7 @@ def main(argv=None):
     task = DenseCLIPTask(
         model, learning_rate=args.lr, weight_decay=args.weight_decay,
         total_iters=args.iters, warmup_iters=args.warmup_iters,
+        accumulate_grad_batches=args.accumulate, remat=args.remat,
         image_stats=IMAGENET_STATS, seed=args.seed)
 
     crop = (64 if args.tiny else args.crop if args.crop is not None

@@ -56,7 +56,7 @@ def main(argv=None) -> dict:
     if args.n_devices > 1:
         raise NotImplementedError(
             "--n-devices > 1 (the proposal batch over several devices) comes "
-            "with ROADMAP Queue 1 item 9 (Slice G, multi-device)")
+            "with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
 
     import numpy as np
     import torch

@@ -370,19 +370,44 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
                                                   "exp_name=nockpt"])
 
 
-@pytest.mark.parametrize("override,item", [
-    ("trainer.n_devices=2", "Slice G"),
-    ("trainer.model_parallel=2", "Do not port"),
-    ("trainer.seq_shard=true", "Do not port"),
-    ("trainer.fsdp=true", "Slice G"),
-    ("trainer.multihost=true", "Slice G"),
-    ("trainer.remat=true", "Slice G"),
-    ("trainer.accumulate_grad_batches=2", "Slice G"),
-])
-def test_unported_options_raise_with_their_item(synth, tmp_path, override,
+# remat and accumulation are ported (the CLI cycle below): beside them the
+# multi-device keys still raise and name their item
+UNPORTED_OVERRIDES = [
+    (("trainer.n_devices=2",), "item 9.2"),
+    (("trainer.model_parallel=2",), "Do not port"),
+    (("trainer.seq_shard=true",), "Do not port"),
+    (("trainer.fsdp=true",), "item 9.2"),
+    (("trainer.multihost=true",), "item 9.2"),
+    (("trainer.remat=true", "trainer.fsdp=true"), "item 9.2"),
+    (("trainer.accumulate_grad_batches=2", "trainer.n_devices=2"), "item 9.2"),
+]
+
+
+@pytest.mark.parametrize(
+    "overrides,item", UNPORTED_OVERRIDES,
+    # the ids they had
+    ids=[f"{o[0]}-{'Do not port' if i == 'Do not port' else 'Slice G'}"
+         for o, i in UNPORTED_OVERRIDES])
+def test_unported_options_raise_with_their_item(synth, tmp_path, overrides,
                                                 item):
     with pytest.raises(NotImplementedError, match=item):
-        train_mod.main(_common(synth, tmp_path) + [override, "exp_name=x"])
+        train_mod.main(_common(synth, tmp_path) + list(overrides) + ["exp_name=x"])
+
+
+def test_accumulation_remat_cycle(synth, tmp_path):
+    """trainer.accumulate_grad_batches + trainer.remat + gradient_clip_val
+    through the CLI for 2 epochs, the counterpart of JAX
+    `tests/test_cli.py::test_accumulation_remat_fsdp_cycle`; with
+    trainer.fsdp as well it raises and names its ROADMAP item."""
+    keys = ["trainer.max_epochs=2", "trainer.accumulate_grad_batches=2",
+            "trainer.remat=true", "trainer.gradient_clip_val=1.0", "predict=false"]
+    result = train_mod.main(_common(synth, tmp_path / "logs") + keys
+                            + ["exp_name=accum_smoke"])
+    assert np.isfinite(result["test_loss"])
+    assert 0 <= result["test_dice"] <= 1
+    with pytest.raises(NotImplementedError, match="item 9.2"):
+        train_mod.main(_common(synth, tmp_path / "logs") + keys
+                       + ["trainer.fsdp=true", "exp_name=accum_fsdp"])
 
 
 def test_unported_families_raise_in_build_model_and_task():

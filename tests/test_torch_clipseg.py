@@ -229,7 +229,8 @@ def test_port_runs_without_jax():
     strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
     of DenseCLIP (its own task, batch statistics) and a tiny zero-shot RIS
-    request (fused and host loop), a tiny
+    request (fused and host loop), a rematted CLIPSeg window of two
+    accumulated micro-steps, a tiny
     `Trainer.fit` with its checkpoints run, and converted checkpoints (a
     safetensors file through `train.load_pretrained` into a CoOp train step,
     the rd64-refined head's file into its forward), with jax/flax/optax
@@ -276,6 +277,17 @@ def test_port_runs_without_jax():
         train_state, metrics = task.train_step(task.init(), batch)
         assert train_state.step == 1 and bool(metrics["loss"].isfinite())
         assert not torch.equal(model.learner.context_vectors, before)
+        # per-layer remat (nn/remat.py) and a window of two micro-steps
+        from tunevlseg_torch.nn import remat
+        rmodel, rspec = build_clipseg("coop", prompt_depth=3, num_context=4,
+                                      config=CLIPSegConfig.tiny(), device="cpu")
+        rtask = SegmentationTask(rmodel, rspec, remat=True,
+                                 accumulate_grad_batches=2)
+        rstate = rtask.init()
+        for _ in range(2):
+            rstate, rmetrics = rtask.train_step(rstate, batch)
+        assert rstate.step == 2 and rstate.optimizer.mini_step == 0
+        assert bool(rmetrics["loss"].isfinite()) and not remat.enabled()
 
         dense = dict(batch, input_ids=ids.expand(2, -1))
         del dense["text_index"]

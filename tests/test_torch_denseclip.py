@@ -609,9 +609,11 @@ def test_multistep_equals_sequential_steps():
 
 def test_unported_task_options_raise():
     tm = build_denseclip(tmodel.DenseCLIPConfig.tiny(), device="cpu")
-    for kw in (dict(remat=True), dict(accumulate_grad_batches=2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ttask.DenseCLIPTask(tm, **kw)
+    # remat and accumulation are ported; a window is a whole number >= 1
+    task = ttask.DenseCLIPTask(tm, remat=True, accumulate_grad_batches=2)
+    assert task.init().optimizer.accumulate_steps == 2
+    with pytest.raises(ValueError, match="accumulate_grad_batches"):
+        ttask.DenseCLIPTask(tm, accumulate_grad_batches=0)
     task = ttask.DenseCLIPTask(tm)
     for entry in (task.compile_steps, task.state_fsdp_shardings):
         with pytest.raises(NotImplementedError, match="item 9"):
@@ -698,10 +700,21 @@ def test_trainer_script_backbones(script, tmp_path, backbone):
     assert np.isfinite(final["loss"])
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--remat"], ["--accumulate", "2"]])
+# --remat and --accumulate run (test_trainer_script_remat_and_accumulate);
+# beside them --fsdp still raises
+@pytest.mark.parametrize("flag", [["--fsdp"], ["--remat", "--fsdp"],
+                                  ["--accumulate", "2", "--fsdp"]])
 def test_trainer_script_unported_flags_raise(script, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="item 9"):
         script.main(BASE_ARGS + flag + ["--out", str(tmp_path / "x")])
+
+
+def test_trainer_script_remat_and_accumulate(script, tmp_path):
+    """`--remat --accumulate 2`: two micro-steps, one update, under the
+    loss's checkpoint."""
+    final = script.main(BASE_ARGS + ["--remat", "--accumulate", "2", "--iters", "2",
+                                     "--val-every", "2", "--out", str(tmp_path / "ra")])
+    assert np.isfinite(final["loss"])
 
 
 def test_trainer_script_class_names_through_the_tokenizer(script, tmp_path):

@@ -370,6 +370,43 @@ def test_small_model_train_step_kernel_path_matches_plain_path(cuda, strategy,
         assert (grads_k[name] - want).abs().max().item() <= bound, name
 
 
+@pytest.mark.parametrize("strategy,plain_launches,remat_launches", [
+    ("coop", (7, 3, 4), (7, 3, 8)), ("e2e", (7, 7, 4), (11, 7, 8))])
+def test_small_model_remat_step_matches_plain_step(cuda, strategy, plain_launches,
+                                                   remat_launches):
+    """One train step of the narrow model with `remat=True` against the plain
+    step from the same weights: per-layer remat reruns K1 in the 4 vision
+    layers when they train (e2e; CoOp's frozen tower keeps nothing to
+    recompute) and K3 in the 4 text layers, K2 stays one a K1 of the first
+    forward; the same kernels on the same inputs give the same loss and the
+    same gradients, bit for bit."""
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    task, batch = _narrow_model(cuda, strategy)
+    start = {k: v.detach().clone() for k, v in task.model.state_dict().items()}
+    results = []
+    for remat_on, launches in ((False, plain_launches), (True, remat_launches)):
+        t = SegmentationTask(task.model, task.freeze_spec, learning_rate=1e-3,
+                             remat=remat_on)
+        task.model.load_state_dict(start)
+        before = (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count())
+        _, metrics = t.train_step(t.init(), batch)
+        torch.cuda.synchronize()
+        after = (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count())
+        assert tuple(a - b for a, b in zip(after, before)) == launches
+        results.append((metrics["loss"], {
+            n: p.grad.clone() for n, p in task.model.named_parameters()
+            if p.grad is not None},
+            {k: v.clone() for k, v in task.model.state_dict().items()}))
+    (loss_p, grads_p, weights_p), (loss_r, grads_r, weights_r) = results
+    assert torch.equal(loss_p, loss_r)
+    assert set(grads_p) == set(grads_r) and grads_p
+    for name, g in grads_p.items():
+        assert torch.equal(g, grads_r[name]), name
+    for name, w in weights_p.items():
+        assert torch.equal(w, weights_r[name]), name
+
+
 def test_gate_routes_only_unbiased_long_bf16(cuda):
     """K1 takes unbiased bf16 self-attention at S >= 256 and nothing else; a
     bias or S != T goes to K3 at any length; f32 and short unbiased

@@ -224,9 +224,10 @@ def test_make_optimizer_groups_and_refusals():
     assert [id(p) for p in decayed[0]["params"]] == [id(net.fc.weight)]
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.make_optimizer(net, 1e-3, optimizer="lion")
-    # gradient accumulation is refused once, by the task (Slice G)
-    with pytest.raises(TypeError):
-        toptim.make_optimizer(net, 1e-3, accumulate_steps=4)
+    # gradient accumulation: a window of a whole number of micro-steps >= 1
+    assert toptim.make_optimizer(net, 1e-3, accumulate_steps=4).accumulate_steps == 4
+    with pytest.raises(ValueError, match="accumulate_grad_batches"):
+        toptim.make_optimizer(net, 1e-3, accumulate_steps=0)
 
 
 def test_clip_uses_the_optax_formula():

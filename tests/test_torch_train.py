@@ -228,8 +228,9 @@ def test_dedup_overflow_raises_or_falls_back_like_jax():
 
 
 @pytest.mark.parametrize("kw,names", [
-    (dict(accumulate_grad_batches=2), "Slice G"),
-    (dict(remat=True), "Slice G"),
+    # accumulation and remat are ported; a window is a whole number >= 1
+    (dict(accumulate_grad_batches=0), "accumulate_grad_batches"),
+    (dict(accumulate_grad_batches=1.5, remat=True), "accumulate_grad_batches"),
     # "batch_stats" is carried by the train state; no other collection is
     (dict(mutable_collections=("cache",)), "batch_stats"),
 ], ids=["kw0-Slice G", "kw1-Slice G", "kw2-Slice C"])   # the ids they had
@@ -238,6 +239,8 @@ def test_unported_task_options_raise(kw, names):
         "coop", config=tconfig.CLIPSegConfig.tiny(), device="cpu")
     with pytest.raises((NotImplementedError, ValueError), match=names):
         TTask(model, spec, **kw)
+    state = TTask(model, spec, accumulate_grad_batches=2, remat=True).init()
+    assert state.optimizer.accumulate_steps == 2
     # a model without buffers takes the option and carries an empty state
     state = TTask(model, spec, mutable_collections=("batch_stats",)).init()
     assert state.model_state == {}

@@ -138,7 +138,7 @@ def build_ris(cfg: dict, device="cuda",
     if int(cfg.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError(
             "n_devices > 1 (the proposal batch sharded over several devices) "
-            "comes with ROADMAP Queue 1 item 9 (Slice G, multi-device)")
+            "comes with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: build_ris puts the models on the "

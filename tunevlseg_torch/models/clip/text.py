@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from tunevlseg_torch.models.clip.config import CLIPTextConfig
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.layers import Embed, LayerNorm, PreNormEncoderLayer
 
@@ -101,7 +102,7 @@ class CLIPTextTower(nn.Module):
             bias = bias + padding_bias(mask, torch.float32)
 
         for i, layer in enumerate(self.layers, start=1):
-            x = layer(x, bias)
+            x = remat.layer_call(layer, x, bias)
             if text_ctx is not None and i < prompt_depth:
                 ctx_i = text_ctx[i].to(x.dtype)
                 x = torch.cat([x[:, :1], ctx_i.expand(x.shape[0], *ctx_i.shape[-2:]),

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from tunevlseg_torch.models.clip.config import CLIPVisionConfig
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.layers import LayerNorm, PreNormEncoderLayer, lecun_normal_
 from tunevlseg_torch.ops.image import resize_2d
 
@@ -107,7 +108,7 @@ class CLIPVisionTower(nn.Module):
         x = self.pre_layernorm(x)
         hidden_states = [x]
         for i, layer in enumerate(self.layers, start=1):
-            x = layer(x)
+            x = remat.layer_call(layer, x)
             if visual_ctx is not None and i < prompt_depth:
                 ctx_i = visual_ctx[i].to(x.dtype).expand(x.shape[0], -1, -1)
                 x = torch.cat([x[:, :x.shape[1] - num_ctx], ctx_i], dim=1)

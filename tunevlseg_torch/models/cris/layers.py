@@ -23,6 +23,7 @@ from torch.utils._python_dispatch import _disable_current_modes
 
 from tunevlseg_torch.models.cris.resnet import (BatchNorm1d, BatchNorm2d,
                                                 avg_pool_nchw)
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.attention import dot_product_attention
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Dense, LayerNorm, dropout
@@ -245,8 +246,8 @@ class CRISTransformerDecoder(nn.Module):
             pad_mask, torch.finfo(torch.float32).min, 0.0)[:, None, None, :]
         vis = fq.reshape(b, c, h * w).transpose(1, 2)
         for layer in self.layers:
-            vis = layer(vis, txt, vis_pos, txt_pos, key_pad_bias,
-                        deterministic=deterministic, generator=generator)
+            vis = remat.layer_call(layer, vis, txt, vis_pos, txt_pos, key_pad_bias,
+                                   deterministic=deterministic, generator=generator)
         vis = self.norm(vis)
         return vis.transpose(1, 2).reshape(b, c, h, w)
 

@@ -43,6 +43,7 @@ from tunevlseg_torch.models.cris.layers import (CRISTransformerDecoder, FPN,
                                                 Projector)
 from tunevlseg_torch.models.cris.resnet import ModifiedResNet, name_stats_updates
 from tunevlseg_torch.models.prompt.learners import BasePromptLearner
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Embed, LayerNorm, PreNormEncoderLayer
@@ -132,7 +133,7 @@ class CLIPTextTransformer(nn.Module):
             bias = bias + padding_bias(1 - pad_mask.to(torch.int32), torch.float32)
 
         for i, block in enumerate(self.resblocks):
-            x = block(x, bias)
+            x = remat.layer_call(block, x, bias)
             # 0-based overwrite AFTER block i
             if text_ctx is not None and i < prompt_depth:
                 ctx_i = text_ctx[i].to(x.dtype)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.attention import dot_product_attention
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Dense
@@ -247,7 +248,9 @@ def run_flat_stage(x: torch.Tensor, blocks: Sequence[Bottleneck]) -> torch.Tenso
         itemsize=itemsize)
     f = to_flat(x, spec_in)
     for b, block in enumerate(blocks):
-        f = block.forward_flat(f, spec_in if b == 0 else spec_out, spec_out)
+        f = remat.layer_call(block.forward_flat, f,
+                             spec_in=spec_in if b == 0 else spec_out,
+                             spec_out=spec_out)
     return from_flat(f, spec_out)
 
 
@@ -355,6 +358,9 @@ class ModifiedResNet(nn.Module):
                 x = run_flat_stage(x, blocks)
             else:
                 for block in blocks:
-                    x = block(x)
+                    # remat only with frozen BatchNorm: a rematted block
+                    # must not compute batch statistics twice
+                    x = (remat.layer_call(block, x)
+                         if block.bn1.use_running_average else block(x))
             feats.append(x)
         return feats[1], feats[2], self.attnpool(feats[3])

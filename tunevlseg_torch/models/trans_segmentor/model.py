@@ -59,6 +59,7 @@ from tunevlseg_torch.models.clip.vision import CLIPVisionTower
 from tunevlseg_torch.models.cris.layers import sincos_pos_1d
 from tunevlseg_torch.models.trans_segmentor.siglip import (SiglipTextTower,
                                                            SiglipVisionTower)
+from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import (ACT2FN, Dense, GroupNorm, LayerNorm,
                                        MultiHeadAttention, dropout)
@@ -358,8 +359,8 @@ class TransformerSegmentor(nn.Module):
 
         x = image
         for layer in self.decoder_layers:
-            x = layer(x, text, memory_bias, deterministic=deterministic,
-                      generator=generator)
+            x = remat.layer_call(layer, x, text, memory_bias,
+                                 deterministic=deterministic, generator=generator)
         x = self.decoder_norm(x)
 
         seq = x.shape[1]

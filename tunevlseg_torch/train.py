@@ -90,7 +90,7 @@ def check_ported(cfg: dict) -> None:
     if t.get("fsdp") or t.get("multihost") or int(t.get("n_devices") or 1) > 1:
         raise NotImplementedError(
             "fsdp / multihost / n_devices > 1 (data parallel over GPUs, torch "
-            "FSDP) come with ROADMAP Queue 1 item 9 (Slice G)")
+            "FSDP) come with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
 
 
 def resolve_device(cfg: dict) -> torch.device:

@@ -5,7 +5,9 @@ torch-native files instead of orbax. A checkpoint directory holds
 
     <tag>/state.pt     trainable parameters (by `state_dict` name of the
                        model), the optimizer's state dict (moments, step,
-                       learning rate), `TrainState.step` and
+                       learning rate), its accumulation window (the
+                       running mean and the micro-step count, so that a
+                       resume mid-window is exact), `TrainState.step` and
                        `TrainState.model_state`
     <tag>.json         the loop's meta: epoch, metrics, scheduler and
                        early-stopping state, `best_value`
@@ -168,6 +170,7 @@ class CheckpointManager:
         payload = to_host({
             "trainable": {n: params[n] for n in trainable_names(self.model)},
             "optimizer": state.optimizer.optimizer.state_dict(),
+            "accumulation": state.optimizer.accumulation_state(),
             "step": int(state.step),
             "model_state": state.model_state})
         # best_value rides every meta so a resumed run never demotes the
@@ -223,6 +226,9 @@ class CheckpointManager:
             for name in names:
                 params[name].copy_(saved["trainable"][name])
         state.optimizer.optimizer.load_state_dict(saved["optimizer"])
+        # a checkpoint written before gradient accumulation holds no window
+        state.optimizer.load_accumulation_state(
+            saved.get("accumulation", {"mini_step": 0, "accumulated": {}}))
         device = next(self.model.parameters()).device
         model_state = {k: v.to(device) for k, v in
                        saved["model_state"].items()}

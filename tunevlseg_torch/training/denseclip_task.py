@@ -15,7 +15,9 @@ denseclip_fpn_res50_512x512_80k.py:
     vectors still take their gradient through it;
   * mmcv's poly schedule (power 0.9, min_lr 1e-6) with a linear warm-up,
     set on the host into every group before each step (the learning rate
-    of step s is `schedule(s)`, as optax's count starts at 0);
+    of optimizer update u is `schedule(u)`, as optax's count starts at 0;
+    with `accumulate_grad_batches = k` update u is micro-step
+    `step // k`'s, as the JAX schedule counts updates under MultiSteps);
   * the loss: decode CE + 0.4 x the identity head's CE
     (`models/denseclip/loss.py`).
 
@@ -31,11 +33,16 @@ state), as the e2e CRIS task does. No buffer of the module is written by a
 step. Dropout (the head's Dropout2d, the ViT's DropPath) draws its masks from
 a generator seeded from (`seed`, step).
 
-The JAX task's jit / mesh entries are not ported: `compile_steps` and
-`state_fsdp_shardings` raise, and so do `remat` and
-`accumulate_grad_batches > 1` (ROADMAP Queue 1 item 9).
-`compile_train_multistep(k)` runs k eager steps and averages their metrics,
-the port's steps-per-execution (a captured CUDA graph is ROADMAP item 2).
+`accumulate_grad_batches = k` makes a train step a micro-step, with the
+MultiSteps semantics of `optim.ClippedOptimizer`. `remat=True` runs the
+loss under one `torch.utils.checkpoint` (the JAX task's `jax.checkpoint` of
+its loss): the backward recomputes the whole forward, with the forward's
+dropout masks (`nn/remat.checkpoint` restores the generator) and without
+writing the BatchNorm statistics a second time. The JAX task's jit / mesh
+entries are not ported: `compile_steps` and `state_fsdp_shardings` raise
+(ROADMAP Queue 1 item 9.2). `compile_train_multistep(k)` runs k eager
+steps and averages their metrics, the port's steps-per-execution (a
+captured CUDA graph is ROADMAP item 2).
 """
 from __future__ import annotations
 
@@ -49,11 +56,12 @@ from torch.func import functional_call
 from tunevlseg_torch.models.denseclip.loss import (IGNORE_INDEX,
                                                    cross_entropy_seg,
                                                    denseclip_losses)
+from tunevlseg_torch.nn import remat as remat_lib
 from tunevlseg_torch.training import optim as optim_lib
 from tunevlseg_torch.training.task import (TrainState, load_partial_state,
                                            step_generator)
 
-UNPORTED = "ROADMAP Queue 1 item 9 (Slice G)"
+UNPORTED = "ROADMAP Queue 1 item 9.2 (Slice G, multi-device)"
 
 
 def poly_warmup_schedule(base_lr: float, total_iters: int, power: float = 0.9,
@@ -84,7 +92,8 @@ def group_labels(model: nn.Module) -> dict[str, str]:
 
 def make_denseclip_optimizer(model: nn.Module, base_lr: float,
                              weight_decay: float, backbone_lr_mult: float = 0.1,
-                             grad_clip_norm: Optional[float] = None
+                             grad_clip_norm: Optional[float] = None,
+                             accumulate_steps: int = 1
                              ) -> optim_lib.ClippedOptimizer:
     """AdamW over the trainable parameters in the four paramwise groups;
     each group keeps its `lr_mult` beside its learning rate."""
@@ -101,7 +110,7 @@ def make_denseclip_optimizer(model: nn.Module, base_lr: float,
                            "weight_decay": (0.0 if group.endswith("no_decay")
                                             else weight_decay)})
     opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
-    return optim_lib.ClippedOptimizer(opt, grad_clip_norm)
+    return optim_lib.ClippedOptimizer(opt, grad_clip_norm, accumulate_steps)
 
 
 def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
@@ -134,12 +143,7 @@ class DenseCLIPTask:
     seed: int = 0     # of the dropout masks, with the step
 
     def __post_init__(self):
-        if self.accumulate_grad_batches > 1:
-            raise NotImplementedError(
-                f"accumulate_grad_batches > 1 comes with {UNPORTED}")
-        if self.remat:
-            raise NotImplementedError(
-                f"remat=True (torch.utils.checkpoint) comes with {UNPORTED}")
+        optim_lib.accumulate_steps_of(self.accumulate_grad_batches)
         self.schedule = poly_warmup_schedule(
             self.learning_rate, self.total_iters, self.power, self.min_lr,
             self.warmup_iters, self.warmup_ratio)
@@ -164,7 +168,8 @@ class DenseCLIPTask:
                            for n, b in self.model.named_buffers() if n in persistent}
         optimizer = make_denseclip_optimizer(
             self.model, self.schedule(0), self.weight_decay,
-            self.backbone_lr_mult, self.grad_clip_norm)
+            self.backbone_lr_mult, self.grad_clip_norm,
+            self.accumulate_grad_batches)
         return TrainState(0, optimizer, model_state)
 
     # -- steps --------------------------------------------------------------
@@ -184,24 +189,39 @@ class DenseCLIPTask:
     def _loss(self, batch: dict, step: int, model_state: dict, updates: dict):
         """(losses, logits) of a train step: dropout on with the masks of
         `step`, batch statistics for a `bn_train` model (the new running
-        statistics go into `updates`)."""
-        logits, score_map = self._forward(
-            self._prep_image(batch["image"]), model_state, deterministic=False,
-            with_score_map=True, generator=step_generator(self.model, self.seed, step),
-            stats_updates=updates)
-        c = self.model.config
-        return denseclip_losses(logits, score_map, batch["label"], tau=c.tau,
-                                identity_weight=c.identity_weight), logits
+        statistics go into `updates`). With `remat` under one checkpoint,
+        whose recompute draws the same masks and writes its statistics
+        nowhere."""
+        generator = step_generator(self.model, self.seed, step)
+        runs = 0
+
+        def loss_of(image):
+            nonlocal runs
+            runs += 1
+            logits, score_map = self._forward(
+                image, model_state, deterministic=False, with_score_map=True,
+                generator=generator, stats_updates=updates if runs == 1 else {})
+            c = self.model.config
+            return denseclip_losses(logits, score_map, batch["label"], tau=c.tau,
+                                    identity_weight=c.identity_weight), logits
+
+        image = self._prep_image(batch["image"])
+        if self.remat:
+            return remat_lib.checkpoint(loss_of, image, generator=generator)
+        return loss_of(image)
 
     def set_learning_rate(self, optimizer: optim_lib.ClippedOptimizer,
                           step: int) -> None:
-        """Each group's learning rate for `step`: schedule(step) x lr_mult."""
-        lr = self.schedule(step)
+        """Each group's learning rate for micro-step `step`: schedule(u) x
+        lr_mult, u = step // accumulate_grad_batches the optimizer update
+        that step belongs to."""
+        lr = self.schedule(step // self.accumulate_grad_batches)
         for group in optimizer.param_groups:
             group["lr"] = lr * group["lr_mult"]
 
     def train_step(self, state: TrainState, batch: dict):
-        """One optimizer update. Returns (new state, {"loss", "loss_decode",
+        """One optimizer update, or one micro-step of `accumulate_grad_batches`
+        (the update at every k-th). Returns (new state, {"loss", "loss_decode",
         "loss_aux_identity", "acc"}) with the metrics as device tensors."""
         opt = state.optimizer
         self.set_learning_rate(opt, state.step)

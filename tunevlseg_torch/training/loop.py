@@ -10,8 +10,12 @@ The model owns its weights and its device: the loop runs where the model
 is, moves nothing but the batches, and has no CPU fallback.
 `steps_per_execution = k` runs k eager train steps a group and logs the mean
 of their metrics at group boundaries, as the JAX loop's fused group does (a
-captured CUDA graph of the group is ROADMAP Queue 1 item 2). The JAX loop's
-`mesh`, `fsdp` and `seq_shard` have no counterpart: asking for one raises.
+captured CUDA graph of the group is ROADMAP Queue 1 item 2). With the task's
+`accumulate_grad_batches`, a train step is a micro-step, counted as one step
+as the JAX Trainer counts it (logging, snapshots, `steps_per_execution`
+groups); a window left partial at an epoch's end carries into the next, and
+a checkpoint holds it. The JAX loop's `mesh`, `fsdp` and `seq_shard` have no
+counterpart: asking for one raises.
 """
 from __future__ import annotations
 
@@ -135,10 +139,11 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / seq_shard (GSPMD tensor and sequence parallelism) are "
                 'not ported: ROADMAP "Do not port"; data parallel over GPUs '
-                "is ROADMAP Slice G")
+                "is ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
         if self.fsdp:
             raise NotImplementedError(
-                "fsdp (torch FSDP) comes with ROADMAP Slice G")
+                "fsdp (torch FSDP) comes with ROADMAP Queue 1 item 9.2 "
+                "(Slice G, multi-device)")
         self.output_dir = Path(self.output_dir)
         self.device = next(self.task.model.parameters()).device
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints",

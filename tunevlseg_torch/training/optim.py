@@ -11,7 +11,7 @@ Counterpart of `tunevlseg_tpu/training/optim.py`:
     parameters do not;
   * AdamW (decoupled decay, torch semantics) or SGD with momentum, with a
     global-norm clip in front, and a learning rate that can be changed
-    between steps;
+    between steps; optax.MultiSteps' gradient accumulation;
   * `ReduceLROnPlateau` and `CosineAnnealingLR`, driven from the host.
 
 Frozen parameters get `requires_grad=False`: autograd builds no graph for
@@ -151,16 +151,39 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
     torch._foreach_mul_(grads, factor)
 
 
+def accumulate_steps_of(k) -> int:
+    """`k` as a number of micro-steps a window: a whole number >= 1."""
+    if isinstance(k, bool) or int(k) != k or k < 1:
+        raise ValueError(f"accumulate_grad_batches {k!r}: a whole number of "
+                         "micro-steps, at least 1")
+    return int(k)
+
+
 class ClippedOptimizer:
     """A torch optimizer with the global-norm clip in front of it, over the
     trainable parameters of one model. `step()` clips the gradients that are
     there and applies the update; a trainable parameter that nothing read
-    has no gradient and keeps its value."""
+    has no gradient and keeps its value.
+
+    With `accumulate_steps = k > 1` it has optax.MultiSteps' semantics
+    (Lightning's `accumulate_grad_batches`): each `step()` is a micro-step
+    that folds the gradients into a running mean, acc += (g - acc) / (n + 1)
+    (a parameter without a gradient in a micro-step counts as zero), and
+    only every k-th clips the mean and applies one update, then clears the
+    mean. The other micro-steps move neither the weights nor the
+    optimizer's moments and step count. The mean and the micro-step count
+    are `accumulation_state()`, which a checkpoint saves beside the torch
+    optimizer's state dict."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 grad_clip_norm: Optional[float] = None):
+                 grad_clip_norm: Optional[float] = None,
+                 accumulate_steps: int = 1):
         self.optimizer = optimizer
         self.grad_clip_norm = grad_clip_norm
+        self.accumulate_steps = accumulate_steps_of(accumulate_steps)
+        self.mini_step = 0
+        # {index in params(): running mean of the micro-steps' gradients}
+        self.accumulated: dict[int, torch.Tensor] = {}
 
     @property
     def param_groups(self):
@@ -172,12 +195,54 @@ class ClippedOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def _update(self) -> None:
         if self.grad_clip_norm is not None:
             clip_by_global_norm_(
                 [p.grad for p in self.params() if p.grad is not None],
                 self.grad_clip_norm)
         self.optimizer.step()
+
+    def step(self) -> bool:
+        """One (micro-)step; returns whether the weights were updated."""
+        if self.accumulate_steps == 1:
+            self._update()
+            return True
+        n = self.mini_step
+        params = self.params()
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                acc = self.accumulated.get(i)
+                if p.grad is not None:
+                    g = p.grad.to(p.dtype)
+                    self.accumulated[i] = (g / (n + 1) if acc is None
+                                           else acc + (g - acc) / (n + 1))
+                elif acc is not None:
+                    acc.sub_(acc / (n + 1))
+        self.mini_step = n + 1
+        if self.mini_step < self.accumulate_steps:
+            return False
+        for i, p in enumerate(params):
+            # a parameter that no micro-step of the window reached keeps
+            # no gradient, as without accumulation
+            p.grad = self.accumulated.get(i)
+        self._update()
+        self.accumulated = {}
+        self.mini_step = 0
+        self.zero_grad()
+        return True
+
+    def accumulation_state(self) -> dict:
+        """The micro-step count and the running mean (by index in
+        `params()`)."""
+        return {"mini_step": self.mini_step, "accumulated": dict(self.accumulated)}
+
+    def load_accumulation_state(self, state: dict) -> None:
+        params = self.params()
+        self.mini_step = int(state["mini_step"])
+        self.accumulated = {
+            int(i): t.to(device=params[int(i)].device,
+                         dtype=params[int(i)].dtype, copy=True)
+            for i, t in state["accumulated"].items()}
 
 
 def make_optimizer(
@@ -189,12 +254,15 @@ def make_optimizer(
     eps: float = 1e-8,
     optimizer: str = "adamw",
     grad_clip_norm: Optional[float] = None,
+    accumulate_steps: int = 1,
 ) -> ClippedOptimizer:
     """AdamW over the parameters of `model` that require a gradient, with the
     two-group decay policy (`weight_decay <= 0` builds one group), or SGD
     with momentum 0.9; `grad_clip_norm` puts optax's global-norm clip in
-    front. The learning rate lives in the param groups, where
-    `set_learning_rate` changes it between steps."""
+    front; `accumulate_steps` > 1 averages that many micro-steps'
+    gradients before each update (`ClippedOptimizer`). The learning rate
+    lives in the param groups, where `set_learning_rate` changes it between
+    steps, mid-window too: the next update uses it."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     if optimizer == "adamw":
         if weight_decay <= 0:
@@ -213,7 +281,7 @@ def make_optimizer(
                               momentum=0.9)
     else:
         raise ValueError(f"unknown optimizer {optimizer}")
-    return ClippedOptimizer(opt, grad_clip_norm)
+    return ClippedOptimizer(opt, grad_clip_norm, accumulate_steps)
 
 
 def set_learning_rate(optimizer, lr: float) -> None:

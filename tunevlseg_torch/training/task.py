@@ -32,6 +32,14 @@ lets the model hand back the ones it updated (the e2e CRIS model's FPN and
 projector) and returns a state that holds the new ones, and `eval_step` and
 `predict_step` read them from the state they are given. No buffer of the
 module is written by a step.
+
+`accumulate_grad_batches = k` makes each `train_step` a micro-step:
+`TrainState.step` counts micro-steps, as the JAX task does, so each draws
+the masks of (seed, micro-step) and updates the BatchNorm statistics, and
+the optimizer applies the mean of k micro-steps' gradients at every k-th
+(`optim.ClippedOptimizer`, optax.MultiSteps' semantics). `remat=True` runs
+the loss under `nn/remat.forced(True)`: the towers' layers recompute their
+internals in the backward, as the JAX task's per-layer remat does.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from tunevlseg_torch.nn import remat as remat_lib
 from tunevlseg_torch.ops import losses as losses_lib
 from tunevlseg_torch.ops import metrics as metrics_lib
 from tunevlseg_torch.training import optim as optim_lib
@@ -108,20 +117,16 @@ class SegmentationTask:
     seed: int = 0     # of the dropout masks, with the step
     # () or ("batch_stats",): the buffers a train step updates, kept in the state
     mutable_collections: tuple = ()
-    # options of the JAX task that later slices port; asking for one raises
+    # Lightning's trainer.accumulate_grad_batches: a train step is a
+    # micro-step, and every k-th applies the update (optax.MultiSteps)
     accumulate_grad_batches: int = 1
+    # per-layer rematerialisation of the towers' layers (nn/remat.py)
     remat: bool = False
     # (mean, std) for the device-side normalisation of uint8 image batches
     image_stats: tuple = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
     def __post_init__(self):
-        if self.accumulate_grad_batches > 1:
-            raise NotImplementedError(
-                "accumulate_grad_batches > 1 comes with ROADMAP Slice G")
-        if self.remat:
-            raise NotImplementedError(
-                "remat=True (nn/remat.py -> torch.utils.checkpoint) comes "
-                "with ROADMAP Slice G")
+        optim_lib.accumulate_steps_of(self.accumulate_grad_batches)
         if tuple(self.mutable_collections) not in ((), ("batch_stats",)):
             raise ValueError(
                 f"mutable_collections {self.mutable_collections!r}: the only "
@@ -152,7 +157,8 @@ class SegmentationTask:
                            for name, buf in self.model.named_buffers()}
         return TrainState(0, optim_lib.make_optimizer(
             self.model, self.learning_rate, self.weight_decay,
-            grad_clip_norm=self.grad_clip_norm), model_state)
+            grad_clip_norm=self.grad_clip_norm,
+            accumulate_steps=self.accumulate_grad_batches), model_state)
 
     # -- steps --------------------------------------------------------------
 
@@ -191,11 +197,13 @@ class SegmentationTask:
         `valid`, padded samples are zeroed on both sides so that they
         contribute a constant (matching) term. With `mutable_collections` the
         buffers are read from `model_state` and the updated ones are put into
-        `stats_updates`."""
+        `stats_updates`. With `remat` the towers' layers recompute their
+        internals in the backward."""
         mutable = ({"stats_updates": stats_updates}
                    if self.mutable_collections else {})
-        logits = self._forward(batch, model_state, deterministic=False,
-                               generator=self.dropout_generator(step), **mutable)
+        with remat_lib.forced(self.remat):
+            logits = self._forward(batch, model_state, deterministic=False,
+                                   generator=self.dropout_generator(step), **mutable)
         mask = batch["mask"]
         valid = batch.get("valid")
         if valid is not None:
@@ -205,9 +213,12 @@ class SegmentationTask:
         return self.loss_fn(logits, mask, **self.loss_kwargs), logits
 
     def train_step(self, state: TrainState, batch: dict):
-        """One optimizer update on `batch`. Returns (new state, {"loss",
-        "dice", "iou"}) with the metrics as device tensors; nothing in the
-        step waits for the device."""
+        """One optimizer update on `batch`, or with `accumulate_grad_batches
+        = k` one micro-step (its dropout masks and BatchNorm statistics its
+        own; the update at every k-th). Returns (new state, {"loss", "dice",
+        "iou"}) with the metrics as device tensors; nothing in the step waits
+        for the device. With `remat` the towers' layers recompute their
+        internals in the backward."""
         opt = state.optimizer
         opt.zero_grad()
         updates = {}
@@ -234,7 +245,8 @@ class SegmentationTask:
     def compile_steps(self, *args, **kwargs):
         raise NotImplementedError(
             "the steps run eagerly; mesh shardings (GSPMD) are not ported, "
-            "data parallel over GPUs comes with ROADMAP Slice G")
+            "data parallel over GPUs comes with ROADMAP Queue 1 item 9.2 "
+            "(Slice G, multi-device)")
 
     def compile_train_multistep(self, *args, **kwargs):
         raise NotImplementedError(
