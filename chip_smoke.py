@@ -258,6 +258,30 @@ Phases, each printing its numbers on lines of its own:
      `bn_train` with remat off and on (one checkpoint of the loss: 2 K1 + 1
      K2 + 30 K3 a step; peak memory, step ms, the BatchNorm statistics in
      the state against the plain steps').
+ 28. data parallel (`phase_data_parallel`), every rank in a child process of
+     its own, so that no process group is left in this one: (a) NCCL at
+     world size 1 through `initialize_distributed`: the flagship CLIPSeg
+     CoOp b64 dedup 352^2 bf16, 3 steps plain, 3 under DistributedDataParallel
+     (`compile_steps`) and 3 under `fully_shard` (`state_fsdp_shardings`)
+     from the same weights, both held to the plain steps bit for bit
+     (losses and weights, which the steps must have moved), launches a step,
+     peak memory; (b) two ranks on the one card
+     over gloo with CUDA tensors: the flagship at b32 a rank against this
+     process taking two accumulated b32 micro-steps of the same rows (the
+     gradient the update applies), and CRIS e2e on `layout="flat"` (phase
+     13's full fine-tune, decoder dropout 0) at b8 a rank, its FPN and
+     projector BatchNorms on the global batch's statistics, against one b16
+     step here (and, as a witness of the random model's rounding, the b16
+     step on its rows reversed): the loss and statistics held, the bf16
+     gradient only printed; the same CRIS e2e in f32 (TF32 off, the plain
+     path), whose gradient is held to the b16 step's; each rank's dropout
+     masks its own; whether FSDP2's all-gather and reduce-scatter run on gloo with CUDA tensors
+     (they do; a fully_shard step over them crashed a rank, so FSDP's
+     two-rank check is the CPU tests'); (c) phase
+     23's 1024^2 zero-shot request with its proposals in 2 chunks, both on
+     cuda:0, against the unsplit request; and FreeSOLO's pseudo losses
+     (`models/solov2/pseudo_loss.paired_losses`) with their gradient on the
+     card against the CPU at the request's proposal shapes.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -1319,14 +1343,15 @@ def build_task(family: str, strategy: str, learning_rate: float,
     from tunevlseg_torch.training.task import SegmentationTask
     t0 = time.perf_counter()
     build = {"CLIPSeg rd64": build_clipseg, "CRIS RN50": build_cris}[family]
-    model, spec = build(strategy, prompt_depth=3, num_context=4,
-                        dtype=torch.bfloat16, device="cuda", seed=0,
-                        **(build_kwargs or {}))
+    kwargs = {"dtype": torch.bfloat16, **(build_kwargs or {})}
+    model, spec = build(strategy, prompt_depth=3, num_context=4, device="cuda",
+                        seed=0, **kwargs)
     task = SegmentationTask(model, spec, learning_rate=learning_rate,
                             **(task_kwargs or {}))
     state = task.init()
     trainable = count_params(p for p in model.parameters() if p.requires_grad)
-    print(f"train {strategy}: {family} {build_kwargs or ''}, bf16 compute over f32 weights, "
+    compute = "bf16" if kwargs["dtype"] == torch.bfloat16 else str(kwargs["dtype"])
+    print(f"train {strategy}: {family} {build_kwargs or ''}, {compute} compute over f32 weights, "
           f"{count_params(model.parameters())} params, {trainable} trainable, "
           f"lr {learning_rate}, built in {time.perf_counter() - t0:.1f} s")
     return task, state
@@ -3139,6 +3164,10 @@ def zs_text_vs_plain(fa, tag: str, clip, ids, mask) -> None:
         fail(f"{tag}: text features disagree with the plain path")
 
 
+# phase 23's model, request and intermediates, which phase 28 reuses
+ZS_SHARED: dict = {}
+
+
 def phase_zero_shot(fa, cf, profile: bool) -> dict:
     """Zero-shot RIS at full width (`build_ris` in bf16 over seeded f32
     weights: CLIP ViT-B/16 and text towers, FreeSOLO R101-FPN with the zsseg
@@ -3346,7 +3375,10 @@ def phase_zero_shot(fa, cf, profile: bool) -> dict:
     _, bextras = zs_request_extras(bris, *brequest)
     print(f"zsseg biomed: {int(bextras['valid'].sum())} valid proposals, picked "
           f"index {int(torch.argmax(bextras['sims']))}")
-    del bris, biomed, ris
+    del bris, biomed
+    # phase 28 splits this request's proposals over two devices
+    ZS_SHARED.update(ris=ris, request=request, extras=extras)
+    del ris
     torch.cuda.empty_cache()
     print(f"zsseg: phase {time.perf_counter() - t_phase:.1f} s")
     return by_path
@@ -4407,6 +4439,504 @@ def phase_accumulate_remat(fa, profile: bool) -> dict:
     return by_path
 
 
+# --- Slice G4: data parallel ---------------------------------------------------
+
+# a child process of phase 28 that has not finished in this time fails the
+# phase (and is stopped)
+DP_TIMEOUT_S = 300
+# (b): a rank's b32 gradient is the same arithmetic as a b32 micro-step here;
+# DDP's mean (g0 + g1) / 2 and the window's running mean g0 + (g1 - g0) / 2
+# round differently, in f32: 1e-5 of each leaf's largest entry
+DDP2_GRAD_REL_TOL = 1e-5
+# CRIS flat e2e (bf16, K4) over two ranks against one b16 step: the
+# backbone's, FPN's and projector's batch statistics are summed over the
+# ranks in f32 (two passes) where one device's BatchNorm takes them in one;
+# the running statistics in the state to 1e-3 of each tensor's largest
+# entry, or DP_WITNESS_FACTOR times the witness's gap (the same b16 step on
+# its rows reversed) where that is wider. Its gradient is not held: the
+# random bf16 model under train-mode BatchNorm turns summation order alone
+# into a gap of 0.27 of a leaf's largest entry (the witness), so a bound
+# there could not tell a mean from a sum; the f32 case holds it
+DDP2_STATS_REL_TOL = 1e-3
+DP_WITNESS_FACTOR = 4
+# CRIS e2e in f32 (TF32 off; no kernel takes f32, so the path is plain) over
+# two ranks against one b16 step, where summation order does not blow up:
+# the gradient the update applied, each leaf against max(its largest entry,
+# 1e-3 of any leaf's), within 5e-2, and a cosine of at least 0.9999 over
+# the leaves above that floor. Summation order alone puts one leaf 1.5e-2
+# off (neck.f2_cat.conv.weight, whose gradient cancels under its
+# BatchNorm: the witness and DDP alike, on the H100); a sum over the ranks
+# where DDP takes the mean is 1.0 off; a BatchNorm backward without its
+# all-reduce misses the other rank's share of every statistic's gradient.
+# The running statistics to 1e-4 of each tensor's largest entry, the loss
+# (the mean over the ranks) to 1e-5 of itself
+DP_F32_GRAD_REL_TOL = 5e-2
+DP_F32_COS_MIN = 0.9999
+DP_F32_STATS_REL_TOL = 1e-4
+DP_F32_LOSS_REL_TOL = 1e-5
+# the pseudo losses on the card against the CPU, f32, sums in another order
+PSEUDO_LOSS_REL_TOL = 1e-4
+DP_STEPS = 3
+
+
+def dp_spawn(job: str, world: int, backend: str):
+    """Start `world` ranks of `dp_rank(job)` in child processes that meet
+    through a file in a fresh temporary directory; returns (context, the
+    directory)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    ctx = mp.start_processes(dp_rank, args=(world, workdir, job, backend),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, workdir
+
+
+def dp_collect(ctx, workdir: str, job: str, label: str) -> list:
+    """Wait for the ranks of `dp_spawn` (at most DP_TIMEOUT_S; past it they
+    are stopped and the phase fails) and return each rank's results."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"{label}: the ranks did not finish in {DP_TIMEOUT_S} s")
+    except Exception as e:     # a rank raised: the others are stopped
+        fail(f"{label}: a rank failed: {e}")
+    out = [torch.load(Path(workdir) / f"{job}.rank{r}.pt", weights_only=False)
+           for r in range(len(ctx.processes))]
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def dp_rank(rank: int, world: int, workdir: str, job: str, backend: str) -> None:
+    """One rank of phase 28, in a child process: join the group on cuda:0
+    (every rank here shares the one card), run the job, save its results."""
+    import os
+    from pathlib import Path
+
+    import torch
+    from tunevlseg_torch.ops import flash_attention as fa
+    from tunevlseg_torch.parallel import distributed
+    os.environ["LOCAL_RANK"] = "0"
+    distributed.initialize_distributed(
+        {"coordinator_address": f"file://{workdir}/store", "num_processes": world,
+         "process_id": rank}, "cuda", backend=backend)
+    try:
+        out = DP_JOBS[job](fa)
+        torch.save(out, Path(workdir) / f"{job}.rank{rank}.pt")
+    finally:
+        distributed.destroy()
+
+
+def dp_rows(batch: dict, rank: int, world: int) -> dict:
+    """A rank's contiguous rows of a global batch; the prompt-dedup rows stay
+    whole."""
+    n = batch["image"].shape[0] // world
+    return {k: v[rank * n:(rank + 1) * n] if v.shape[0] == batch["image"].shape[0]
+            else v for k, v in batch.items()}
+
+
+def applied_gradients(state, model) -> list:
+    """The gradient each update applies, by name, whole and on the host."""
+    from tunevlseg_torch.parallel.data_parallel import full_tensor
+    seen = []
+    names = {id(p): n for n, p in model.named_parameters()}
+    state.optimizer.optimizer.register_step_pre_hook(lambda o, a, k: seen.append(
+        {names[id(p)]: full_tensor(p.grad).float().cpu() for g in o.param_groups
+         for p in g["params"] if p.grad is not None}))
+    return seen
+
+
+def dp_job_world1(fa) -> dict:
+    """(a) The flagship over NCCL at world size 1: DP_STEPS steps plain, under
+    DDP and under fully_shard from the same weights."""
+    import torch
+    from tunevlseg_torch.parallel import distributed
+    from tunevlseg_torch.parallel.data_parallel import full_tensor, is_dtensor
+    from tunevlseg_torch.training.task import SegmentationTask
+    print(f"dp world 1: rank {distributed.rank()} of {distributed.world_size()}, "
+          f"backend {torch.distributed.get_backend()}, {torch.cuda.get_device_name(0)}")
+    task, _ = build_task("CLIPSeg rd64", "coop", 2e-4)
+    model = task.model
+    batches = [make_train_batch(BATCH, text_dedup=1, seed=s) for s in (3, 4, 5)]
+    start = trainable_snapshot(model)
+    runs = {"plain": steps_from(fa, task, start, batches, "dp world 1 plain",
+                                CLIPSEG_COOP_STEP)}
+    ddp = SegmentationTask(model, task.freeze_spec, learning_rate=2e-4)
+    ddp.init()
+    ddp.compile_steps()
+    runs["ddp"] = steps_from(fa, ddp, start, batches, "dp world 1 ddp",
+                             CLIPSEG_COOP_STEP)
+    restore_trainable(model, start)
+    model.zero_grad(set_to_none=True)
+    fs = SegmentationTask(model, task.freeze_spec, learning_rate=2e-4)
+    state = fs.state_fsdp_shardings(fs.init())
+    fs.compile_steps(fsdp=True)
+    sharded = sum(is_dtensor(p) for p in model.parameters())
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    losses, times = [], []
+    for b in batches:
+        before = counts(fa)
+        t = time.perf_counter()
+        state, metrics = fs.train_step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(metrics["loss"].item())
+        if minus(counts(fa), before) != CLIPSEG_COOP_STEP:
+            fail(f"dp world 1 fsdp: a step launched {minus(counts(fa), before)}")
+    runs["fsdp"] = {"losses": losses, "ms": statistics.median(times) * 1e3,
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "above": torch.cuda.max_memory_allocated() - resident,
+                    "launches": counts(fa),
+                    "weights": {n: full_tensor(p).detach().cpu()
+                                for n, p in model.named_parameters() if p.requires_grad},
+                    "sharded": sharded}
+    for run in runs.values():
+        run.pop("grads", None)
+        run.pop("model_state", None)
+        # the leaves the steps moved from where they started
+        run["moved"] = sum(not torch.equal(w, start[n].cpu())
+                           for n, w in run["weights"].items())
+    return runs
+
+
+def dp_job_two_ranks(fa) -> dict:
+    """(b) Two ranks on the one card over gloo: the flagship at b32 a rank,
+    CRIS flat e2e at b8 a rank and CRIS e2e in f32 at b8 a rank, each one
+    DDP step; the ranks' dropout masks; whether FSDP2's collectives run on
+    gloo with CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+    from tunevlseg_torch.parallel import distributed
+    rank, world = distributed.rank(), distributed.world_size()
+    out = {}
+    try:
+        whole = torch.empty(2 * world, device="cuda")
+        dist.all_gather_into_tensor(whole, torch.ones(2, device="cuda"))
+        part = torch.empty(2, device="cuda")
+        dist.reduce_scatter_tensor(part, torch.ones(2 * world, device="cuda"))
+        out["fsdp_collectives"] = "run"
+    except Exception as e:        # the finding is printed, not a failure
+        out["fsdp_collectives"] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    # the f32 case's convolutions in f32, not TF32 (this process is the rank's)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key, build, batch, per_step in dp_two_rank_cases():
+        task, _ = build()
+        state = task.init()
+        task.compile_steps()
+        applied = applied_gradients(state, task.model)
+        reset_counts(fa)
+        state, metrics = task.train_step(state, dp_rows(batch, rank, world))
+        torch.cuda.synchronize()
+        if counts(fa) != per_step:
+            fail(f"dp two ranks {key}: rank {rank} launched {counts(fa)}, expected "
+                 f"{per_step}")
+        out[key] = {"applied": applied[0], "loss": metrics["loss"].item(),
+                    "launches": counts(fa),
+                    "model_state": {k: v.float().cpu()
+                                    for k, v in state.model_state.items()},
+                    "find_unused": task.ddp.find_unused_parameters,
+                    "masks": torch.rand(64, generator=task.dropout_generator(0),
+                                        device="cuda").cpu()}
+        del task, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_two_rank_cases():
+    """(label, build function, global batch, launches a rank's step) of (b).
+    The f32 CRIS launches no kernel (K1-K4 take bf16): it holds DDP's
+    gradient where summation order does not blow up."""
+    import dataclasses
+
+    import torch
+    from tunevlseg_torch.models.presets import cris_rn50_config
+    cris_cfg = dataclasses.replace(cris_rn50_config(CRIS_IMG), dropout=0.0)
+    cris_batch = make_train_batch(E2E_BATCH, text_dedup=0, seed=8, img=CRIS_IMG,
+                                  pad_id=0)
+    return (
+        ("coop", lambda: build_task("CLIPSeg rd64", "coop", 2e-4),
+         make_train_batch(BATCH, text_dedup=1, seed=3), CLIPSEG_COOP_STEP),
+        ("cris_flat_e2e", lambda: build_task(
+            "CRIS RN50", "e2e", 3e-6,
+            build_kwargs={"freeze_encoder": False, "layout": "flat",
+                          "config": cris_cfg},
+            task_kwargs={"mutable_collections": ("batch_stats",)}),
+         cris_batch, CRIS_E2E_FLAT_STEP),
+        ("cris_e2e_f32", lambda: build_task(
+            "CRIS RN50", "e2e", 3e-6,
+            build_kwargs={"freeze_encoder": False, "config": cris_cfg,
+                          "dtype": torch.float32},
+            task_kwargs={"mutable_collections": ("batch_stats",)}),
+         cris_batch, (0,) * len(CRIS_E2E_FLAT_STEP)))
+
+
+DP_JOBS = {"world1": dp_job_world1, "two_ranks": dp_job_two_ranks}
+
+
+def dp_references(fa) -> dict:
+    """(b)'s references in this process, with no process group: the flagship
+    as two accumulated b32 micro-steps of the ranks' rows, each CRIS e2e as
+    one b16 step, and as a witness the same b16 step on the rows in reverse
+    order (the same samples: it differs from the first by summation order
+    alone)."""
+    import torch
+    from tunevlseg_torch.training.task import SegmentationTask
+    refs = {}
+    # the f32 case's convolutions in f32, as in the ranks
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key, build, batch, per_step in dp_two_rank_cases():
+        task, state = build()
+        start = trainable_snapshot(task.model)
+        if key == "coop":
+            task = SegmentationTask(task.model, task.freeze_spec, learning_rate=2e-4,
+                                    accumulate_grad_batches=2)
+            runs = {key: [dp_rows(batch, r, 2) for r in range(2)]}
+        else:
+            flipped = {k: v.flip(0) if v.shape[0] == E2E_BATCH else v
+                       for k, v in batch.items()}
+            runs = {key: [batch], f"{key} reversed": [flipped]}
+        for label, micro in runs.items():
+            restore_trainable(task.model, start)
+            state = task.init()
+            applied = applied_gradients(state, task.model)
+            for b in micro:
+                state, metrics = task.train_step(state, b)
+            refs[label] = {"applied": applied[0], "loss": metrics["loss"].item(),
+                           "model_state": {k: v.float().cpu()
+                                           for k, v in state.model_state.items()}}
+        del task, state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return refs
+
+
+def gradient_gap(got: dict, want: dict) -> tuple:
+    """((least cosine, leaf), (largest max abs diff over max(the leaf's
+    largest |entry|, 1e-3 of any leaf's), leaf)) of `got` against `want`;
+    the cosine over the leaves whose gradient is at least 1e-3 of the
+    largest (a BatchNorm that a train-mode BatchNorm follows, or a bias under
+    one, has a gradient that is zero in exact arithmetic: rounding noise
+    there, as tests/test_torch_cris.py's e2e rule says)."""
+    import torch
+    overall = max(w.abs().max().item() for w in want.values())
+    worst_cos, worst_rel = (1.0, ""), (0.0, "")
+    for name, w in want.items():
+        top = w.abs().max().item()
+        a = got[name]
+        rel = (a - w).abs().max().item() / max(top, 1e-3 * overall)
+        worst_rel = max(worst_rel, (rel, name))
+        if top >= 1e-3 * overall:
+            cos = torch.nn.functional.cosine_similarity(
+                a.flatten(), w.flatten(), dim=0).item()
+            worst_cos = min(worst_cos, (cos, name))
+    return worst_cos, worst_rel
+
+
+def phase_data_parallel(fa) -> dict:
+    """Phase 28 (see the module docstring). Returns {path: counts}; the
+    counts of the ranks' paths are rank 0's."""
+    import dataclasses
+
+    import torch
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    # (a) NCCL at world size 1
+    ctx, workdir = dp_spawn("world1", 1, "nccl")
+    (runs,) = dp_collect(ctx, workdir, "world1", "dp world 1")
+    plain = runs["plain"]
+    n_leaves = len(plain["weights"])
+    for key in ("ddp", "fsdp"):
+        run = runs[key]
+        worst = max(((run["weights"][n] - w).abs().max().item(), n)
+                    for n, w in plain["weights"].items())
+        same = sum(torch.equal(run["weights"][n], w) for n, w in plain["weights"].items())
+        print(f"dp world 1 {key}: losses " + " ".join(f"{x!r}" for x in run["losses"])
+              + " against plain " + " ".join(f"{x!r}" for x in plain["losses"])
+              + f"; weights after {DP_STEPS} steps: {same} of {n_leaves} leaves "
+              f"bit-identical (held: all), the largest difference {worst[0]:.4g} "
+              f"({worst[1]}); {run['moved']} of {n_leaves} leaves moved from the "
+              f"start (plain {plain['moved']}); "
+              f"step {run['ms']:.3f} ms (plain {plain['ms']:.3f}); peak device "
+              f"memory {run['peak']} bytes ({run['peak'] / 2**30:.3f} GiB, plain "
+              f"{plain['peak'] / 2**30:.3f}); launches {run['launches']} "
+              f"({CLIPSEG_COOP_STEP} a step)"
+              + (f"; {run['sharded']} parameters sharded as DTensors"
+                 if key == "fsdp" else ""))
+        if run["launches"] != tuple(DP_STEPS * c for c in CLIPSEG_COOP_STEP):
+            fail(f"dp world 1 {key}: launches {run['launches']}")
+        # one rank's all-reduce, all-gather and reduce-scatter are copies and
+        # its mean a division by 1: the steps are the plain steps bit for bit
+        if run["losses"] != plain["losses"] or same != n_leaves:
+            fail(f"dp world 1 {key}: one rank's steps are not the plain steps bit "
+                 "for bit")
+        if plain["moved"] == 0:
+            fail("dp world 1: the plain steps moved no weight")
+    by_path["train_ddp_ws1_coop"] = runs["ddp"]["launches"]
+    by_path["train_fsdp_ws1_coop"] = runs["fsdp"]["launches"]
+    del runs, plain
+
+    # (b) two ranks on the one card over gloo; the references here first
+    refs = dp_references(fa)
+    ctx, workdir = dp_spawn("two_ranks", 2, "gloo")
+    ranks = dp_collect(ctx, workdir, "two_ranks", "dp two ranks")
+    for key in ("coop", "cris_flat_e2e", "cris_e2e_f32"):
+        r0, r1 = ranks[0][key], ranks[1][key]
+        ref = refs[key]
+        worst_cos, worst_rel = worst_leaf(r0["applied"], ref["applied"])
+        ranks_same = all(torch.equal(r0["applied"][n], r1["applied"][n])
+                         for n in r0["applied"])
+        masks_differ = not torch.equal(r0["masks"], r1["masks"])
+        print(f"dp two ranks {key}: gloo, both ranks on cuda:0, the gradient the "
+              f"update applied against {'two accumulated b32 micro-steps' if key == 'coop' else 'one b16 step'} "
+              f"in one process: least cosine {worst_cos[0]:.7f} ({worst_cos[1]}), "
+              f"largest max abs diff {worst_rel[0]:.4g} of its leaf's largest entry "
+              f"({worst_rel[1]}"
+              + (f"; bound {DDP2_GRAD_REL_TOL}" if key == "coop" else "")
+              + f"); the two ranks {'bit-identical' if ranks_same else 'DIFFERENT'}; "
+              f"loss (the mean over the ranks) {r0['loss']:.6f} / {r1['loss']:.6f}, "
+              f"reference {ref['loss']:.6f}; launches a rank {r0['launches']}; "
+              f"find_unused_parameters {r0['find_unused']}; dropout masks of the "
+              f"two ranks {'differ' if masks_differ else 'are THE SAME'}")
+        if not ranks_same or not masks_differ:
+            fail(f"dp two ranks {key}: the ranks' updates differ, or their dropout "
+                 "masks are the same")
+        if key == "coop" and worst_rel[0] > DDP2_GRAD_REL_TOL:
+            fail(f"dp two ranks {key}: DDP's gradient is not the accumulated one")
+        if key != "coop":
+            # each leaf against max(its largest entry, 1e-3 of any leaf's): a
+            # bias under a train-mode BatchNorm has a gradient that is zero in
+            # exact arithmetic (tests/test_torch_cris.py's e2e rule); the
+            # witness is the b16 step on its rows reversed
+            witness = refs[f"{key} reversed"]
+            gap = gradient_gap(r0["applied"], ref["applied"])
+            wgap = gradient_gap(witness["applied"], ref["applied"])
+            f32 = key == "cris_e2e_f32"
+            loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+            print(f"dp two ranks {key}: by the e2e rule, DDP against one b16 step "
+                  f"least cosine {gap[0][0]:.7f} ({gap[0][1]}), largest diff "
+                  f"{gap[1][0]:.4g} ({gap[1][1]}); the witness: {wgap[0][0]:.7f} "
+                  f"({wgap[0][1]}), {wgap[1][0]:.4g} ({wgap[1][1]}), its loss "
+                  f"{witness['loss']:.6f}; the loss {loss_rel:.3g} of itself off; "
+                  + (f"held: cosine at least {DP_F32_COS_MIN}, diff at most "
+                     f"{DP_F32_GRAD_REL_TOL}, loss at most {DP_F32_LOSS_REL_TOL}"
+                     if f32 else "not held (bf16 under train-mode BatchNorm; the "
+                     "f32 case holds the gradient), the loss within "
+                     f"{LOSS_TOL}"))
+            if f32 and not (gap[0][0] >= DP_F32_COS_MIN
+                            and gap[1][0] <= DP_F32_GRAD_REL_TOL
+                            and loss_rel <= DP_F32_LOSS_REL_TOL):
+                fail(f"dp two ranks {key}: DDP's step is not one b16 step's")
+            if not f32 and abs(r0["loss"] - ref["loss"]) > LOSS_TOL:
+                fail(f"dp two ranks {key}: the loss is not one b16 step's")
+        if ref["model_state"]:
+            def stats_gap(got):
+                return max(((got[n] - w).abs().max()
+                            / w.abs().max().clamp(min=1e-30)).item()
+                           for n, w in ref["model_state"].items())
+            stats = stats_gap(r0["model_state"])
+            wstats = stats_gap(refs[f"{key} reversed"]["model_state"])
+            cap = (DP_F32_STATS_REL_TOL if key == "cris_e2e_f32"
+                   else max(DDP2_STATS_REL_TOL, DP_WITNESS_FACTOR * wstats))
+            moved = sum(not torch.equal(r0["model_state"][n], r1["model_state"][n])
+                        for n in ref["model_state"])
+            print(f"dp two ranks {key}: the BatchNorm statistics in the state "
+                  f"(the global batch's) against one b16 step's: largest "
+                  f"difference {stats:.4g} of a tensor's largest entry (the "
+                  f"witness {wstats:.4g}; bound {cap:.4g}; a rank's own statistics "
+                  f"would be off by tenths); {moved} tensors differ between the ranks")
+            if stats > cap or moved:
+                fail(f"dp two ranks {key}: the statistics are not the global batch's")
+        if key != "cris_e2e_f32":     # the f32 path launches no kernel
+            by_path[f"train_ddp2_{key}"] = r0["launches"]
+    # FSDP over these two ranks: the bare collectives run, but a fully_shard
+    # step over gloo with CUDA tensors killed a rank with SIGSEGV (a
+    # diagnostic call); FSDP's two-rank check stays on the CPU
+    # (tests/test_torch_distributed.py), and (a) carries FSDP on the card
+    print(f"dp two ranks: FSDP2's all_gather_into_tensor and reduce_scatter_tensor "
+          f"on gloo with CUDA tensors: {ranks[0]['fsdp_collectives']}; a "
+          "fully_shard step over them is not run here (it killed a rank with "
+          "SIGSEGV); FSDP's two-rank check is the CPU tests'")
+    del refs, ranks
+
+    # (c) the zero-shot request with its proposals in 2 chunks on cuda:0
+    if not ZS_SHARED:
+        fail("dp zsseg split: phase 23's request is not there (run phase 23 first)")
+    ris, request, extras = (ZS_SHARED[k] for k in ("ris", "request", "extras"))
+    split = dataclasses.replace(ris, devices=(ris.device, ris.device))
+    reset_counts(fa)
+    picked_split, split_extras = zs_request_extras(split, *request)
+    by_path["serve_zsseg_split"] = counts(fa)
+    if by_path["serve_zsseg_split"] != ZS_SERVE:
+        fail(f"dp zsseg split: launches {by_path['serve_zsseg_split']}")
+    picked, _ = zs_request_extras(ris, *request)
+    worst = max(((split_extras[k].float() - extras[k].float()).abs().max()
+                 / extras[k].float().abs().max()).item()
+                for k in ("mask_features", "crop_features"))
+    n_props = int(extras["masks"].shape[0])
+    print(f"dp zsseg split: phase 23's 1024^2 request, its {n_props} proposals in 2 "
+          f"chunks of {-(-n_props // 2)} and {n_props // 2} through the towers on "
+          f"cuda:0 and cuda:0: the visual features' largest difference from the "
+          f"unsplit request {worst:.4g} of the largest |feature| (bound "
+          f"{ZS_FEATURE_REL_TOL}), the same mask: "
+          f"{bool(torch.equal(picked_split, picked))}; launches {by_path['serve_zsseg_split']}")
+    if worst > ZS_FEATURE_REL_TOL or not torch.equal(picked_split, picked):
+        fail("dp zsseg split: the split request disagrees with the unsplit one")
+
+    # FreeSOLO's pseudo losses at the request's proposal shapes, on its
+    # pixels (the CLIP normalisation undone)
+    from tunevlseg_torch.models.solov2 import pseudo_loss
+    mean, std = (torch.tensor(v).reshape(3, 1, 1) for v in CLIP_STATS)
+    pixels = ((torch.from_numpy(request[0]) * std + mean) * 255).round()
+    masks = extras["masks"].float().cpu()
+    n, h, w = masks.shape
+    gen = torch.Generator().manual_seed(28)
+    quarter = (h // 4, w // 4)
+    logits = torch.randn((n,) + quarter, generator=gen) * 2
+    boxes = torch.nn.functional.interpolate(masks[None], size=quarter)[0]
+    valid = extras["valid"].float().cpu()
+    level = (torch.arange(n) % 5)
+    results = {}
+    for device in ("cpu", "cuda"):
+        lg = logits.to(device).requires_grad_(True) if device == "cuda" else \
+            logits.clone().requires_grad_(True)
+        sim = pseudo_loss.prepare_color_similarity(
+            pixels[None].to(device), torch.ones((1, h, w), device=device)
+        ).expand(n, -1, -1, -1)
+        losses = pseudo_loss.paired_losses(lg, boxes.to(device), sim, valid.to(device),
+                                           level_ids=level.to(device), step=500)
+        sum(losses.values()).backward()
+        results[device] = ({k: v.item() for k, v in losses.items()}, lg.grad.cpu())
+    (lc, gc), (lg_, gg) = results["cpu"], results["cuda"]
+    rel = max(abs(lg_[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    grel = ((gg - gc).abs().max() / gc.abs().max()).item()
+    print(f"pseudo loss: paired_losses over the request's {n} proposals at "
+          f"{quarter[0]}x{quarter[1]} (per level, step 500) on the card against the "
+          f"CPU: " + ", ".join(f"{k} {lg_[k]:.6f} / {lc[k]:.6f}" for k in lc)
+          + f"; largest relative difference {rel:.3g}, gradient {grel:.3g} of its "
+          f"largest entry (bound {PSEUDO_LOSS_REL_TOL})")
+    if not (rel <= PSEUDO_LOSS_REL_TOL and grel <= PSEUDO_LOSS_REL_TOL):
+        fail("pseudo loss: the card and the CPU disagree")
+    ZS_SHARED.clear()
+    del split, ris
+    torch.cuda.empty_cache()
+    print(f"dp: phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def phase_kernels_variants(sweeps, library):
     """The sweeps' entry points, one pass per sweep: every variant against
     its plain version on q, k, v apart and standard normal (`check_variants`:
@@ -4716,6 +5246,8 @@ def main() -> None:
     clock("export paths")
     by_path.update(phase_accumulate_remat(fa, profile))
     clock("accumulation and remat paths")
+    by_path.update(phase_data_parallel(fa))
+    clock("data parallel paths")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
@@ -4810,7 +5342,8 @@ def main() -> None:
     # upsampler behind its trainable decoder)
     training = tuple(p for p in by_path if p.startswith("train"))
     flat = tuple(p for p in by_path if "flat" in p)
-    flat_training = ("train_cris_e2e_flat", "train_trans_seg_flat")
+    flat_training = ("train_cris_e2e_flat", "train_trans_seg_flat",
+                     "train_ddp2_cris_flat_e2e")
     # zero-shot RIS runs ViTs of 197 tokens, under K1's gate: no K1 there
     zero_shot = tuple(p for p in by_path if p.startswith("serve_zsseg"))
     with_k1 = tuple(p for p in by_path if p not in zero_shot)

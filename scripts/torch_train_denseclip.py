@@ -22,9 +22,14 @@ vocabulary grows to the tokenizer's where that is larger.
 needs no data and no vocabulary. `--accumulate k` averages k micro-batches'
 gradients before each update (`--iters` counts micro-steps, as the JAX
 script's loop does; the poly schedule counts updates); `--remat` recomputes
-the loss's forward in the backward. `--fsdp` raises (ROADMAP Queue 1 item
-9.2). The last line of the output is the JSON object {"final": {metric:
-value}, "ckpt": directory}.
+the loss's forward in the backward. `--n-devices k` trains data parallel on
+k ranks of this host, one a card (gloo ranks with `--device cpu`), each
+`--batch / k` rows of every batch, the model under DistributedDataParallel;
+`--fsdp` shards it with `fully_shard` instead (one rank has nothing to
+shard: there `--fsdp` runs the plain path); under torchrun the script
+joins the launcher's group. Rank 0 logs and writes the checkpoints. The
+last line of the output is the JSON object {"final": {metric: value},
+"ckpt": directory}.
 """
 from __future__ import annotations
 
@@ -67,7 +72,11 @@ def parse_args(argv=None):
     ap.add_argument("--val-every", type=int, default=4000)
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fsdp", action="store_true")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard the model, AdamW's moments and the text "
+                         "encoder over the ranks (fully_shard)")
+    ap.add_argument("--n-devices", type=int, default=1,
+                    help="data parallel over this many ranks on this host")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--accumulate", type=int, default=1)
     ap.add_argument("--spe", type=int, default=1,
@@ -149,21 +158,49 @@ def config_for(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp:
-        raise NotImplementedError("--fsdp: FSDP of the state comes with ROADMAP "
-                                  "Queue 1 item 9.2 (Slice G, multi-device)")
+    import torch
+
+    from tunevlseg_torch import train as train_cli
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this script runs on the card; pass "
+                           "--device cpu to run on the CPU")
+    if args.batch % args.n_devices:
+        raise ValueError(f"--batch {args.batch} must divide by the "
+                         f"{args.n_devices} ranks")
+    # the train CLI's launch: k ranks started here, or torchrun's group
+    cfg = {"trainer": {"device": args.device, "fsdp": args.fsdp,
+                       "n_devices": args.n_devices}, "args": args}
+    if args.n_devices > 1:
+        if device.type == "cuda" and args.n_devices > torch.cuda.device_count():
+            raise ValueError(f"--n-devices {args.n_devices}, but "
+                             f"{torch.cuda.device_count()} card(s) are visible")
+        return train_cli.start_ranks(_train_rank, cfg, args.n_devices)
+    device, undo = train_cli.join_group(cfg, device)
+    try:
+        return _train(args, device)
+    finally:
+        for fn in undo:
+            fn()
+
+
+def _train_rank(cfg: dict) -> dict:
+    from tunevlseg_torch.parallel import distributed
+    return _train(cfg["args"], distributed.rank_device(cfg["trainer"]["device"]))
+
+
+def _train(args, device):
     import torch
 
     from tunevlseg_torch.models.presets import build_denseclip
+    from tunevlseg_torch.parallel import distributed
     from tunevlseg_torch.training.checkpoint import CheckpointManager
     from tunevlseg_torch.training.denseclip_task import DenseCLIPTask
     from tunevlseg_torch.utils.logging import get_logger
 
     log = get_logger("train_denseclip")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this script runs on the card; pass "
-                           "--device cpu to run on the CPU")
+    world, rank = distributed.world_size(), distributed.rank()
+    lead = rank == 0
     dtype = {"auto": torch.bfloat16 if device.type == "cuda" else torch.float32,
              "float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
     rng = np.random.default_rng(args.seed)
@@ -196,6 +233,7 @@ def main(argv=None):
 
     crop = (64 if args.tiny else args.crop if args.crop is not None
             else cfg.input_resolution)
+    batch = args.batch // world
     if args.synthetic:
         n = max(args.batch, 8)
         yy = np.mgrid[:crop, :crop][0]
@@ -206,17 +244,27 @@ def main(argv=None):
         train_pairs = _list_pairs(args.data_root, "training")
         val_pairs = _list_pairs(args.data_root, "validation")
 
+    # each rank draws its own rows (one rank: the generator above, as before)
+    draw = rng if world == 1 else np.random.default_rng((args.seed, rank))
+
     def next_batch(train=True):
         if args.synthetic:
-            idx = rng.integers(0, synth["image"].shape[0], args.batch)
+            idx = draw.integers(0, synth["image"].shape[0], batch)
             host = {k: v[idx] for k, v in synth.items()}
         else:
             pairs = train_pairs if train else val_pairs
-            idx = rng.integers(0, len(pairs), args.batch)
-            host = _batch(pairs, idx, crop, rng, train)
+            idx = draw.integers(0, len(pairs), batch)
+            host = _batch(pairs, idx, crop, draw, train)
         return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
     state = task.init()
+    fsdp = args.fsdp and world > 1
+    if args.fsdp and not fsdp:
+        log.info("--fsdp over one rank: nothing to shard, the plain path runs")
+    if distributed.is_initialized():
+        if fsdp:
+            state = task.state_fsdp_shardings(state)
+        task.compile_steps(fsdp=fsdp)
     train_multi = (task.compile_train_multistep(args.spe) if args.spe > 1
                    else None)
     args.out.mkdir(parents=True, exist_ok=True)
@@ -255,20 +303,23 @@ def main(argv=None):
                                        / (time.perf_counter() - last_t), 2)
                                  if window else None)
             last_t, last_it = time.perf_counter(), it
-            log.info("iter %d: %s", it, json.dumps(m))
-            with metrics_path.open("a") as f:
-                f.write(json.dumps(m) + "\n")
+            if lead:
+                log.info("iter %d: %s", it, json.dumps(m))
+                with metrics_path.open("a") as f:
+                    f.write(json.dumps(m) + "\n")
         if it - last_val >= args.val_every or it >= args.iters:
             last_val = it
             ev = {f"val_{k}": float(v)
                   for k, v in task.eval_step(state, next_batch(False)).items()}
-            log.info("iter %d: %s", it, json.dumps(ev))
+            if lead:
+                log.info("iter %d: %s", it, json.dumps(ev))
             ckpt.maybe_save_best(state, ev, epoch=it)
     ckpt.save("last", state, {"iter": args.iters})
     ckpt.wait()
     final = {k: float(v) for k, v in m.items()
              if k != "iter" and v is not None}
-    print(json.dumps({"final": final, "ckpt": str(ckpt.dir)}))
+    if lead:
+        print(json.dumps({"final": final, "ckpt": str(ckpt.dir)}))
     return final
 
 

@@ -14,6 +14,7 @@ Modes:
   --fused         `predict_fused`: the whole request on the device, one host
                   read (without it, `__call__`: the host crop loop)
   --pipeline N    with --fused, `predict_fused_many` with N requests in flight
+  --n-devices K   the proposal batch over K cards (`eval_zeroshot.build_ris`)
 
 Usage:  python scripts/torch_zsbench.py --images 12 --alpha 0.95 --img 1024 \
             --fused --pipeline 2
@@ -42,7 +43,10 @@ def main(argv=None) -> dict:
                          "side to 800 for FreeSOLO; the zsseg CLI's default is "
                          "1024)")
     ap.add_argument("--n-devices", type=int, default=1,
-                    help="the proposal batch over several devices: not ported")
+                    help="the proposal batch over this many devices (the "
+                         "masked / crop CLIP towers proposal-parallel, one "
+                         "replica a device); on the CPU, the CPU that many "
+                         "times")
     ap.add_argument("--fused", action="store_true",
                     help="predict_fused: the whole request on the device")
     ap.add_argument("--pipeline", type=int, default=0, metavar="DEPTH",
@@ -53,10 +57,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--tiny", action="store_true",
                     help="the test models (a CPU rehearsal)")
     args = ap.parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1 (the proposal batch over several devices) comes "
-            "with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
 
     import numpy as np
     import torch
@@ -64,7 +64,7 @@ def main(argv=None) -> dict:
     from tunevlseg_torch.eval_zeroshot import build_ris
 
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
-    cfg = {"model": {"alpha": args.alpha},
+    cfg = {"model": {"alpha": args.alpha}, "n_devices": args.n_devices,
            "tiny_model": args.tiny, "seed": 0}
     ris = build_ris(cfg, device=args.device, dtype=dtype)
     on_card = ris.device.type == "cuda"
@@ -85,7 +85,8 @@ def main(argv=None) -> dict:
 
     def sync():
         if on_card:
-            torch.cuda.synchronize()
+            for device in ris.devices:
+                torch.cuda.synchronize(device)
 
     def run(n: int) -> None:
         if args.fused and args.pipeline > 0:
@@ -110,7 +111,7 @@ def main(argv=None) -> dict:
         "unit": "imgs/s",
         "ms_per_image": 1e3 * dt / args.images,
         "images": args.images, "img": args.img, "dtype": args.dtype,
-        "n_devices": 1, "pipeline_depth": args.pipeline,
+        "n_devices": len(ris.devices), "pipeline_depth": args.pipeline,
         "device": card,
     }
     print(json.dumps(result), flush=True)

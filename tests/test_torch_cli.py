@@ -370,44 +370,68 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
                                                   "exp_name=nockpt"])
 
 
-# remat and accumulation are ported (the CLI cycle below): beside them the
-# multi-device keys still raise and name their item
-UNPORTED_OVERRIDES = [
-    (("trainer.n_devices=2",), "item 9.2"),
-    (("trainer.model_parallel=2",), "Do not port"),
-    (("trainer.seq_shard=true",), "Do not port"),
-    (("trainer.fsdp=true",), "item 9.2"),
-    (("trainer.multihost=true",), "item 9.2"),
-    (("trainer.remat=true", "trainer.fsdp=true"), "item 9.2"),
-    (("trainer.accumulate_grad_batches=2", "trainer.n_devices=2"), "item 9.2"),
+# the multi-device keys run (tests/test_torch_distributed.py starts two
+# ranks through trainer.n_devices=2): each case here either runs in this
+# process (fsdp over one process: nothing to shard, the plain path) or
+# fails cheaply, before any rank starts, naming what it needs; GSPMD's
+# tensor and sequence parallelism still raise "Do not port"
+RANKS = "must divide by the 2 ranks"
+OPTION_CASES = [
+    (("trainer.n_devices=2", "data.batch_size=3"), ValueError, RANKS),
+    (("trainer.model_parallel=2",), NotImplementedError, "Do not port"),
+    (("trainer.seq_shard=true",), NotImplementedError, "Do not port"),
+    (("trainer.fsdp=true",), None, None),
+    (("trainer.multihost=true",), ValueError,
+     "trainer.coordinator_address.*trainer.num_processes.*trainer.process_id"),
+    (("trainer.remat=true", "trainer.fsdp=true"), None, None),
+    (("trainer.accumulate_grad_batches=2", "trainer.n_devices=0"), ValueError,
+     "trainer.n_devices=0"),
 ]
 
 
 @pytest.mark.parametrize(
-    "overrides,item", UNPORTED_OVERRIDES,
+    "overrides,error,match", OPTION_CASES,
     # the ids they had
-    ids=[f"{o[0]}-{'Do not port' if i == 'Do not port' else 'Slice G'}"
-         for o, i in UNPORTED_OVERRIDES])
+    ids=[f"{o[0]}-{'Do not port' if m == 'Do not port' else 'Slice G'}"
+         for o, _, m in OPTION_CASES])
 def test_unported_options_raise_with_their_item(synth, tmp_path, overrides,
-                                                item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_mod.main(_common(synth, tmp_path) + list(overrides) + ["exp_name=x"])
+                                                error, match, monkeypatch):
+    from tunevlseg_torch.parallel import distributed
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    args = _common(synth, tmp_path) + list(overrides) + ["exp_name=x"]
+    if error is None:
+        # one process: no group is made and nothing is sharded
+        from tunevlseg_torch.parallel import data_parallel
+
+        def no_shard(*args, **kwargs):
+            raise AssertionError("fully_shard over one process")
+        monkeypatch.setattr(data_parallel, "shard", no_shard)
+        result = train_mod.main(args)
+        assert np.isfinite(result["test_loss"])
+        assert (tmp_path / "train" / "x" / "checkpoints" / "last").is_dir()
+    else:
+        with pytest.raises(error, match=match):
+            train_mod.main(args)
+    assert not distributed.is_initialized()
 
 
 def test_accumulation_remat_cycle(synth, tmp_path):
     """trainer.accumulate_grad_batches + trainer.remat + gradient_clip_val
     through the CLI for 2 epochs, the counterpart of JAX
-    `tests/test_cli.py::test_accumulation_remat_fsdp_cycle`; with
-    trainer.fsdp as well it raises and names its ROADMAP item."""
+    `tests/test_cli.py::test_accumulation_remat_fsdp_cycle`, and again with
+    trainer.fsdp, which over one process runs the plain path."""
     keys = ["trainer.max_epochs=2", "trainer.accumulate_grad_batches=2",
             "trainer.remat=true", "trainer.gradient_clip_val=1.0", "predict=false"]
     result = train_mod.main(_common(synth, tmp_path / "logs") + keys
                             + ["exp_name=accum_smoke"])
     assert np.isfinite(result["test_loss"])
     assert 0 <= result["test_dice"] <= 1
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        train_mod.main(_common(synth, tmp_path / "logs") + keys
-                       + ["trainer.fsdp=true", "exp_name=accum_fsdp"])
+    sharded = train_mod.main(_common(synth, tmp_path / "logs") + keys
+                             + ["trainer.fsdp=true", "exp_name=accum_fsdp"])
+    assert np.isfinite(sharded["test_loss"])
+    # the same weights and batches: fsdp over one process is the plain path
+    assert sharded["test_loss"] == pytest.approx(result["test_loss"], rel=1e-5)
 
 
 def test_unported_families_raise_in_build_model_and_task():
@@ -424,7 +448,7 @@ def test_unported_families_raise_in_build_model_and_task():
 def test_zsbench_script_on_the_cpu():
     """scripts/torch_zsbench.py rehearsed on the CPU with the test models: a
     pipelined fused pass, its JSON line naming the CPU (no device metric);
-    `--n-devices 2` names its ROADMAP item."""
+    `--n-devices 2` runs the proposals over the CPU twice."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "torch_zsbench", REPO / "scripts" / "torch_zsbench.py")
@@ -435,8 +459,10 @@ def test_zsbench_script_on_the_cpu():
                         "--pipeline", "2"])
     assert out["metric"] == "zsseg_imgs_per_sec_alpha0.95_fused_pipe2"
     assert out["device"] == "cpu" and out["value"] > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        zsbench.main(["--n-devices", "2"])
+    two = zsbench.main(["--tiny", "--device", "cpu", "--dtype", "f32", "--img",
+                        "64", "--images", "1", "--alpha", "0.95", "--fused",
+                        "--n-devices", "2"])
+    assert two["n_devices"] == 2 and two["value"] > 0
 
 
 def test_denseclip_family_names_its_trainer_script():

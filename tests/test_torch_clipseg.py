@@ -233,7 +233,9 @@ def test_port_runs_without_jax():
     accumulated micro-steps, a tiny
     `Trainer.fit` with its checkpoints run, and converted checkpoints (a
     safetensors file through `train.load_pretrained` into a CoOp train step,
-    the rd64-refined head's file into its forward), with jax/flax/optax
+    the rd64-refined head's file into its forward), a DDP step in a gloo
+    group of one, a zero-shot request over two devices, the pseudo losses and
+    the distributed tests' rank module, with jax/flax/optax
     (and regex) unimportable; afterwards neither a module of jax, nor one of
     the JAX package, nor transformers or safetensors has been loaded, and
     the fit from memory loaded no cv2."""
@@ -436,6 +438,34 @@ def test_port_runs_without_jax():
         zs_fused = zs.predict_fused(zs_image, zs_ids, zs_mask)
         assert zs_fused.shape == (1, 1, 64, 64)
         assert (zs(zs_image, zs_ids, zs_mask) == zs_fused).all()
+        # data parallel: a DDP step in a gloo group of one; the zero-shot
+        # proposals over the CPU twice; the FreeSOLO pseudo losses; the test
+        # ranks' own module
+        import tempfile as _tmp
+        from tunevlseg_torch.parallel import distributed
+        distributed.initialize_distributed(
+            {"coordinator_address": "file://" + _tmp.mkdtemp() + "/store",
+             "num_processes": 1, "process_id": 0}, "cpu")
+        dmodel, dspec = build_clipseg("coop", prompt_depth=3, num_context=4,
+                                      config=CLIPSegConfig.tiny(), device="cpu")
+        dtask = SegmentationTask(dmodel, dspec)
+        dstate = dtask.init()
+        dtask.compile_steps()
+        dstate, dmetrics = dtask.train_step(dstate, batch)
+        assert dtask.ddp is not None and bool(dmetrics["loss"].isfinite())
+        distributed.destroy()
+        zs2 = build_ris({"model": {}, "tiny_model": True, "n_devices": 2},
+                        device="cpu")
+        assert len(zs2.devices) == 2
+        assert zs2.predict_fused(zs_image, zs_ids, zs_mask).shape == (1, 1, 64, 64)
+        from tunevlseg_torch.models.solov2 import pseudo_loss
+        logits = torch.randn(3, 16, 16, generator=g, requires_grad=True)
+        pl = pseudo_loss.paired_losses(
+            logits, (torch.rand(3, 16, 16, generator=g) > 0.5).float(),
+            torch.rand(3, 8, 16, 16, generator=g), torch.ones(3), step=10)
+        sum(pl.values()).backward()
+        assert bool(logits.grad.isfinite().all())
+        import tests.torch_distributed_ranks  # noqa: F401
         # the training and evaluation entry points and their modules: a tiny
         # fit with checkpoints over the port's loader, then a restore
         for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",

@@ -615,9 +615,12 @@ def test_unported_task_options_raise():
     with pytest.raises(ValueError, match="accumulate_grad_batches"):
         ttask.DenseCLIPTask(tm, accumulate_grad_batches=0)
     task = ttask.DenseCLIPTask(tm)
-    for entry in (task.compile_steps, task.state_fsdp_shardings):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            entry(None)
+    # DDP / fully_shard need a process group (tests/test_torch_distributed.py
+    # runs two ranks)
+    with pytest.raises(ValueError, match="needs a process group"):
+        task.compile_steps()
+    with pytest.raises(ValueError, match="needs a process group"):
+        task.state_fsdp_shardings(task.init())
 
 
 def test_build_denseclip_needs_a_card_unless_given_the_cpu():
@@ -700,13 +703,22 @@ def test_trainer_script_backbones(script, tmp_path, backbone):
     assert np.isfinite(final["loss"])
 
 
-# --remat and --accumulate run (test_trainer_script_remat_and_accumulate);
-# beside them --fsdp still raises
+# --fsdp runs, with --remat and --accumulate too: over one rank there is
+# nothing to shard, so the script runs the plain path and makes no group
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--remat", "--fsdp"],
                                   ["--accumulate", "2", "--fsdp"]])
-def test_trainer_script_unported_flags_raise(script, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        script.main(BASE_ARGS + flag + ["--out", str(tmp_path / "x")])
+def test_trainer_script_unported_flags_raise(script, tmp_path, flag,
+                                             monkeypatch):
+    from tunevlseg_torch.parallel import data_parallel, distributed
+
+    def no_shard(*args, **kwargs):
+        raise AssertionError("fully_shard over one rank")
+    monkeypatch.setattr(data_parallel, "shard", no_shard)
+    final = script.main(BASE_ARGS + flag + ["--iters", "2", "--val-every", "2",
+                                            "--out", str(tmp_path / "x")])
+    assert np.isfinite(final["loss"])
+    assert (tmp_path / "x" / "checkpoints" / "last").is_dir()
+    assert not distributed.is_initialized()
 
 
 def test_trainer_script_remat_and_accumulate(script, tmp_path):

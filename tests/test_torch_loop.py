@@ -490,12 +490,16 @@ def test_init_overlays_a_partial_state_dict():
             assert torch.equal(after[k], v), k
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "Do not port"),
-                                     ({"seq_shard": True}, "Do not port"),
-                                     ({"fsdp": True}, "Slice G")])
-def test_unported_trainer_options_raise(tmp_path, kw, item):
+# GSPMD's mesh and sequence sharding are not ported; fsdp is, and needs a
+# process group (tests/test_torch_distributed.py runs it on two ranks)
+@pytest.mark.parametrize("kw,error,item", [
+    ({"mesh": object()}, NotImplementedError, "Do not port"),
+    ({"seq_shard": True}, NotImplementedError, "Do not port"),
+    ({"fsdp": True}, ValueError, "needs a process group")],
+    ids=["kw0-Do not port", "kw1-Do not port", "kw2-Slice G"])   # the ids they had
+def test_unported_trainer_options_raise(tmp_path, kw, error, item):
     task, _ = _coop_task()
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         Trainer(task, tmp_path, **kw)
 
 

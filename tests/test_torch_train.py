@@ -250,8 +250,12 @@ def test_unported_compile_entry_points_raise():
     model, spec = tpresets.build_clipseg(
         "coop", config=tconfig.CLIPSegConfig.tiny(), device="cpu")
     task = TTask(model, spec)
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        task.compile_steps(None)
+    # the steps under DDP / fully_shard need a process group
+    # (tests/test_torch_distributed.py runs them on two ranks)
+    for fsdp in (False, True):
+        with pytest.raises(ValueError, match="needs a process group"):
+            task.compile_steps(fsdp=fsdp)
+    assert task.ddp is None
     # the loop runs k eager steps a group; the captured program is item 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         task.compile_train_multistep(None, 4)

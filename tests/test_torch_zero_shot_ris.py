@@ -535,7 +535,8 @@ def _cfg(**model):
 
 
 def test_failure_cases(tmp_path):
-    """n_devices > 1 names ROADMAP item 9; the checkpoint loaders fill the
+    """n_devices = 2 puts the proposals over the CPU twice, and more
+    devices than visible cards raise; the checkpoint loaders fill the
     models from their files (FreeSOLO's detectron2 payload, a CLIPSeg-layout
     CLIP), each beside the other model's seeded weights; without a card
     `build_ris` raises unless given the CPU; the train CLI names this
@@ -543,8 +544,11 @@ def test_failure_cases(tmp_path):
     pytest.importorskip("transformers")
     from tests.test_torch_convert import (hf_clipseg, ris_clip_cfg,
                                           tiny_freesolo, to_torch)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eval_zeroshot.build_ris(dict(_cfg(), n_devices=2), device="cpu")
+    assert len(eval_zeroshot.build_ris(dict(_cfg(), n_devices=2),
+                                       device="cpu").devices) == 2
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="n_devices=2 but only"):
+            eval_zeroshot.proposal_devices(2, torch.device("cuda"))
     solo_sd = tiny_freesolo()
     torch.save({"model": to_torch(solo_sd)}, tmp_path / "solo.pt")
     hf, clip_sd = hf_clipseg(False, ris_clip_cfg())

@@ -135,14 +135,11 @@ def build_ris(cfg: dict, device="cuda",
     CLI keys them; logged). The CUDA card unless the caller names another
     device; without one it raises."""
     m = cfg["model"]
-    if int(cfg.get("n_devices", 1) or 1) > 1:
-        raise NotImplementedError(
-            "n_devices > 1 (the proposal batch sharded over several devices) "
-            "comes with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: build_ris puts the models on the "
                            'card unless given device="cpu"')
+    devices = proposal_devices(int(cfg.get("n_devices", 1) or 1), device)
     clip_cfg, solo_cfg, size = ris_configs(cfg)
     hf = isinstance(clip_cfg, CLIPSegConfig)
     clip = MaskedCLIP(clip_cfg, dtype) if hf else BiomedCLIP(clip_cfg, dtype)
@@ -168,7 +165,20 @@ def build_ris(cfg: dict, device="cuda",
         alpha=m.get("alpha", 0.95), beta=m.get("beta", 0.5),
         num_masks=m.get("num_masks", 1), clip_image_size=size,
         cache_dir=m.get("cache_dir"), read_cache=m.get("read_cache", False),
-        write_cache=m.get("write_cache", False))
+        write_cache=m.get("write_cache", False), devices=devices)
+
+
+def proposal_devices(n: int, device: torch.device) -> tuple:
+    """The `n_devices` the proposal batch runs over: `device` and the next
+    cards after it (n times the CPU for a CPU run). More than the visible
+    cards raises, as the JAX CLI does rather than run on fewer."""
+    if device.type != "cuda":
+        return (device,) * n
+    first = device.index or 0
+    if first + n > torch.cuda.device_count():
+        raise ValueError(f"n_devices={n} but only {torch.cuda.device_count()} "
+                         "device(s) visible; lower n_devices")
+    return tuple(torch.device("cuda", first + i) for i in range(n))
 
 
 def main(argv: Optional[list[str]] = None) -> dict:

@@ -74,6 +74,13 @@ class CLIPSegForSegmentation(nn.Module):
         if self.additive_mode != "none":
             self.residual_ratio.fill_(self.residual_ratio_init)
 
+    def unused_parameters(self) -> list[str]:
+        """The parameters the forward never reads (data parallel sets DDP's
+        `find_unused_parameters` by them): `residual_ratio` unless the
+        additive head is "residual"."""
+        return (["residual_ratio"] if self.additive_mode in ("unused", "plain")
+                else [])
+
     def forward(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 text_index: Optional[torch.Tensor] = None,

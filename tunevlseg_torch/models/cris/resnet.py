@@ -13,7 +13,8 @@ statistics in a train step too. With batch statistics (the FPN and the
 projector of the e2e fine-tune) a layer never writes its buffers: it hands
 the updated running statistics to the caller's `updates` dict (the JAX
 `mutable=["batch_stats"]`), and `training/task.py` carries them in the train
-state.
+state. Under data parallel over several ranks the batch statistics are
+those of the global batch (`parallel/data_parallel.synced_batch_norm`).
 
 Layouts: "nchw" (the default) runs every convolution through cuDNN.
 "flat" runs the stages named in `flat_stages` through the flat guard-banded
@@ -46,6 +47,8 @@ from tunevlseg_torch.nn.layers import Dense
 from tunevlseg_torch.ops.conv_flat import (FlatSpec, conv_flat, flat_begin,
                                            flat_end, make_flat_spec)
 from tunevlseg_torch.ops.image import resize_2d
+from tunevlseg_torch.parallel import distributed
+from tunevlseg_torch.parallel.data_parallel import synced_batch_norm
 
 
 class _BatchNorm(nn.Module):
@@ -86,7 +89,14 @@ class _BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.epsilon)
         n = x.numel() // x.shape[1]
-        if n > 1:
+        if distributed.world_size() > 1:
+            # data parallel: the statistics of the global batch, as the JAX
+            # package's BatchNorm computes them on a batch sharded over its
+            # mesh (SyncBatchNorm's semantics)
+            out, mean, var = synced_batch_norm(
+                x, self.weight, self.bias, self.running_mean, self.running_var,
+                self.momentum, self.epsilon)
+        elif n > 1:
             # one fused pass that also moves the copies of the statistics
             mean, var = (self.running_mean.detach().clone(),
                          self.running_var.detach().clone())

@@ -325,6 +325,16 @@ class TransformerSegmentor(nn.Module):
         self.decoder_norm = LayerNorm(d, 1e-5, dtype)
         self.upsampler = Upsampler(c, upsampler_layout, dtype)
 
+    def unused_parameters(self) -> list[str]:
+        """The parameters no loss reaches (data parallel sets DDP's
+        `find_unused_parameters` by them): the CLIP vision tower's
+        `post_layernorm`, which only its pooled output, unread here, passes
+        through."""
+        if self.config.encoder_family != "clip":
+            return []
+        return ["vision_model.post_layernorm.weight",
+                "vision_model.post_layernorm.bias"]
+
     def forward(self, input_ids: torch.Tensor, pixel_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 text_index: Optional[torch.Tensor] = None,

@@ -20,6 +20,13 @@ reference's src/models/core_models/zero_shot_ris/__init__.py):
     written by one package reads in the other (the alpha / beta sweeps run
     from it without the models).
 
+With `devices` (k of them, the models' device first) the proposal batch
+runs proposal-parallel, the JAX package's `n_devices` mesh in the port's
+idiom: the masked-CLIP and crop-CLIP towers take the (P, ...) proposals in
+k contiguous chunks, each through a replica of the dual encoder on its own
+device, and the features gather on the first; FreeSOLO, the text tower
+and the selection stay there. No collective: one process drives them all.
+
 `predict_fused` runs a request on the device from the image to the picked
 mask and reads the host once, at the end; `predict_fused_many` keeps `depth`
 requests in flight by deferring that copy. `__call__` is the reference's
@@ -30,6 +37,7 @@ dtype.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 from pathlib import Path
 from typing import Any, Iterable, Optional
@@ -115,7 +123,8 @@ class ZeroShotRIS:
     """The batch-1 orchestrator around the proposal network `solo` and the
     dual encoder `clip` (`MaskedCLIP`, or `BiomedCLIP`: anything with
     `get_text_features` / `get_image_features` and a config with
-    `.vision.patch_size`), both on one device. Inference only."""
+    `.vision.patch_size`), both on one device, the proposal batch over
+    `devices`. Inference only."""
 
     clip_config: Any
     solo_config: SOLOv2Config
@@ -129,12 +138,39 @@ class ZeroShotRIS:
     cache_dir: Optional[Path] = None
     read_cache: bool = False
     write_cache: bool = False
+    # the devices the proposal batch runs over, the models' own first; ()
+    # is the models' device alone
+    devices: tuple = ()
 
     def __post_init__(self):
         if self.cache_dir is not None:
             self.cache_dir = Path(self.cache_dir)
             self.cache_dir.mkdir(parents=True, exist_ok=True)
         self.device = next(self.solo.parameters()).device
+        self.devices = tuple(torch.device(d) for d in self.devices) or (self.device,)
+        if self.devices[0] != self.device:
+            raise ValueError(f"devices {self.devices}: the first must be the "
+                             f"models' device, {self.device}")
+        # one replica of the dual encoder a device (shared where a device
+        # repeats the models' own)
+        self.replicas = [self.clip if d == self.device
+                         else copy.deepcopy(self.clip).to(d)
+                         for d in self.devices]
+
+    def _proposal_parallel(self, fn, proposals: torch.Tensor,
+                           *shared: torch.Tensor) -> torch.Tensor:
+        """`fn(clip, proposals, *shared)` over contiguous chunks of the
+        proposal batch, one chunk a device through its replica of the dual
+        encoder, every chunk launched before any result is gathered; the
+        results concatenated on the first device."""
+        if len(self.devices) == 1:
+            return fn(self.clip, proposals, *shared)
+        outs = [fn(clip, chunk.to(device), *(t.to(device) for t in shared))
+                for device, clip, chunk in zip(
+                    self.devices, self.replicas,
+                    torch.tensor_split(proposals, len(self.devices)))
+                if chunk.shape[0]]
+        return torch.cat([o.to(self.device) for o in outs])
 
     # ---- FreeSOLO proposals ------------------------------------------------
 
@@ -169,8 +205,14 @@ class ZeroShotRIS:
         resized = resize_2d(image[None], (size, size), "bicubic")
         grid = size // self.clip_config.vision.patch_size
         small = (resize_2d(masks.float(), (grid, grid), "nearest") > 0.5).float()
-        return self.clip.get_image_features(resized, small,
-                                            self.masking_block_idx).float()
+        return self._proposal_parallel(
+            lambda clip, small, resized: clip.get_image_features(
+                resized, small, self.masking_block_idx).float(), small, resized)
+
+    def _crop_features(self, crops: torch.Tensor) -> torch.Tensor:
+        """The plain CLIP features of the (P, 3, S, S) crops."""
+        return self._proposal_parallel(
+            lambda clip, crops: clip.get_image_features(crops).float(), crops)
 
     @torch.no_grad()
     def get_mask_features(self, image: np.ndarray, masks: np.ndarray):
@@ -212,7 +254,7 @@ class ZeroShotRIS:
                           masks: np.ndarray, valid: np.ndarray):
         crops = self.host_crop_canvases(image, boxes, masks, valid,
                                         self.clip_image_size)
-        return self.clip.get_image_features(_host_tensor(crops, self.device)).float()
+        return self._crop_features(_host_tensor(crops, self.device))
 
     @torch.no_grad()
     def get_visual_feature(self, image, boxes, masks, valid, cache_name=None):
@@ -265,7 +307,7 @@ class ZeroShotRIS:
             crops = crop_resize_bicubic_masked(image, masks, boxes,
                                                self.clip_image_size)
             # invalid rows do not matter: -inf at the selection below
-            crop_f = self.clip.get_image_features(crops).float()
+            crop_f = self._crop_features(crops)
         visual = self.alpha * mask_f + (1.0 - self.alpha) * crop_f
         feats = self.clip.get_text_features(input_ids, attention_mask).float()
         text = self.beta * feats[0] + (1 - self.beta) * feats[1]

@@ -61,19 +61,3 @@ def compute(state: SegMetricState,
     iou = torch.where(iou_denom > 0, state.tp / iou_denom.clamp(min=1.0),
                       torch.full_like(iou_denom, zero_division))
     return {"dice": dice, "iou": iou}
-
-
-def dice_score(probs: torch.Tensor, targets: torch.Tensor,
-               threshold: float = 0.5, zero_division: float = 1.0,
-               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-shot per-batch dice (samples average): the stepwise log metric."""
-    return compute(update_state(SegMetricState.zeros(probs.device), probs,
-                                targets, threshold, zero_division,
-                                valid=valid))["dice"]
-
-
-def iou_score(probs: torch.Tensor, targets: torch.Tensor,
-              threshold: float = 0.5,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return compute(update_state(SegMetricState.zeros(probs.device), probs,
-                                targets, threshold, valid=valid))["iou"]

@@ -24,11 +24,26 @@ over the seeded weights. Options of slices not ported yet raise and name
 their ROADMAP item; DenseCLIP trains through
 `scripts/torch_train_denseclip.py` and zero-shot RIS is evaluated by
 `python -m tunevlseg_torch.eval_zeroshot`.
+
+Data parallel, one process per card (`parallel/distributed.py`):
+`trainer.n_devices=k` starts k ranks on this host (null: every visible
+card; on the CPU, k gloo ranks), each `data.batch_size / k` rows of the
+global batch from its shard of the data, the model under
+DistributedDataParallel or, with `trainer.fsdp=true`, sharded by
+`fully_shard` (one process has nothing to shard: `fsdp` there runs the
+plain path). Under torchrun the process joins the launcher's group;
+`trainer.multihost=true` with `trainer.coordinator_address` /
+`num_processes` / `process_id` joins a group across hosts (launch one
+process per card on every host). Rank 0 logs and writes checkpoints and
+the config; every rank writes its shard of the prediction masks.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 import sys
+import tempfile
 from pathlib import Path
 from typing import Any, Optional
 
@@ -43,6 +58,7 @@ from tunevlseg_torch.models.presets import (build_clipseg, build_cris,
                                             build_trans_segmentor)
 from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
 from tunevlseg_torch.ops.losses import LOSS_REGISTRY
+from tunevlseg_torch.parallel import distributed
 from tunevlseg_torch.training.loop import EarlyStopping, Trainer
 from tunevlseg_torch.training.optim import ReduceLROnPlateau, count_params
 from tunevlseg_torch.training.task import SegmentationTask
@@ -87,10 +103,6 @@ def check_ported(cfg: dict) -> None:
         raise NotImplementedError(
             "model_parallel > 1 / seq_shard (GSPMD tensor and sequence "
             'parallelism) are not ported: ROADMAP "Do not port"')
-    if t.get("fsdp") or t.get("multihost") or int(t.get("n_devices") or 1) > 1:
-        raise NotImplementedError(
-            "fsdp / multihost / n_devices > 1 (data parallel over GPUs, torch "
-            "FSDP) come with ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
 
 
 def resolve_device(cfg: dict) -> torch.device:
@@ -388,15 +400,34 @@ def save_composed_config(cfg: dict, output_dir: Path) -> None:
         yaml.safe_dump(cfg, fp, default_flow_style=False, sort_keys=False)
 
 
-def check_text_dedup(cfg: dict) -> int:
+def check_text_dedup(cfg: dict, multihost_datasets: Optional[dict] = None
+                     ) -> int:
     """`data.text_dedup` (U rows of unique prompts a batch), checked
-    against the model: CoCoOp's text stack is per image."""
+    against the model: CoCoOp's text stack is per image. With
+    `multihost_datasets` (a run across hosts) only U = 1 over datasets that
+    each select one constant prompt passes, as in the JAX CLI: the hosts
+    hold disjoint shards and must still agree on the dedup rows. Ranks on
+    one host dedup their own rows and need no such gate."""
     td = int(cfg["data"].get("text_dedup", 0) or 0)
     if td:
         if cfg["model"].get("strategy") == "cocoop":
             raise ValueError("data.text_dedup is incompatible with CoCoOp "
                              "(image-conditioned text stack)")
-        if int(cfg.get("prompt_index", 0)) < 0:
+        if multihost_datasets is not None:
+            if td != 1:
+                raise ValueError(
+                    f"data.text_dedup={td} is single-host only; multi-host "
+                    "supports only text_dedup=1 with a provably constant "
+                    "prompt")
+            bad = [split for split, ds in multihost_datasets.items()
+                   if getattr(ds, "fixed_prompt", lambda: None)() is None]
+            if bad:
+                raise ValueError(
+                    "data.text_dedup under multi-host requires every dataset "
+                    "to select one constant prompt (a scalar entry at a fixed "
+                    f"prompt_index); splits {bad} do not: set "
+                    "data.text_dedup=0")
+        elif int(cfg.get("prompt_index", 0)) < 0:
             log.warning(
                 "data.text_dedup=%d with prompt_index=-1 (random prompt "
                 "per sample): batches whose distinct prompts exceed the "
@@ -405,17 +436,108 @@ def check_text_dedup(cfg: dict) -> int:
     return td
 
 
+def ranks_to_start(cfg: dict) -> int:
+    """How many ranks this process starts on its host: `trainer.n_devices`
+    (null: every visible card, one on the CPU), or 1 where the process is
+    a rank of a group launched elsewhere (torchrun, `multihost`). More
+    ranks than visible cards, or a batch that does not split evenly over
+    the ranks, raises a ValueError."""
+    t = cfg["trainer"]
+    check_ported(cfg)
+    if t.get("multihost") or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return 1
+    device = resolve_device(cfg)
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
+    n = t.get("n_devices")
+    n = int(n) if n is not None else (cards or 1)
+    if n < 1:
+        raise ValueError(f"trainer.n_devices={n}: at least one rank")
+    if cards is not None and n > cards:
+        raise ValueError(f"trainer.n_devices={n}, but {cards} card(s) are "
+                         "visible: one rank a card")
+    if cfg["data"]["batch_size"] % n:
+        raise ValueError(f"global data.batch_size {cfg['data']['batch_size']} "
+                         f"must divide by the {n} ranks")
+    return n
+
+
 def main(argv: Optional[list[str]] = None) -> dict:
     overrides = argv if argv is not None else sys.argv[1:]
     cfg = compose(CONFIG_DIR, "train", overrides)
     from tunevlseg_torch.utils.task_wrapper import run_guarded
-    return run_guarded(lambda: _run(cfg), cfg["paths"]["output_dir"])
+
+    def run() -> dict:
+        n = ranks_to_start(cfg)
+        return start_ranks(_run, cfg, n) if n > 1 else _run(cfg)
+    return run_guarded(run, cfg["paths"]["output_dir"])
+
+
+def start_ranks(fn, cfg: dict, n: int) -> dict:
+    """`fn(cfg)` in `n` new processes, the ranks 0 .. n - 1 of a process
+    group that meets through a file in a fresh temporary directory; each
+    takes its share of this process's CPU threads. Returns rank 0's
+    result; a rank that fails stops the others, and the error is raised
+    here."""
+    import torch.multiprocessing as mp
+    rendezvous = Path(tempfile.mkdtemp(prefix="tunevlseg-ranks-"))
+    queue = mp.get_context("spawn").SimpleQueue()
+    try:
+        mp.start_processes(
+            _rank_main, args=(n, fn, cfg, f"file://{rendezvous / 'store'}",
+                              queue, max(1, torch.get_num_threads() // n)),
+            nprocs=n, join=True, start_method="spawn")
+        return queue.get()
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def _rank_main(rank: int, world: int, fn, cfg: dict, url: str, queue,
+               threads: int) -> None:
+    """One rank of `start_ranks`: join the group on this rank's card (or
+    the CPU), run `fn(cfg)`, leave the group; rank 0 hands back its
+    result."""
+    torch.set_num_threads(threads)
+    os.environ["LOCAL_RANK"] = str(rank)
+    t = dict(cfg["trainer"], coordinator_address=url, num_processes=world,
+             process_id=rank)
+    distributed.initialize_distributed(t, resolve_device(cfg))
+    try:
+        result = fn(cfg)
+    finally:
+        distributed.destroy()
+    if rank == 0:
+        queue.put(result)
+
+
+def join_group(cfg: dict, device: torch.device) -> tuple[torch.device, list]:
+    """(this rank's device, what to undo at the end): the group a launcher
+    made already, or the one `trainer.multihost` or torchrun describes.
+    Without any of them: the run's device, no group."""
+    t = cfg["trainer"]
+    if distributed.is_initialized():
+        return distributed.rank_device(device), []
+    if t.get("multihost") or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        keys = t if t.get("multihost") else {}
+        return (distributed.initialize_distributed(keys, device),
+                [distributed.destroy])
+    return device, []
 
 
 def _run(cfg: dict) -> dict:
+    check_ported(cfg)
+    device, undo = join_group(cfg, resolve_device(cfg))
+    try:
+        return _run_rank(cfg, device)
+    finally:
+        for fn in undo:
+            fn()
+
+
+def _run_rank(cfg: dict, device: torch.device) -> dict:
     from tunevlseg_torch.utils.config_tree import apply_extras
     apply_extras(cfg, save_dir=cfg["paths"].get("output_dir"))
-    device = resolve_device(cfg)
+    world, rank = distributed.world_size(), distributed.rank()
+    lead = rank == 0
     if cfg.get("debug_nans"):
         # reference debug/default.yaml detect_anomaly: fail fast on NaNs
         torch.autograd.set_detect_anomaly(True)
@@ -430,13 +552,20 @@ def _run(cfg: dict) -> dict:
 
     t = cfg["trainer"]
     d = cfg["data"]
-    td = check_text_dedup(cfg)
+    if d["batch_size"] % world:
+        raise ValueError(f"global data.batch_size {d['batch_size']} must "
+                         f"divide by the {world} ranks")
+    td = check_text_dedup(cfg, datasets if t.get("multihost") else None)
     loaders = {
-        split: DataLoader(ds, d["batch_size"], shuffle=(split == "train"),
-                          seed=seed, num_workers=d.get("num_workers", 8),
-                          drop_last=d.get("drop_last", False), text_dedup=td)
+        split: DataLoader(ds, d["batch_size"] // world,
+                          shuffle=(split == "train"), seed=seed,
+                          num_workers=d.get("num_workers", 8),
+                          drop_last=d.get("drop_last", False),
+                          num_shards=world, shard_index=rank, text_dedup=td)
         for split, ds in datasets.items()
     }
+    if td and t.get("multihost"):
+        distributed.assert_dedup_keys_agree(next(iter(loaders["val"])))
     state = task.init(**init_kwargs(pretrained))
 
     sched_cfg = cfg["model"].get("scheduler") or {}
@@ -447,6 +576,12 @@ def _run(cfg: dict) -> dict:
             patience=sched_cfg.get("patience", 5),
             mode=sched_cfg.get("mode", "min"))
 
+    # one process has nothing to shard: FSDP over it would only add the
+    # gathers' copies, so it runs the plain path
+    fsdp = bool(t.get("fsdp")) and world > 1
+    if t.get("fsdp") and not fsdp:
+        log.info("trainer.fsdp over one process: nothing to shard, the plain "
+                 "path runs")
     es_cfg = t.get("early_stopping") or {}
     trainer = Trainer(
         task=task, output_dir=cfg["paths"]["output_dir"],
@@ -461,22 +596,25 @@ def _run(cfg: dict) -> dict:
         log_image_num=t.get("log_image_num", 4),
         steps_per_execution=t.get("steps_per_execution", 1),
         ckpt_every_n_steps=int(t.get("ckpt_every_n_steps", 0) or 0),
+        fsdp=fsdp,
         exp_name=cfg.get("exp_name"), project=t.get("project"),
         tags=tuple(cfg.get("tags") or ()))
-    save_composed_config(cfg, trainer.output_dir)
+    if lead:
+        save_composed_config(cfg, trainer.output_dir)
     n_train = count_params(p for p in model.parameters() if p.requires_grad)
     n_total = count_params(model.parameters())
-    trainer.metrics_log.log_hyperparams(cfg, {
-        "model/params/total": n_total,
-        "model/params/trainable": n_train,
-        "model/params/non_trainable": n_total - n_train,
-    })
+    if lead:
+        trainer.metrics_log.log_hyperparams(cfg, {
+            "model/params/total": n_total,
+            "model/params/trainable": n_train,
+            "model/params/non_trainable": n_total - n_train,
+        })
 
     result: dict[str, Any] = {}
     if cfg.get("train", True):
         # a tag ("last" / "best") or a checkpoints directory
         resume_from = cfg.get("ckpt_path")
-        if cfg.get("profile"):
+        if cfg.get("profile") and lead:
             # reference debug/profiler.yaml: a profiler trace of the fit
             from torch.profiler import ProfilerActivity, profile
             activities = [ProfilerActivity.CPU] + (
@@ -493,10 +631,16 @@ def _run(cfg: dict) -> dict:
     if cfg.get("test", True):
         result.update(trainer.test(state, loaders["test"]))
     if cfg.get("predict", False):
+        # every rank writes the masks of its shard of the test set (the
+        # names are the dataset's, so one directory gathers them all)
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
         trainer.predict(state, loaders["test"], save_dir=out_dir)
         result["output_masks_dir"] = str(out_dir)
-    if cfg.get("export_dir"):
+    if cfg.get("export_dir") and fsdp:
+        raise NotImplementedError(
+            "export_dir with trainer.fsdp: export from the run's checkpoint in "
+            "a run without fsdp (the export traces the whole weights)")
+    if cfg.get("export_dir") and lead:
         result["export_dir"] = export_serving(cfg, task, state, loaders["test"],
                                               device)
     log.info(f"done: {result}")

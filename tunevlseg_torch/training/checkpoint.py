@@ -19,7 +19,20 @@ weights change in place at the next step), then writes them in a background
 thread into `.staging-<tag>`. The swap into `<tag>` and the meta write
 happen only at the next drain point (`poll`, `wait`, the next `save`,
 `load_meta`, `restore`), so a crash during the write keeps the old
-checkpoint intact."""
+checkpoint intact.
+
+Under data parallel every rank calls the same methods in the same order:
+the files hold full tensors whatever wrote them (FSDP's DTensor shards are
+gathered, every rank taking part), rank 0 alone writes and promotes, and
+every rank waits at a barrier after a drain, so that none reads a
+checkpoint mid-promotion (`poll` promotes only on one process). A restore
+lays the full tensors out as the live parameters are (sharded under FSDP),
+so a checkpoint of one layout restores bit for bit into another. The
+accumulation window is each rank's own under DDP (`no_sync`): a checkpoint
+taken mid-window holds every rank's running mean (`per_rank`), gathered to
+rank 0, and restores only into as many ranks; under FSDP and on one device
+the window is one (FSDP reduces each micro-step's gradients) and a
+checkpoint holds it whole."""
 from __future__ import annotations
 
 import json
@@ -31,6 +44,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from tunevlseg_torch.parallel import data_parallel, distributed
 from tunevlseg_torch.training.task import TrainState
 
 STATE_FILE = "state.pt"
@@ -51,6 +65,68 @@ def to_host(obj: Any) -> Any:
 
 def trainable_names(model: nn.Module) -> list[str]:
     return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def full(obj: Any) -> Any:
+    """A copy of `obj` with every DTensor gathered whole (a collective:
+    every rank calls it on the same structure); dicts, lists and tuples are
+    walked, other leaves returned as they are."""
+    if isinstance(obj, torch.Tensor):
+        return data_parallel.full_tensor(obj)
+    if isinstance(obj, dict):
+        return {k: full(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(full(v) for v in obj)
+    return obj
+
+
+def copy_into(target: torch.Tensor, value: torch.Tensor) -> None:
+    """Copy the full tensor `value` into `target` in place, laid out as
+    `target` is (a DTensor shard under FSDP)."""
+    with torch.no_grad():
+        target.copy_(data_parallel.to_placement(value, target))
+
+
+def optimizer_state_to_params(saved: dict, params: list) -> dict:
+    """A torch optimizer state dict of full tensors with every per-parameter
+    tensor laid out as its parameter (under FSDP a DTensor shard), so that
+    `load_state_dict` pairs the moments with their shards."""
+    state = {}
+    for i, entries in saved["state"].items():
+        p = params[int(i)]
+        state[i] = {k: (data_parallel.to_placement(v, p)
+                        if isinstance(v, torch.Tensor) and v.shape == p.shape
+                        and v.dim() else v)
+                    for k, v in entries.items()}
+    return {**saved, "state": state}
+
+
+def accumulation_payload(optimizer) -> dict:
+    """What a checkpoint holds of the accumulation window: the window whole
+    on one device and under FSDP, every rank's own under DDP with several
+    ranks (gathered to rank 0; None elsewhere), only when the window is not
+    empty."""
+    acc = optimizer.accumulation_state()
+    window = full(acc["accumulated"])
+    sharded = any(data_parallel.is_dtensor(t) for t in acc["accumulated"].values())
+    if distributed.world_size() == 1 or sharded or not acc["mini_step"]:
+        return {"mini_step": acc["mini_step"], "accumulated": to_host(window)}
+    ranks = distributed.gather_to_rank0(to_host(window))
+    return {"mini_step": acc["mini_step"], "accumulated": {}, "per_rank": ranks}
+
+
+def rank_window(saved: dict) -> dict:
+    """This rank's accumulation window out of a checkpoint's."""
+    if "per_rank" not in saved:
+        return saved
+    ranks = saved["per_rank"]
+    if len(ranks) != distributed.world_size():
+        raise ValueError(
+            f"the checkpoint was written by {len(ranks)} ranks in the middle of "
+            f"an accumulation window; it resumes only into {len(ranks)} ranks "
+            f"(this run has {distributed.world_size()})")
+    return {"mini_step": saved["mini_step"],
+            "accumulated": ranks[distributed.rank()]}
 
 
 class CheckpointManager:
@@ -87,6 +163,13 @@ class CheckpointManager:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        try:
+            self._promote()
+        finally:
+            # a rank 0 whose write failed still lets the others go on
+            distributed.barrier()
+
+    def _promote(self) -> None:
         if self._write_error is not None:
             error, self._write_error = self._write_error, None
             self._pending.clear()
@@ -123,56 +206,69 @@ class CheckpointManager:
     def poll(self) -> None:
         """Non-blocking promotion: if the background write has finished,
         promote now, so that an interval snapshot becomes durable at the
-        first step after its write instead of at the next save."""
-        if self._pending and not self._save_in_flight():
+        first step after its write instead of at the next save. Under
+        several ranks promotion waits for the next drain, whose barrier
+        every rank reaches at the same point."""
+        if (distributed.world_size() == 1 and self._pending
+                and not self._save_in_flight()):
             self._drain()
 
     def frozen_state(self) -> dict[str, torch.Tensor]:
-        """The model's `state_dict` less its trainable parameters."""
+        """The model's `state_dict` less its trainable parameters (under FSDP
+        its DTensor shards)."""
         skip = set(trainable_names(self.model))
         return {k: v for k, v in self.model.state_dict().items()
                 if k not in skip}
 
     def save_frozen(self) -> None:
-        """Write the frozen parameters and buffers, once per directory."""
+        """Write the frozen parameters and buffers, once per directory (rank
+        0 writes; every rank gathers FSDP's shards and waits for it)."""
         path = self.dir / "frozen"
-        if path.exists():
+        exists = path.exists()
+        distributed.barrier()
+        if exists:
             return
-        staging = self.dir / ".staging-frozen"
-        if staging.exists():
-            shutil.rmtree(staging)
-        staging.mkdir()
-        torch.save(to_host(self.frozen_state()), staging / FROZEN_FILE)
-        staging.rename(path)
+        frozen = full(self.frozen_state())
+        if distributed.rank() == 0:
+            staging = self.dir / ".staging-frozen"
+            if staging.exists():
+                shutil.rmtree(staging)
+            staging.mkdir()
+            torch.save(to_host(frozen), staging / FROZEN_FILE)
+            staging.rename(path)
+        distributed.barrier()
 
     def restore_frozen(self) -> None:
         """Load the frozen parameters and buffers back into the model, in
         place."""
         saved = torch.load(self.dir / "frozen" / FROZEN_FILE,
                            map_location="cpu", weights_only=True)
-        want = set(self.frozen_state())
-        if set(saved) != want:
+        own = self.frozen_state()
+        if set(saved) != set(own):
             raise KeyError(
                 f"frozen checkpoint names differ from the model's: missing "
-                f"{sorted(want - set(saved))[:5]}, unexpected "
-                f"{sorted(set(saved) - want)[:5]}")
-        self.model.load_state_dict(saved, strict=False)
+                f"{sorted(set(own) - set(saved))[:5]}, unexpected "
+                f"{sorted(set(saved) - set(own))[:5]}")
+        for name, value in saved.items():
+            copy_into(own[name], value)
 
     def save(self, tag: str, state: TrainState, extra: dict) -> None:
         """Copy the state to the host now, write it in a background thread
         into a staging directory; the swap into `tag` and the meta write
         happen at the next drain point."""
         self._drain()
+        params = dict(self.model.named_parameters())
+        payload = to_host(full({
+            "trainable": {n: params[n] for n in trainable_names(self.model)},
+            "optimizer": state.optimizer.optimizer.state_dict(),
+            "step": int(state.step),
+            "model_state": state.model_state}))
+        payload["accumulation"] = accumulation_payload(state.optimizer)
+        if distributed.rank() != 0:
+            return
         staging = self.dir / f".staging-{tag}"
         if staging.exists():
             shutil.rmtree(staging)
-        params = dict(self.model.named_parameters())
-        payload = to_host({
-            "trainable": {n: params[n] for n in trainable_names(self.model)},
-            "optimizer": state.optimizer.optimizer.state_dict(),
-            "accumulation": state.optimizer.accumulation_state(),
-            "step": int(state.step),
-            "model_state": state.model_state})
         # best_value rides every meta so a resumed run never demotes the
         # historical best on its first validation
         meta = {"best_value": self.best_value, **extra}
@@ -222,13 +318,14 @@ class CheckpointManager:
                 f"checkpoint {self.dir / tag} holds the trainable set "
                 f"{sorted(saved['trainable'])[:5]}..., the model trains "
                 f"{sorted(names)[:5]}...")
-        with torch.no_grad():
-            for name in names:
-                params[name].copy_(saved["trainable"][name])
-        state.optimizer.optimizer.load_state_dict(saved["optimizer"])
+        for name in names:
+            copy_into(params[name], saved["trainable"][name])
+        opt = state.optimizer
+        opt.optimizer.load_state_dict(
+            optimizer_state_to_params(saved["optimizer"], opt.params()))
         # a checkpoint written before gradient accumulation holds no window
-        state.optimizer.load_accumulation_state(
-            saved.get("accumulation", {"mini_step": 0, "accumulated": {}}))
+        opt.load_accumulation_state(rank_window(
+            saved.get("accumulation", {"mini_step": 0, "accumulated": {}})))
         device = next(self.model.parameters()).device
         model_state = {k: v.to(device) for k, v in
                        saved["model_state"].items()}

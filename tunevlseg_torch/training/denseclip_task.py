@@ -38,11 +38,22 @@ MultiSteps semantics of `optim.ClippedOptimizer`. `remat=True` runs the
 loss under one `torch.utils.checkpoint` (the JAX task's `jax.checkpoint` of
 its loss): the backward recomputes the whole forward, with the forward's
 dropout masks (`nn/remat.checkpoint` restores the generator) and without
-writing the BatchNorm statistics a second time. The JAX task's jit / mesh
-entries are not ported: `compile_steps` and `state_fsdp_shardings` raise
-(ROADMAP Queue 1 item 9.2). `compile_train_multistep(k)` runs k eager
-steps and averages their metrics, the port's steps-per-execution (a
-captured CUDA graph is ROADMAP item 2).
+writing the BatchNorm statistics a second time. `compile_train_multistep(k)`
+runs k eager steps and averages their metrics, the port's
+steps-per-execution (a captured CUDA graph is ROADMAP item 2).
+
+Data parallel over a process group (`parallel/distributed.py`):
+`compile_steps` puts the model under DistributedDataParallel (or shards it
+with `fully_shard`; `state_fsdp_shardings` then builds the optimizer over
+the shards), the counterpart of the JAX task's jit over its mesh. Each
+rank passes its own rows. The cross-entropy divides by every pixel of the
+local batch, ignored ones included (mmseg's `avg_non_ignore=False`), so
+with equal local batches DDP's mean of the ranks' gradients is the global
+batch's; the pixel accuracy divides by the non-ignored pixels, so a step's
+and an eval's accuracy is computed from the ranks' summed counts. The
+`bn_train` statistics are the global batch's
+(`parallel/data_parallel.synced_batch_norm`), as the JAX BatchNorm's over a
+batch sharded on its mesh.
 """
 from __future__ import annotations
 
@@ -51,17 +62,16 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
-from torch.func import functional_call
 
 from tunevlseg_torch.models.denseclip.loss import (IGNORE_INDEX,
                                                    cross_entropy_seg,
                                                    denseclip_losses)
 from tunevlseg_torch.nn import remat as remat_lib
+from tunevlseg_torch.parallel import data_parallel, distributed
 from tunevlseg_torch.training import optim as optim_lib
-from tunevlseg_torch.training.task import (TrainState, load_partial_state,
-                                           step_generator)
-
-UNPORTED = "ROADMAP Queue 1 item 9.2 (Slice G, multi-device)"
+from tunevlseg_torch.training.task import (TrainState, bind_reductions,
+                                           forward_with_state, grad_sync,
+                                           load_partial_state, step_generator)
 
 
 def poly_warmup_schedule(base_lr: float, total_iters: int, power: float = 0.9,
@@ -113,14 +123,28 @@ def make_denseclip_optimizer(model: nn.Module, base_lr: float,
     return optim_lib.ClippedOptimizer(opt, grad_clip_norm, accumulate_steps)
 
 
+def pixel_counts(logits: torch.Tensor, labels: torch.Tensor,
+                 ignore_index: int = IGNORE_INDEX) -> dict:
+    """{"correct": non-ignored pixels whose argmax class is the label,
+    "valid": non-ignored pixels}."""
+    pred = logits.float().argmax(dim=1)
+    valid = labels != ignore_index
+    return {"correct": (valid & (pred == labels)).sum(), "valid": valid.sum()}
+
+
 def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                    ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
     """mmseg's aAcc: the share of the non-ignored pixels whose argmax class is
-    the label."""
-    pred = logits.float().argmax(dim=1)
-    valid = labels != ignore_index
-    correct = (valid & (pred == labels)).sum()
-    return correct / valid.sum().clamp(min=1)
+    the label; over every rank's pixels under data parallel."""
+    counts = distributed.all_reduce_sum(pixel_counts(logits, labels,
+                                                     ignore_index))
+    return counts["correct"] / counts["valid"].clamp(min=1)
+
+
+def mean_over_ranks(metrics: dict) -> dict:
+    """Each scalar's mean over the ranks (losses of equal local batches)."""
+    world = distributed.world_size()
+    return {k: v / world for k, v in distributed.all_reduce_sum(metrics).items()}
 
 
 @dataclasses.dataclass
@@ -149,6 +173,8 @@ class DenseCLIPTask:
             self.warmup_iters, self.warmup_ratio)
         self.mutable_collections = (("batch_stats",)
                                     if getattr(self.model, "bn_train", False) else ())
+        # the DistributedDataParallel wrapper `compile_steps` builds
+        self.ddp: Optional[nn.Module] = None
 
     # -- init ---------------------------------------------------------------
 
@@ -166,11 +192,15 @@ class DenseCLIPTask:
             persistent = self.model.state_dict()
             model_state = {n: b.detach().clone()
                            for n, b in self.model.named_buffers() if n in persistent}
-        optimizer = make_denseclip_optimizer(
+        return TrainState(0, self.make_optimizer(), model_state)
+
+    def make_optimizer(self) -> optim_lib.ClippedOptimizer:
+        """The four-group AdamW over the trainable parameters as they are now
+        (FSDP's DTensors once the model is sharded)."""
+        return make_denseclip_optimizer(
             self.model, self.schedule(0), self.weight_decay,
             self.backbone_lr_mult, self.grad_clip_norm,
             self.accumulate_grad_batches)
-        return TrainState(0, optimizer, model_state)
 
     # -- steps --------------------------------------------------------------
 
@@ -181,10 +211,10 @@ class DenseCLIPTask:
                      .reshape(1, -1, 1, 1) for s in self.image_stats)
         return (image.float() / 255.0 - mean) / std
 
-    def _forward(self, image: torch.Tensor, model_state: Optional[dict], **kwargs):
-        if model_state:
-            return functional_call(self.model, model_state, (image,), kwargs)
-        return self.model(image, **kwargs)
+    def _forward(self, image: torch.Tensor, model_state: Optional[dict],
+                 train: bool = False, **kwargs):
+        return forward_with_state(self.ddp if train else None, self.model,
+                                  model_state, (image,), kwargs)
 
     def _loss(self, batch: dict, step: int, model_state: dict, updates: dict):
         """(losses, logits) of a train step: dropout on with the masks of
@@ -199,7 +229,8 @@ class DenseCLIPTask:
             nonlocal runs
             runs += 1
             logits, score_map = self._forward(
-                image, model_state, deterministic=False, with_score_map=True,
+                image, model_state, train=True, deterministic=False,
+                with_score_map=True,
                 generator=generator, stats_updates=updates if runs == 1 else {})
             c = self.model.config
             return denseclip_losses(logits, score_map, batch["label"], tau=c.tau,
@@ -226,13 +257,16 @@ class DenseCLIPTask:
         opt = state.optimizer
         self.set_learning_rate(opt, state.step)
         opt.zero_grad()
+        bind_reductions(opt, self.ddp, self.model)
         updates = {}
-        with torch.enable_grad():
-            losses, logits = self._loss(batch, state.step, state.model_state, updates)
-        losses["loss"].backward()
+        with grad_sync(self.ddp, self.accumulate_grad_batches):
+            with torch.enable_grad():
+                losses, logits = self._loss(batch, state.step, state.model_state,
+                                            updates)
+            losses["loss"].backward()
         opt.step()
         with torch.no_grad():
-            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics = mean_over_ranks({k: v.detach() for k, v in losses.items()})
             metrics["acc"] = pixel_accuracy(logits.detach(), batch["label"])
         model_state = ({**state.model_state, **updates}
                        if self.mutable_collections else state.model_state)
@@ -243,7 +277,8 @@ class DenseCLIPTask:
         """{"loss", "acc"} of a forward without dropout, with the running
         statistics of `state.model_state`."""
         logits = self._forward(self._prep_image(batch["image"]), state.model_state)
-        return {"loss": cross_entropy_seg(logits, batch["label"]),
+        return {**mean_over_ranks({"loss": cross_entropy_seg(logits,
+                                                             batch["label"])}),
                 "acc": pixel_accuracy(logits, batch["label"])}
 
     def compile_train_multistep(self, num_steps: int):
@@ -260,12 +295,25 @@ class DenseCLIPTask:
                            for k in per_step[0]}
         return multi
 
-    def compile_steps(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the steps run eagerly; mesh shardings (GSPMD) are not ported, data "
-            f"parallel over GPUs comes with {UNPORTED}")
+    def compile_steps(self, fsdp: bool = False):
+        """(train_step, eval_step) under data parallel over the process
+        group's ranks (the JAX task's jit over its mesh): the model in
+        DistributedDataParallel, or sharded by `fully_shard` with `fsdp`
+        (then `state_fsdp_shardings` builds the state's optimizer over the
+        shards)."""
+        if fsdp:
+            data_parallel.shard(self.model)
+        elif self.ddp is None and not data_parallel.is_sharded(self.model):
+            self.ddp = data_parallel.ddp(self.model)
+        return self.train_step, self.eval_step
 
-    def state_fsdp_shardings(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"FSDP of the state comes with {UNPORTED}; the GSPMD mesh rules are "
-            'ROADMAP "Do not port"')
+    def state_fsdp_shardings(self, state: TrainState) -> TrainState:
+        """`state` with the model sharded (`fully_shard`: the backbone, the
+        text encoder and the heads, parameters and AdamW moments 1/world a
+        rank) and the optimizer built anew over the shards; the optimizer
+        must not have stepped yet."""
+        data_parallel.shard(self.model)
+        if state.optimizer.optimizer.state or state.optimizer.mini_step:
+            raise ValueError("state_fsdp_shardings: shard a fresh state (the "
+                             "optimizer has state already)")
+        return dataclasses.replace(state, optimizer=self.make_optimizer())

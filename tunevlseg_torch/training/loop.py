@@ -14,8 +14,20 @@ captured CUDA graph of the group is ROADMAP Queue 1 item 2). With the task's
 `accumulate_grad_batches`, a train step is a micro-step, counted as one step
 as the JAX Trainer counts it (logging, snapshots, `steps_per_execution`
 groups); a window left partial at an epoch's end carries into the next, and
-a checkpoint holds it. The JAX loop's `mesh`, `fsdp` and `seq_shard` have no
-counterpart: asking for one raises.
+a checkpoint holds it.
+
+Data parallel: in a process group (`parallel/distributed.py`, one rank per
+card) `fit` runs the task's steps from `compile_steps`: the model under
+DistributedDataParallel, or sharded by `fully_shard` with `fsdp=True` (the
+JAX loop's FSDP over its `data` axis). Each rank trains on its loader's
+shard; the validation and test metric sums are all-reduced before they are
+computed, so the plateau scheduler, early stopping and the "best"
+checkpoint see the same numbers on every rank; rank 0 alone logs and
+writes checkpoints; a SIGTERM on any rank stops every rank at the same
+step. Under more than one rank `steps_per_execution` is 1 and no image
+panel is logged, as in the JAX loop. The JAX loop's `mesh` and `seq_shard`
+(GSPMD tensor and sequence parallelism) have no counterpart: asking for one
+raises.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import torch
 from tunevlseg_torch.data.opencv import cv2 as _cv2
 from tunevlseg_torch.data.pipeline import DataLoader, device_batch
 from tunevlseg_torch.ops.metrics import SegMetricState, compute
+from tunevlseg_torch.parallel import data_parallel, distributed
 from tunevlseg_torch.training.checkpoint import CheckpointManager
 from tunevlseg_torch.training.optim import (ReduceLROnPlateau,
                                             get_learning_rate,
@@ -67,8 +80,11 @@ class EarlyStopping:
 class _PreemptionWatch:
     """While installed, a SIGTERM only raises a flag: fit() finishes the
     step group in flight, writes a resumable 'last' checkpoint and returns,
-    instead of dying mid-epoch with an unsaved optimizer state. One process:
-    the flag is the decision."""
+    instead of dying mid-epoch with an unsaved optimizer state. Under
+    several ranks the decision is the OR of every rank's flag, taken after
+    each step group (`distributed.any_flag`): SIGTERM reaches ranks one at a
+    time, and a rank that stops while another enters the next step's
+    all-reduce would hang both."""
 
     def __init__(self):
         self.flag = False
@@ -97,7 +113,7 @@ class _PreemptionWatch:
             self._prev = None
 
     def preempted(self) -> bool:
-        return self.flag
+        return distributed.any_flag(self.flag)
 
 
 def _mean_metrics(metrics: list[dict]) -> dict:
@@ -129,9 +145,11 @@ class Trainer:
     # steps (Lightning ModelCheckpoint every_n_train_steps): covers hard kills
     # that never deliver the SIGTERM the watch relies on
     ckpt_every_n_steps: int = 0
+    # FSDP: parameters, AdamW moments and the frozen towers sharded over the
+    # process group's ranks (`fully_shard`); needs a process group
+    fsdp: bool = False
     # options of the JAX trainer without a counterpart here
     mesh: Any = None
-    fsdp: bool = False
     seq_shard: bool = False
 
     def __post_init__(self):
@@ -139,20 +157,27 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / seq_shard (GSPMD tensor and sequence parallelism) are "
                 'not ported: ROADMAP "Do not port"; data parallel over GPUs '
-                "is ROADMAP Queue 1 item 9.2 (Slice G, multi-device)")
+                "runs in a process group (fsdp / trainer.n_devices)")
         if self.fsdp:
-            raise NotImplementedError(
-                "fsdp (torch FSDP) comes with ROADMAP Queue 1 item 9.2 "
-                "(Slice G, multi-device)")
+            data_parallel.require_group("Trainer(fsdp=True)")
+        if distributed.world_size() > 1:
+            # one step at a time and no image panel, as the JAX loop under
+            # several processes
+            self.steps_per_execution = 1
+            self.log_image_num = 0
         self.output_dir = Path(self.output_dir)
         self.device = next(self.task.model.parameters()).device
         self.ckpt = CheckpointManager(self.output_dir / "checkpoints",
                                       self.task.model, monitor=self.monitor)
-        self.metrics_log = MultiLogger(self.output_dir,
-                                       backends=self.loggers,
+        # rank 0 alone writes the logs
+        lead = distributed.rank() == 0
+        self.metrics_log = MultiLogger(self.output_dir if lead else None,
+                                       backends=self.loggers if lead else (),
                                        project=self.project,
                                        exp_name=self.exp_name,
                                        tags=tuple(self.tags or ()))
+        # whether `_setup` has wrapped the task's model for its process group
+        self._set_up = False
         # (epoch, train batches, seconds of the epoch's train part, host
         # clock, the device drained at both ends)
         self.train_times: list[tuple[int, int, float]] = []
@@ -160,9 +185,25 @@ class Trainer:
     def _on_device(self, batch: dict) -> dict:
         return device_batch(batch, self.device)
 
+    def _log(self, *args, **kwargs) -> None:
+        """A metrics record, from rank 0 alone."""
+        if distributed.rank() == 0:
+            self.metrics_log.log(*args, **kwargs)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _setup(self, state: TrainState) -> TrainState:
+        """Once, in a process group: `task.compile_steps` wraps the task's
+        model in DDP, or shards it with `fsdp` (the state then gets its
+        optimizer over the shards)."""
+        if not self._set_up and distributed.is_initialized():
+            if self.fsdp:
+                state = self.task.state_fsdp_shardings(state)
+            self.task.compile_steps(fsdp=self.fsdp)
+        self._set_up = True
+        return state
 
     # ---------------------------------------------------------------
 
@@ -178,6 +219,11 @@ class Trainer:
                                                 state)
             loss_sum += extra["loss_sum"].double()
             n += extra["n"].double()
+        # every rank's sums (the JAX metrics' psum over the data axis)
+        sums = distributed.all_reduce_sum(
+            {"loss_sum": loss_sum, "n": n, **mstate._asdict()})
+        loss_sum, n = sums.pop("loss_sum"), sums.pop("n")
+        mstate = SegMetricState(**sums)
         result = {f"{prefix}_{k}": float(v)
                   for k, v in compute(mstate).items()}
         result[f"{prefix}_loss"] = float(loss_sum) / max(float(n), 1.0)
@@ -258,6 +304,7 @@ class Trainer:
     def fit(self, state: TrainState, train_loader: DataLoader,
             val_loader: Optional[DataLoader] = None,
             resume_from: Optional[str] = None) -> TrainState:
+        state = self._setup(state)
         self.ckpt.save_frozen()
 
         start_epoch = 0
@@ -306,14 +353,13 @@ class Trainer:
                 if isinstance(group, list):  # k eager steps, mean metrics
                     ms = []
                     for batch in group:
-                        state, m = self.task.train_step(
-                            state, self._on_device(batch))
+                        state, m = self.task.train_step(state,
+                                                        self._on_device(batch))
                         ms.append(m)
                     m = _mean_metrics(ms)
                     inc = len(group)
                 else:
-                    state, m = self.task.train_step(state,
-                                                    self._on_device(group))
+                    state, m = self.task.train_step(state, self._on_device(group))
                     inc = 1
                 global_step += inc
                 epoch_batches += inc
@@ -326,7 +372,7 @@ class Trainer:
                         (global_step - inc) // n)
 
                 if crossed(self.log_every_n_steps):
-                    self.metrics_log.log(m, global_step, prefix="train_")
+                    self._log(m, global_step, prefix="train_")
                 if crossed(self.ckpt_every_n_steps):
                     # interval snapshot, exactly resumable mid-epoch
                     self.ckpt.save("last", state,
@@ -362,7 +408,7 @@ class Trainer:
                 if self.log_image_num > 0:
                     self._log_val_panel(state, val_loader)
                 epoch_metrics.update(self._run_eval(state, val_loader, "val"))
-                self.metrics_log.log(epoch_metrics, global_step)
+                self._log(epoch_metrics, global_step)
 
                 # the scheduler and early stopping advance before the
                 # checkpoint, so that its meta and learning rate describe
@@ -392,7 +438,7 @@ class Trainer:
         if use_best and (self.ckpt.dir / "best").exists():
             state = self.ckpt.restore("best", state)
         result = self._run_eval(state, test_loader, "test")
-        self.metrics_log.log(result, int(state.step))
+        self._log(result, int(state.step))
         return result
 
     def predict(self, state: TrainState, loader: DataLoader,

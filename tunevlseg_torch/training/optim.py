@@ -21,13 +21,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
 
 from tunevlseg_torch.nn.conv import Conv2d, ConvTranspose2d
 from tunevlseg_torch.nn.layers import Dense
+from tunevlseg_torch.parallel import data_parallel
 
 
 # ---------------------------------------------------------------------------
@@ -142,13 +143,13 @@ def decay_labels(model: nn.Module) -> dict[str, str]:
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
     """Scale `grads` in place by max_norm / max(norm, max_norm), norm the
     global l2 norm (optax.clip_by_global_norm; torch's clip_grad_norm_ adds
-    1e-6 to the norm instead). No host sync."""
+    1e-6 to the norm instead), over every rank's shard where the gradients
+    are FSDP's DTensors. No host sync."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = data_parallel.global_norm(grads)
     factor = max_norm / torch.clamp(norm, min=max_norm)
-    torch._foreach_mul_(grads, factor)
+    data_parallel.scale_(grads, factor)
 
 
 def accumulate_steps_of(k) -> int:
@@ -173,7 +174,14 @@ class ClippedOptimizer:
     mean. The other micro-steps move neither the weights nor the
     optimizer's moments and step count. The mean and the micro-step count
     are `accumulation_state()`, which a checkpoint saves beside the torch
-    optimizer's state dict."""
+    optimizer's state dict.
+
+    Under DistributedDataParallel the micro-steps run without a gradient
+    all-reduce (`no_sync`), each rank folding its own gradients into its
+    own mean, and `reduce_window` (the mean over the ranks) makes the mean
+    global once, at the update, before the clip. Under FSDP every
+    micro-step's gradient is reduced already, and the mean is kept as the
+    parameters' DTensor shards."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  grad_clip_norm: Optional[float] = None,
@@ -184,6 +192,12 @@ class ClippedOptimizer:
         self.mini_step = 0
         # {index in params(): running mean of the micro-steps' gradients}
         self.accumulated: dict[int, torch.Tensor] = {}
+        # in place over the window's tensors, at the update (DDP: the mean
+        # over the ranks); None leaves the window as it is
+        self.reduce_window: Optional[Callable[[list], None]] = None
+        # at every (micro-)step, before anything reads the gradients (FSDP:
+        # the mean over the ranks of the parameters it leaves whole)
+        self.reduce_grads: Optional[Callable[[], None]] = None
 
     @property
     def param_groups(self):
@@ -204,6 +218,9 @@ class ClippedOptimizer:
 
     def step(self) -> bool:
         """One (micro-)step; returns whether the weights were updated."""
+        if self.reduce_grads is not None:
+            with torch.no_grad():
+                self.reduce_grads()
         if self.accumulate_steps == 1:
             self._update()
             return True
@@ -221,6 +238,10 @@ class ClippedOptimizer:
         self.mini_step = n + 1
         if self.mini_step < self.accumulate_steps:
             return False
+        if self.reduce_window is not None:
+            with torch.no_grad():
+                self.reduce_window([self.accumulated[i]
+                                    for i in sorted(self.accumulated)])
         for i, p in enumerate(params):
             # a parameter that no micro-step of the window reached keeps
             # no gradient, as without accumulation
@@ -240,8 +261,7 @@ class ClippedOptimizer:
         params = self.params()
         self.mini_step = int(state["mini_step"])
         self.accumulated = {
-            int(i): t.to(device=params[int(i)].device,
-                         dtype=params[int(i)].dtype, copy=True)
+            int(i): data_parallel.to_placement(t, params[int(i)])
             for i, t in state["accumulated"].items()}
 
 

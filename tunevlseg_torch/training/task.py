@@ -19,8 +19,9 @@ constant term to the loss and nothing to the step metrics.
 
 Dropout (the CRIS decoder's) is on in `train_step` only. Its masks come from
 a `torch.Generator` on the model's device that is seeded anew each step from
-(`seed`, step), as the JAX task folds the step into its key: two runs of the
-same step draw the same masks, the next step draws others. Eval, predict and
+(`seed`, step) and, under data parallel, the rank, as the JAX task folds the
+step into its key: two runs of the same step draw the same masks, the next
+step draws others. Eval, predict and
 serving apply no dropout. BatchNorm layers never look at
 `nn.Module.training`: a frozen backbone normalises with its running
 statistics in a train step too.
@@ -33,6 +34,14 @@ projector) and returns a state that holds the new ones, and `eval_step` and
 `predict_step` read them from the state they are given. No buffer of the
 module is written by a step.
 
+Data parallel: `compile_steps` puts the model under DistributedDataParallel
+(or `fully_shard` with `fsdp`) in a process group (`parallel/`), and the
+steps take each rank's own rows: a train step's forward goes through the
+wrapper, its metrics are those of every rank's rows, and each rank draws
+its own dropout masks, from (seed, step, rank). With accumulation the
+micro-steps run under DDP's `no_sync` and the window's mean is all-reduced
+once, at the update (`bind_reductions`).
+
 `accumulate_grad_batches = k` makes each `train_step` a micro-step:
 `TrainState.step` counts micro-steps, as the JAX task does, so each draws
 the masks of (seed, micro-step) and updates the BatchNorm statistics, and
@@ -43,6 +52,7 @@ internals in the backward, as the JAX task's per-layer remat does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from typing import Callable, Optional
@@ -54,6 +64,7 @@ from torch.func import functional_call
 from tunevlseg_torch.nn import remat as remat_lib
 from tunevlseg_torch.ops import losses as losses_lib
 from tunevlseg_torch.ops import metrics as metrics_lib
+from tunevlseg_torch.parallel import data_parallel, distributed
 from tunevlseg_torch.training import optim as optim_lib
 
 
@@ -85,13 +96,64 @@ def load_partial_state(model: nn.Module, params: dict,
                 own[name].copy_(torch.as_tensor(value))
 
 
-def step_generator(model: nn.Module, seed: int, step: int) -> torch.Generator:
+def step_generator(model: nn.Module, seed: int, step: int,
+                   rank: Optional[int] = None) -> torch.Generator:
     """The generator of one train step's dropout masks, on the model's
-    device, a function of (seed, step) alone."""
+    device, a function of (seed, step, rank) alone: under data parallel
+    each rank draws its own masks for its own rows (rank 0 those of one
+    device), and a resumed run draws what the uninterrupted one would."""
+    rank = distributed.rank() if rank is None else rank
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + step) % 2 ** 63)
+    gen.manual_seed((seed * 1_000_003 + step + rank * 0x9E3779B97F4A7C15)
+                    % 2 ** 63)
     return gen
+
+
+def forward_with_state(ddp: Optional[nn.Module], model: nn.Module,
+                       model_state: Optional[dict], args: tuple, kwargs: dict):
+    """`model(*args, **kwargs)`, through its DDP wrapper `ddp` where one is
+    given, with the buffers of `model_state` (by the model's `state_dict`
+    names) in the place of its own where it carries them."""
+    module, prefix = (model, "") if ddp is None else (ddp, "module.")
+    if model_state:
+        return functional_call(module, {prefix + k: v
+                                        for k, v in model_state.items()},
+                               args, kwargs)
+    return module(*args, **kwargs)
+
+
+def grad_sync(ddp: Optional[nn.Module], accumulate_grad_batches: int):
+    """The context of a micro-step's forward and backward: DDP's `no_sync`
+    when gradients accumulate (the window's mean is all-reduced once, at
+    the update), else nothing."""
+    if ddp is not None and accumulate_grad_batches > 1:
+        return ddp.no_sync()
+    return contextlib.nullcontext()
+
+
+def bind_reductions(opt: optim_lib.ClippedOptimizer, ddp: Optional[nn.Module],
+                    model: nn.Module) -> None:
+    """The collectives the optimizer runs itself: under DDP with
+    accumulation the window's mean over the ranks at the update (its
+    micro-steps run under `no_sync`), under FSDP the mean over the ranks of
+    the gradients of the parameters it leaves whole."""
+    opt.reduce_window = (data_parallel.mean_over_ranks_
+                         if ddp is not None and opt.accumulate_steps > 1
+                         else None)
+    opt.reduce_grads = (data_parallel.replicated_gradients(model)
+                        if data_parallel.is_sharded(model) else None)
+
+
+def global_step_metrics(loss: torch.Tensor,
+                        local: metrics_lib.SegMetricState) -> dict:
+    """A train step's {"loss", "dice", "iou"} over every rank's rows: the
+    mean of the ranks' losses (equal local batches) and the metrics of the
+    summed metric states, as the JAX step computes them on its global
+    batch."""
+    sums = distributed.all_reduce_sum({"loss": loss, **local._asdict()})
+    loss = sums.pop("loss") / distributed.world_size()
+    return {"loss": loss, **metrics_lib.compute(metrics_lib.SegMetricState(**sums))}
 
 
 @dataclasses.dataclass
@@ -127,6 +189,9 @@ class SegmentationTask:
 
     def __post_init__(self):
         optim_lib.accumulate_steps_of(self.accumulate_grad_batches)
+        # the DistributedDataParallel wrapper of the model that
+        # `compile_steps` builds; train steps run their forward through it
+        self.ddp: Optional[nn.Module] = None
         if tuple(self.mutable_collections) not in ((), ("batch_stats",)):
             raise ValueError(
                 f"mutable_collections {self.mutable_collections!r}: the only "
@@ -155,10 +220,15 @@ class SegmentationTask:
         if self.mutable_collections:
             model_state = {name: buf.detach().clone()
                            for name, buf in self.model.named_buffers()}
-        return TrainState(0, optim_lib.make_optimizer(
+        return TrainState(0, self.make_optimizer(), model_state)
+
+    def make_optimizer(self) -> optim_lib.ClippedOptimizer:
+        """The optimizer over the model's trainable parameters as they are
+        now (FSDP's DTensors once the model is sharded)."""
+        return optim_lib.make_optimizer(
             self.model, self.learning_rate, self.weight_decay,
             grad_clip_norm=self.grad_clip_norm,
-            accumulate_steps=self.accumulate_grad_batches), model_state)
+            accumulate_steps=self.accumulate_grad_batches)
 
     # -- steps --------------------------------------------------------------
 
@@ -178,14 +248,13 @@ class SegmentationTask:
                 batch.get("attention_mask")), kwargs
 
     def _forward(self, batch: dict, model_state: Optional[dict] = None,
-                 **kwargs) -> torch.Tensor:
+                 train: bool = False, **kwargs) -> torch.Tensor:
         """The model on a batch, with the buffers of `model_state` in the
-        place of its own where a state carries them."""
+        place of its own where a state carries them; a train forward goes
+        through the DDP wrapper where there is one."""
         args, model_kwargs = self.model_inputs(batch)
-        if model_state:
-            return functional_call(self.model, model_state, args,
-                                   {**model_kwargs, **kwargs})
-        return self.model(*args, **model_kwargs, **kwargs)
+        return forward_with_state(self.ddp if train else None, self.model,
+                                  model_state, args, {**model_kwargs, **kwargs})
 
     def dropout_generator(self, step: int) -> torch.Generator:
         return step_generator(self.model, self.seed, step)
@@ -202,7 +271,8 @@ class SegmentationTask:
         mutable = ({"stats_updates": stats_updates}
                    if self.mutable_collections else {})
         with remat_lib.forced(self.remat):
-            logits = self._forward(batch, model_state, deterministic=False,
+            logits = self._forward(batch, model_state, train=True,
+                                   deterministic=False,
                                    generator=self.dropout_generator(step), **mutable)
         mask = batch["mask"]
         valid = batch.get("valid")
@@ -221,32 +291,61 @@ class SegmentationTask:
         internals in the backward."""
         opt = state.optimizer
         opt.zero_grad()
+        bind_reductions(opt, self.ddp, self.model)
         updates = {}
-        with torch.enable_grad():
-            loss, logits = self._loss(batch, state.step, state.model_state, updates)
-        loss.backward()
+        with grad_sync(self.ddp, self.accumulate_grad_batches):
+            with torch.enable_grad():
+                loss, logits = self._loss(batch, state.step, state.model_state,
+                                          updates)
+            loss.backward()
         opt.step()
         with torch.no_grad():
             # padded samples have zeroed logits -> sigmoid 0.5; `valid`
             # excludes them from the step metrics
             probs = torch.sigmoid(logits.detach().float())
-            valid = batch.get("valid")
-            step_metrics = {
-                "loss": loss.detach(),
-                "dice": metrics_lib.dice_score(probs, batch["mask"],
-                                               self.threshold, valid=valid),
-                "iou": metrics_lib.iou_score(probs, batch["mask"],
-                                             self.threshold, valid=valid),
-            }
+            step_metrics = global_step_metrics(
+                loss.detach(), metrics_lib.update_state(
+                    metrics_lib.SegMetricState.zeros(probs.device), probs,
+                    batch["mask"], self.threshold, valid=batch.get("valid")))
         model_state = ({**state.model_state, **updates}
                        if self.mutable_collections else state.model_state)
         return TrainState(state.step + 1, opt, model_state), step_metrics
 
-    def compile_steps(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the steps run eagerly; mesh shardings (GSPMD) are not ported, "
-            "data parallel over GPUs comes with ROADMAP Queue 1 item 9.2 "
-            "(Slice G, multi-device)")
+    def compile_steps(self, fsdp: bool = False):
+        """(train_step, eval_step, predict_step) under data parallel over
+        the process group's ranks, the counterpart of the JAX task's jit over
+        its mesh: the model in DistributedDataParallel (the gradient
+        all-reduce in the backward; with accumulation the window's mean
+        all-reduced at the update), or with `fsdp` sharded by `fully_shard`
+        (then `state_fsdp_shardings` gives the state its optimizer over the
+        shards). The steps stay eager; each rank passes its own rows."""
+        if self.loss_kwargs.get("batch") and distributed.world_size() > 1:
+            # a rank's dice over its own rows is not the global batch's, and
+            # their mean is not either
+            raise NotImplementedError(
+                "loss_fn.batch=true (the dice over the whole batch) under data "
+                "parallel over several ranks: use the per-sample dice")
+        if fsdp:
+            data_parallel.shard(self.model)
+        elif self.ddp is None and not data_parallel.is_sharded(self.model):
+            self.ddp = data_parallel.ddp(self.model)
+        return self.train_step, self.eval_step, self.predict_step
+
+    def state_fsdp_shardings(self, state: TrainState) -> TrainState:
+        """`state` with the model sharded (`fully_shard`) and the optimizer
+        built anew over the shards, so that AdamW's moments hold 1/world of
+        each leaf per rank (the JAX task's FSDP placement of its state). The
+        optimizer must not have stepped yet; a resume restores into the
+        sharded state afterwards (`CheckpointManager.restore`)."""
+        data_parallel.shard(self.model)
+        opt = state.optimizer
+        if opt.optimizer.state or opt.mini_step:
+            raise ValueError("state_fsdp_shardings: shard a fresh state (the "
+                             "optimizer has state already); restore a "
+                             "checkpoint into the sharded one instead")
+        new = self.make_optimizer()
+        optim_lib.set_learning_rate(new, optim_lib.get_learning_rate(opt))
+        return dataclasses.replace(state, optimizer=new)
 
     def compile_train_multistep(self, *args, **kwargs):
         raise NotImplementedError(
