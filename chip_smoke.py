@@ -245,7 +245,8 @@ Phases, each printing its numbers on lines of its own:
      `tunevlseg::` ops, latency beside eager and the artifact's bytes beside
      the weights': CLIPSeg CoOp rd64 b64 dedup (K1, K3) and b1 (exported for
      ("cuda", "cpu"); the cpu program run on the host against the card's),
-     CRIS CoOp b64 on `layout="flat"` (K1, K3, K4), trans_seg b32 and
+     CRIS CoOp b64 on `layout="flat"` (K1, K3, K4), trans_seg b32 (its
+     towers 6 layers deep, to keep the script's time) and
      trans_seg_siglip b32 (phase 25's model, K1 and K3 at D = 96).
  27. gradient accumulation and per-layer remat (`phase_accumulate_remat`):
      `bench.py`'s trans_seg b32 full fine-tune with the config's decoder
@@ -282,6 +283,25 @@ Phases, each printing its numbers on lines of its own:
      cuda:0, against the unsplit request; and FreeSOLO's pseudo losses
      (`models/solov2/pseudo_loss.paired_losses`) with their gradient on the
      card against the CPU at the request's proposal shapes.
+ 29. captured train steps (`phase_captured`): `compile_train_multistep(k)`,
+     one `torch.cuda.CUDAGraph` of k whole train steps (`training/graphs.py`),
+     against k eager steps a group from the same weights and a fresh state,
+     two groups each: the flagship CLIPSeg CoOp b64 dedup at k = 10 (the JAX
+     bench's `--scan`; the learning rate halved between the groups), CoOp
+     b32 with `accumulate_grad_batches=2` at k = 3 (a window across the
+     group boundary, one graph per phase), CRIS CoOp b64 and CRIS e2e b16
+     (full fine-tune) on the flat layout, bench's trans_seg b32 with decoder
+     dropout 0.1 and DenseCLIP RN50 512^2 b16 `bn_train` with a learning
+     rate a step, at k = 2. Weights, AdamW moments, BatchNorm statistics,
+     the accumulation window and the metrics bit-identical where two eager
+     runs are, else within twice their gap; launches through the counters
+     (the warm-up and the capture) and one replay's by kernel name under
+     torch.profiler (k x the eager step's); a step's ms captured and eager
+     (median of 3 groups), the capture's s, peak memory; with `--profile`
+     busy ms and idle share of a group of each. Then `Trainer.fit` over 2
+     epochs of 10 b64 batches with steps_per_execution 10 against 1 (the
+     plateau scheduler between the epochs): weights and moments
+     bit-identical, the loop's ms a step.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -406,6 +426,11 @@ E2E_FLAT_LOSS_TOL = 0.15
 # adds K4 for the 5 upsampler convolutions, and in a step their dx and
 # prologue (the decoder before them trains)
 TS_SERVE = (16, 0, 16, 0, 0, 0) + NO_VARIANTS
+# phase 26's trans_seg export at full width and half the towers' depth (6 of
+# 12 layers a tower; the decoder's 4 whole): phase 29 made the script long
+TS_EXPORT_TOWER_LAYERS = 6
+TS_EXPORT_SERVE = (TS_EXPORT_TOWER_LAYERS + 4, 0, TS_EXPORT_TOWER_LAYERS + 4,
+                   0, 0, 0) + NO_VARIANTS
 TS_STEP = (16, 16, 16, 0, 0, 0) + NO_VARIANTS
 TS_CONVS = 5
 TS_FLAT_SERVE = (16, 0, 16, TS_CONVS, 0, 0) + NO_VARIANTS
@@ -4064,7 +4089,8 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
     """Phase 26: the serving export on the card, at full width, in one
     process: CLIPSeg CoOp rd64 b64 dedup (K1 and K3 in the graph), CRIS CoOp
     b64 on the flat backbone (K1, K3 and K4), trans_seg b32 (`bench.py`'s
-    row) and trans_seg_siglip b32 (phase 25's model: K1 and K3 at D = 96). Each program is exported, loaded and
+    row at full width, its towers cut to TS_EXPORT_TOWER_LAYERS layers) and
+    trans_seg_siglip b32 (phase 25's model: K1 and K3 at D = 96). Each program is exported, loaded and
     held against eager `task_predict_fn` (`exported_vs_eager`); CLIPSeg also
     at b1, exported for ("cuda", "cpu"), and the cpu program run on CPU
     copies of the weights and the request against the card's program.
@@ -4133,13 +4159,16 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
                           root / "cris_flat_b64")
     del task, params, model
 
-    model, _ = build_trans_segmentor(ts_config(), dtype=torch.bfloat16,
-                                     device="cuda", seed=0)
+    from tunevlseg_torch.models.clip.config import CLIPTextConfig, CLIPVisionConfig
+    depth = {"num_layers": TS_EXPORT_TOWER_LAYERS}
+    model, _ = build_trans_segmentor(
+        ts_config(text=CLIPTextConfig(**depth), vision=CLIPVisionConfig(**depth)),
+        dtype=torch.bfloat16, device="cuda", seed=0)
     task = SegmentationTask(model)
     params = dict(model.state_dict())
     request = make_request(torch.Generator().manual_seed(82), TS_BATCH, TS_BATCH, IMG)
     by_path["export_trans_seg"], numbers["trans_seg b32"] = exported_vs_eager(
-        fa, "export trans_seg b32", task, params, request, TS_SERVE,
+        fa, "export trans_seg b32", task, params, request, TS_EXPORT_SERVE,
         ("biased_attn_fwd", "flash_attn_fwd"), root / "ts_b32")
     del task, params, model
 
@@ -4937,6 +4966,400 @@ def phase_data_parallel(fa) -> dict:
     return by_path
 
 
+# --- Slice G5: captured train steps ---------------------------------------------
+
+# the JAX bench's `--scan`: the flagship's steps a captured group
+CAPTURE_STEPS = 10
+# groups held captured against eager from the same state, then groups timed
+# of each (the median over them)
+CAPTURE_GROUPS, CAPTURE_TIMED = 2, 3
+# captured against eager where two eager runs of the same steps differ: the
+# gap to the nearest of three eager runs at most this multiple of the widest
+# gap between two of them (each tensor's largest difference over its largest
+# entry, the worst tensor of its kind)
+CAPTURE_WITNESS_FACTOR = 2
+# the kernels' names as torch.profiler records them, with the indices of
+# `counts` whose launches each stands for (K2 is two kernels a launch; K4's
+# forward and dx launches are one kernel)
+PROFILED_KERNELS = (("K1", "flash_attn_fwd_kernel", (0,)),
+                    ("K2 dq", "flash_attn_bwd_dq_kernel", (1,)),
+                    ("K2 dk/dv", "flash_attn_bwd_dkdv_kernel", (1,)),
+                    ("K3", "biased_attn_fwd_kernel", (2,)),
+                    ("K4 + dx", "conv_flat_kernel", (3, 4)),
+                    ("K4 prologue", "dy_prologue_kernel", (5,)))
+
+
+def device_launches(fn, calls: int = 1) -> dict:
+    """{kernel name: launches a call} of the device kernels of `calls`
+    calls of `fn` under torch.profiler (a CUDA graph's replay included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.step")}
+
+
+def state_tensors(task, state, metrics: list) -> dict:
+    """{kind: {name: f32 tensor on the host}} of what a run of train steps
+    leaves: the trainable weights, AdamW's moments and step counts, the
+    BatchNorm statistics of the state, the accumulation window's running
+    mean, and the metrics of each group."""
+    names = {id(p): n for n, p in task.model.named_parameters()}
+    opt = state.optimizer
+
+    def host(t):
+        return t.detach().float().to("cpu", copy=True)
+
+    return {"weights": {n: host(p) for n, p in task.model.named_parameters()
+                        if p.requires_grad},
+            "moments": {f"{names[id(p)]}.{k}": host(v)
+                        for p, entries in opt.optimizer.state.items()
+                        for k, v in entries.items()},
+            "statistics": {n: host(v) for n, v in state.model_state.items()},
+            "window": {str(i): host(v) for i, v in opt.accumulated.items()},
+            "metrics": {f"group {g} {k}": host(v) for g, m in enumerate(metrics)
+                        for k, v in m.items()}}
+
+
+def tensors_gap(got: dict, want: dict) -> tuple:
+    """(bit-identical, the largest difference of a tensor over its largest
+    entry, that tensor's name) of two {name: tensor} with the same names."""
+    import torch
+    if set(got) != set(want):
+        fail(f"captured: the runs left other tensors: {sorted(set(got) ^ set(want))[:4]}")
+    worst = (0.0, "")
+    for name, w in want.items():
+        rel = ((got[name] - w).abs().max() / w.abs().max().clamp(min=1e-30)).item() \
+            if w.numel() else 0.0
+        worst = max(worst, (rel, name))
+    return all(torch.equal(got[n], w) for n, w in want.items()), *worst
+
+
+def stack_groups(batches: list, k: int) -> list:
+    """The batches in groups of k, each stacked on a leading (k, B, ...) axis."""
+    import torch
+    return [{key: torch.stack([b[key] for b in batches[g:g + k]]) for key in batches[0]}
+            for g in range(0, len(batches), k)]
+
+
+def captured_against_eager(fa, label: str, task, batches: list, k: int,
+                           per_step: tuple, profile: bool,
+                           halve_lr: bool = False) -> tuple:
+    """`task.compile_train_multistep(k)` (one CUDA graph of k steps) against
+    k eager steps a group from the same weights and a fresh state, over
+    CAPTURE_GROUPS groups of `batches`: two eager runs (a third where they
+    differ: the witness of their own rounding) and the captured one, whose
+    weights, AdamW moments, BatchNorm statistics, accumulation window and
+    group metrics must be bit-identical to the first eager run's wherever
+    the first two are, and elsewhere within CAPTURE_WITNESS_FACTOR x the
+    widest gap between two eager runs of the nearest one. Launches: each
+    eager group k x `per_step`; the captured run's first call 2k x (the
+    warm-up and the capture), the replays none through the counters, and
+    one replay's kernels under torch.profiler k x `per_step` by name. Then
+    CAPTURE_TIMED groups of each, timed (host clock, device drained; the
+    median a step), the capture's seconds, peak memory, and with `profile`
+    the device busy time and idle share of a group of each. With
+    `halve_lr` the learning rate is halved between the groups (as the
+    plateau scheduler does between epochs), which the graph must read.
+    Returns (the captured run's counts, the eager runs' bit-identity)."""
+    import torch
+    from tunevlseg_torch.training import graphs
+    from tunevlseg_torch.training.optim import get_learning_rate, set_learning_rate
+
+    model = task.model
+    start = trainable_snapshot(model)
+    groups = stack_groups(batches, k)
+
+    def run(captured: bool) -> dict:
+        restore_trainable(model, start)
+        model.zero_grad(set_to_none=True)
+        state = task.init()
+        multi = (task.compile_train_multistep(k) if captured
+                 else graphs.eager_multistep(task, k))
+        if captured and not isinstance(multi, graphs.CapturedSteps):
+            fail(f"{label}: compile_train_multistep gave {type(multi).__name__}, "
+                 "not the captured program")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa)
+        metrics, times, grew, want = [], [], [], []
+        for g, group in enumerate(groups):
+            if halve_lr and g:
+                set_learning_rate(state.optimizer, get_learning_rate(state.optimizer) / 2)
+            before, graphs_before = counts(fa), len(getattr(multi, "graphs", ()))
+            t = time.perf_counter()
+            state, m = multi(state, group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            metrics.append(m)
+            grew.append(minus(counts(fa), before))
+            # a group that captures a graph runs its steps twice through
+            # the counters (the warm-up and the capture); a replay not at all
+            runs = (2 * (len(multi.graphs) - graphs_before) if captured else 1)
+            want.append(tuple(runs * k * x for x in per_step))
+        if grew != want:
+            fail(f"{label}: {'captured' if captured else 'eager'} groups launched "
+                 f"{COUNTED} = {grew} through the counters, expected {want}")
+        losses = [m["loss"].item() for m in metrics]
+        if not all(x == x and abs(x) != float("inf") for x in losses):
+            fail(f"{label}: non-finite loss in {losses}")
+        return {"state": state, "multi": multi, "times": times, "launches": counts(fa),
+                "peak": torch.cuda.max_memory_allocated(), "resident": resident,
+                "tensors": state_tensors(task, state, metrics), "losses": losses}
+
+    eager = []
+    for _ in range(2):
+        eager.append(run(False))
+        del eager[-1]["state"], eager[-1]["multi"]
+    kinds = [kind for kind, want in eager[0]["tensors"].items() if want]
+    deterministic = all(tensors_gap(eager[1]["tensors"][kind], eager[0]["tensors"][kind])[0]
+                        for kind in kinds)
+    if not deterministic:
+        # a third eager run: the witness is the widest gap between two eager
+        # runs, the captured run is held to the nearest eager run (one
+        # witness pair alone let a scalar metric's noise fail the check)
+        eager.append(run(False))
+        del eager[-1]["state"], eager[-1]["multi"]
+    cap = run(True)
+    verdicts, ok = [], True
+    for kind in kinds:
+        runs_of = [r["tensors"][kind] for r in eager]
+        if tensors_gap(runs_of[1], runs_of[0])[0]:
+            same_c, gap_c, where = tensors_gap(cap["tensors"][kind], runs_of[0])
+            ok &= same_c
+            verdicts.append(f"{kind} ({len(runs_of[0])}) " + ("bit-identical" if same_c
+                            else f"NOT bit-identical (largest {gap_c:.3g} at {where})"))
+            continue
+        _, gap_c, where = min((tensors_gap(cap["tensors"][kind], want) for want in runs_of),
+                              key=lambda g: g[1])
+        gap_e = max(tensors_gap(runs_of[j], runs_of[i])[1]
+                    for i in range(len(runs_of)) for j in range(i + 1, len(runs_of)))
+        bound = CAPTURE_WITNESS_FACTOR * gap_e
+        ok &= gap_c <= bound
+        verdicts.append(f"{kind} ({len(runs_of[0])}) within {gap_c:.3g} of the nearest "
+                        f"eager run (eager against eager up to {gap_e:.3g} over "
+                        f"{len(runs_of)} runs, bound {bound:.3g}; worst {where or 'none'})")
+    eager = eager[0]
+    print(f"{label}: {len(groups)} groups of {k} steps from the same weights, captured "
+          f"against eager: " + "; ".join(verdicts) + "; losses a group "
+          + " ".join(f"{x:.6f}" for x in cap["losses"]) + " captured, "
+          + " ".join(f"{x:.6f}" for x in eager["losses"]) + " eager")
+    if not ok:
+        fail(f"{label}: the captured steps and the eager steps disagree beyond the "
+             "stated bounds")
+
+    # one replay's kernels by name against k eager steps'
+    multi, state, group = cap["multi"], cap["state"], groups[0]
+    holder = [state]
+
+    def captured_group():
+        holder[0], _ = multi(holder[0], group)
+
+    def eager_group():
+        holder[0], _ = graphs.eager_multistep(task, k)(holder[0], group)
+
+    # a profiler window may come back short of a launch (a phase-29 call
+    # under --profile saw 31 of trans_seg's 32 K1): as `kernel_device_ms`,
+    # a window that did not record every launch is followed by a longer one
+    want = {title: k * sum(per_step[i] for i in indices)
+            for title, _, indices in PROFILED_KERNELS}
+    for calls in (1, 2, 3):
+        by_name = device_launches(captured_group, calls)
+        got = {title: sum(c for key, c in by_name.items() if name in key)
+               for title, name, _ in PROFILED_KERNELS}
+        if got == want:
+            break
+    else:
+        fail(f"{label}: a replay launched {got} under torch.profiler (a call, "
+             f"over {calls} calls), expected {want} = {k} x the eager step's")
+    total = sum(by_name.values())
+    print(f"{label}: one replay of the graph launched "
+          + ", ".join(f"{t} {n:g}" for t, n in got.items()) + f" (= {k} x "
+          f"{per_step[:6]} a step; a window of {calls} replays) and {total:g} "
+          "device kernels and copies in all (k eager steps': `--profile`)")
+
+    # timing: replays, then the eager steps from the same state
+    def timed(fn) -> list:
+        out = []
+        for _ in range(CAPTURE_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) / k)
+        return out
+
+    cap_ms = statistics.median(timed(captured_group)) * 1e3
+    eager_ms = statistics.median(timed(eager_group)) * 1e3
+    capture_s = cap["times"][0] - cap_ms * k / 1e3
+    print(f"{label} [{CARD[0]}]: a step {cap_ms:.3f} ms captured, {eager_ms:.3f} ms eager "
+          f"({eager_ms / cap_ms:.3f}x; host clock, device drained, median of "
+          f"{CAPTURE_TIMED} groups of {k}); the first captured call (warm-up of {k} "
+          f"eager steps, capture, replay) {cap['times'][0]:.3f} s, the capture "
+          f"{capture_s:.3f} s above a replay; peak device memory {eager['peak'] / 2**30:.3f} "
+          f"GiB eager, {cap['peak'] / 2**30:.3f} GiB captured ({eager['resident'] / 2**30:.3f} "
+          f"GiB resident before)")
+    if profile:
+        for key, fn, wall in (("captured", captured_group, cap_ms),
+                              ("eager", eager_group, eager_ms)):
+            profile_calls(f"{label} {key} group of {k}", fn, wall=wall * k / 1e3)
+    launches = cap["launches"]
+    del cap, eager, multi, state, holder
+    torch.cuda.empty_cache()
+    return launches, deterministic
+
+
+def fit_captured_against_eager(fa, task, deterministic: bool) -> None:
+    """`Trainer.fit` with `steps_per_execution=CAPTURE_STEPS` against 1 from
+    the same weights, over 2 epochs of CAPTURE_STEPS b64 batches (one full
+    group an epoch; the plateau scheduler with patience 0 may change the
+    learning rate between them, which the captured group must read): the
+    final trainable weights, AdamW state and validation losses
+    bit-identical where the flagship's two eager runs were (else only
+    printed), and the loop's ms a step of both."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from tunevlseg_torch.data.pipeline import DataLoader
+    from tunevlseg_torch.training.loop import Trainer
+    from tunevlseg_torch.training.optim import ReduceLROnPlateau
+
+    train_ds = InMemoryDataset(CAPTURE_STEPS * BATCH, 31, IMG)
+    val_ds = InMemoryDataset(BATCH, 32, IMG)
+    model = task.model
+    start = trainable_snapshot(model)
+    work = Path(tempfile.mkdtemp(prefix="fit_captured_"))
+    results = {}
+    for spe in (1, CAPTURE_STEPS):
+        restore_trainable(model, start)
+        model.zero_grad(set_to_none=True)
+        tr = Trainer(task, work / str(spe), max_epochs=2, log_every_n_steps=5,
+                     steps_per_execution=spe, loggers=("jsonl",),
+                     scheduler=ReduceLROnPlateau(factor=0.5, patience=0))
+        state = task.init()
+        reset_counts(fa)
+        final = tr.fit(state, DataLoader(train_ds, BATCH, shuffle=True, seed=5,
+                                         num_workers=4, text_dedup=1),
+                       DataLoader(val_ds, BATCH, shuffle=False, seed=5,
+                                  num_workers=4, text_dedup=1))
+        if final.step != 2 * CAPTURE_STEPS:
+            fail(f"fit captured: spe {spe} took {final.step} steps")
+        vals = [json.loads(line) for line in
+                (work / str(spe) / "metrics.jsonl").read_text().splitlines()]
+        results[spe] = (state_tensors(task, final, []), tr.train_times,
+                        [r["val_loss"] for r in vals if "val_loss" in r], counts(fa))
+        del final, state, tr
+    eager, captured = results[1], results[CAPTURE_STEPS]
+    verdicts, ok = [], True
+    for kind in ("weights", "moments"):
+        same, gap, where = tensors_gap(captured[0][kind], eager[0][kind])
+        ok &= same or not deterministic
+        verdicts.append(f"{kind} " + ("bit-identical" if same else
+                                      f"largest {gap:.3g} ({where})"))
+    if deterministic and captured[2] != eager[2]:
+        ok = False
+    per_step = {spe: [secs * 1e3 / n for _, n, secs in r[1]] for spe, r in results.items()}
+    print(f"fit captured [{CARD[0]}]: Trainer.fit, 2 epochs of {CAPTURE_STEPS} b{BATCH} "
+          f"batches, steps_per_execution {CAPTURE_STEPS} against 1: "
+          + "; ".join(verdicts) + f"; val losses {captured[2]} against {eager[2]}; "
+          f"loop ms a step by epoch {['%.3f' % x for x in per_step[CAPTURE_STEPS]]} "
+          f"against {['%.3f' % x for x in per_step[1]]} (the first captured epoch holds "
+          f"the warm-up and the capture); launches {captured[3]} against {eager[3]}")
+    if not ok:
+        fail("fit captured: steps_per_execution 10 and 1 disagree")
+
+
+def phase_captured(fa, profile: bool) -> dict:
+    """Phase 29: `compile_train_multistep` as one captured CUDA graph of k
+    train steps, against the eager steps (`captured_against_eager`) on the
+    flagship CLIPSeg CoOp b64 dedup at k = 10, the same model's b32 steps
+    with `accumulate_grad_batches=2` at k = 3 (a window across the group
+    boundary: two graphs, one per phase), CRIS CoOp b64 on the flat layout
+    (54 K4 a step) and CRIS e2e on the flat layout (the full fine-tune: K4,
+    its dx and prologue, K4's per-call weight copy after each update, the
+    BatchNorm statistics in the state) at k = 2, bench's trans_seg b32 with
+    decoder dropout 0.1 at k = 2 (the masks of each step), DenseCLIP RN50
+    512^2 b16 `bn_train` with the poly schedule at k = 2 (a learning rate a
+    step); then `Trainer.fit` with steps_per_execution 10 against 1.
+    Returns {path: counts}."""
+    import torch
+
+    from tunevlseg_torch.models.denseclip.model import DenseCLIPConfig
+    from tunevlseg_torch.models.presets import build_denseclip, build_trans_segmentor
+    from tunevlseg_torch.training.denseclip_task import DenseCLIPTask
+    from tunevlseg_torch.training.task import SegmentationTask
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    print(f"captured: torch {torch.__version__}, "
+          f"CUDAGraph.register_generator_state "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}")
+    task, _ = build_task("CLIPSeg rd64", "coop", 2e-4)
+    distinct = [make_train_batch(BATCH, text_dedup=1, seed=60 + i) for i in range(4)]
+    batches = [distinct[i % 4] for i in range(CAPTURE_GROUPS * CAPTURE_STEPS)]
+    by_path["train_captured_coop"], deterministic = captured_against_eager(
+        fa, "captured coop", task, batches, CAPTURE_STEPS, CLIPSEG_COOP_STEP, profile,
+        halve_lr=True)
+    fit_captured_against_eager(fa, task, deterministic)
+    accumulating = SegmentationTask(task.model, task.freeze_spec, learning_rate=2e-4,
+                                    accumulate_grad_batches=2)
+    halves = [{k: v[i * BATCH // 2:(i + 1) * BATCH // 2] if v.shape[0] == BATCH else v
+               for k, v in b.items()} for b in distinct[:3] for i in range(2)]
+    by_path["train_captured_coop_accumulate"], _ = captured_against_eager(
+        fa, "captured coop accumulate", accumulating, halves, 3, CLIPSEG_COOP_STEP,
+        profile)
+    del task, accumulating, distinct, batches, halves
+    print(f"captured: CLIPSeg paths at {time.perf_counter() - t_phase:.1f} s")
+
+    task, _ = build_task("CRIS RN50", "coop", 2e-4, build_kwargs={"layout": "flat"})
+    batches = [make_train_batch(BATCH, text_dedup=1, seed=70 + i, img=CRIS_IMG, pad_id=0)
+               for i in range(2)] * CAPTURE_GROUPS
+    by_path["train_captured_cris_flat_coop"], _ = captured_against_eager(
+        fa, "captured cris flat coop", task, batches, 2, CRIS_FLAT_COOP_STEP, profile)
+    del task, batches
+    print(f"captured: CRIS CoOp flat at {time.perf_counter() - t_phase:.1f} s")
+    task, _ = build_task("CRIS RN50", "e2e", 3e-6,
+                         build_kwargs={"freeze_encoder": False, "layout": "flat"},
+                         task_kwargs={"mutable_collections": ("batch_stats",)})
+    batches = [make_train_batch(E2E_BATCH, text_dedup=0, seed=80 + i, img=CRIS_IMG,
+                                pad_id=0) for i in range(2)] * CAPTURE_GROUPS
+    by_path["train_captured_cris_e2e_flat"], _ = captured_against_eager(
+        fa, "captured cris e2e flat", task, batches, 2, CRIS_E2E_FLAT_STEP, profile)
+    del task, batches
+    print(f"captured: CRIS e2e flat at {time.perf_counter() - t_phase:.1f} s")
+
+    model, spec = build_trans_segmentor(ts_config(decoder_dropout=TS_DROPOUT),
+                                        dtype=torch.bfloat16, device="cuda", seed=0)
+    task = SegmentationTask(model, spec, learning_rate=2e-4)
+    batches = [make_train_batch(TS_BATCH, text_dedup=0, seed=90 + i, img=IMG)
+               for i in range(2)] * CAPTURE_GROUPS
+    by_path["train_captured_trans_seg_dropout"], _ = captured_against_eager(
+        fa, "captured trans_seg dropout", task, batches, 2, TS_STEP, profile)
+    del model, task, batches
+    print(f"captured: trans_seg at {time.perf_counter() - t_phase:.1f} s")
+
+    gen = torch.Generator().manual_seed(72)
+    model = build_denseclip(DenseCLIPConfig(), denseclip_class_ids(gen), bn_train=True,
+                            dtype=torch.bfloat16, device="cuda", seed=0)
+    task = DenseCLIPTask(model, learning_rate=1e-4, weight_decay=1e-4, warmup_iters=3,
+                         image_stats=IMAGENET_STATS)
+    batches = [denseclip_train_batch(gen) for _ in range(2)] * CAPTURE_GROUPS
+    by_path["train_captured_denseclip_bn_train"], _ = captured_against_eager(
+        fa, "captured denseclip bn_train", task, batches, 2, DC_STEP, profile)
+    del model, task, batches
+    torch.cuda.empty_cache()
+    print(f"captured: phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def phase_kernels_variants(sweeps, library):
     """The sweeps' entry points, one pass per sweep: every variant against
     its plain version on q, k, v apart and standard normal (`check_variants`:
@@ -5248,6 +5671,8 @@ def main() -> None:
     clock("accumulation and remat paths")
     by_path.update(phase_data_parallel(fa))
     clock("data parallel paths")
+    by_path.update(phase_captured(fa, profile))
+    clock("captured train steps")
     sweeps = load_sweeps()
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
@@ -5343,7 +5768,7 @@ def main() -> None:
     training = tuple(p for p in by_path if p.startswith("train"))
     flat = tuple(p for p in by_path if "flat" in p)
     flat_training = ("train_cris_e2e_flat", "train_trans_seg_flat",
-                     "train_ddp2_cris_flat_e2e")
+                     "train_ddp2_cris_flat_e2e", "train_captured_cris_e2e_flat")
     # zero-shot RIS runs ViTs of 197 tokens, under K1's gate: no K1 there
     zero_shot = tuple(p for p in by_path if p.startswith("serve_zsseg"))
     with_k1 = tuple(p for p in by_path if p not in zero_shot)

@@ -80,8 +80,9 @@ def parse_args(argv=None):
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--accumulate", type=int, default=1)
     ap.add_argument("--spe", type=int, default=1,
-                    help="steps per execution: this many eager train steps a "
-                         "group, their metrics averaged")
+                    help="steps per execution: this many train steps a group "
+                         "through compile_train_multistep (one captured CUDA "
+                         "graph on the card), their metrics averaged")
     ap.add_argument("--resume", action="store_true",
                     help="resume from <out>/checkpoints/last: trainable weights, "
                          "AdamW state and the iteration count; the schedule "

@@ -230,7 +230,8 @@ def test_port_runs_without_jax():
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
     of DenseCLIP (its own task, batch statistics) and a tiny zero-shot RIS
     request (fused and host loop), a rematted CLIPSeg window of two
-    accumulated micro-steps, a tiny
+    accumulated micro-steps, a two-step `compile_train_multistep` program
+    (`training/graphs.py`), a tiny
     `Trainer.fit` with its checkpoints run, and converted checkpoints (a
     safetensors file through `train.load_pretrained` into a CoOp train step,
     the rd64-refined head's file into its forward), a DDP step in a gloo
@@ -290,6 +291,11 @@ def test_port_runs_without_jax():
             rstate, rmetrics = rtask.train_step(rstate, batch)
         assert rstate.step == 2 and rstate.optimizer.mini_step == 0
         assert bool(rmetrics["loss"].isfinite()) and not remat.enabled()
+        # the multi-step program (training/graphs.py; the eager steps here)
+        assert "tunevlseg_torch.training.graphs" in sys.modules
+        mstate, mmetrics = task.compile_train_multistep(2)(
+            task.init(), {k: torch.stack([v, v]) for k, v in batch.items()})
+        assert mstate.step == 2 and bool(mmetrics["loss"].isfinite())
 
         dense = dict(batch, input_ids=ids.expand(2, -1))
         del dense["text_index"]

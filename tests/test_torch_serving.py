@@ -208,7 +208,8 @@ def test_exports_and_eager_calls_in_any_order(order, family, tmp_path,
     tbatch = _torch(batch)
     eager = serving.task_predict_fn(ttask)
     handed_out = []
-    for module, name in ((image_ops, "_matrix_on"), (cris_layers, "_pos_tensor")):
+    for module, name in ((image_ops, "_matrix_on"), (image_ops, "_stats_on"),
+                         (cris_layers, "_pos_tensor")):
         cached = getattr(module, name)
         cached.cache_clear()
 

@@ -256,6 +256,10 @@ def test_unported_compile_entry_points_raise():
         with pytest.raises(ValueError, match="needs a process group"):
             task.compile_steps(fsdp=fsdp)
     assert task.ddp is None
-    # the loop runs k eager steps a group; the captured program is item 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        task.compile_train_multistep(None, 4)
+    # the multi-step program runs (on the CPU as the eager steps; the JAX
+    # parity and the captured graph: tests/test_torch_multistep.py)
+    batch = {k: torch.from_numpy(v) for k, v in _batch("coop").items()}
+    state, metrics = task.compile_train_multistep(2)(
+        task.init(), {k: torch.stack([v, v]) for k, v in batch.items()})
+    assert state.step == 2 and set(metrics) == {"loss", "dice", "iou"}
+    assert all(torch.isfinite(v) for v in metrics.values())

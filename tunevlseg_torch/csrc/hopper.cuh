@@ -128,9 +128,14 @@ inline EncodeTiledFn encode_tiled() {
 
 // cuTensorMapEncodeTiled is a driver call and fails without a current context
 // in the calling thread, which a thread that has made no runtime call yet
-// (autograd's backward thread, say) lacks: cudaFree(nullptr) makes the
-// runtime's primary context of the current device current.
-inline cudaError_t make_context_current() { return cudaFree(nullptr); }
+// (autograd's backward thread, say) lacks: cudaSetDevice makes the runtime's
+// primary context of the device current (CUDA 12), and unlike cudaFree it is
+// legal while a stream is being captured into a CUDA graph.
+inline cudaError_t make_context_current() {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  return err != cudaSuccess ? err : cudaSetDevice(device);
+}
 
 // the swizzle mode of a tile whose rows are `row_bytes` long (32, 64 or 128)
 inline CUtensorMapSwizzle swizzle_mode(int row_bytes) {

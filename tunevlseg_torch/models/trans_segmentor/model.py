@@ -56,7 +56,7 @@ from torch import nn
 from tunevlseg_torch.models.clip.config import CLIPTextConfig, CLIPVisionConfig
 from tunevlseg_torch.models.clip.text import CLIPTextTower
 from tunevlseg_torch.models.clip.vision import CLIPVisionTower
-from tunevlseg_torch.models.cris.layers import sincos_pos_1d
+from tunevlseg_torch.models.cris.layers import _pos_tensor
 from tunevlseg_torch.models.trans_segmentor.siglip import (SiglipTextTower,
                                                            SiglipVisionTower)
 from tunevlseg_torch.nn import remat
@@ -385,5 +385,6 @@ class TransformerSegmentor(nn.Module):
 
     @staticmethod
     def _pos(x: torch.Tensor) -> torch.Tensor:
-        pe = sincos_pos_1d(x.shape[-1], x.shape[1])
-        return torch.from_numpy(pe).to(device=x.device, dtype=x.dtype)[None]
+        """The 1-d sin-cos encoding of x's positions, cached on x's device
+        (no host-to-device copy in a step)."""
+        return _pos_tensor("1d", (x.shape[-1], x.shape[1]), x.device, x.dtype)

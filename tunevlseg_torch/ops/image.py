@@ -83,6 +83,24 @@ def _matrix_on(device: torch.device, *key) -> torch.Tensor:
         return torch.from_numpy(resize_matrix(*key)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _stats_on(device: torch.device, stats: tuple) -> tuple:
+    """(mean, std) of `stats` as f32 (1, C, 1, 1) tensors on `device`, built
+    once per device, outside every dispatch mode (as `_matrix_on`): a train
+    step then makes no host-to-device copy, which a CUDA graph's capture
+    refuses."""
+    with _disable_current_modes():
+        return tuple(torch.tensor(s, dtype=torch.float32).reshape(1, -1, 1, 1)
+                     .to(device) for s in stats)
+
+
+def normalize_uint8(image: torch.Tensor, stats) -> torch.Tensor:
+    """uint8 (B, C, H, W) images as f32 (x / 255 - mean) / std, per channel,
+    with `stats` = (mean, std)."""
+    mean, std = _stats_on(image.device, tuple(tuple(s) for s in stats))
+    return (image.float() / 255.0 - mean) / std
+
+
 def resize_2d(img: torch.Tensor, out_hw: tuple[int, int],
               method: str = "bilinear", align_corners: bool = False,
               out_pad: int = 0) -> torch.Tensor:

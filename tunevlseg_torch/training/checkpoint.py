@@ -260,7 +260,7 @@ class CheckpointManager:
         params = dict(self.model.named_parameters())
         payload = to_host(full({
             "trainable": {n: params[n] for n in trainable_names(self.model)},
-            "optimizer": state.optimizer.optimizer.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
             "step": int(state.step),
             "model_state": state.model_state}))
         payload["accumulation"] = accumulation_payload(state.optimizer)
@@ -321,7 +321,7 @@ class CheckpointManager:
         for name in names:
             copy_into(params[name], saved["trainable"][name])
         opt = state.optimizer
-        opt.optimizer.load_state_dict(
+        opt.load_state_dict(
             optimizer_state_to_params(saved["optimizer"], opt.params()))
         # a checkpoint written before gradient accumulation holds no window
         opt.load_accumulation_state(rank_window(

@@ -39,8 +39,8 @@ loss under one `torch.utils.checkpoint` (the JAX task's `jax.checkpoint` of
 its loss): the backward recomputes the whole forward, with the forward's
 dropout masks (`nn/remat.checkpoint` restores the generator) and without
 writing the BatchNorm statistics a second time. `compile_train_multistep(k)`
-runs k eager steps and averages their metrics, the port's
-steps-per-execution (a captured CUDA graph is ROADMAP item 2).
+runs k steps as one captured CUDA graph and averages their metrics, the
+port's steps-per-execution (`training/graphs.py`).
 
 Data parallel over a process group (`parallel/distributed.py`):
 `compile_steps` puts the model under DistributedDataParallel (or shards it
@@ -67,7 +67,9 @@ from tunevlseg_torch.models.denseclip.loss import (IGNORE_INDEX,
                                                    cross_entropy_seg,
                                                    denseclip_losses)
 from tunevlseg_torch.nn import remat as remat_lib
+from tunevlseg_torch.ops.image import normalize_uint8
 from tunevlseg_torch.parallel import data_parallel, distributed
+from tunevlseg_torch.training import graphs
 from tunevlseg_torch.training import optim as optim_lib
 from tunevlseg_torch.training.task import (TrainState, bind_reductions,
                                            forward_with_state, grad_sync,
@@ -119,7 +121,9 @@ def make_denseclip_optimizer(model: nn.Module, base_lr: float,
                            "lr": base_lr * mult,
                            "weight_decay": (0.0 if group.endswith("no_decay")
                                             else weight_decay)})
-    opt = torch.optim.AdamW(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
+    opt = optim_lib.on_device_lr(torch.optim.AdamW(
+        groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+        capturable=optim_lib.on_cuda(p for g in groups for p in g["params"])))
     return optim_lib.ClippedOptimizer(opt, grad_clip_norm, accumulate_steps)
 
 
@@ -207,22 +211,22 @@ class DenseCLIPTask:
     def _prep_image(self, image: torch.Tensor) -> torch.Tensor:
         if image.dtype != torch.uint8 or self.image_stats is None:
             return image
-        mean, std = (torch.tensor(s, dtype=torch.float32, device=image.device)
-                     .reshape(1, -1, 1, 1) for s in self.image_stats)
-        return (image.float() / 255.0 - mean) / std
+        return normalize_uint8(image, self.image_stats)
 
     def _forward(self, image: torch.Tensor, model_state: Optional[dict],
                  train: bool = False, **kwargs):
         return forward_with_state(self.ddp if train else None, self.model,
                                   model_state, (image,), kwargs)
 
-    def _loss(self, batch: dict, step: int, model_state: dict, updates: dict):
+    def _loss(self, batch: dict, step: int, model_state: dict, updates: dict,
+              generator: Optional[torch.Generator] = None):
         """(losses, logits) of a train step: dropout on with the masks of
-        `step`, batch statistics for a `bn_train` model (the new running
-        statistics go into `updates`). With `remat` under one checkpoint,
-        whose recompute draws the same masks and writes its statistics
-        nowhere."""
-        generator = step_generator(self.model, self.seed, step)
+        `step` (or of `generator`), batch statistics for a `bn_train` model
+        (the new running statistics go into `updates`). With `remat` under
+        one checkpoint, whose recompute draws the same masks and writes its
+        statistics nowhere."""
+        if generator is None:
+            generator = step_generator(self.model, self.seed, step)
         runs = 0
 
         def loss_of(image):
@@ -241,28 +245,42 @@ class DenseCLIPTask:
             return remat_lib.checkpoint(loss_of, image, generator=generator)
         return loss_of(image)
 
-    def set_learning_rate(self, optimizer: optim_lib.ClippedOptimizer,
-                          step: int) -> None:
+    def learning_rates(self, optimizer: optim_lib.ClippedOptimizer,
+                       step: int) -> list[float]:
         """Each group's learning rate for micro-step `step`: schedule(u) x
         lr_mult, u = step // accumulate_grad_batches the optimizer update
         that step belongs to."""
         lr = self.schedule(step // self.accumulate_grad_batches)
-        for group in optimizer.param_groups:
-            group["lr"] = lr * group["lr_mult"]
+        return [lr * group["lr_mult"] for group in optimizer.param_groups]
 
-    def train_step(self, state: TrainState, batch: dict):
+    def set_learning_rate(self, optimizer: optim_lib.ClippedOptimizer,
+                          step: int) -> None:
+        for group, lr in zip(optimizer.param_groups,
+                             self.learning_rates(optimizer, step)):
+            optim_lib.set_group_lr(group, lr)
+
+    def train_step(self, state: TrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None,
+                   learning_rates: Optional[torch.Tensor] = None):
         """One optimizer update, or one micro-step of `accumulate_grad_batches`
         (the update at every k-th). Returns (new state, {"loss", "loss_decode",
-        "loss_aux_identity", "acc"}) with the metrics as device tensors."""
+        "loss_aux_identity", "acc"}) with the metrics as device tensors.
+        A captured group passes its step's `generator` (seeded with
+        `step_seed`) and `learning_rates`, a device row of the groups'
+        rates that it fills before each replay."""
         opt = state.optimizer
-        self.set_learning_rate(opt, state.step)
+        if learning_rates is None:
+            self.set_learning_rate(opt, state.step)
+        else:
+            for j, group in enumerate(opt.param_groups):
+                group["lr"].copy_(learning_rates[j])
         opt.zero_grad()
         bind_reductions(opt, self.ddp, self.model)
         updates = {}
         with grad_sync(self.ddp, self.accumulate_grad_batches):
             with torch.enable_grad():
                 losses, logits = self._loss(batch, state.step, state.model_state,
-                                            updates)
+                                            updates, generator)
             losses["loss"].backward()
         opt.step()
         with torch.no_grad():
@@ -282,18 +300,13 @@ class DenseCLIPTask:
                 "acc": pixel_accuracy(logits, batch["label"])}
 
     def compile_train_multistep(self, num_steps: int):
-        """`multi(state, batches)` runs `num_steps` eager train steps over
-        batches stacked on a leading (num_steps, B, ...) axis and returns
-        (state, the metrics averaged over the steps)."""
-        def multi(state: TrainState, batches: dict):
-            per_step = []
-            for i in range(num_steps):
-                state, metrics = self.train_step(
-                    state, {k: v[i] for k, v in batches.items()})
-                per_step.append(metrics)
-            return state, {k: torch.stack([m[k] for m in per_step]).mean()
-                           for k in per_step[0]}
-        return multi
+        """`multi(state, batches) -> (state, metrics)`: `num_steps` train
+        steps over batches stacked on a leading (num_steps, B, ...) axis,
+        the metrics averaged over the steps; on a CUDA device one captured
+        CUDA graph, each step at its own learning rate and with its own
+        masks (`training/graphs.py`); on the CPU and under data parallel
+        the eager steps."""
+        return graphs.compile_multistep(self, num_steps)
 
     def compile_steps(self, fsdp: bool = False):
         """(train_step, eval_step) under data parallel over the process

@@ -8,9 +8,12 @@ final test and prediction masks at the original resolution.
 
 The model owns its weights and its device: the loop runs where the model
 is, moves nothing but the batches, and has no CPU fallback.
-`steps_per_execution = k` runs k eager train steps a group and logs the mean
-of their metrics at group boundaries, as the JAX loop's fused group does (a
-captured CUDA graph of the group is ROADMAP Queue 1 item 2). With the task's
+`steps_per_execution = k` runs each full group of k batches through the
+task's `compile_train_multistep(k)` (on a CUDA device one captured CUDA
+graph of the k steps, `training/graphs.py`), with the batches stacked on
+the device, and logs the mean of their metrics at group boundaries, as the
+JAX loop's fused group does; the batches left at an epoch's end run one
+step at a time. With the task's
 `accumulate_grad_batches`, a train step is a micro-step, counted as one step
 as the JAX Trainer counts it (logging, snapshots, `steps_per_execution`
 groups); a window left partial at an epoch's end carries into the next, and
@@ -116,11 +119,6 @@ class _PreemptionWatch:
         return distributed.any_flag(self.flag)
 
 
-def _mean_metrics(metrics: list[dict]) -> dict:
-    return {k: torch.stack([m[k] for m in metrics]).mean()
-            for k in metrics[0]}
-
-
 @dataclasses.dataclass
 class Trainer:
     task: SegmentationTask
@@ -137,9 +135,9 @@ class Trainer:
     project: Optional[str] = None
     tags: tuple = ()
     log_image_num: int = 4               # val panel size
-    # >1 runs that many eager train steps a group and logs their mean
-    # metrics at group boundaries; leftover batches at the epoch's end run
-    # one at a time
+    # >1 runs that many train steps a group through the task's
+    # `compile_train_multistep` and logs their mean metrics at group
+    # boundaries; leftover batches at the epoch's end run one at a time
     steps_per_execution: int = 1
     # >0 writes an exactly resumable mid-epoch 'last' snapshot every N global
     # steps (Lightning ModelCheckpoint every_n_train_steps): covers hard kills
@@ -178,6 +176,8 @@ class Trainer:
                                        tags=tuple(self.tags or ()))
         # whether `_setup` has wrapped the task's model for its process group
         self._set_up = False
+        # the task's program of `steps_per_execution` steps, built by `_setup`
+        self._multi = None
         # (epoch, train batches, seconds of the epoch's train part, host
         # clock, the device drained at both ends)
         self.train_times: list[tuple[int, int, float]] = []
@@ -202,6 +202,8 @@ class Trainer:
             if self.fsdp:
                 state = self.task.state_fsdp_shardings(state)
             self.task.compile_steps(fsdp=self.fsdp)
+        if not self._set_up and self.steps_per_execution > 1:
+            self._multi = self.task.compile_train_multistep(self.steps_per_execution)
         self._set_up = True
         return state
 
@@ -350,13 +352,11 @@ class Trainer:
             self._sync()
             t_epoch, n_epoch = time.perf_counter(), 0
             for group in self._train_groups(train_loader):
-                if isinstance(group, list):  # k eager steps, mean metrics
-                    ms = []
-                    for batch in group:
-                        state, m = self.task.train_step(state,
-                                                        self._on_device(batch))
-                        ms.append(m)
-                    m = _mean_metrics(ms)
+                if isinstance(group, list):  # one program of k steps
+                    on_device = [self._on_device(batch) for batch in group]
+                    state, m = self._multi(state, {
+                        k: torch.stack([b[k] for b in on_device])
+                        for k in on_device[0]})
                     inc = len(group)
                 else:
                     state, m = self.task.train_step(state, self._on_device(group))

@@ -11,7 +11,10 @@ Counterpart of `tunevlseg_tpu/training/optim.py`:
     parameters do not;
   * AdamW (decoupled decay, torch semantics) or SGD with momentum, with a
     global-norm clip in front, and a learning rate that can be changed
-    between steps; optax.MultiSteps' gradient accumulation;
+    between steps; optax.MultiSteps' gradient accumulation. On a CUDA
+    device AdamW is `capturable` and each group's learning rate is a device
+    tensor that `set_learning_rate` writes in place, so that a captured
+    group of steps (`training/graphs.py`) reads the rate of the moment;
   * `ReduceLROnPlateau` and `CosineAnnealingLR`, driven from the host.
 
 Frozen parameters get `requires_grad=False`: autograd builds no graph for
@@ -209,6 +212,27 @@ class ClippedOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """The torch optimizer's state dict, each group's learning rate a
+        float (as a checkpoint has always held it)."""
+        saved = self.optimizer.state_dict()
+        return {**saved, "param_groups": [
+            {**g, "lr": float(g["lr"])} for g in saved["param_groups"]]}
+
+    def load_state_dict(self, saved: dict) -> None:
+        """Load a state dict into the torch optimizer, keeping this
+        optimizer's placement: whether AdamW is capturable (its step counts
+        on the device) and the learning-rate tensors, which take the saved
+        values in place."""
+        own = [(g["lr"], g.get("capturable")) for g in self.param_groups]
+        self.optimizer.load_state_dict({**saved, "param_groups": [
+            {**sg, "capturable": bool(capturable)} if capturable is not None else sg
+            for (_, capturable), sg in zip(own, saved["param_groups"], strict=True)]})
+        for group, (lr, _) in zip(self.param_groups, own):
+            loaded = float(group["lr"])
+            group["lr"] = lr
+            set_group_lr(group, loaded)
+
     def _update(self) -> None:
         if self.grad_clip_norm is not None:
             clip_by_global_norm_(
@@ -282,7 +306,8 @@ def make_optimizer(
     front; `accumulate_steps` > 1 averages that many micro-steps'
     gradients before each update (`ClippedOptimizer`). The learning rate
     lives in the param groups, where `set_learning_rate` changes it between
-    steps, mid-window too: the next update uses it."""
+    steps, mid-window too: the next update uses it. On a CUDA device AdamW
+    is `capturable` over learning-rate tensors (`on_device_lr`)."""
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     if optimizer == "adamw":
         if weight_decay <= 0:
@@ -294,8 +319,9 @@ def make_optimizer(
                  "weight_decay": weight_decay},
                 {"params": [p for n, p in named if labels[n] == "no_decay"],
                  "weight_decay": 0.0}]
-        opt = torch.optim.AdamW([g for g in groups if g["params"]],
-                                lr=learning_rate, betas=(b1, b2), eps=eps)
+        opt = on_device_lr(torch.optim.AdamW(
+            [g for g in groups if g["params"]], lr=learning_rate,
+            betas=(b1, b2), eps=eps, capturable=on_cuda(p for _, p in named)))
     elif optimizer == "sgd":
         opt = torch.optim.SGD([p for _, p in named], lr=learning_rate,
                               momentum=0.9)
@@ -304,10 +330,36 @@ def make_optimizer(
     return ClippedOptimizer(opt, grad_clip_norm, accumulate_steps)
 
 
+def on_cuda(params: Iterable[torch.Tensor]) -> bool:
+    """Whether there are parameters and all of them are on a CUDA device
+    (AdamW is capturable there)."""
+    devices = [p.device.type for p in params]
+    return bool(devices) and all(d == "cuda" for d in devices)
+
+
+def on_device_lr(opt: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """A capturable optimizer with each group's learning rate as an f32
+    tensor on the parameters' device (a CUDA graph reads it where a float
+    would be baked into the capture); any other is returned as it is."""
+    for group in opt.param_groups:
+        if group.get("capturable"):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                       device=group["params"][0].device)
+    return opt
+
+
+def set_group_lr(group: dict, lr: float) -> None:
+    """Set one param group's learning rate: in place where it is a tensor."""
+    if isinstance(group["lr"], torch.Tensor):
+        group["lr"].fill_(float(lr))
+    else:
+        group["lr"] = float(lr)
+
+
 def set_learning_rate(optimizer, lr: float) -> None:
     """Set the learning rate of every param group, in place."""
     for group in optimizer.param_groups:
-        group["lr"] = float(lr)
+        set_group_lr(group, lr)
 
 
 def get_learning_rate(optimizer) -> float:

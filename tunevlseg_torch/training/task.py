@@ -62,9 +62,11 @@ from torch import nn
 from torch.func import functional_call
 
 from tunevlseg_torch.nn import remat as remat_lib
+from tunevlseg_torch.ops import image as image_lib
 from tunevlseg_torch.ops import losses as losses_lib
 from tunevlseg_torch.ops import metrics as metrics_lib
 from tunevlseg_torch.parallel import data_parallel, distributed
+from tunevlseg_torch.training import graphs
 from tunevlseg_torch.training import optim as optim_lib
 
 
@@ -96,17 +98,21 @@ def load_partial_state(model: nn.Module, params: dict,
                 own[name].copy_(torch.as_tensor(value))
 
 
+def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
+    """The seed of one train step's dropout masks: a function of (seed,
+    step, rank) alone."""
+    rank = distributed.rank() if rank is None else rank
+    return (seed * 1_000_003 + step + rank * 0x9E3779B97F4A7C15) % 2 ** 63
+
+
 def step_generator(model: nn.Module, seed: int, step: int,
                    rank: Optional[int] = None) -> torch.Generator:
     """The generator of one train step's dropout masks, on the model's
-    device, a function of (seed, step, rank) alone: under data parallel
-    each rank draws its own masks for its own rows (rank 0 those of one
-    device), and a resumed run draws what the uninterrupted one would."""
-    rank = distributed.rank() if rank is None else rank
-    device = next(model.parameters()).device
-    gen = torch.Generator(device=device)
-    gen.manual_seed((seed * 1_000_003 + step + rank * 0x9E3779B97F4A7C15)
-                    % 2 ** 63)
+    device, seeded with `step_seed`: under data parallel each rank draws
+    its own masks for its own rows (rank 0 those of one device), and a
+    resumed run draws what the uninterrupted one would."""
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(step_seed(seed, step, rank))
     return gen
 
 
@@ -235,9 +241,7 @@ class SegmentationTask:
     def _prep_image(self, image: torch.Tensor) -> torch.Tensor:
         if image.dtype != torch.uint8:
             return image
-        mean, std = (torch.tensor(s, dtype=torch.float32, device=image.device)
-                     .reshape(1, -1, 1, 1) for s in self.image_stats)
-        return (image.float() / 255.0 - mean) / std
+        return image_lib.normalize_uint8(image, self.image_stats)
 
     def model_inputs(self, batch: dict) -> tuple[tuple, dict]:
         """(args, kwargs) of the model call for a batch; `text_index` is
@@ -260,9 +264,11 @@ class SegmentationTask:
         return step_generator(self.model, self.seed, step)
 
     def _loss(self, batch: dict, step: int = 0, model_state: Optional[dict] = None,
-              stats_updates: Optional[dict] = None
+              stats_updates: Optional[dict] = None,
+              generator: Optional[torch.Generator] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(loss, logits) of a train step (dropout on, masks of `step`); with
+        """(loss, logits) of a train step (dropout on, masks of `step`, or
+        of `generator` where one is given); with
         `valid`, padded samples are zeroed on both sides so that they
         contribute a constant (matching) term. With `mutable_collections` the
         buffers are read from `model_state` and the updated ones are put into
@@ -270,10 +276,12 @@ class SegmentationTask:
         internals in the backward."""
         mutable = ({"stats_updates": stats_updates}
                    if self.mutable_collections else {})
+        if generator is None:
+            generator = self.dropout_generator(step)
         with remat_lib.forced(self.remat):
             logits = self._forward(batch, model_state, train=True,
                                    deterministic=False,
-                                   generator=self.dropout_generator(step), **mutable)
+                                   generator=generator, **mutable)
         mask = batch["mask"]
         valid = batch.get("valid")
         if valid is not None:
@@ -282,13 +290,15 @@ class SegmentationTask:
             mask = mask * v
         return self.loss_fn(logits, mask, **self.loss_kwargs), logits
 
-    def train_step(self, state: TrainState, batch: dict):
+    def train_step(self, state: TrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None):
         """One optimizer update on `batch`, or with `accumulate_grad_batches
         = k` one micro-step (its dropout masks and BatchNorm statistics its
         own; the update at every k-th). Returns (new state, {"loss", "dice",
         "iou"}) with the metrics as device tensors; nothing in the step waits
         for the device. With `remat` the towers' layers recompute their
-        internals in the backward."""
+        internals in the backward. `generator` (a captured group's, seeded
+        with `step_seed`) stands in for the step's own."""
         opt = state.optimizer
         opt.zero_grad()
         bind_reductions(opt, self.ddp, self.model)
@@ -296,7 +306,7 @@ class SegmentationTask:
         with grad_sync(self.ddp, self.accumulate_grad_batches):
             with torch.enable_grad():
                 loss, logits = self._loss(batch, state.step, state.model_state,
-                                          updates)
+                                          updates, generator)
             loss.backward()
         opt.step()
         with torch.no_grad():
@@ -347,10 +357,14 @@ class SegmentationTask:
         optim_lib.set_learning_rate(new, optim_lib.get_learning_rate(opt))
         return dataclasses.replace(state, optimizer=new)
 
-    def compile_train_multistep(self, *args, **kwargs):
-        raise NotImplementedError(
-            "a captured multi-step program (one CUDA graph) is ROADMAP Queue 1 "
-            "item 2; Trainer(steps_per_execution=k) runs k eager steps a group")
+    def compile_train_multistep(self, num_steps: int):
+        """`multi(state, batches) -> (state, metrics)`: `num_steps` train
+        steps over batches stacked on a leading (num_steps, B, ...) axis,
+        the metrics averaged over the steps (the JAX task's `lax.scan`
+        program). On a CUDA device one captured CUDA graph of the steps
+        (`training/graphs.py`); on the CPU, and for a model that
+        `compile_steps` wrapped for data parallel, the eager steps."""
+        return graphs.compile_multistep(self, num_steps)
 
     @torch.no_grad()
     def predict_step(self, batch: dict,
