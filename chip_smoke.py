@@ -302,6 +302,27 @@ Phases, each printing its numbers on lines of its own:
      epochs of 10 b64 batches with steps_per_execution 10 against 1 (the
      plateau scheduler between the epochs): weights and moments
      bit-identical, the loop's ms a step.
+ 30. the tools (`phase_tools`), through their entry points in this process
+     on synthetic files under a temporary directory: (a)
+     `scripts/torch_sweep.py --space coop --trials 3` over the port's train
+     CLI (`experiment=coop/clipseg` on a synthetic kvasir_polyp folder at
+     352^2, b16, one epoch of 2 batches, a synthetic BPE merges file, seeded
+     random weights): each trial's launches from 0 (2 CoOp steps and 5
+     forwards: 91 K1, 6 K2, 84 K3), a finite val_loss, no recorded error,
+     its seconds; (b) `scripts/torch_analyze_prompts.py` on the best trial's
+     run: the context tensor and its nearest ids against the 49,408-row
+     token embedding, on the card; (c) `scripts/torch_analyze_zeroshot.py`
+     `limit` on three 1024^2 images (CLIP ViT-B/16 and FreeSOLO R101 in f32,
+     as eval_zeroshot builds them: no kernel launched, the gates take bf16),
+     `topk --topk 1 5 10 --dtype bf16`, then `limit --dtype bf16` with
+     `+model.layout=flat`: 12 K3 a request with a valid proposal in `topk`,
+     87 K4 a request on flat, metrics finite and in [0, 1] (random FreeSOLO
+     heads that leave no proposal get phase 23's lowered thresholds,
+     printed); (d) `scripts/torch_train_mnist.py --synthetic
+     --epochs 3` on the card: val_acc above 0.9, the seconds of each epoch;
+     (e) `scripts/torch_analyze_phrasecut.py` on three synthetic images.
+     The paths that launch no kernel (MNIST, the analyses on the host, the
+     nchw `limit`) must launch none.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -498,12 +519,13 @@ def reset_counts(fa) -> None:
     fav.reset_launch_count()
 
 
-def load_sweeps():
-    """scripts/torch_micro_attn.py, the sweeps' entry point, as a module."""
+def load_script(name: str):
+    """scripts/<name> as a module (the sweeps' entry point
+    `torch_micro_attn.py`, phase 30's tools)."""
     import importlib.util
     from pathlib import Path
-    path = Path(__file__).resolve().parent / "scripts" / "torch_micro_attn.py"
-    spec = importlib.util.spec_from_file_location("torch_micro_attn", path)
+    path = Path(__file__).resolve().parent / "scripts" / name
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -5360,6 +5382,279 @@ def phase_captured(fa, profile: bool) -> dict:
     return by_path
 
 
+# phase 30, the tools: the sweep's trials take TOOLS_STEPS train steps of the
+# flagship CoOp step at b16 (trainer.limit_batches) and TOOLS_FORWARDS
+# forwards (the validation's batches, its image panel, the test's batches)
+TOOLS_BATCH, TOOLS_LIMIT, TOOLS_TRIALS = 16, 2, 3
+TOOLS_STEPS, TOOLS_FORWARDS = TOOLS_LIMIT, 2 * TOOLS_LIMIT + 1
+SWEEP_TRIAL = tuple(TOOLS_STEPS * s + TOOLS_FORWARDS * f
+                    for s, f in zip(CLIPSEG_COOP_STEP, CLIPSEG_SERVE))
+TOOLS_ZS_IMAGES, TOOLS_TOPK = 3, (1, 5, 10)
+NO_LAUNCH = (0,) * 8
+# a synthetic BPE merges file: the tokenizer's ids stay under CLIP's 49,408
+TOOLS_MERGES = ["p o", "l y", "po ly", "polyp </w>", "t h", "th e</w>", "a </w>"]
+
+
+def tools_folder(root, n: int, side: int, zero_shot: bool) -> None:
+    """A synthetic image-text-mask folder (`images/`, `masks/`, `anns/`): n
+    random RGB images of side^2 with a square mask each, the prompt
+    "a polyp" (and the class name "polyp" for zero-shot tasks)."""
+    import numpy as np
+
+    from tunevlseg_torch.data import opencv
+    cv2 = opencv.cv2()
+    for sub in ("images", "masks", "anns"):
+        (root / sub).mkdir(parents=True)
+    rng = np.random.default_rng(n)
+    tasks = []
+    for i in range(n):
+        cv2.imwrite(str(root / "images" / f"{i}.png"),
+                    rng.integers(0, 255, (side, side, 3), dtype=np.uint8))
+        mask = np.zeros((side, side), np.uint8)
+        lo = side // 8 + (i % 4) * side // 16
+        mask[lo:lo + side // 2, side // 4:side * 3 // 4] = 255
+        cv2.imwrite(str(root / "masks" / f"{i}.png"), mask)
+        task = {"img_name": f"{i}.png", "mask_name": f"{i}.png",
+                "prompts": {"p0": "a polyp"}}
+        if zero_shot:
+            task["object_class"] = "polyp"
+        tasks.append(task)
+    for split in ("train", "val", "test"):
+        (root / "anns" / f"{split}.json").write_text(json.dumps(tasks))
+
+
+def tools_counted(fa, label: str, fn):
+    """`fn()` with the launch counts set to 0 just before it and read just
+    after: (its result, the counts, its seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = counts(fa)
+    print(f"{label}: {secs:.2f} s, launches {COUNTED} {c}")
+    return out, c, secs
+
+
+def phase_tools(fa) -> dict:
+    """Phase 30: the slice's tools through their entry points, in this
+    process, on synthetic files under a temporary directory: (a)
+    `scripts/torch_sweep.py --space coop --trials 3` over the port's train
+    CLI (CoOp CLIPSeg rd64 ViT-B/16 at 352^2, b16, one epoch of 2 batches,
+    seeded random weights), each trial's launches from 0; (b)
+    `scripts/torch_analyze_prompts.py` on the best trial's run; (c)
+    `scripts/torch_analyze_zeroshot.py` `limit` on three 1024^2 images (the
+    zsseg CLIP ViT-B/16 and FreeSOLO R101 in f32, as the eval_zeroshot entry
+    point builds them), `topk --topk 1 5 10` and `limit` on
+    `+model.layout=flat`, both `--dtype bf16`; (d)
+    `scripts/torch_train_mnist.py --synthetic --epochs 3` on the card; (e)
+    `scripts/torch_analyze_phrasecut.py` on a small synthetic folder.
+    Returns {path: counts} of the paths that launch a kernel."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tunevlseg_torch import eval_zeroshot
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    try:
+        merges = tmp / "merges.txt"
+        merges.write_text("#version: 0.2\n" + "\n".join(TOOLS_MERGES) + "\n")
+        tools_folder(tmp / "data" / "kvasir_polyp", TOOLS_BATCH * TOOLS_LIMIT, IMG,
+                     zero_shot=False)
+        tools_folder(tmp / "data" / "zsds", TOOLS_ZS_IMAGES, ZS_IMG, zero_shot=True)
+        print(f"tools: synthetic folders written in {time.perf_counter() - t_phase:.1f} s")
+
+        # (a) the sweep, every trial's launches counted from 0
+        from tunevlseg_torch import train
+        trial_counts = []
+
+        def counted_trial(overrides):
+            torch.cuda.synchronize()
+            reset_counts(fa)
+            try:
+                return train.main(overrides)
+            finally:            # a failing trial's launches too
+                torch.cuda.synchronize()
+                trial_counts.append(counts(fa))
+
+        sweep = load_script("torch_sweep.py").main(
+            ["--space", "coop", "--trials", str(TOOLS_TRIALS),
+             "--results", str(tmp / "sweep.json"),
+             "experiment=coop/clipseg", "ds_name=kvasir_polyp",
+             f"paths.data_root={tmp / 'data'}", f"paths.log_dir={tmp / 'logs'}",
+             f"vocab_path={merges}", f"data.batch_size={TOOLS_BATCH}",
+             "data.num_workers=4", "trainer.max_epochs=1", "trainer.min_epochs=1",
+             f"trainer.limit_batches={TOOLS_LIMIT}", "predict=false"],
+            train_main=counted_trial)
+        if len(sweep["trials"]) != TOOLS_TRIALS or len(trial_counts) != TOOLS_TRIALS:
+            fail(f"tools sweep: {len(sweep['trials'])} trials recorded")
+        for t, c in zip(sweep["trials"], trial_counts):
+            label = f"tools sweep trial {t['trial']}"
+            if "error" in t:
+                fail(f"{label} failed: {t['error']}")
+            if t["value"] is None or not math.isfinite(t["value"]):
+                fail(f"{label}: val_loss {t['value']}")
+            if c != SWEEP_TRIAL:
+                fail(f"{label}: launches {c}, expected {SWEEP_TRIAL} "
+                     f"({TOOLS_STEPS} CoOp steps, {TOOLS_FORWARDS} forwards)")
+            print(f"{label}: params {t['params']}, val_loss {t['value']:.6f}, "
+                  f"test_dice {t['metrics'].get('test_dice')}, {t['seconds']:.2f} s")
+            by_path[f"train_sweep_trial{t['trial']}"] = c
+        best = sweep["best"]
+        print(f"tools sweep: best trial {best['trial']}, val_loss {best['value']:.6f}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+        # (b) the prompt analysis of the best trial's run
+        run = tmp / "logs" / "train" / f"sweep_trial{best['trial']}"
+        reports, c, secs = tools_counted(
+            fa, "tools analyze_prompts", lambda: load_script(
+                "torch_analyze_prompts.py").main([str(run), "--out", str(tmp / "prompts")]))
+        depth = int(best["params"]["model.prompt_depth"])
+        if c != NO_LAUNCH or [r["tensor"] for r in reports] != ["learner/context_vectors"]:
+            fail(f"tools analyze_prompts: {reports}, launches {c}")
+        rep = reports[0]
+        ids = np.asarray(rep.get("nearest_token_ids", []))
+        if rep["shape"] != [depth, 4, 512] or ids.shape != (depth * 4, 3) \
+                or not (0 <= ids).all() or not (ids < 49408).all() \
+                or not math.isfinite(rep["norm_mean"]):
+            fail(f"tools analyze_prompts: {rep}")
+        pca = np.loadtxt(tmp / "prompts" / "pca.csv", delimiter=",", skiprows=1)
+        if pca.shape != (depth * 4, 3) or not np.isfinite(pca).all():
+            fail(f"tools analyze_prompts: pca.csv {pca.shape}")
+        print(f"tools analyze_prompts: {rep['shape']} contexts, norm_mean "
+              f"{rep['norm_mean']:.4f}, nearest ids of the first {ids[0].tolist()} "
+              f"against the 49,408-row embedding, {secs:.2f} s")
+
+        # (c) the zero-shot analyses. Random FreeSOLO heads may leave no
+        # proposal over the default thresholds; then the analysis RIS gets
+        # phase 23's lowered ones, and says so
+        real_build = eval_zeroshot.build_ris
+        built = []
+
+        def build_ris(cfg, device="cuda", dtype=torch.float32):
+            ris = real_build(cfg, device=device, dtype=dtype)
+            image = eval_zeroshot.zero_shot_dataset(cfg)[0]["image"]
+            before = counts(fa)
+            probe = ris.get_freesolo_predictions(image)[2]
+            probed = minus(counts(fa), before)
+            if not probe.any():
+                c = ris.solo_config
+                ris.solo_config = dataclasses.replace(c, score_threshold=0.005,
+                                                      update_threshold=1e-4)
+                print(f"tools zeroshot: DEVIATION: no valid proposal at "
+                      f"score_threshold {c.score_threshold} / update_threshold "
+                      f"{c.update_threshold}; lowered to 0.005 / 1e-4")
+            valid = []
+            fetch = ris.get_freesolo_predictions
+
+            def counted_fetch(*args, **kwargs):
+                out = fetch(*args, **kwargs)
+                valid.append(int(np.asarray(out[2]).sum()))
+                return out
+            ris.get_freesolo_predictions = counted_fetch
+            built.append((probed, valid))
+            return ris
+
+        eval_zeroshot.build_ris = build_ris
+        try:
+            analyze = load_script("torch_analyze_zeroshot.py").main
+            # the overrides right after the mode: Python 3.12.3's argparse
+            # takes the empty list for them at the first option
+            zs_args = ["ds_name=zsds", f"paths.data_root={tmp / 'data'}",
+                       f"paths.log_dir={tmp / 'logs'}", f"vocab_path={merges}"]
+            runs = {}
+            # eval_zeroshot's f32 (the JAX package's precision) runs no
+            # kernel: the gates take bf16 on the card; bf16 as phase 23 runs
+            for tag, mode, options in (
+                    ("limit", "limit", []),
+                    ("topk", "topk", ["--topk", *map(str, TOOLS_TOPK), "--dtype", "bf16"]),
+                    ("limit_flat", "limit", ["--dtype", "bf16"])):
+                extra = ["+model.layout=flat"] if tag == "limit_flat" else []
+                result, c, secs = tools_counted(
+                    fa, f"tools analyze_zeroshot {tag}",
+                    lambda: analyze([mode, *zs_args, *extra, *options,
+                                     "--out-dir", str(tmp / f"zs_{tag}")]))
+                # less the probe's launches: the analysis's own
+                probed, valid = built[-1]
+                c = minus(c, probed)
+                runs[tag] = (result, c, valid)
+                metrics = {k: v for k, v in result.items() if k not in ("mode", "images")}
+                if result["images"] != TOOLS_ZS_IMAGES or not all(
+                        math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()):
+                    fail(f"tools analyze_zeroshot {tag}: {result}")
+                print(f"tools analyze_zeroshot {tag}: {result}; valid proposals a "
+                      f"request {valid}; {secs:.2f} s with the build")
+        finally:
+            eval_zeroshot.build_ris = real_build
+        per_request = {"limit": NO_LAUNCH, "limit_flat": (0, 0, 0, R101_FLAT_CONVS)
+                       + (0,) * 4}
+        for tag in ("limit", "limit_flat"):
+            _, c, valid = runs[tag]
+            want = tuple(TOOLS_ZS_IMAGES * n for n in per_request[tag])
+            if c != want:
+                fail(f"tools analyze_zeroshot {tag}: launches {c}, expected {want}")
+        _, c, valid = runs["topk"]
+        # the host loop runs the text tower only for a request with a valid
+        # proposal (12 K3 each), never K1 (197-token ViTs) nor K4 ("nchw")
+        answered = sum(1 for n in valid if n)
+        if answered < 1 or c != tuple(answered * n for n in ZS_SERVE):
+            fail(f"tools analyze_zeroshot topk: launches {c} for {answered} "
+                 f"requests with a valid proposal ({valid})")
+        by_path["serve_zsseg_analysis_topk"] = c
+        by_path["serve_zsseg_analysis_limit_flat"] = runs["limit_flat"][1]
+
+        # (d) MNIST on the card
+        mnist, c, secs = tools_counted(
+            fa, "tools train_mnist", lambda: load_script("torch_train_mnist.py").main(
+                ["--synthetic", "--epochs", "3"]))
+        if c != NO_LAUNCH or not mnist["val_acc"] > 0.9 \
+                or not math.isfinite(mnist["test_loss"]):
+            fail(f"tools train_mnist: {mnist}, launches {c}")
+        print(f"tools train_mnist: val_acc {mnist['val_acc']:.4f}, test_acc "
+              f"{mnist['test_acc']:.4f}, s an epoch (host clock, device drained) "
+              f"{[round(s, 4) for s in mnist['epoch_seconds']]}")
+
+        # (e) PhraseCut statistics on the host
+        from tunevlseg_torch.data import opencv
+        cv2 = opencv.cv2()
+        pc = tmp / "phrasecut"
+        (pc / "images").mkdir(parents=True)
+        tasks = []
+        for image_id, phrase, (h, w) in ((10, "red car", (240, 320)),
+                                         (11, "tree", (300, 200)),
+                                         (12, "red car", (480, 640))):
+            cv2.imwrite(str(pc / "images" / f"{image_id}.jpg"),
+                        np.full((h, w, 3), image_id, np.uint8))
+            tasks.append({"task_id": f"{image_id}__0", "phrase": phrase})
+        (pc / "tasks.json").write_text(json.dumps(tasks))
+        stats, c, secs = tools_counted(
+            fa, "tools analyze_phrasecut",
+            lambda: load_script("torch_analyze_phrasecut.py").main(
+                ["--task-json", str(pc / "tasks.json"), "--image-dir",
+                 str(pc / "images"), "--out-dir", str(pc / "out")]))
+        if c != NO_LAUNCH or stats["tasks"] != 3 or stats["unique_phrases"] != 2 \
+                or stats["image_shapes"]["scanned"] != 3 \
+                or stats["crop_headroom_after_smallest_max_size"]["max_extra_hw"] != [112, 75]:
+            fail(f"tools analyze_phrasecut: {stats}")
+        print(f"tools analyze_phrasecut: {stats['tasks']} tasks, "
+              f"{stats['unique_phrases']} phrases, shapes {stats['image_shapes']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"tools: phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def phase_kernels_variants(sweeps, library):
     """The sweeps' entry points, one pass per sweep: every variant against
     its plain version on q, k, v apart and standard normal (`check_variants`:
@@ -5673,7 +5968,9 @@ def main() -> None:
     clock("data parallel paths")
     by_path.update(phase_captured(fa, profile))
     clock("captured train steps")
-    sweeps = load_sweeps()
+    by_path.update(phase_tools(fa))
+    clock("tools paths")
+    sweeps = load_script("torch_micro_attn.py")
     variants, sweep_launches = phase_kernels_variants(sweeps, library)
 
     for label, (fwd_ms, bwd_ms) in library.items():
@@ -5772,8 +6069,9 @@ def main() -> None:
     # zero-shot RIS runs ViTs of 197 tokens, under K1's gate: no K1 there
     zero_shot = tuple(p for p in by_path if p.startswith("serve_zsseg"))
     with_k1 = tuple(p for p in by_path if p not in zero_shot)
-    for kernel, paths in zip(kernels[:4], (with_k1, training, tuple(by_path),
-                                           flat)):
+    # the zero-shot `limit` analysis runs FreeSOLO's proposals alone: no text
+    with_k3 = tuple(p for p in by_path if not p.startswith("serve_zsseg_analysis_limit"))
+    for kernel, paths in zip(kernels[:4], (with_k1, training, with_k3, flat)):
         for path in paths:
             if kernel["launches_by_path"][path] <= 0:
                 fail(f"{kernel['name']} was never launched on the {path} path")

@@ -223,8 +223,10 @@ def test_port_config_is_its_own_copy_of_the_jax_one():
 def test_port_runs_without_jax():
     """Every module of the port (the `train` and `eval` entry points, the
     serving export and the ops' registrations included), chip_smoke and
-    every scripts/torch_*.py (`torch_export_model.py` and
-    `torch_servebench.py` among them) import, and a tiny
+    every scripts/torch_*.py (`torch_export_model.py`,
+    `torch_servebench.py` and the tools `torch_sweep.py`,
+    `torch_train_mnist.py`, `torch_analyze_{prompts,phrasecut,zeroshot}.py`
+    among them) import, and a tiny
     eval and a tiny train step of CLIPSeg (CoOp and the five other
     strategies), of CRIS (CoOp, CoCoOp, flat, e2e), of the
     TransformerSegmentor (CLIP and SigLIP towers, both upsampler layouts),
@@ -236,7 +238,9 @@ def test_port_runs_without_jax():
     safetensors file through `train.load_pretrained` into a CoOp train step,
     the rd64-refined head's file into its forward), a DDP step in a gloo
     group of one, a zero-shot request over two devices, the pseudo losses and
-    the distributed tests' rank module, with jax/flax/optax
+    the distributed tests' rank module, TPE asks, an MNIST epoch, the
+    prompt analysis of the fit's checkpoints and a zero-shot top-k analysis,
+    with jax/flax/optax
     (and regex) unimportable; afterwards neither a module of jax, nor one of
     the JAX package, nor transformers or safetensors has been loaded, and
     the fit from memory loaded no cv2."""
@@ -254,11 +258,20 @@ def test_port_runs_without_jax():
         scripts = sorted(glob.glob(os.path.join("scripts", "torch_*.py")))
         assert "scripts/torch_micro_attn.py" in scripts and len(scripts) >= 4
         assert {"scripts/torch_export_model.py",
-                "scripts/torch_servebench.py"} <= set(scripts)
+                "scripts/torch_servebench.py", "scripts/torch_sweep.py",
+                "scripts/torch_train_mnist.py",
+                "scripts/torch_analyze_prompts.py",
+                "scripts/torch_analyze_phrasecut.py",
+                "scripts/torch_analyze_zeroshot.py"} <= set(scripts)
+        script_modules = {}
         for path in scripts:
             spec = importlib.util.spec_from_file_location(
                 os.path.basename(path)[:-3], path)
-            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            script_modules[path] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(script_modules[path])
+        for name in ("tunevlseg_torch.utils.tpe",
+                     "tunevlseg_torch.models.simple_dense_net"):
+            assert name in sys.modules, name
         assert "tunevlseg_torch.ops.flash_attention_variants" in sys.modules
         from tunevlseg_torch.models.clip.config import CLIPSegConfig
         from tunevlseg_torch.models.presets import build_clipseg
@@ -537,6 +550,26 @@ def test_port_runs_without_jax():
         rprobs = rtask.predict_step(batch)
         assert rprobs.shape == (2, 1, 32, 32) and bool(rprobs.isfinite().all())
         assert refined.decoder.head_up1.weight.shape == (8, 4, 4, 4)
+        # the tools: TPE asks, the MNIST trainer for an epoch, the prompt
+        # analysis of the fit's run directory above, the zero-shot analysis
+        # over the tiny RIS
+        from tunevlseg_torch.utils.tpe import REFERENCE_SPACES, TPESampler
+        sampler = TPESampler(REFERENCE_SPACES, seed=0, n_startup=2)
+        for i in range(3):
+            sampler.tell(sampler.ask(), float(i))
+        mnist = script_modules["scripts/torch_train_mnist.py"].main(
+            ["--synthetic", "--epochs", "1", "--device", "cpu"])
+        assert mnist["val_acc"] > 0.5
+        reports = script_modules["scripts/torch_analyze_prompts.py"].analyze(
+            [__import__("pathlib").Path(out)], __import__("pathlib").Path(out) / "a",
+            device="cpu")
+        assert [r["tensor"] for r in reports] == ["learner/context_vectors"]
+        assert len(reports[0]["nearest_token_ids"]) == 12
+        item = {"image": zs_image, "mask": np.ones((64, 64), np.float32),
+                "input_ids": zs_ids, "attention_mask": zs_mask}
+        zs_top = script_modules["scripts/torch_analyze_zeroshot.py"].analyze(
+            zs, [item], "topk", (1, 2))["result"]
+        assert 0.0 <= zs_top["top1_dice"] <= zs_top["top2_dice"] <= 1.0
         loaded = [m for m in sys.modules
                   if m == "tunevlseg_tpu" or m.startswith("tunevlseg_tpu.")
                   or m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",

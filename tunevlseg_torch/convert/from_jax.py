@@ -170,3 +170,16 @@ def model_state_to_jax(model_state: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(key, {})
         node[path[-1]] = value.detach().cpu().numpy()
     return {"batch_stats": tree} if tree else {}
+
+
+def simple_dense_net_state_dict(variables: Mapping[str, Any],
+                                model: nn.Module) -> dict[str, torch.Tensor]:
+    """The JAX `SimpleDenseNet` variables ({"params": lin{i} kernel / bias,
+    bn{i} scale / bias, head kernel / bias; "batch_stats": bn{i} mean /
+    var}) -> the port net's `state_dict`: kernels transposed, `scale` as
+    `weight`, the statistics as the `running_mean` / `running_var`
+    buffers."""
+    stats = {module: {{"mean": "running_mean", "var": "running_var"}[k]: v
+                      for k, v in leaves.items()}
+             for module, leaves in variables.get("batch_stats", {}).items()}
+    return state_dict_from_jax(variables["params"], model, stats)

@@ -188,7 +188,9 @@ def main(argv: Optional[list[str]] = None) -> dict:
     return run_guarded(lambda: _run(cfg), cfg["paths"]["output_dir"])
 
 
-def _run(cfg: dict) -> dict:
+def zero_shot_dataset(cfg: dict) -> ZeroShotDataset:
+    """The composed config's test `ZeroShotDataset`, with its tokenizer (the
+    CLIP BPE, or BiomedBERT's WordPiece with `model.is_hf_model: false`)."""
     if cfg["model"].get("is_hf_model", True):
         tokenizer = load_default_tokenizer(cfg.get("vocab_path"))
     else:
@@ -203,12 +205,16 @@ def _run(cfg: dict) -> dict:
     # never sees detectron2's pixel statistics; a quirk, kept)
     transforms = eval_transforms(cfg.get("img_size", 1024), cfg.get("img_mean"),
                                  cfg.get("img_std"))
-    dataset = ZeroShotDataset(
+    return ZeroShotDataset(
         image_dir=d["image_dir"], mask_dir=d["mask_dir"],
         task_path=d["test_task_path"], prompt_index=cfg["prompt_index"],
         insert_stop_at_last=cfg.get("insert_stop_at_last", True),
         tokenizer=tokenizer, max_length=cfg.get("max_length", 77),
         transforms=transforms, seed=cfg.get("seed", 0))
+
+
+def _run(cfg: dict) -> dict:
+    dataset = zero_shot_dataset(cfg)
     ris = build_ris(cfg, device=resolve_device(cfg))
 
     metric_logger = MetricLogger(cfg["paths"]["output_dir"])

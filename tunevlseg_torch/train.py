@@ -628,6 +628,10 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
         else:
             state = trainer.fit(state, loaders["train"], loaders["val"],
                                 resume_from=resume_from)
+        # the last validation's metrics, as the reference's train returns
+        # Lightning's callback_metrics: the hparams search reads its
+        # optimized_metric (val_loss) here
+        result.update(trainer.val_metrics)
     if cfg.get("test", True):
         result.update(trainer.test(state, loaders["test"]))
     if cfg.get("predict", False):

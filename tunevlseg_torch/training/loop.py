@@ -181,6 +181,9 @@ class Trainer:
         # (epoch, train batches, seconds of the epoch's train part, host
         # clock, the device drained at both ends)
         self.train_times: list[tuple[int, int, float]] = []
+        # the last validation's metrics (`val_loss`, `val_dice`, ...), as
+        # Lightning's callback_metrics hold them after a fit
+        self.val_metrics: dict[str, float] = {}
 
     def _on_device(self, batch: dict) -> dict:
         return device_batch(batch, self.device)
@@ -408,6 +411,8 @@ class Trainer:
                 if self.log_image_num > 0:
                     self._log_val_panel(state, val_loader)
                 epoch_metrics.update(self._run_eval(state, val_loader, "val"))
+                self.val_metrics = {k: v for k, v in epoch_metrics.items()
+                                    if k != "epoch"}
                 self._log(epoch_metrics, global_step)
 
                 # the scheduler and early stopping advance before the
