@@ -371,15 +371,17 @@ def test_eval_without_ckpt_raises(synth, tmp_path):
 
 
 # the multi-device keys run (tests/test_torch_distributed.py starts two
-# ranks through trainer.n_devices=2): each case here either runs in this
-# process (fsdp over one process: nothing to shard, the plain path) or
-# fails cheaply, before any rank starts, naming what it needs; GSPMD's
-# tensor and sequence parallelism still raise "Do not port"
+# ranks through trainer.n_devices=2, tests/test_torch_tensor_parallel.py a
+# grid with trainer.model_parallel=2): each case here either runs in this
+# process (fsdp over one process: nothing to shard, the plain path; seq_shard
+# without a model axis: a no-op) or fails cheaply, before any rank starts,
+# naming what it needs (model_parallel must divide the ranks)
 RANKS = "must divide by the 2 ranks"
 OPTION_CASES = [
     (("trainer.n_devices=2", "data.batch_size=3"), ValueError, RANKS),
-    (("trainer.model_parallel=2",), NotImplementedError, "Do not port"),
-    (("trainer.seq_shard=true",), NotImplementedError, "Do not port"),
+    (("trainer.model_parallel=2",), ValueError,
+     "1 ranks not divisible by model_parallel=2"),
+    (("trainer.seq_shard=true",), None, None),
     (("trainer.fsdp=true",), None, None),
     (("trainer.multihost=true",), ValueError,
      "trainer.coordinator_address.*trainer.num_processes.*trainer.process_id"),
@@ -392,8 +394,10 @@ OPTION_CASES = [
 @pytest.mark.parametrize(
     "overrides,error,match", OPTION_CASES,
     # the ids they had
-    ids=[f"{o[0]}-{'Do not port' if m == 'Do not port' else 'Slice G'}"
-         for o, _, m in OPTION_CASES])
+    ids=["trainer.n_devices=2-Slice G", "trainer.model_parallel=2-Do not port",
+         "trainer.seq_shard=true-Do not port", "trainer.fsdp=true-Slice G",
+         "trainer.multihost=true-Slice G", "trainer.remat=true-Slice G",
+         "trainer.accumulate_grad_batches=2-Slice G"])
 def test_unported_options_raise_with_their_item(synth, tmp_path, overrides,
                                                 error, match, monkeypatch):
     from tunevlseg_torch.parallel import distributed
@@ -402,11 +406,12 @@ def test_unported_options_raise_with_their_item(synth, tmp_path, overrides,
     args = _common(synth, tmp_path) + list(overrides) + ["exp_name=x"]
     if error is None:
         # one process: no group is made and nothing is sharded
-        from tunevlseg_torch.parallel import data_parallel
+        from tunevlseg_torch.parallel import data_parallel, tensor_parallel
 
         def no_shard(*args, **kwargs):
-            raise AssertionError("fully_shard over one process")
+            raise AssertionError("sharded over one process")
         monkeypatch.setattr(data_parallel, "shard", no_shard)
+        monkeypatch.setattr(tensor_parallel, "shard_model", no_shard)
         result = train_mod.main(args)
         assert np.isfinite(result["test_loss"])
         assert (tmp_path / "train" / "x" / "checkpoints" / "last").is_dir()

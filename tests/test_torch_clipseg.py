@@ -237,8 +237,9 @@ def test_port_runs_without_jax():
     `Trainer.fit` with its checkpoints run, and converted checkpoints (a
     safetensors file through `train.load_pretrained` into a CoOp train step,
     the rd64-refined head's file into its forward), a DDP step in a gloo
-    group of one, a zero-shot request over two devices, the pseudo losses and
-    the distributed tests' rank module, TPE asks, an MNIST epoch, the
+    group of one and the rank grid there (`parallel/mesh.py`, the
+    tensor-parallel plan), a zero-shot request over two devices, the pseudo
+    losses and the distributed and tensor-parallel tests' rank modules, TPE asks, an MNIST epoch, the
     prompt analysis of the fit's checkpoints and a zero-shot top-k analysis,
     with jax/flax/optax
     (and regex) unimportable; afterwards neither a module of jax, nor one of
@@ -472,6 +473,15 @@ def test_port_runs_without_jax():
         dtask.compile_steps()
         dstate, dmetrics = dtask.train_step(dstate, batch)
         assert dtask.ddp is not None and bool(dmetrics["loss"].isfinite())
+        # the rank grid in that group: no model axis, nothing sliced; the
+        # tensor-parallel plan of a 1 x 2 grid's shape
+        from tunevlseg_torch.parallel import mesh as tmesh
+        from tunevlseg_torch.parallel import sharding_rules, tensor_parallel
+        grid = tmesh.make_mesh(1)
+        assert grid.model_size == 1 and distributed.data_size() == 1
+        assert tensor_parallel.shard_model(dmodel, grid) == {}
+        assert any(d is not None for d in sharding_rules.tp_param_specs(
+            dmodel, tmesh.Mesh(1, 2)).values())
         distributed.destroy()
         zs2 = build_ris({"model": {}, "tiny_model": True, "n_devices": 2},
                         device="cpu")
@@ -485,6 +495,12 @@ def test_port_runs_without_jax():
         sum(pl.values()).backward()
         assert bool(logits.grad.isfinite().all())
         import tests.torch_distributed_ranks  # noqa: F401
+        import tests.torch_tensor_parallel_ranks  # noqa: F401
+        for name in ("tunevlseg_torch.parallel.mesh",
+                     "tunevlseg_torch.parallel.sharding_rules",
+                     "tunevlseg_torch.parallel.tensor_parallel",
+                     "tunevlseg_torch.parallel.activation_sharding"):
+            assert name in sys.modules, name
         # the training and evaluation entry points and their modules: a tiny
         # fit with checkpoints over the port's loader, then a restore
         for name in ("tunevlseg_torch.train", "tunevlseg_torch.eval",

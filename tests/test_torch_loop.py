@@ -490,15 +490,21 @@ def test_init_overlays_a_partial_state_dict():
             assert torch.equal(after[k], v), k
 
 
-# GSPMD's mesh and sequence sharding are not ported; fsdp is, and needs a
-# process group (tests/test_torch_distributed.py runs it on two ranks)
+# the mesh is the port's rank grid (`parallel/mesh.make_mesh`), and another
+# object raises; seq_shard without a model axis is a no-op; fsdp needs a
+# process group (tests/test_torch_distributed.py runs it on two ranks,
+# tests/test_torch_tensor_parallel.py the grid)
 @pytest.mark.parametrize("kw,error,item", [
-    ({"mesh": object()}, NotImplementedError, "Do not port"),
-    ({"seq_shard": True}, NotImplementedError, "Do not port"),
+    ({"mesh": object()}, ValueError, "not the port's mesh"),
+    ({"seq_shard": True}, None, None),
     ({"fsdp": True}, ValueError, "needs a process group")],
     ids=["kw0-Do not port", "kw1-Do not port", "kw2-Slice G"])   # the ids they had
 def test_unported_trainer_options_raise(tmp_path, kw, error, item):
     task, _ = _coop_task()
+    if error is None:
+        trainer = Trainer(task, tmp_path, **kw)
+        assert trainer.seq_shard and trainer.mesh is None
+        return
     with pytest.raises(error, match=item):
         Trainer(task, tmp_path, **kw)
 

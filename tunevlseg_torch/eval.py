@@ -10,6 +10,13 @@ rule from `tunevlseg_torch.train` (`+trainer.device=cpu` for the CPU).
 the checkpoint of `ckpt_path` is restored over them. `export_dir` (and
 `export_platforms`) exports the inference step for serving, as in the train
 CLI (`train.export_serving`).
+
+`trainer.n_devices=k` evaluates on k ranks, as the train CLI starts them;
+with `trainer.model_parallel=tp` (and `trainer.seq_shard`) they form the
+train CLI's (k / tp, tp) grid: the checkpoint's whole tensors, the frozen
+ones included, load on every rank, the towers are sliced after, each data
+rank evaluates its shard of the test set, the metric sums are added over
+the data axis, and model rank 0 of each data rank writes its masks.
 """
 from __future__ import annotations
 
@@ -20,10 +27,12 @@ from typing import Optional
 from tunevlseg_torch.config.composer import compose
 from tunevlseg_torch.data.pipeline import DataLoader
 from tunevlseg_torch.data.tokenizer import load_default_tokenizer
+from tunevlseg_torch.parallel.mesh import make_mesh
 from tunevlseg_torch.train import (CONFIG_DIR, build_datasets,
-                                   build_model_and_task, export_serving,
-                                   init_kwargs, load_pretrained,
-                                   resolve_device)
+                                   build_model_and_task, check_batch,
+                                   export_serving, init_kwargs, join_group,
+                                   load_pretrained, model_parallel,
+                                   ranks_to_start, resolve_device, start_ranks)
 from tunevlseg_torch.training.checkpoint import CheckpointManager
 from tunevlseg_torch.training.loop import Trainer
 from tunevlseg_torch.utils.logging import get_logger
@@ -35,10 +44,23 @@ def main(argv: Optional[list[str]] = None) -> dict:
     overrides = argv if argv is not None else sys.argv[1:]
     cfg = compose(CONFIG_DIR, "eval", overrides)
     from tunevlseg_torch.utils.task_wrapper import run_guarded
-    return run_guarded(lambda: _run(cfg), cfg["paths"]["output_dir"])
+
+    def run() -> dict:
+        n = ranks_to_start(cfg)
+        return start_ranks(_run, cfg, n) if n > 1 else _run(cfg)
+    return run_guarded(run, cfg["paths"]["output_dir"])
 
 
 def _run(cfg: dict) -> dict:
+    device, undo = join_group(cfg, resolve_device(cfg))
+    try:
+        return _run_rank(cfg, device)
+    finally:
+        for fn in undo:
+            fn()
+
+
+def _run_rank(cfg: dict, device) -> dict:
     from tunevlseg_torch.utils.config_tree import apply_extras
     apply_extras(cfg, save_dir=cfg["paths"].get("output_dir"))
     ckpt_path = cfg.get("ckpt_path")
@@ -49,7 +71,12 @@ def _run(cfg: dict) -> dict:
             "ckpt_path is required for evaluation; pass ckpt_path=... "
             "or set disable_ckpt=true to evaluate initial weights "
             "deliberately")
-    device = resolve_device(cfg)
+    grid = make_mesh(model_parallel(cfg))
+    check_batch(cfg, grid.data_size, grid.model_size)
+    if cfg.get("export_dir") and grid.model_size > 1:
+        raise NotImplementedError(
+            "export_dir with trainer.model_parallel > 1: export in a run "
+            "without model_parallel (the export traces the whole weights)")
     tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
                                        family=cfg.get("tokenizer_family", "clip"))
     datasets = build_datasets(cfg, tokenizer)
@@ -58,8 +85,10 @@ def _run(cfg: dict) -> dict:
                                        device=device)
     t = cfg["trainer"]
     d = cfg["data"]
-    test_loader = DataLoader(datasets["test"], d["batch_size"], shuffle=False,
-                             num_workers=d.get("num_workers", 8),
+    test_loader = DataLoader(datasets["test"], d["batch_size"] // grid.data_size,
+                             shuffle=False, num_workers=d.get("num_workers", 8),
+                             num_shards=grid.data_size,
+                             shard_index=grid.data_rank,
                              text_dedup=int(d.get("text_dedup", 0) or 0))
     state = task.init(**init_kwargs(pretrained))
 
@@ -73,7 +102,8 @@ def _run(cfg: dict) -> dict:
             log.info("no frozen weights in the checkpoint; using the model's")
 
     trainer = Trainer(task=task, output_dir=cfg["paths"]["output_dir"],
-                      limit_batches=t.get("limit_batches"))
+                      limit_batches=t.get("limit_batches"), mesh=grid,
+                      seq_shard=bool(t.get("seq_shard", False)))
     result = trainer.test(state, test_loader, use_best=False)
     if cfg.get("predict", True):
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"

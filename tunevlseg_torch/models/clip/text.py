@@ -16,6 +16,13 @@ Counterpart of `tunevlseg_tpu/models/clip/text.py` (HF
 The text tower's 77 (+ctx, clipped to 77) tokens carry a causal + padding
 bias: on a CUDA device in bf16 its attention goes to kernel K3
 (`nn/attention.py`), elsewhere to the plain path.
+
+Sequence parallelism (`parallel/activation_sharding.py`, the JAX hook
+places): when the tower's `seq_parallel` shards the stream (its length
+divides by tp; the 77 tokens do not at tp = 2), the stream after the
+position embeddings is split over the model group, the context splices
+land on the ranks that hold rows 1 .. 1 + n_ctx, and the final LayerNorm's
+output is gathered whole before the EOS pooling.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from tunevlseg_torch.models.clip.config import CLIPTextConfig
 from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.layers import Embed, LayerNorm, PreNormEncoderLayer
+from tunevlseg_torch.parallel import activation_sharding
 
 
 def splice_text_context(inputs_embeds: torch.Tensor, context: torch.Tensor,
@@ -101,14 +109,20 @@ class CLIPTextTower(nn.Module):
                                         c.max_position_embeddings, 1)
             bias = bias + padding_bias(mask, torch.float32)
 
+        sp = activation_sharding.of(self, x)
+        if sp is not None:
+            x = sp.split(x)
         for i, layer in enumerate(self.layers, start=1):
-            x = remat.layer_call(layer, x, bias)
+            x = remat.layer_call(layer, x, bias, seq_sharded=sp is not None)
             if text_ctx is not None and i < prompt_depth:
                 ctx_i = text_ctx[i].to(x.dtype)
-                x = torch.cat([x[:, :1], ctx_i.expand(x.shape[0], *ctx_i.shape[-2:]),
-                               x[:, 1 + num_ctx:]], dim=1)
+                ctx_i = ctx_i.expand(x.shape[0], *ctx_i.shape[-2:])
+                x = (torch.cat([x[:, :1], ctx_i, x[:, 1 + num_ctx:]], dim=1)
+                     if sp is None else sp.write_rows(x, 1, ctx_i))
 
         x = self.final_layer_norm(x)
+        if sp is not None:
+            x = sp.gather(x)
         pool_idx = eos_pooled_indices(input_ids, c.eos_token_id, num_ctx,
                                       c.max_position_embeddings)
         pooled = x[torch.arange(x.shape[0], device=x.device), pool_idx]

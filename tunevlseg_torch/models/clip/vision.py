@@ -20,6 +20,14 @@ early exit the tower holds layers 0..max(extract_layers) and no
 exit (CoCoOp reads the pooled output) it holds all the layers and
 `post_layernorm`. The TPU sequence padding (485 -> 512 tokens) is not ported;
 `kv_valid` still reaches the attention kernel through `MultiHeadAttention`.
+
+Sequence parallelism (`parallel/activation_sharding.py`, the JAX hook
+places): when the tower's `seq_parallel` shards the stream (its length
+divides by tp), the stream after `pre_layernorm` is split over the model
+group, the layers run on the rank's rows, the visual contexts land on the
+ranks that hold their rows, and the hidden states handed out are whole:
+those the decoder reads (`extract_layers`) and the last; the others are
+None under sequence parallelism.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from tunevlseg_torch.models.clip.config import CLIPVisionConfig
 from tunevlseg_torch.nn import remat
 from tunevlseg_torch.nn.layers import LayerNorm, PreNormEncoderLayer, lecun_normal_
 from tunevlseg_torch.ops.image import resize_2d
+from tunevlseg_torch.parallel import activation_sharding
 
 
 class CLIPVisionTower(nn.Module):
@@ -42,6 +51,7 @@ class CLIPVisionTower(nn.Module):
         c = config
         self.config = c
         self.dtype = dtype
+        self.extract_layers = tuple(extract_layers or ())
         # the JAX loop runs layer i (1-based) and stops once i > max(extract)
         self.early_exit = bool(early_exit and extract_layers
                                and max(extract_layers) < c.num_layers)
@@ -107,12 +117,23 @@ class CLIPVisionTower(nn.Module):
             x = torch.cat([x, ctx0], dim=1)
         x = self.pre_layernorm(x)
         hidden_states = [x]
+        seq = x.shape[1]
+        sp = activation_sharding.of(self, x)
+        if sp is not None:
+            x = sp.split(x)
+            whole = {i + 1 for i in self.extract_layers} | {len(self.layers)}
         for i, layer in enumerate(self.layers, start=1):
-            x = remat.layer_call(layer, x)
+            x = remat.layer_call(layer, x, seq_sharded=sp is not None)
             if visual_ctx is not None and i < prompt_depth:
                 ctx_i = visual_ctx[i].to(x.dtype).expand(x.shape[0], -1, -1)
-                x = torch.cat([x[:, :x.shape[1] - num_ctx], ctx_i], dim=1)
-            hidden_states.append(x)
+                x = (torch.cat([x[:, :seq - num_ctx], ctx_i], dim=1) if sp is None
+                     else sp.write_rows(x, seq - num_ctx, ctx_i))
+            if sp is None:
+                hidden_states.append(x)
+            else:
+                hidden_states.append(sp.gather(x) if i in whole else None)
+        if sp is not None:
+            x = hidden_states[-1]
         if self.early_exit:
             return hidden_states, None, None
         return hidden_states, x, self.post_layernorm(x[:, 0])

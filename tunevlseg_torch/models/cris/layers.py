@@ -24,10 +24,11 @@ from torch.utils._python_dispatch import _disable_current_modes
 from tunevlseg_torch.models.cris.resnet import (BatchNorm1d, BatchNorm2d,
                                                 avg_pool_nchw)
 from tunevlseg_torch.nn import remat
-from tunevlseg_torch.nn.attention import dot_product_attention
+from tunevlseg_torch.nn.attention import dot_product_attention, head_slice
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Dense, LayerNorm, dropout
 from tunevlseg_torch.ops.image import upsample_scale
+from tunevlseg_torch.parallel import tensor_parallel as tp_lib
 
 
 class ConvBnRelu(nn.Module):
@@ -160,7 +161,12 @@ def _pos_tensor(kind: str, dims: tuple, device: torch.device,
 class MHA(nn.Module):
     """Explicit-QKV multi-head attention (torch nn.MultiheadAttention
     semantics with separate q / k / v inputs and an optional key-padding
-    bias)."""
+    bias). Tensor-parallel as `nn.layers.MultiHeadAttention`: each distinct
+    input enters the region once."""
+
+    tp_column = ("q_proj", "k_proj", "v_proj")
+    tp_row = ("out_proj",)
+    tp: Optional[tp_lib.ModelGroup] = None
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32):
@@ -173,13 +179,23 @@ class MHA(nn.Module):
 
     def forward(self, q, k, v, key_pad_bias: Optional[torch.Tensor] = None,
                 kv_valid: Optional[int] = None) -> torch.Tensor:
+        g = self.tp
+        if g is not None:
+            entered = {}
+            for t in (q, k, v):
+                if id(t) not in entered:
+                    entered[id(t)] = tp_lib.copy(t, g)
+            q, k, v = (entered[id(t)] for t in (q, k, v))
+            key_pad_bias = head_slice(key_pad_bias, g.rank * self.num_heads,
+                                      self.num_heads)
+
         def split(t):
             return t.unflatten(-1, (self.num_heads, -1))
 
         out = dot_product_attention(split(self.q_proj(q)), split(self.k_proj(k)),
                                     split(self.v_proj(v)), bias=key_pad_bias,
                                     kv_valid=kv_valid)
-        return self.out_proj(out.flatten(-2))
+        return tp_lib.row(self.out_proj, out.flatten(-2), g)
 
 
 class CRISDecoderLayer(nn.Module):

@@ -48,6 +48,7 @@ from tunevlseg_torch.ops.conv_flat import (FlatSpec, conv_flat, flat_begin,
                                            flat_end, make_flat_spec)
 from tunevlseg_torch.ops.image import resize_2d
 from tunevlseg_torch.parallel import distributed
+from tunevlseg_torch.parallel import tensor_parallel as tp_lib
 from tunevlseg_torch.parallel.data_parallel import synced_batch_norm
 
 
@@ -89,7 +90,7 @@ class _BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.epsilon)
         n = x.numel() // x.shape[1]
-        if distributed.world_size() > 1:
+        if distributed.data_size() > 1:
             # data parallel: the statistics of the global batch, as the JAX
             # package's BatchNorm computes them on a batch sharded over its
             # mesh (SyncBatchNorm's semantics)
@@ -270,6 +271,12 @@ class AttentionPool2d(nn.Module):
     (B, output_dim, H, W) map (no CLS pooling). At 416^2 the map has 169
     tokens, below the kernel gate's 256: plain attention."""
 
+    # tensor parallel: q / k / v are column-parallel (the rank's heads);
+    # c_proj matches no rule, so the local heads are gathered before it
+    tp_column = ("q_proj", "k_proj", "v_proj")
+    tp_row = ()
+    tp = None
+
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int,
                  output_dim: int, use_running_average: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -302,9 +309,15 @@ class AttentionPool2d(nn.Module):
         def split(t):
             return t.unflatten(-1, (self.num_heads, -1))
 
+        g = self.tp
+        if g is not None:
+            seq = tp_lib.copy(seq, g)
         attn = dot_product_attention(split(self.q_proj(seq)),
                                      split(self.k_proj(seq)),
                                      split(self.v_proj(seq)))
+        if g is not None:
+            # c_proj is no rule's: the whole heads, then the replicated product
+            attn = tp_lib.gather_whole(attn, g, dim=2)
         out = self.c_proj(attn.flatten(-2))
         out = out.transpose(1, 2).reshape(b, self.output_dim, h, w)
         return F.relu(out + res)

@@ -78,6 +78,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return plain_attention(q, k, v, bias, kv_valid=kv_valid)
 
 
+def head_slice(bias: Optional[torch.Tensor], start: int,
+               count: int) -> Optional[torch.Tensor]:
+    """The rows of heads `start .. start + count` of a (..., H, S, T) bias,
+    for a tensor-parallel rank's local heads: a bias that carries a head
+    dimension (H > 1) is sliced, a broadcast one (H = 1) and None pass as
+    they are."""
+    if bias is None or bias.dim() < 3 or bias.shape[-3] == 1:
+        return bias
+    return bias.narrow(-3, start, count)
+
+
 def causal_bias(seq_len: int, dtype: torch.dtype = torch.float32,
                 device=None) -> torch.Tensor:
     """(1, 1, S, S) additive causal mask, dtype-min above the diagonal (HF

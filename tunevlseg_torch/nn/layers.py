@@ -9,6 +9,16 @@ the weight mapping in `tunevlseg_torch/convert/from_jax.py` is mechanical.
 
 Parameters are allocated uninitialized; `init_params` fills every module
 that defines `init_weights(generator)` from one `torch.Generator`.
+
+Tensor parallelism (`parallel/tensor_parallel.py`): `MultiHeadAttention`
+and `TransformerMLP` name their column- and row-parallel products
+(`tp_column`, `tp_row`); once `shard_model` has sliced them, `tp` is their
+model group, `num_heads` the rank's local head count, and their forward
+enters the tensor-parallel region (`copy`, or `gather_seq` when the stream
+is sequence-sharded) and leaves it after the row-parallel product
+(`reduce`, or `reduce_scatter_seq`), the row-parallel bias added once. The
+encoder layers pass `seq_sharded` through: their LayerNorms and residual
+adds then run on the rank's rows.
 """
 from __future__ import annotations
 
@@ -18,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tunevlseg_torch.nn.attention import dot_product_attention
+from tunevlseg_torch.nn.attention import dot_product_attention, head_slice
+from tunevlseg_torch.parallel import tensor_parallel as tp_lib
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +165,10 @@ class Embed(nn.Module):
 class MultiHeadAttention(nn.Module):
     """MHA with separate q/k/v/out projections (CLIP convention)."""
 
+    tp_column = ("q_proj", "k_proj", "v_proj")
+    tp_row = ("out_proj",)
+    tp: Optional[tp_lib.ModelGroup] = None
+
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -168,20 +183,29 @@ class MultiHeadAttention(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
                 kv_states: Optional[torch.Tensor] = None,
-                kv_valid: Optional[int] = None) -> torch.Tensor:
-        kv = hidden_states if kv_states is None else kv_states
+                kv_valid: Optional[int] = None,
+                seq_sharded: bool = False) -> torch.Tensor:
+        g = self.tp
+        x = tp_lib.enter(hidden_states, g, seq_sharded)
+        kv = x if kv_states is None else tp_lib.enter(kv_states, g, seq_sharded)
+        if g is not None:
+            attn_bias = head_slice(attn_bias, g.rank * self.num_heads,
+                                   self.num_heads)
 
-        def split(x):
-            return x.unflatten(-1, (self.num_heads, -1))
+        def split(t):
+            return t.unflatten(-1, (self.num_heads, -1))
 
-        out = dot_product_attention(split(self.q_proj(hidden_states)),
-                                    split(self.k_proj(kv)),
+        out = dot_product_attention(split(self.q_proj(x)), split(self.k_proj(kv)),
                                     split(self.v_proj(kv)),
                                     bias=attn_bias, kv_valid=kv_valid)
-        return self.out_proj(out.flatten(-2))
+        return tp_lib.row(self.out_proj, out.flatten(-2), g, seq_sharded)
 
 
 class TransformerMLP(nn.Module):
+    tp_column = ("fc1",)
+    tp_row = ("fc2",)
+    tp: Optional[tp_lib.ModelGroup] = None
+
     def __init__(self, dim: int, intermediate_size: int, act: str = "quick_gelu",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -189,8 +213,9 @@ class TransformerMLP(nn.Module):
         self.fc1 = Dense(dim, intermediate_size, dtype=dtype)
         self.fc2 = Dense(intermediate_size, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+    def forward(self, x: torch.Tensor, seq_sharded: bool = False) -> torch.Tensor:
+        h = self.act(self.fc1(tp_lib.enter(x, self.tp, seq_sharded)))
+        return tp_lib.row(self.fc2, h, self.tp, seq_sharded)
 
 
 class PreNormEncoderLayer(nn.Module):
@@ -206,9 +231,13 @@ class PreNormEncoderLayer(nn.Module):
         self.mlp = TransformerMLP(dim, intermediate_size, act, dtype)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
-                kv_valid: Optional[int] = None) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x), attn_bias, kv_valid=kv_valid)
-        return x + self.mlp(self.layer_norm2(x))
+                kv_valid: Optional[int] = None,
+                seq_sharded: bool = False) -> torch.Tensor:
+        """`seq_sharded`: x is the rank's rows of a sequence-parallel stream
+        (the layer's blocks are tensor-parallel)."""
+        x = x + self.self_attn(self.layer_norm1(x), attn_bias, kv_valid=kv_valid,
+                               seq_sharded=seq_sharded)
+        return x + self.mlp(self.layer_norm2(x), seq_sharded=seq_sharded)
 
 
 class PostNormEncoderLayer(nn.Module):

@@ -22,6 +22,13 @@ what the optimizer, the checkpoints and the BatchNorms need around them.
     wrote it, and a restore lays them out as the live parameter is laid out;
   * `synced_batch_norm`: batch statistics over the global batch, as the JAX
     package's BatchNorm computes them on a batch sharded over the mesh.
+
+Under a rank grid with a model axis (`parallel/mesh.py`) all of it runs over
+the data group (`distributed.data_group()`): DDP keeps the ranks of one
+model rank in step, `fully_shard` shards over them and leaves the slices of
+tensor parallelism as they are (the JAX `fsdp_specs(base_specs=)`: a leaf
+the tp rules shard keeps that spec, FSDP fills the rest), and the means,
+norms and statistics count each sample once.
 """
 from __future__ import annotations
 
@@ -32,6 +39,10 @@ import torch.distributed as dist
 from torch import nn
 
 from tunevlseg_torch.parallel import distributed
+from tunevlseg_torch.parallel.mesh import fsdp_device_mesh
+from tunevlseg_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 def is_dtensor(t) -> bool:
@@ -62,7 +73,7 @@ def ddp(model: nn.Module) -> nn.Module:
     device = next(model.parameters()).device
     return DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        broadcast_buffers=False,
+        process_group=distributed.data_group(), broadcast_buffers=False,
         find_unused_parameters=bool(unused_parameters(model)))
 
 
@@ -92,11 +103,17 @@ def shard(model: nn.Module) -> nn.Module:
     place (a sharded model is returned as it is). Scalar parameters, which
     FSDP cannot shard (CLIPSeg's `residual_ratio`), stay whole on every
     rank, as the JAX FSDP rules replicate scalars; `replicated_gradients`
-    averages their gradients."""
+    averages their gradients. Under a model axis the shards are over the
+    data group, and the tensor-parallel slices (`model.tp_plan`) keep their
+    slice."""
     require_group("fully_shard")
     if is_sharded(model):
         return model
     from torch.distributed.fsdp import fully_shard
+    device = next(model.parameters()).device
+    mesh = fsdp_device_mesh(distributed.mesh(), device.type)
+    params = dict(model.named_parameters())
+    kept = {params[n] for n in getattr(model, "tp_plan", None) or {}}
     for p in model.parameters():
         # FSDP shards contiguous storage only: weights kept channels-last
         # for cuDNN (CRIS's and DenseCLIP's backbones) go back to NCHW, and
@@ -104,9 +121,16 @@ def shard(model: nn.Module) -> nn.Module:
         if not p.is_contiguous():
             p.data = p.data.contiguous()
     scalars = {p for p in model.parameters() if p.dim() == 0}
+    ignored = scalars | kept
     for block in shard_units(model):
-        fully_shard(block, ignored_params=scalars)
-    fully_shard(model, ignored_params=scalars)
+        fully_shard(block, mesh=mesh, ignored_params=ignored)
+    fully_shard(model, mesh=mesh, ignored_params=ignored)
+    if kept:
+        log.info("fsdp shard report (data axis %d): %d parameters sharded, %d "
+                 "scalars whole, %d kept their tensor-parallel slice",
+                 distributed.data_size(),
+                 sum(is_dtensor(p) for p in model.parameters()), len(scalars),
+                 len(kept))
     return model
 
 
@@ -125,13 +149,13 @@ def replicated_gradients(model: nn.Module):
 
 
 def mean_over_ranks_(tensors: Iterable[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place (one
-    collective a tensor, on the default group)."""
-    world = distributed.world_size()
+    """Replace each tensor by its mean over the data group, in place (one
+    collective a tensor)."""
+    world = distributed.data_size()
     if world == 1:
         return
     for t in tensors:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=distributed.data_group())
         t.div_(world)
 
 
@@ -147,7 +171,7 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
                             for t in ts]).sum() if ts else torch.zeros(())
 
     sharded = squares([g.to_local() for g in grads if is_dtensor(g)])
-    dist.all_reduce(sharded)
+    dist.all_reduce(sharded, group=distributed.data_group())
     whole = squares([g for g in grads if not is_dtensor(g)])
     return (sharded + whole.to(sharded.device)).sqrt()
 
@@ -177,19 +201,19 @@ def to_placement(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks, whose backward is the sum over the ranks of
-    the gradients (each rank's output feeds that rank's loss)."""
+    """The sum over the data group, whose backward is the sum over the data
+    group of the gradients (each rank's output feeds that rank's loss)."""
 
     @staticmethod
     def forward(ctx, x):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=distributed.data_group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=distributed.data_group())
         return grad
 
 

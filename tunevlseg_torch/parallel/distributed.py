@@ -20,6 +20,14 @@ a gloo group beside it, so that they never wait on the device.
 
 Without a process group every helper here answers for one process: rank 0
 of 1, collectives are the identity.
+
+A rank grid (`parallel/mesh.py`, tensor parallelism over a `model` axis)
+splits the ranks into data groups and model groups. `data_rank`,
+`data_size` and `data_group` name this rank's place on the data axis (the
+whole group, and so `rank` / `world_size` / the default group, when no
+grid is set), and `all_reduce_sum` sums over the data group: its users
+(the step and evaluation metrics) count each sample once, and the ranks of
+one model group hold the same samples.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ import torch.distributed as dist
 
 # the gloo group for host-side collectives (None: the default group is gloo)
 _HOST_GROUP: list = [None]
+# the rank grid `parallel/mesh.make_mesh` set up in this group, or None
+_MESH: list = [None]
 
 
 def is_initialized() -> bool:
@@ -43,6 +53,31 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_initialized() else 1
+
+
+def mesh():
+    """The rank grid `parallel/mesh.make_mesh` set up, or None."""
+    return _MESH[0]
+
+
+def set_mesh(grid) -> None:
+    _MESH[0] = grid
+
+
+def data_rank() -> int:
+    """This rank's place on the data axis: its rows of each global batch."""
+    return rank() if _MESH[0] is None else _MESH[0].data_rank
+
+
+def data_size() -> int:
+    """The number of ranks that hold different rows of a global batch."""
+    return world_size() if _MESH[0] is None else _MESH[0].data_size
+
+
+def data_group():
+    """The process group of this rank's data peers (None: the default
+    group, which is every rank when there is no grid)."""
+    return None if _MESH[0] is None else _MESH[0].data_group
 
 
 def local_rank() -> int:
@@ -126,6 +161,7 @@ def destroy() -> None:
     if is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP[0] = None
+    _MESH[0] = None
 
 
 def barrier() -> None:
@@ -134,15 +170,15 @@ def barrier() -> None:
 
 
 def all_reduce_sum(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The sum over ranks of each tensor of `tensors` (one collective for
-    all of them, on their device, in f64 where they are floating point); the
-    tensors themselves are left as they are."""
-    if world_size() == 1 or not tensors:
+    """The sum over the data group of each tensor of `tensors` (one
+    collective for all of them, on their device, in f64 where they are
+    floating point); the tensors themselves are left as they are."""
+    if data_size() == 1 or not tensors:
         return dict(tensors)
     names = list(tensors)
     flat = torch.stack([tensors[k].detach().reshape(()).double()
                         for k in names])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     return {k: flat[i].to(tensors[k].dtype) for i, k in enumerate(names)}
 
 

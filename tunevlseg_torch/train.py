@@ -35,7 +35,20 @@ plain path). Under torchrun the process joins the launcher's group;
 `trainer.multihost=true` with `trainer.coordinator_address` /
 `num_processes` / `process_id` joins a group across hosts (launch one
 process per card on every host). Rank 0 logs and writes checkpoints and
-the config; every rank writes its shard of the prediction masks.
+the config; every data rank writes its shard of the prediction masks (its
+model rank 0 under `model_parallel`).
+
+Tensor and sequence parallelism (`parallel/mesh.py`,
+`parallel/tensor_parallel.py`, `parallel/activation_sharding.py`):
+`trainer.model_parallel=tp` lays the k ranks out as a (k / tp, tp) grid;
+each group of tp consecutive ranks slices the frozen towers between them
+(Megatron's column- and row-parallel products, the attention kernels on
+each rank's heads) and takes one data shard, `data.batch_size / (k / tp)`
+rows. `trainer.seq_shard=true` also shards the towers' residual stream
+over the sequence (a no-op at tp = 1). `trainer.fsdp=true` composes: the
+rest of the model is sharded over the data axis. A checkpoint holds whole
+tensors whatever the grid. `export_dir` needs a run without
+`model_parallel` (the export traces whole weights).
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ from tunevlseg_torch.models.presets import (build_clipseg, build_cris,
 from tunevlseg_torch.models.trans_segmentor.model import TransSegmentorConfig
 from tunevlseg_torch.ops.losses import LOSS_REGISTRY
 from tunevlseg_torch.parallel import distributed
+from tunevlseg_torch.parallel.mesh import make_mesh
 from tunevlseg_torch.training.loop import EarlyStopping, Trainer
 from tunevlseg_torch.training.optim import ReduceLROnPlateau, count_params
 from tunevlseg_torch.training.task import SegmentationTask
@@ -99,10 +113,6 @@ def check_ported(cfg: dict) -> None:
             f"model family {family!r} is not ported: {UNPORTED_FAMILIES[family]}")
     if family not in ("clipseg", "cris", "trans_segmentor"):
         raise NotImplementedError(f"model family {family}")
-    if int(t.get("model_parallel", 1) or 1) > 1 or t.get("seq_shard"):
-        raise NotImplementedError(
-            "model_parallel > 1 / seq_shard (GSPMD tensor and sequence "
-            'parallelism) are not ported: ROADMAP "Do not port"')
 
 
 def resolve_device(cfg: dict) -> torch.device:
@@ -440,8 +450,9 @@ def ranks_to_start(cfg: dict) -> int:
     """How many ranks this process starts on its host: `trainer.n_devices`
     (null: every visible card, one on the CPU), or 1 where the process is
     a rank of a group launched elsewhere (torchrun, `multihost`). More
-    ranks than visible cards, or a batch that does not split evenly over
-    the ranks, raises a ValueError."""
+    ranks than visible cards, ranks that `trainer.model_parallel` does not
+    divide, or a batch that does not split evenly over the data axis,
+    raises a ValueError."""
     t = cfg["trainer"]
     check_ported(cfg)
     if t.get("multihost") or int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -455,10 +466,24 @@ def ranks_to_start(cfg: dict) -> int:
     if cards is not None and n > cards:
         raise ValueError(f"trainer.n_devices={n}, but {cards} card(s) are "
                          "visible: one rank a card")
-    if cfg["data"]["batch_size"] % n:
-        raise ValueError(f"global data.batch_size {cfg['data']['batch_size']} "
-                         f"must divide by the {n} ranks")
+    tp = model_parallel(cfg)
+    if n % tp:
+        raise ValueError(f"{n} ranks not divisible by model_parallel={tp}")
+    check_batch(cfg, n // tp, tp)
     return n
+
+
+def model_parallel(cfg: dict) -> int:
+    return int(cfg["trainer"].get("model_parallel", 1) or 1)
+
+
+def check_batch(cfg: dict, data_ranks: int, tp: int) -> None:
+    """The global batch must split evenly over the ranks of the data axis."""
+    batch = cfg["data"]["batch_size"]
+    if batch % data_ranks:
+        raise ValueError(
+            f"global data.batch_size {batch} must divide by the {data_ranks} "
+            "ranks" + (f" of the data axis (model_parallel={tp})" if tp > 1 else ""))
 
 
 def main(argv: Optional[list[str]] = None) -> dict:
@@ -536,8 +561,10 @@ def _run(cfg: dict) -> dict:
 def _run_rank(cfg: dict, device: torch.device) -> dict:
     from tunevlseg_torch.utils.config_tree import apply_extras
     apply_extras(cfg, save_dir=cfg["paths"].get("output_dir"))
-    world, rank = distributed.world_size(), distributed.rank()
-    lead = rank == 0
+    grid = make_mesh(model_parallel(cfg))
+    # the loaders shard over the data axis; a model group shares its shard
+    world, rank = grid.data_size, grid.data_rank
+    lead = distributed.rank() == 0
     if cfg.get("debug_nans"):
         # reference debug/default.yaml detect_anomaly: fail fast on NaNs
         torch.autograd.set_detect_anomaly(True)
@@ -552,9 +579,7 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
 
     t = cfg["trainer"]
     d = cfg["data"]
-    if d["batch_size"] % world:
-        raise ValueError(f"global data.batch_size {d['batch_size']} must "
-                         f"divide by the {world} ranks")
+    check_batch(cfg, world, grid.model_size)
     td = check_text_dedup(cfg, datasets if t.get("multihost") else None)
     loaders = {
         split: DataLoader(ds, d["batch_size"] // world,
@@ -580,8 +605,13 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
     # gathers' copies, so it runs the plain path
     fsdp = bool(t.get("fsdp")) and world > 1
     if t.get("fsdp") and not fsdp:
-        log.info("trainer.fsdp over one process: nothing to shard, the plain "
-                 "path runs")
+        log.info("trainer.fsdp over a data axis of one rank: nothing to shard, "
+                 "the plain path runs")
+    if cfg.get("export_dir") and grid.model_size > 1:
+        raise NotImplementedError(
+            "export_dir with trainer.model_parallel > 1: export from the run's "
+            "checkpoint in a run without model_parallel (the export traces the "
+            "whole weights)")
     es_cfg = t.get("early_stopping") or {}
     trainer = Trainer(
         task=task, output_dir=cfg["paths"]["output_dir"],
@@ -596,7 +626,7 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
         log_image_num=t.get("log_image_num", 4),
         steps_per_execution=t.get("steps_per_execution", 1),
         ckpt_every_n_steps=int(t.get("ckpt_every_n_steps", 0) or 0),
-        fsdp=fsdp,
+        fsdp=fsdp, mesh=grid, seq_shard=bool(t.get("seq_shard", False)),
         exp_name=cfg.get("exp_name"), project=t.get("project"),
         tags=tuple(cfg.get("tags") or ()))
     if lead:
@@ -635,7 +665,7 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
     if cfg.get("test", True):
         result.update(trainer.test(state, loaders["test"]))
     if cfg.get("predict", False):
-        # every rank writes the masks of its shard of the test set (the
+        # every data rank writes the masks of its shard of the test set (the
         # names are the dataset's, so one directory gathers them all)
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
         trainer.predict(state, loaders["test"], save_dir=out_dir)

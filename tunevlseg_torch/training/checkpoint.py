@@ -28,7 +28,10 @@ every rank waits at a barrier after a drain, so that none reads a
 checkpoint mid-promotion (`poll` promotes only on one process). A restore
 lays the full tensors out as the live parameters are (sharded under FSDP),
 so a checkpoint of one layout restores bit for bit into another. The
-accumulation window is each rank's own under DDP (`no_sync`): a checkpoint
+Under tensor parallelism the frozen file holds the whole tensors too: the
+slices of `model.tp_plan` are gathered over the model group, and a restore
+slices them again. The accumulation window is each rank's own under DDP
+(`no_sync`): a checkpoint
 taken mid-window holds every rank's running mean (`per_rank`), gathered to
 rank 0, and restores only into as many ranks; under FSDP and on one device
 the window is one (FSDP reduces each micro-step's gradients) and a
@@ -44,7 +47,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from tunevlseg_torch.parallel import data_parallel, distributed
+from tunevlseg_torch.parallel import data_parallel, distributed, tensor_parallel
 from tunevlseg_torch.training.task import TrainState
 
 STATE_FILE = "state.pt"
@@ -228,7 +231,8 @@ class CheckpointManager:
         distributed.barrier()
         if exists:
             return
-        frozen = full(self.frozen_state())
+        frozen = tensor_parallel.full_tensors(self.model,
+                                              full(self.frozen_state()))
         if distributed.rank() == 0:
             staging = self.dir / ".staging-frozen"
             if staging.exists():
@@ -250,7 +254,7 @@ class CheckpointManager:
                 f"{sorted(set(own) - set(saved))[:5]}, unexpected "
                 f"{sorted(set(saved) - set(own))[:5]}")
         for name, value in saved.items():
-            copy_into(own[name], value)
+            copy_into(own[name], tensor_parallel.local_part(self.model, name, value))
 
     def save(self, tag: str, state: TrainState, extra: dict) -> None:
         """Copy the state to the host now, write it in a background thread

@@ -147,7 +147,7 @@ def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor,
 
 def mean_over_ranks(metrics: dict) -> dict:
     """Each scalar's mean over the ranks (losses of equal local batches)."""
-    world = distributed.world_size()
+    world = distributed.data_size()
     return {k: v / world for k, v in distributed.all_reduce_sum(metrics).items()}
 
 

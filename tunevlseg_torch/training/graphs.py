@@ -308,6 +308,6 @@ class CapturedSteps:
                 self.lr_rows.copy_(torch.tensor(
                     [self.task.learning_rates(opt, state.step + i)
                      for i in range(self.num_steps)], dtype=torch.float32))
-        rank = distributed.rank()
+        rank = distributed.data_rank()
         for i, gen in enumerate(self.generators):
             gen.manual_seed(step_seed(self.task.seed, state.step + i, rank))

@@ -28,9 +28,20 @@ computed, so the plateau scheduler, early stopping and the "best"
 checkpoint see the same numbers on every rank; rank 0 alone logs and
 writes checkpoints; a SIGTERM on any rank stops every rank at the same
 step. Under more than one rank `steps_per_execution` is 1 and no image
-panel is logged, as in the JAX loop. The JAX loop's `mesh` and `seq_shard`
-(GSPMD tensor and sequence parallelism) have no counterpart: asking for one
-raises.
+panel is logged, as in the JAX loop.
+
+Tensor and sequence parallelism: `mesh` is the port's rank grid
+(`parallel/mesh.make_mesh(model_parallel)`; a grid that is not this rank's
+in the current process group raises), and the Trainer makes it the one the
+data-axis helpers of `parallel/distributed.py` read. With a model axis, the first
+`fit` / `test` / `predict` slices the frozen towers of the task's model over
+the model group (`tensor_parallel.shard_model`; the weights load whole
+before it) and, with `seq_shard`, shards their residual stream
+(`activation_sharding.enable`); DDP or FSDP then run over the data group,
+whose ranks' sums the metrics are. The ranks of a model group hold the same
+rows (each data rank's loader shard), and model rank 0 of each alone writes
+prediction masks. `seq_shard` without a model axis is a no-op, as in the
+JAX loop.
 """
 from __future__ import annotations
 
@@ -45,7 +56,9 @@ import torch
 from tunevlseg_torch.data.opencv import cv2 as _cv2
 from tunevlseg_torch.data.pipeline import DataLoader, device_batch
 from tunevlseg_torch.ops.metrics import SegMetricState, compute
-from tunevlseg_torch.parallel import data_parallel, distributed
+from tunevlseg_torch.parallel import (activation_sharding, data_parallel,
+                                      distributed, tensor_parallel)
+from tunevlseg_torch.parallel.mesh import Mesh, check as check_mesh
 from tunevlseg_torch.training.checkpoint import CheckpointManager
 from tunevlseg_torch.training.optim import (ReduceLROnPlateau,
                                             get_learning_rate,
@@ -146,16 +159,22 @@ class Trainer:
     # FSDP: parameters, AdamW moments and the frozen towers sharded over the
     # process group's ranks (`fully_shard`); needs a process group
     fsdp: bool = False
-    # options of the JAX trainer without a counterpart here
-    mesh: Any = None
+    # the rank grid (`parallel/mesh.make_mesh`): tensor parallelism of the
+    # frozen towers over its model axis
+    mesh: Optional[Mesh] = None
+    # sequence parallelism of the towers' residual stream (with a model axis)
     seq_shard: bool = False
 
     def __post_init__(self):
-        if self.mesh is not None or self.seq_shard:
-            raise NotImplementedError(
-                "mesh / seq_shard (GSPMD tensor and sequence parallelism) are "
-                'not ported: ROADMAP "Do not port"; data parallel over GPUs '
-                "runs in a process group (fsdp / trainer.n_devices)")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise ValueError(
+                f"Trainer(mesh=<{type(self.mesh).__name__}>) is not the port's "
+                "mesh: pass tunevlseg_torch.parallel.mesh.make_mesh(model_parallel)")
+        if self.mesh is not None:
+            check_mesh(self.mesh)
+        # the data-axis helpers (`distributed.data_rank` / `data_group`, the
+        # metric sums) read this trainer's grid, whatever was set before
+        distributed.set_mesh(self.mesh)
         if self.fsdp:
             data_parallel.require_group("Trainer(fsdp=True)")
         if distributed.world_size() > 1:
@@ -198,9 +217,12 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _setup(self, state: TrainState) -> TrainState:
-        """Once, in a process group: `task.compile_steps` wraps the task's
-        model in DDP, or shards it with `fsdp` (the state then gets its
-        optimizer over the shards)."""
+        """Once: with a model axis, tensor parallelism of the frozen towers
+        (and sequence parallelism with `seq_shard`); then, in a process
+        group, `task.compile_steps` wraps the task's model in DDP, or shards
+        it with `fsdp` (the state then gets its optimizer over the
+        shards)."""
+        self._shard_towers()
         if not self._set_up and distributed.is_initialized():
             if self.fsdp:
                 state = self.task.state_fsdp_shardings(state)
@@ -209,6 +231,15 @@ class Trainer:
             self._multi = self.task.compile_train_multistep(self.steps_per_execution)
         self._set_up = True
         return state
+
+    def _shard_towers(self) -> None:
+        """With a model axis: the frozen towers sliced over the model group
+        (once; the weights load whole before it), and their stream
+        sequence-sharded with `seq_shard`."""
+        if self.mesh is not None and self.mesh.model_size > 1:
+            tensor_parallel.shard_model(self.task.model, self.mesh)
+            if self.seq_shard:
+                activation_sharding.enable(self.task.model, self.mesh)
 
     # ---------------------------------------------------------------
 
@@ -440,6 +471,7 @@ class Trainer:
 
     def test(self, state: TrainState, test_loader: DataLoader,
              use_best: bool = True) -> dict:
+        self._shard_towers()
         if use_best and (self.ckpt.dir / "best").exists():
             state = self.ckpt.restore("best", state)
         result = self._run_eval(state, test_loader, "test")
@@ -454,6 +486,10 @@ class Trainer:
         save_utils), which needs cv2."""
         if save_dir is not None:
             cv2 = _cv2()
+        self._shard_towers()
+        # the ranks of a model group predict the same rows: one writes them
+        writes = save_dir is not None and (
+            self.mesh is None or self.mesh.model_rank == 0)
         if use_best and (self.ckpt.dir / "best").exists():
             state = self.ckpt.restore("best", state)
         outputs = []
@@ -467,7 +503,7 @@ class Trainer:
                        "mask_name": batch["mask_name"][j],
                        "mask_shape": batch["mask_shape"][j]}
                 outputs.append(rec)
-                if save_dir is not None:
+                if writes:
                     save_dir = Path(save_dir)
                     h, w = (int(x) for x in rec["mask_shape"])
                     resized = cv2.resize(rec["pred"], (w, h),

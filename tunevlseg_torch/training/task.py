@@ -100,8 +100,9 @@ def load_partial_state(model: nn.Module, params: dict,
 
 def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     """The seed of one train step's dropout masks: a function of (seed,
-    step, rank) alone."""
-    rank = distributed.rank() if rank is None else rank
+    step, rank) alone; the rank is the data rank, so that the ranks of one
+    model group, which hold the same rows, draw the same masks."""
+    rank = distributed.data_rank() if rank is None else rank
     return (seed * 1_000_003 + step + rank * 0x9E3779B97F4A7C15) % 2 ** 63
 
 
@@ -143,12 +144,23 @@ def bind_reductions(opt: optim_lib.ClippedOptimizer, ddp: Optional[nn.Module],
     """The collectives the optimizer runs itself: under DDP with
     accumulation the window's mean over the ranks at the update (its
     micro-steps run under `no_sync`), under FSDP the mean over the ranks of
-    the gradients of the parameters it leaves whole."""
+    the gradients of the parameters it leaves whole, and under tensor
+    parallelism the mean of the trainable gradients over the model group."""
     opt.reduce_window = (data_parallel.mean_over_ranks_
                          if ddp is not None and opt.accumulate_steps > 1
                          else None)
-    opt.reduce_grads = (data_parallel.replicated_gradients(model)
-                        if data_parallel.is_sharded(model) else None)
+    fsdp = (data_parallel.replicated_gradients(model)
+            if data_parallel.is_sharded(model) else None)
+    # tensor parallel: the mean over the model group that `shard_model` bound
+    tp = getattr(model, "tp_reduce_grads", None)
+    if fsdp is None or tp is None:
+        opt.reduce_grads = fsdp or tp
+        return
+
+    def reduce_grads() -> None:
+        fsdp()
+        tp()
+    opt.reduce_grads = reduce_grads
 
 
 def global_step_metrics(loss: torch.Tensor,
@@ -158,7 +170,7 @@ def global_step_metrics(loss: torch.Tensor,
     summed metric states, as the JAX step computes them on its global
     batch."""
     sums = distributed.all_reduce_sum({"loss": loss, **local._asdict()})
-    loss = sums.pop("loss") / distributed.world_size()
+    loss = sums.pop("loss") / distributed.data_size()
     return {"loss": loss, **metrics_lib.compute(metrics_lib.SegMetricState(**sums))}
 
 
@@ -328,8 +340,10 @@ class SegmentationTask:
         all-reduce in the backward; with accumulation the window's mean
         all-reduced at the update), or with `fsdp` sharded by `fully_shard`
         (then `state_fsdp_shardings` gives the state its optimizer over the
-        shards). The steps stay eager; each rank passes its own rows."""
-        if self.loss_kwargs.get("batch") and distributed.world_size() > 1:
+        shards). The steps stay eager; each rank passes its own rows. Under a
+        rank grid with a model axis (`parallel/mesh.py`) both run over the
+        data group, and the ranks of one model group pass the same rows."""
+        if self.loss_kwargs.get("batch") and distributed.data_size() > 1:
             # a rank's dice over its own rows is not the global batch's, and
             # their mean is not either
             raise NotImplementedError(
