@@ -276,7 +276,13 @@ Phases, each printing its numbers on lines of its own:
      step on its rows reversed): the loss and statistics held, the bf16
      gradient only printed; the same CRIS e2e in f32 (TF32 off, the plain
      path), whose gradient is held to the b16 step's; each rank's dropout
-     masks its own; whether FSDP2's all-gather and reduce-scatter run on gloo with CUDA tensors
+     masks its own; the flagship at b32 a rank with the dice over the whole
+     batch (`loss_kwargs={"batch": True}`: the three sums all-reduced over
+     the data group, forward and backward) against one b64 step here with
+     the same loss, held beside the witness of that step computed as the
+     ranks compute it (two b32 forwards, the loss on their logits together),
+     which DDP must match as (b)'s CoOp matches its micro-steps;
+     whether FSDP2's all-gather and reduce-scatter run on gloo with CUDA tensors
      (they do; a fully_shard step over them crashed a rank, so FSDP's
      two-rank check is the CPU tests'); (c) phase
      23's 1024^2 zero-shot request with its proposals in 2 chunks, both on
@@ -341,6 +347,13 @@ Phases, each printing its numbers on lines of its own:
      and one process's b64 step, all four ranks bit-identical after the
      update; (d) CRIS CoOp on layout="flat" at tp = 2, b16, one step (54 K4,
      the attention pool's heads gathered before c_proj) against one process.
+     (e) the run of (a) exported through the CLI's `train.export_task` on
+     its two ranks (the whole tensors gathered over the model group, model
+     rank 0 tracing a whole model built again) against the one-process
+     export of the same task built here while the ranks ran: both programs
+     loaded and called on the run's weights and a b64 request,
+     bit-identical probabilities, the same `tunevlseg::` ops, the export
+     and load seconds, the tp program's launches (13 / 0 / 12).
      Then K1 (with and without the lse), K2 and K3 against their plain
      versions at every local shape those runs launched them at, as the
      ranks recorded them through the wrappers' launchers.
@@ -4733,7 +4746,8 @@ def dp_job_two_ranks(fa) -> dict:
 def dp_two_rank_cases():
     """(label, build function, global batch, launches a rank's step) of (b).
     The f32 CRIS launches no kernel (K1-K4 take bf16): it holds DDP's
-    gradient where summation order does not blow up."""
+    gradient where summation order does not blow up. The flagship runs with
+    the per-sample dice and with the dice over the whole batch."""
     import dataclasses
 
     import torch
@@ -4741,9 +4755,14 @@ def dp_two_rank_cases():
     cris_cfg = dataclasses.replace(cris_rn50_config(CRIS_IMG), dropout=0.0)
     cris_batch = make_train_batch(E2E_BATCH, text_dedup=0, seed=8, img=CRIS_IMG,
                                   pad_id=0)
+    coop_batch = make_train_batch(BATCH, text_dedup=1, seed=3)
     return (
-        ("coop", lambda: build_task("CLIPSeg rd64", "coop", 2e-4),
-         make_train_batch(BATCH, text_dedup=1, seed=3), CLIPSEG_COOP_STEP),
+        ("coop", lambda: build_task("CLIPSeg rd64", "coop", 2e-4), coop_batch,
+         CLIPSEG_COOP_STEP),
+        ("coop_batch_dice", lambda: build_task(
+            "CLIPSeg rd64", "coop", 2e-4,
+            task_kwargs={"loss_kwargs": {"batch": True}}), coop_batch,
+         CLIPSEG_COOP_STEP),
         ("cris_flat_e2e", lambda: build_task(
             "CRIS RN50", "e2e", 3e-6,
             build_kwargs={"freeze_encoder": False, "layout": "flat",
@@ -4761,12 +4780,49 @@ def dp_two_rank_cases():
 DP_JOBS = {"world1": dp_job_world1, "two_ranks": dp_job_two_ranks}
 
 
+def batch_dice_hold(got: dict, ref: dict, chunked: dict) -> None:
+    """(b)'s dice over the whole batch: DDP's loss (the mean over the ranks)
+    and the gradient its update applied against the ranks' arithmetic in
+    one process (`chunked`; the gradient within DDP2_GRAD_REL_TOL, as the
+    CoOp pair's, the loss within DP_F32_LOSS_REL_TOL of itself), and
+    against one b64 step (`ref`) within DP_WITNESS_FACTOR times the gap
+    between `chunked` and that step (the batch's two b32 forwards against
+    one b64 forward), or those floors where they are wider. A rank's dice
+    over its own rows, or a sums' gradient not summed over the ranks, is
+    off by a tenth and more."""
+    (ccos, _), (crel, crel_leaf) = worst_leaf(got["applied"], chunked["applied"])
+    (cos, cos_leaf), (rel, rel_leaf) = worst_leaf(got["applied"], ref["applied"])
+    (wcos, _), (wrel, _) = worst_leaf(chunked["applied"], ref["applied"])
+    closs = abs(got["loss"] - chunked["loss"]) / abs(chunked["loss"])
+    loss_gap, wloss = abs(got["loss"] - ref["loss"]), abs(chunked["loss"] - ref["loss"])
+    loss_cap = max(DP_F32_LOSS_REL_TOL * abs(ref["loss"]), DP_WITNESS_FACTOR * wloss)
+    rel_cap = max(DDP2_GRAD_REL_TOL, DP_WITNESS_FACTOR * wrel)
+    cos_cap = min(DP_F32_COS_MIN, 1 - DP_WITNESS_FACTOR * (1 - wcos))
+    print(f"dp two ranks coop_batch_dice: the dice's three sums over both ranks' "
+          f"rows; against the ranks' arithmetic in one process (two b32 "
+          f"forwards, one loss): loss {closs:.3g} of itself off (bound "
+          f"{DP_F32_LOSS_REL_TOL}), gradient least cosine {ccos:.7f}, largest "
+          f"max abs diff {crel:.4g} of its leaf's largest entry ({crel_leaf}; "
+          f"bound {DDP2_GRAD_REL_TOL}); against one b64 step: loss "
+          f"{got['loss']:.6f} / {ref['loss']:.6f}, gap {loss_gap:.4g} (bound "
+          f"{loss_cap:.4g}; the witness {wloss:.4g}), gradient least cosine "
+          f"{cos:.7f} ({cos_leaf}; at least {cos_cap:.7f}), largest max abs diff "
+          f"{rel:.4g} ({rel_leaf}; bound {rel_cap:.4g}); the witness {wcos:.7f}, "
+          f"{wrel:.4g}")
+    if not (closs <= DP_F32_LOSS_REL_TOL and crel <= DDP2_GRAD_REL_TOL
+            and loss_gap <= loss_cap and rel <= rel_cap and cos >= cos_cap):
+        fail("dp two ranks coop_batch_dice: DDP's step is not the dice over the "
+             "whole batch")
+
+
 def dp_references(fa) -> dict:
     """(b)'s references in this process, with no process group: the flagship
     as two accumulated b32 micro-steps of the ranks' rows, each CRIS e2e as
     one b16 step, and as a witness the same b16 step on the rows in reverse
     order (the same samples: it differs from the first by summation order
-    alone)."""
+    alone); the flagship with the dice over the whole batch as one b64 step,
+    and as its witness the same loss and gradient from the ranks' two b32
+    forwards (`chunked_batch_dice`)."""
     import torch
     from tunevlseg_torch.training.task import SegmentationTask
     refs = {}
@@ -4781,6 +4837,9 @@ def dp_references(fa) -> dict:
             task = SegmentationTask(task.model, task.freeze_spec, learning_rate=2e-4,
                                     accumulate_grad_batches=2)
             runs = {key: [dp_rows(batch, r, 2) for r in range(2)]}
+        elif key == "coop_batch_dice":
+            refs[f"{key} chunked"] = chunked_batch_dice(task, start, batch, 2)
+            runs = {key: [batch]}
         else:
             flipped = {k: v.flip(0) if v.shape[0] == E2E_BATCH else v
                        for k, v in batch.items()}
@@ -4798,6 +4857,26 @@ def dp_references(fa) -> dict:
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return refs
+
+
+def chunked_batch_dice(task, start: dict, batch: dict, ranks: int) -> dict:
+    """The loss and gradient of one step of `task` (the dice over the whole
+    batch) from the weights `start`, with the forward run on each of
+    `ranks` blocks of rows apart and the loss on their logits together: one
+    process's arithmetic of the ranks' step. {"applied": {leaf: f32
+    gradient}, "loss": float}."""
+    import torch
+    restore_trainable(task.model, start)
+    task.model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        logits = torch.cat([task._loss(dp_rows(batch, r, ranks))[1]
+                            for r in range(ranks)])
+        loss = task.loss_fn(logits, batch["mask"], **task.loss_kwargs)
+    loss.backward()
+    grads = {n: p.grad.float().cpu() for n, p in task.model.named_parameters()
+             if p.requires_grad and p.grad is not None}
+    task.model.zero_grad(set_to_none=True)
+    return {"applied": grads, "loss": loss.item(), "model_state": {}}
 
 
 def gradient_gap(got: dict, want: dict) -> tuple:
@@ -4822,63 +4901,26 @@ def gradient_gap(got: dict, want: dict) -> tuple:
     return worst_cos, worst_rel
 
 
-def phase_data_parallel(fa) -> dict:
-    """Phase 28 (see the module docstring). Returns {path: counts}; the
-    counts of the ranks' paths are rank 0's."""
-    import dataclasses
-
+def dp_two_ranks_hold(fa) -> dict:
+    """Phase 28 (b): the two-rank cases on the one card against their
+    references in this process. Returns {path: counts} (rank 0's)."""
     import torch
-
-    t_phase = time.perf_counter()
     by_path = {}
-    # (a) NCCL at world size 1
-    ctx, workdir = dp_spawn("world1", 1, "nccl")
-    (runs,) = dp_collect(ctx, workdir, "world1", "dp world 1")
-    plain = runs["plain"]
-    n_leaves = len(plain["weights"])
-    for key in ("ddp", "fsdp"):
-        run = runs[key]
-        worst = max(((run["weights"][n] - w).abs().max().item(), n)
-                    for n, w in plain["weights"].items())
-        same = sum(torch.equal(run["weights"][n], w) for n, w in plain["weights"].items())
-        print(f"dp world 1 {key}: losses " + " ".join(f"{x!r}" for x in run["losses"])
-              + " against plain " + " ".join(f"{x!r}" for x in plain["losses"])
-              + f"; weights after {DP_STEPS} steps: {same} of {n_leaves} leaves "
-              f"bit-identical (held: all), the largest difference {worst[0]:.4g} "
-              f"({worst[1]}); {run['moved']} of {n_leaves} leaves moved from the "
-              f"start (plain {plain['moved']}); "
-              f"step {run['ms']:.3f} ms (plain {plain['ms']:.3f}); peak device "
-              f"memory {run['peak']} bytes ({run['peak'] / 2**30:.3f} GiB, plain "
-              f"{plain['peak'] / 2**30:.3f}); launches {run['launches']} "
-              f"({CLIPSEG_COOP_STEP} a step)"
-              + (f"; {run['sharded']} parameters sharded as DTensors"
-                 if key == "fsdp" else ""))
-        if run["launches"] != tuple(DP_STEPS * c for c in CLIPSEG_COOP_STEP):
-            fail(f"dp world 1 {key}: launches {run['launches']}")
-        # one rank's all-reduce, all-gather and reduce-scatter are copies and
-        # its mean a division by 1: the steps are the plain steps bit for bit
-        if run["losses"] != plain["losses"] or same != n_leaves:
-            fail(f"dp world 1 {key}: one rank's steps are not the plain steps bit "
-                 "for bit")
-        if plain["moved"] == 0:
-            fail("dp world 1: the plain steps moved no weight")
-    by_path["train_ddp_ws1_coop"] = runs["ddp"]["launches"]
-    by_path["train_fsdp_ws1_coop"] = runs["fsdp"]["launches"]
-    del runs, plain
-
     # (b) two ranks on the one card over gloo; the references here first
     refs = dp_references(fa)
     ctx, workdir = dp_spawn("two_ranks", 2, "gloo")
     ranks = dp_collect(ctx, workdir, "two_ranks", "dp two ranks")
-    for key in ("coop", "cris_flat_e2e", "cris_e2e_f32"):
+    for key in ("coop", "coop_batch_dice", "cris_flat_e2e", "cris_e2e_f32"):
         r0, r1 = ranks[0][key], ranks[1][key]
         ref = refs[key]
         worst_cos, worst_rel = worst_leaf(r0["applied"], ref["applied"])
         ranks_same = all(torch.equal(r0["applied"][n], r1["applied"][n])
                          for n in r0["applied"])
         masks_differ = not torch.equal(r0["masks"], r1["masks"])
+        against = {"coop": "two accumulated b32 micro-steps",
+                   "coop_batch_dice": "one b64 step"}.get(key, "one b16 step")
         print(f"dp two ranks {key}: gloo, both ranks on cuda:0, the gradient the "
-              f"update applied against {'two accumulated b32 micro-steps' if key == 'coop' else 'one b16 step'} "
+              f"update applied against {against} "
               f"in one process: least cosine {worst_cos[0]:.7f} ({worst_cos[1]}), "
               f"largest max abs diff {worst_rel[0]:.4g} of its leaf's largest entry "
               f"({worst_rel[1]}"
@@ -4893,7 +4935,9 @@ def phase_data_parallel(fa) -> dict:
                  "masks are the same")
         if key == "coop" and worst_rel[0] > DDP2_GRAD_REL_TOL:
             fail(f"dp two ranks {key}: DDP's gradient is not the accumulated one")
-        if key != "coop":
+        if key == "coop_batch_dice":
+            batch_dice_hold(r0, ref, refs[f"{key} chunked"])
+        elif key != "coop":
             # each leaf against max(its largest entry, 1e-3 of any leaf's): a
             # bias under a train-mode BatchNorm has a gradient that is zero in
             # exact arithmetic (tests/test_torch_cris.py's e2e rule); the
@@ -4948,6 +4992,54 @@ def phase_data_parallel(fa) -> dict:
           "fully_shard step over them is not run here (it killed a rank with "
           "SIGSEGV); FSDP's two-rank check is the CPU tests'")
     del refs, ranks
+    return by_path
+
+
+def phase_data_parallel(fa) -> dict:
+    """Phase 28 (see the module docstring). Returns {path: counts}; the
+    counts of the ranks' paths are rank 0's."""
+    import dataclasses
+
+    import torch
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    # (a) NCCL at world size 1
+    ctx, workdir = dp_spawn("world1", 1, "nccl")
+    (runs,) = dp_collect(ctx, workdir, "world1", "dp world 1")
+    plain = runs["plain"]
+    n_leaves = len(plain["weights"])
+    for key in ("ddp", "fsdp"):
+        run = runs[key]
+        worst = max(((run["weights"][n] - w).abs().max().item(), n)
+                    for n, w in plain["weights"].items())
+        same = sum(torch.equal(run["weights"][n], w) for n, w in plain["weights"].items())
+        print(f"dp world 1 {key}: losses " + " ".join(f"{x!r}" for x in run["losses"])
+              + " against plain " + " ".join(f"{x!r}" for x in plain["losses"])
+              + f"; weights after {DP_STEPS} steps: {same} of {n_leaves} leaves "
+              f"bit-identical (held: all), the largest difference {worst[0]:.4g} "
+              f"({worst[1]}); {run['moved']} of {n_leaves} leaves moved from the "
+              f"start (plain {plain['moved']}); "
+              f"step {run['ms']:.3f} ms (plain {plain['ms']:.3f}); peak device "
+              f"memory {run['peak']} bytes ({run['peak'] / 2**30:.3f} GiB, plain "
+              f"{plain['peak'] / 2**30:.3f}); launches {run['launches']} "
+              f"({CLIPSEG_COOP_STEP} a step)"
+              + (f"; {run['sharded']} parameters sharded as DTensors"
+                 if key == "fsdp" else ""))
+        if run["launches"] != tuple(DP_STEPS * c for c in CLIPSEG_COOP_STEP):
+            fail(f"dp world 1 {key}: launches {run['launches']}")
+        # one rank's all-reduce, all-gather and reduce-scatter are copies and
+        # its mean a division by 1: the steps are the plain steps bit for bit
+        if run["losses"] != plain["losses"] or same != n_leaves:
+            fail(f"dp world 1 {key}: one rank's steps are not the plain steps bit "
+                 "for bit")
+        if plain["moved"] == 0:
+            fail("dp world 1: the plain steps moved no weight")
+    by_path["train_ddp_ws1_coop"] = runs["ddp"]["launches"]
+    by_path["train_fsdp_ws1_coop"] = runs["fsdp"]["launches"]
+    del runs, plain
+
+    by_path.update(dp_two_ranks_hold(fa))
 
     # (c) the zero-shot request with its proposals in 2 chunks on cuda:0
     if not ZS_SHARED:
@@ -5910,12 +6002,16 @@ def tp_record(model, state, losses, applied, launches, moved, ms, peak,
 
 
 def tp_job_two_ranks(fa) -> dict:
-    """(a), (b) and (d) on two ranks, one model group (tp = 2, dp = 1),
+    """(a), (b), (d) and (e) on two ranks, one model group (tp = 2, dp = 1),
     both on cuda:0 over gloo; and (c)'s reference, two accumulated b32
     micro-steps at tp = 2."""
+    import tempfile
+
     import torch
-    from tunevlseg_torch.parallel import activation_sharding, tensor_parallel
+    from tunevlseg_torch.parallel import (activation_sharding, distributed,
+                                          tensor_parallel)
     from tunevlseg_torch.parallel.mesh import make_mesh
+    from tunevlseg_torch.train import export_task
     from tunevlseg_torch.training.task import SegmentationTask
     grid = make_mesh(2)
     shapes = {}
@@ -5939,6 +6035,14 @@ def tp_job_two_ranks(fa) -> dict:
     out["coop"] = tp_record(model, *run, serve=serve,
                             frozen=(whole, frozen_bytes(model)),
                             local_heads=model.vision_model.layers[0].self_attn.num_heads)
+    # (e) the run's export through the CLI's `export_task`: the whole tensors
+    # gathered over the model group, rank 0 tracing a whole model built again
+    out_dir = (tempfile.mkdtemp(prefix="chip_smoke_tp_export_")
+               if distributed.rank() == 0 else None)
+    t = time.perf_counter()
+    export_task(task, run[0], batches[0], out_dir, ("cuda",),
+                rebuild=lambda: build_task("CLIPSeg rd64", "coop", 2e-4)[0])
+    out["coop"]["export"] = {"dir": out_dir, "s": time.perf_counter() - t}
     # (c)'s reference: the first batch as two accumulated b32 micro-steps
     restore_trainable(model, start)
     acc = SegmentationTask(model, task.freeze_spec, learning_rate=2e-4,
@@ -6053,6 +6157,76 @@ def tp_references(fa) -> dict:
     return refs
 
 
+def tp_one_process_export() -> tuple:
+    """(e)'s one-process side, run while the tp = 2 ranks train: the
+    flagship CoOp task built as the ranks build it, exported at b64 through
+    `export_task` with no process group (the one-process path), and its
+    program loaded. Returns (the task, the program's directory, the
+    export's seconds, the loaded program, the load's seconds)."""
+    import tempfile
+
+    from tunevlseg_torch import serving
+    from tunevlseg_torch.train import export_task
+    task, state = build_task("CLIPSeg rd64", "coop", 2e-4)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_one_export_")
+    t = time.perf_counter()
+    export_task(task, state, make_train_batch(BATCH, text_dedup=1, seed=3),
+                out_dir, ("cuda",))
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    program = serving.load_fn(out_dir, device="cuda")
+    return task, out_dir, export_s, program, time.perf_counter() - t
+
+
+def tp_export_hold(fa, run: dict, one: tuple) -> tuple:
+    """(e): the tp = 2 run's program (exported by model rank 0) and the
+    one-process program, each loaded and called on the run's weights (the
+    frozen tensors as built, the trainable ones after the run's steps) and
+    its first b64 request: the probabilities bit-identical, the same
+    `tunevlseg::` ops in both meta.json, the tp program's launches from 0.
+    Returns those launches."""
+    import shutil
+
+    import torch
+    from tunevlseg_torch import serving
+    task, one_dir, one_s, one_program, one_load_s = one
+    tp_dir = run["export"]["dir"]
+    model_params = dict(task.model.named_parameters())
+    with torch.no_grad():
+        for name, w in run["trainable"].items():
+            model_params[name].copy_(w)
+    params = dict(task.model.state_dict())
+    request = make_train_batch(BATCH, text_dedup=1, seed=3)
+    t = time.perf_counter()
+    program = serving.load_fn(tp_dir, device="cuda")
+    loads = (time.perf_counter() - t, one_load_s)
+    reset_counts(fa)
+    probs = program(params, request)
+    torch.cuda.synchronize()
+    launches = counts(fa)
+    want = one_program(params, request)
+    torch.cuda.synchronize()
+    check_probs("tp2 export", probs, BATCH, IMG)
+    same = torch.equal(probs, want)
+    ops = [serving.read_meta(d)["tunevlseg_ops"] for d in (tp_dir, one_dir)]
+    print(f"tp2 export: the tp = 2 run exported through train.export_task (model "
+          f"rank 0 tracing a whole model built again, the run's tensors gathered "
+          f"into it) in {run['export']['s']:.2f} s, the one-process export in "
+          f"{one_s:.2f} s; loaded in {loads[0]:.2f} / {loads[1]:.2f} s; ops "
+          f"{ops[0]} / {ops[1]}; on the run's weights and its b64 request the "
+          f"probabilities {'bit-identical' if same else 'DIFFERENT'} (max abs diff "
+          f"{(probs - want).abs().max().item():.4g}); the tp program's launches "
+          f"{launches}")
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    shutil.rmtree(one_dir, ignore_errors=True)
+    if not same or ops[0] != ops[1] or \
+            ops[0] != {"cuda": ["biased_attn_fwd", "flash_attn_fwd"]}:
+        fail("tp2 export: the tp = 2 program is not the one-process program")
+    if launches != CLIPSEG_SERVE:
+        fail(f"tp2 export: the program launched {launches}")
+    return launches
+
+
 def tp_hold(label: str, got: dict, want: dict, witness: dict,
             other: str = "one process") -> None:
     """The losses of each step within LOSS_TOL (or DP_WITNESS_FACTOR times the
@@ -6089,7 +6263,10 @@ def phase_tensor_parallel(fa) -> dict:
     t_phase = time.perf_counter()
     by_path = {}
     refs = tp_references(fa)
-    ranks = dp_collect(*dp_spawn("tp2", 2, "gloo"), "tp2", "tp2")
+    two = dp_spawn("tp2", 2, "gloo")
+    # (e)'s one-process export while the two ranks run
+    one_export = tp_one_process_export()
+    ranks = dp_collect(*two, "tp2", "tp2")
     # (c)'s ranks run while (a), (b) and (d) are read
     four = dp_spawn("dp2tp2", 4, "gloo")
     r0, r1 = ranks
@@ -6133,6 +6310,8 @@ def phase_tensor_parallel(fa) -> dict:
         fail("tp2 coop: the frozen tensors were not sliced, or nothing was reduced")
     by_path["serve_tp2_coop"] = a0["serve"]["launches"]
     by_path["train_tp2_coop"] = a0["launches"]
+    by_path["serve_exported_tp2_coop"] = tp_export_hold(fa, a0, one_export)
+    del one_export
 
     # (b)
     for strategy, per_step, tokens in (("coop", CLIPSEG_COOP_STEP, 442),

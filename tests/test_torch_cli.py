@@ -168,8 +168,6 @@ def test_export_dir_in_train_and_eval(synth, tmp_path):
         "exp_name=export_eval", f"+export_dir={tmp_path / 'eval_art'}",
         "+export_platforms=[cpu]"])
     ckpt = out / "train" / "export" / "checkpoints"
-    params = {**torch.load(ckpt / "frozen" / "frozen.pt"),
-              **torch.load(ckpt / "best" / "state.pt")["trainable"]}
     probs = []
     for result in (trained, evaluated):
         meta = serving.read_meta(result["export_dir"])
@@ -177,21 +175,33 @@ def test_export_dir_in_train_and_eval(synth, tmp_path):
         assert meta["model"] == "CLIPSegForSegmentation"
         assert meta["platforms"] == ["cpu"] and meta["tunevlseg_ops"] == {"cpu": []}
         assert (Path(result["export_dir"]) / "predict.cpu.pt2").exists()
-        shapes = {s["name"][2:]: s["shape"] for s in meta["in_specs"]
-                  if s["name"].startswith("1.")}
-        assert shapes["image"] == [4, 3, 32, 32]
-        g = torch.Generator().manual_seed(0)
-        batch = {"image": torch.randint(0, 256, shapes["image"], generator=g,
-                                        dtype=torch.uint8),
-                 "input_ids": torch.full(shapes["input_ids"], 320, dtype=torch.int32),
-                 "attention_mask": torch.ones(shapes["attention_mask"],
-                                              dtype=torch.int32)}
-        batch["input_ids"][:, 0], batch["input_ids"][:, 3] = 49406, 49407
-        if "text_index" in shapes:
-            batch["text_index"] = torch.zeros(shapes["text_index"], dtype=torch.int32)
-        probs.append(serving.load_fn(result["export_dir"], device="cpu")(params, batch))
+        assert [s["shape"] for s in meta["in_specs"] if s["name"] == "1.image"] \
+            == [[4, 3, 32, 32]]
+        probs.append(exported_probs(result["export_dir"], ckpt))
     assert probs[0].shape == (4, 1, 32, 32) and bool(probs[0].isfinite().all())
     torch.testing.assert_close(probs[1], probs[0], rtol=0, atol=0)
+
+
+def exported_probs(export_dir, ckpt, tag: str = "best") -> torch.Tensor:
+    """The CPU program of `export_dir` on the weights of the checkpoint
+    directory `ckpt` (its frozen tensors and the trainable ones of `tag`)
+    and a seeded batch of the program's input shapes."""
+    from tunevlseg_torch import serving
+    params = {**torch.load(Path(ckpt) / "frozen" / "frozen.pt"),
+              **torch.load(Path(ckpt) / tag / "state.pt")["trainable"]}
+    meta = serving.read_meta(export_dir)
+    shapes = {s["name"][2:]: s["shape"] for s in meta["in_specs"]
+              if s["name"].startswith("1.")}
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randint(0, 256, shapes["image"], generator=g,
+                                    dtype=torch.uint8),
+             "input_ids": torch.full(shapes["input_ids"], 320, dtype=torch.int32),
+             "attention_mask": torch.ones(shapes["attention_mask"],
+                                          dtype=torch.int32)}
+    batch["input_ids"][:, 0], batch["input_ids"][:, 3] = 49406, 49407
+    if "text_index" in shapes:
+        batch["text_index"] = torch.zeros(shapes["text_index"], dtype=torch.int32)
+    return serving.load_fn(export_dir, device="cpu")(params, batch)
 
 
 def test_cris_train_cycle(synth, tmp_path):

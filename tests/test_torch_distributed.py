@@ -25,9 +25,13 @@ check of the module:
     statistics over the global batch, which is what the JAX BatchNorm
     computes on a batch sharded over the mesh (checked here first);
   * (v) a SIGTERM on one rank stops both at the same step, and rank 0
-    alone writes the logs.
+    alone writes the logs;
+  * the dice over the whole batch (`loss_kwargs={"batch": True}`) under DDP
+    and FSDP, and in the eval step on a batch with padded rows, against the
+    JAX task on the mesh.
 Beside it: the train CLI with `trainer.n_devices=2` on the CPU (rank 0
-alone writes checkpoints and logs, both prediction shards land), zero-shot
+alone writes checkpoints and logs, both prediction shards land), its
+export under FSDP against the one-process export, zero-shot
 RIS with the proposals over two devices against the JAX mesh
 (`tests/test_zero_shot_ris.py::test_zero_shot_ris_fused_mesh_parity`), and
 the process-group entry points' errors.
@@ -52,9 +56,9 @@ pytest.importorskip("optax")
 import jax.numpy as jnp  # noqa: E402
 
 from tests import torch_distributed_ranks as ranks_mod  # noqa: E402
-from tests.test_torch_accumulate import (IMAGENET, SCALAR_TOL,  # noqa: E402
-                                         _hold_weights, _synthetic_batch,
-                                         jax_clipseg_pair)
+from tests.test_torch_accumulate import (GRAD_REL_TOL, IMAGENET,  # noqa: E402
+                                         SCALAR_TOL, _hold_weights,
+                                         _synthetic_batch, jax_clipseg_pair)
 from tests.test_torch_cli import _common, synth  # noqa: E402,F401
 from tests.test_torch_denseclip import _built as _dc_built  # noqa: E402
 from tests.test_torch_zero_shot_ris import clip, solo  # noqa: E402,F401
@@ -151,6 +155,11 @@ def runs(tmp_path_factory):
                                                     batches[0])
     jacc, jacc_state, _, _ = jax_clipseg_pair(
         dict(learning_rate=LR, accumulate_grad_batches=2), micro[0])
+    dice_batches = [_dice_batch(s) for s in (12, 13)]
+    padded = _dice_batch(14)
+    padded["valid"][[3, 7]] = 0.0      # one padded row in each rank's half
+    jdice, jdice_state, _, _ = jax_clipseg_pair(
+        dict(learning_rate=LR, loss_kwargs={"batch": True}), dice_batches[0])
     clipseg_sd = ttask.model.state_dict()
 
     # CRIS e2e: a JAX tree of the model's shapes drawn from a seeded numpy
@@ -175,6 +184,7 @@ def runs(tmp_path_factory):
     rng = np.random.default_rng(5)
     inputs = {
         "clipseg": clipseg_sd, "batches": batches, "micro": micro,
+        "dice_batches": dice_batches, "padded": padded,
         "cris": cris_model.state_dict(), "cris_hp": CRIS_HP,
         "cris_batches": cris_batches,
         "denseclip": {"config": dc_cfg, "class_ids": dc_ids,
@@ -188,7 +198,9 @@ def runs(tmp_path_factory):
 
     mesh = _mesh()
     want = {"ddp": _jax_stepper(jtask, frozen, mesh, batches, jstate),
-            "accumulate": _jax_stepper(jacc, frozen, mesh, micro, jacc_state)}
+            "accumulate": _jax_stepper(jacc, frozen, mesh, micro, jacc_state),
+            **_jax_batch_dice(jdice, jdice_state, frozen, mesh, dice_batches,
+                              padded, ttask.model)}
     jcris_task = JTask(jm, jspec, mutable_collections=("batch_stats",), **CRIS_HP)
     trainable, frozen_params = partition_params(cris_params, jspec)
     cris_state = JTrainState(jnp.zeros((), jnp.int32), trainable,
@@ -212,6 +224,40 @@ def runs(tmp_path_factory):
     return dict(got=got, want=want, inputs=inputs, work=work,
                 models={"clipseg": ttask.model, "cris_e2e": cris_model,
                         "denseclip": dc_model})
+
+
+def _dice_batch(seed):
+    """A global batch of 8 whose two halves (the two ranks' rows) hold
+    targets of different sizes: the whole blob, and its left half. A rank's
+    dice over its own rows is then far from the global batch's."""
+    batch = _synthetic_batch(seed)
+    img = batch["mask"].shape[-1]
+    batch["mask"][4:, ..., img // 2:] = 0.0
+    return batch
+
+
+def _jax_batch_dice(jtask, jstate, frozen, mesh, batches, padded, model):
+    """The JAX task's side of the batch dice on `mesh`: the eval step's
+    (loss_sum, n) on `padded` and the gradient of the first step's loss
+    (port names), both at the initial state, then the train steps over
+    `batches`."""
+    from tunevlseg_tpu.ops import metrics as jmetrics
+    state = mesh_lib.replicate(mesh, jstate)
+    fro = mesh_lib.replicate(mesh, frozen)
+    evals = jtask.compile_steps(mesh)[1]
+    _, extra = evals(state, fro, jmetrics.SegMetricState.zeros(),
+                     mesh_lib.shard_batch(mesh, padded))
+    rng = jax.random.fold_in(jstate.rng, 0)     # the first step's key
+
+    def loss(trainable, batch):
+        return jtask._loss(trainable, {}, fro, batch, rng)[0]
+
+    grads = jax.jit(jax.grad(loss))(state.trainable,
+                                    mesh_lib.shard_batch(mesh, batches[0]))
+    return {"batch_dice_eval": (float(extra["loss_sum"]), float(extra["n"])),
+            "batch_dice_grad": trainable_from_jax(
+                jax.tree_util.tree_map(np.asarray, grads), model),
+            "batch_dice": _jax_stepper(jtask, frozen, mesh, batches, jstate)}
 
 
 def _drawn(shapes, seed):
@@ -356,13 +402,11 @@ def test_find_unused_parameters_only_where_the_model_names_some(runs):
     """CoOp's stock CLIPSeg never reads `residual_ratio`: DDP finds it
     unused on both ranks, which stay in step, and it keeps its value; the
     "residual" model reads every trainable leaf and runs without the
-    search. The dice over the whole batch is refused over two ranks."""
+    search."""
     from tunevlseg_torch.models.clip.config import CLIPSegConfig
     from tunevlseg_torch.parallel import data_parallel
     r0, r1 = (g["ddp_unused"] for g in runs["got"])
     assert r0["find_unused"] and r1["find_unused"]
-    # a rank's dice over its own rows is not the global batch's: refused
-    assert r0["batch_dice_refused"] and r1["batch_dice_refused"]
     assert r0["losses"] == r1["losses"]
     assert all(torch.equal(r0["trainable"][n], r1["trainable"][n])
                for n in r0["trainable"])
@@ -371,6 +415,81 @@ def test_find_unused_parameters_only_where_the_model_names_some(runs):
     assert torch.equal(r0["trainable"]["residual_ratio"], model.residual_ratio)
     assert data_parallel.unused_parameters(model) == ["residual_ratio"]
     assert data_parallel.unused_parameters(runs["models"]["clipseg"]) == []
+
+
+# --- the dice over the whole batch ---------------------------------------------------
+
+@pytest.mark.parametrize("wrap", ["ddp", "fsdp"])
+def test_batch_dice_over_two_ranks_matches_the_jax_mesh(runs, wrap):
+    """`loss_kwargs={"batch": True}` under DDP and under FSDP: each rank's
+    dice adds the three sums over the data group before the ratio, and the
+    sums' backward adds the gradients over it, so each rank's loss is the
+    global dice and DDP's (FSDP's) mean of the ranks' gradients that of the
+    global loss, as the JAX `dice_ce_loss(batch=True)` under jit on
+    `make_mesh(2)` computes them. Each step's loss, dice and IoU at
+    SCALAR_TOL; the gradient the first update applied within GRAD_REL_TOL
+    of each leaf's largest entry of the JAX gradient (a rank's dice over
+    its own rows, or the sums' gradient left unsummed, is off by far more);
+    the weights after the two steps by the parity rule (the neighbouring
+    DDP check's); the ranks bit for bit in step."""
+    got = [g["batch_dice"][wrap] for g in runs["got"]]
+    _both_ranks_equal(got[0], got[1])
+    seen = got[0]
+    start = {n: v for n, v in runs["inputs"]["clipseg"].items()
+             if n in seen[0]["trainable"]}
+    _hold_steps(seen, runs["want"]["batch_dice"], runs["models"]["clipseg"],
+                start, lambda name: 2 * LR * 1.05)
+    jgrad = runs["want"]["batch_dice_grad"]
+    assert jgrad.keys() == seen[0]["grads"].keys()
+    for name, w in jgrad.items():
+        torch.testing.assert_close(seen[0]["grads"][name], w, rtol=0,
+                                   atol=GRAD_REL_TOL * w.abs().max().item(),
+                                   msg=name)
+
+
+def test_batch_dice_eval_loss_sum_over_two_ranks_matches_the_jax_mesh(runs):
+    """The eval step under the batch dice on a batch whose two halves each
+    hold one padded row (the port's loader pads every rank's shard to one
+    length, so the ranks' last batches hold as many valid rows): each
+    rank's loss is the global dice (the padded rows zeroed on both sides,
+    their sigmoid 0.5 in the prediction sum, as in JAX) plus its own rows'
+    cross-entropy, so the ranks' loss_sum added up is the JAX eval's on the
+    global batch, to SCALAR_TOL."""
+    r0, r1 = (g["batch_dice"]["eval"] for g in runs["got"])
+    want_sum, want_n = runs["want"]["batch_dice_eval"]
+    assert float(r0["n"]) == float(r1["n"]) == want_n / 2 == 3
+    np.testing.assert_allclose(float(r0["loss_sum"] + r1["loss_sum"]), want_sum,
+                               rtol=SCALAR_TOL, atol=SCALAR_TOL)
+
+
+def test_batch_dice_with_one_data_rank_runs_no_collective(monkeypatch):
+    """Without a process group (one data rank) the dice over the batch runs
+    no collective and is, bit for bit, the dice of the one device's sums:
+    1 - (2 I + smooth) / (G + P + smooth), with every option's sums."""
+    import torch.distributed as dist
+
+    from tunevlseg_torch.ops.losses import dice_loss
+
+    def refuse(*a, **k):
+        raise AssertionError("a collective ran with one data rank")
+    monkeypatch.setattr(dist, "all_reduce", refuse)
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(4, 2, 9, 9, generator=g)
+    targets = (torch.rand(4, 2, 9, 9, generator=g) > 0.5).float()
+    p = torch.sigmoid(logits)
+    dims = (0, 2, 3)
+    for squared, jaccard in ((False, False), (True, False), (False, True)):
+        inter = (targets * p).sum(dim=dims)
+        if squared:
+            den = (targets * targets).sum(dim=dims) + (p * p).sum(dim=dims)
+        else:
+            den = targets.sum(dim=dims) + p.sum(dim=dims)
+        if jaccard:
+            den = 2.0 * (den - inter)
+        want = (1.0 - (2.0 * inter + 1e-5) / (den + 1e-5)).mean()
+        got = dice_loss(logits, targets, squared_pred=squared, jaccard=jaccard,
+                        batch=True)
+        assert torch.equal(got, want), (squared, jaccard)
 
 
 # --- (ii) accumulation -------------------------------------------------------------
@@ -614,6 +733,36 @@ def test_train_cli_with_two_ranks_on_the_cpu(synth, tmp_path):
     assert len(masks) == 8
     assert cv2.imread(str(masks[0]), cv2.IMREAD_GRAYSCALE).shape == (40, 40)
     assert (run / "config.yaml").exists() and not (run / "FAILED").exists()
+    assert not distributed.is_initialized()
+
+
+def test_fsdp_train_cli_exports_the_one_process_program(synth, tmp_path):
+    """`trainer.n_devices=2 trainer.fsdp=true +export_dir`: the model is
+    sharded over the two ranks, so rank 0 builds it again whole, gathers
+    the run's tensors into it and exports that. Its program, at rank 0's
+    batch of 2 rows, calls the same ops as the one-process eval CLI's
+    export from the run's checkpoint at that batch, and gives its output
+    bit for bit on the checkpoint's weights."""
+    from tests.test_torch_cli import exported_probs
+    from tunevlseg_torch import eval as eval_mod
+    from tunevlseg_torch import serving
+    from tunevlseg_torch import train as train_mod
+    out = tmp_path / "logs"
+    torch.set_num_threads(2)        # one thread for each rank
+    trained = train_mod.main(_common(synth, out) + [
+        "trainer.n_devices=2", "trainer.fsdp=true", "trainer.max_epochs=1",
+        "exp_name=fsdp_export", f"+export_dir={tmp_path / 'art_fsdp'}"])
+    ckpt = out / "train" / "fsdp_export" / "checkpoints"
+    one = eval_mod.main(_common(synth, out) + [
+        "data.batch_size=2", f"ckpt_path={ckpt}", "predict=false",
+        "exp_name=fsdp_export_eval", f"+export_dir={tmp_path / 'art_one'}"])
+    metas = [serving.read_meta(r["export_dir"]) for r in (trained, one)]
+    assert metas[0]["tunevlseg_ops"] == metas[1]["tunevlseg_ops"]
+    assert metas[0]["in_specs"] == metas[1]["in_specs"]
+    want = exported_probs(one["export_dir"], ckpt)
+    assert want.shape == (2, 1, 32, 32) and bool(want.isfinite().all())
+    torch.testing.assert_close(exported_probs(trained["export_dir"], ckpt), want,
+                               rtol=0, atol=0)
     assert not distributed.is_initialized()
 
 

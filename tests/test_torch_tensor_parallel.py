@@ -22,10 +22,12 @@ The ranks run in spawned processes that import no JAX
   * (iii) sequence parallelism against plain tp = 2 at 48^2 (14 vision and
     16 text tokens: both streams shard) and 32^2 (9 vision tokens: that
     stream stays replicated);
-  * (iv) dp 2 x tp 2 under DDP and under FSDP against the JAX mesh;
+  * (iv) dp 2 x tp 2 under DDP and under FSDP against the JAX mesh, and
+    one step of the dice over the whole batch against the JAX mesh (2, 2);
   * tp = 2 on CRIS CoOp and both TransformerSegmentors against one process;
   * (v) the train and eval CLIs with `trainer.n_devices=2
-    trainer.model_parallel=2 +trainer.device=cpu`.
+    trainer.model_parallel=2 +trainer.device=cpu`, each exporting its
+    inference step, against the one-process eval's export.
 
 Tolerances: the JAX test's (rtol 2e-5, atol 2e-6) on losses and metrics
 against JAX; port against port where the row-parallel sums split a product
@@ -50,7 +52,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests import torch_tensor_parallel_ranks as ranks_mod  # noqa: E402
 from tests.test_torch_accumulate import _filled, _synthetic_batch  # noqa: E402
-from tests.test_torch_cli import _common, synth  # noqa: E402,F401
+from tests.test_torch_cli import _common, exported_probs, synth  # noqa: E402,F401
 from tunevlseg_tpu.models import presets as jpresets  # noqa: E402
 from tunevlseg_tpu.models.clip.config import CLIPSegConfig as JConfig  # noqa: E402
 from tunevlseg_tpu.models.clip.config import CLIPTextConfig as JTextConfig  # noqa: E402
@@ -62,7 +64,8 @@ from tunevlseg_tpu.training import optim as joptim  # noqa: E402
 from tunevlseg_tpu.training.task import SegmentationTask as JTask  # noqa: E402
 from tunevlseg_tpu.training.task import TrainState as JTrainState  # noqa: E402
 from tunevlseg_torch.convert.from_jax import (flatten_params, port_name,  # noqa: E402
-                                              state_dict_from_jax)
+                                              state_dict_from_jax,
+                                              trainable_from_jax)
 from tunevlseg_torch.models import presets as tpresets  # noqa: E402
 from tunevlseg_torch.models.clip import config as tconfig  # noqa: E402
 from tunevlseg_torch.models.cris.model import CRISConfig  # noqa: E402
@@ -257,6 +260,28 @@ def _jax_tp_steps(jm, jspec, params, batch, model_parallel):
     return out
 
 
+def _jax_batch_dice(jm, jspec, params, batch, model):
+    """The JAX task's loss with the dice over the whole batch
+    (`ranks_mod.BATCH_DICE`) and its gradient (port names) on the mesh (2,
+    2), the frozen tree sharded by the tp rules: (loss, {name: gradient})."""
+    jtask = JTask(jm, jspec, learning_rate=ranks_mod.LR,
+                  loss_kwargs=ranks_mod.BATCH_DICE, donate_state=False)
+    trainable, frozen_params = joptim.partition_params(params, jspec)
+    mesh = mesh_lib.make_mesh(4, model_parallel=2)
+    frozen = {"params": frozen_params}
+    frozen = jrules.shard_tree(frozen, jrules.tp_shardings(frozen, mesh))
+    rng = jax.random.fold_in(jax.random.fold_in(KEY, 1), 0)
+
+    def loss(t, f, b):
+        return jtask._loss(t, {}, f, b, rng)[0]
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(
+        mesh_lib.replicate(mesh, trainable), frozen,
+        mesh_lib.shard_batch(mesh, batch))
+    return float(value), trainable_from_jax(
+        jax.tree_util.tree_map(np.asarray, grads), model)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both spawns, the JAX mesh's steps, and the one-process references."""
@@ -277,7 +302,10 @@ def runs(tmp_path_factory):
                 TransSegmentorConfig.tiny(encoder_family="siglip"),
                 freeze_encoders=True, device="cpu", seed=6))):
         families[key] = build()[0].state_dict()
-    inputs = {"maple": maple_sd, "batches": [batch],
+    dice_batch = _synthetic_batch(14)
+    # the two data ranks' halves hold targets of different sizes
+    dice_batch["mask"][4:, ..., 16:] = 0.0
+    inputs = {"maple": maple_sd, "batches": [batch], "dice_batch": dice_batch,
               "sp48": [_synthetic_batch(8, img=48)], "sp32": [_synthetic_batch(9)],
               "cris": families["cris"], "cris_batches": [_cris_batch(1), _cris_batch(2)],
               "ts": families["ts"],
@@ -291,6 +319,7 @@ def runs(tmp_path_factory):
     four = ranks_mod.spawn(work4, ("dp2tp2",), 4)
 
     want = _jax_tp_steps(jm, jspec, params, batch, 2)
+    want_dice = _jax_batch_dice(jm, jspec, params, dice_batch, maple_model)
     one = Mesh(1, 1)
     ref = {"cris": ranks_mod.steps(ranks_mod.cris(inputs["cris"]),
                                    inputs["cris_batches"], one, n_steps=2),
@@ -303,6 +332,7 @@ def runs(tmp_path_factory):
     ref["probs"] = task.predict_step(ranks_mod.local(batch, one))
     return {"got2": ranks_mod.collect(two, work2),
             "got4": ranks_mod.collect(four, work4), "want": want, "ref": ref,
+            "want_dice": want_dice,
             "inputs": inputs, "work2": work2}
 
 
@@ -422,17 +452,46 @@ def test_dp2_tp2_with_and_without_fsdp_match_the_jax_mesh(runs):
     _close_trainable(ranks[0]["ddp"]["trainable"], ranks[0]["fsdp"]["trainable"])
 
 
+def test_dp2_tp2_batch_dice_sums_over_the_data_group_only(runs):
+    """One DDP step at dp 2 x tp 2 with the dice over the whole batch: the
+    sums are added over the data group (the two data ranks' rows) and not
+    over the model group, whose ranks hold the same rows, so the loss is the
+    JAX task's on the mesh (2, 2) (the JAX test's tolerances) and the
+    gradient the update applied is JAX's, each leaf within 1e-4 of
+    max(its largest entry, 1e-2 of any leaf's). A sum over all four ranks
+    counts every row twice: the dice's ratio stays, its smoothing of 1 does
+    not, and the loss moves by about 7e-5 of itself. The four ranks land
+    on the same weights."""
+    ranks = [g["dp2tp2"]["batch_dice"] for g in runs["got4"]]
+    want_loss, want_grads = runs["want_dice"]
+    for rank in ranks:
+        np.testing.assert_allclose(rank["loss"], want_loss, rtol=RTOL, atol=ATOL)
+        assert _same_trainable(ranks[0]["trainable"], rank["trainable"])
+    got = ranks[0]["grads"]
+    assert got.keys() == want_grads.keys()
+    overall = max(w.abs().max().item() for w in want_grads.values())
+    for name, w in want_grads.items():
+        scale = max(w.abs().max().item(), 1e-2 * overall)
+        torch.testing.assert_close(got[name], w, rtol=0, atol=1e-4 * scale,
+                                   msg=name)
+
+
 def test_cli_trains_and_evaluates_on_a_tp2_grid(synth, tmp_path):
     """The train CLI on two CPU ranks as one model group, then the eval CLI
     from its checkpoint on the grid with sequence parallelism and on one
     process: the checkpoint holds whole tensors, the masks are written once
-    per sample, and the two evaluations agree."""
+    per sample, and the two evaluations agree. Each run exports its
+    inference step (`export_dir`): the tp = 2 runs' programs, traced on a
+    whole model built again on rank 0, call the same ops as the one-process
+    program and give its output bit for bit on the checkpoint's weights."""
     from tunevlseg_torch import eval as eval_mod
+    from tunevlseg_torch import serving
     from tunevlseg_torch import train as train_mod
     out = tmp_path / "logs"
     grid = ["trainer.n_devices=2", "trainer.model_parallel=2"]
     result = train_mod.main(_common(synth, out) + grid + [
-        "trainer.max_epochs=1", "predict=true", "exp_name=tp2"])
+        "trainer.max_epochs=1", "predict=true", "exp_name=tp2",
+        f"+export_dir={tmp_path / 'art_train'}"])
     assert np.isfinite(result["test_loss"]) and 0 <= result["test_dice"] <= 1
     ckpt = out / "train" / "tp2" / "checkpoints"
     frozen = torch.load(ckpt / "frozen" / "frozen.pt", weights_only=True)
@@ -445,6 +504,16 @@ def test_cli_trains_and_evaluates_on_a_tp2_grid(synth, tmp_path):
     evals = {}
     for name, extra in (("grid", grid + ["trainer.seq_shard=true"]), ("one", [])):
         evals[name] = eval_mod.main(_common(synth, out) + extra + [
-            f"ckpt_path={ckpt}", f"exp_name=eval_{name}", "predict=false"])
+            f"ckpt_path={ckpt}", f"exp_name=eval_{name}", "predict=false",
+            f"+export_dir={tmp_path / f'art_{name}'}"])
     for key in ("test_loss", "test_dice", "test_iou"):
         assert evals["grid"][key] == pytest.approx(evals["one"][key], abs=PORT_TOL)
+    programs = {"train": result, **evals}
+    one = programs.pop("one")["export_dir"]
+    want = exported_probs(one, ckpt)
+    assert want.shape == (4, 1, 32, 32) and bool(want.isfinite().all())
+    for name, run in programs.items():
+        assert serving.read_meta(run["export_dir"])["tunevlseg_ops"] == \
+            serving.read_meta(one)["tunevlseg_ops"], name
+        torch.testing.assert_close(exported_probs(run["export_dir"], ckpt), want,
+                                   rtol=0, atol=0, msg=name)

@@ -131,17 +131,10 @@ def check_ddp(inputs, workdir):
 
 def check_ddp_unused(inputs, workdir):
     """DDP over CoOp's stock model, whose `residual_ratio` the forward never
-    reads (find_unused_parameters): two steps; the ratio keeps its value. A
-    dice over the whole batch (`loss_fn.batch`) is refused over two ranks."""
+    reads (find_unused_parameters): two steps; the ratio keeps its value."""
     from tunevlseg_torch.models.presets import build_clipseg
     model, spec = build_clipseg("coop", config=CLIPSegConfig.tiny(),
                                 device="cpu", seed=2)
-    batch_dice = SegmentationTask(model, spec, loss_kwargs={"batch": True})
-    try:
-        batch_dice.compile_steps()
-        refused = False
-    except NotImplementedError:
-        refused = True
     task = SegmentationTask(model, spec, learning_rate=LR)
     state = task.init()
     task.compile_steps()
@@ -150,8 +143,29 @@ def check_ddp_unused(inputs, workdir):
         state, m = task.train_step(state, local(b))
         seen.append(float(m["loss"]))
     return {"losses": seen, "trainable": trainable(model),
-            "find_unused": task.ddp.find_unused_parameters,
-            "batch_dice_refused": refused}
+            "find_unused": task.ddp.find_unused_parameters}
+
+
+BATCH_DICE = {"batch": True}
+
+
+def check_batch_dice(inputs, workdir):
+    """A dice over the whole batch (`loss_kwargs={"batch": True}`) over the
+    two ranks: the eval step's loss sum on a batch with a padded row in each
+    rank's half, then two DDP steps, and two FSDP steps, of the CoOp model
+    from the same weights."""
+    from tunevlseg_torch.ops.metrics import SegMetricState
+    task = clipseg_task(inputs["clipseg"], learning_rate=LR,
+                        loss_kwargs=BATCH_DICE)
+    _, extra = task.eval_step(SegMetricState.zeros(torch.device("cpu")),
+                              local(inputs["padded"]))
+    out = {"eval": {k: v.clone() for k, v in extra.items()}}
+    for fsdp in (False, True):
+        task = clipseg_task(inputs["clipseg"], learning_rate=LR,
+                            loss_kwargs=BATCH_DICE)
+        _, out["fsdp" if fsdp else "ddp"] = _steps(
+            task, task.init(), inputs["dice_batches"], fsdp=fsdp)
+    return out
 
 
 def check_accumulate(inputs, workdir):
@@ -335,6 +349,7 @@ def check_sigterm(inputs, workdir):
 
 
 CHECKS = {"ddp": check_ddp, "ddp_unused": check_ddp_unused,
+          "batch_dice": check_batch_dice,
           "accumulate": check_accumulate, "fsdp": check_fsdp,
           "cris_e2e": check_cris_e2e, "denseclip": check_denseclip,
           "batch_norm": check_batch_norm, "sigterm": check_sigterm}

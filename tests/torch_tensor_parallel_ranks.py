@@ -68,12 +68,12 @@ def local(batch: dict, grid) -> dict:
             for k, v in batch.items()}
 
 
-def maple(sd: dict) -> SegmentationTask:
+def maple(sd: dict, **kw) -> SegmentationTask:
     """Tiny CLIPSeg MaPLe (the JAX tensor-parallel tests' model) on `sd`."""
     model, spec = build_clipseg("maple", prompt_depth=2, num_context=4,
                                 config=CLIPSegConfig.tiny(), device="cpu")
     model.load_state_dict(sd)
-    return SegmentationTask(model, spec, learning_rate=LR)
+    return SegmentationTask(model, spec, learning_rate=LR, **kw)
 
 
 def cris(sd: dict) -> SegmentationTask:
@@ -171,10 +171,37 @@ def check_families(inputs, workdir, grid):
 
 def check_dp2tp2(inputs, workdir, grid):
     """(iv) dp 2 x tp 2: three steps under DDP over the data groups, and
-    under FSDP over them."""
+    under FSDP over them; one DDP step with the dice over the whole batch."""
     return {"ddp": steps(maple(inputs["maple"]), inputs["batches"], grid),
             "fsdp": steps(maple(inputs["maple"]), inputs["batches"], grid,
-                          fsdp=True)}
+                          fsdp=True),
+            "batch_dice": batch_dice_step(inputs, grid)}
+
+
+# the dice over the whole batch with MONAI's common smoothing of 1: the
+# dice's ratio does not change when every sum doubles, its smoothing terms do
+BATCH_DICE = {"batch": True, "smooth_nr": 1.0, "smooth_dr": 1.0}
+
+
+def batch_dice_step(inputs, grid):
+    """One DDP step of MaPLe with the dice over the whole batch on the
+    grid: its loss (the mean over the data ranks), the gradient the update
+    applied (after the means over the data and the model group) and the
+    trainable weights after it."""
+    task = maple(inputs["maple"], loss_kwargs=BATCH_DICE)
+    state = task.init()
+    tensor_parallel.shard_model(task.model, grid)
+    task.compile_steps()
+    names = {id(p): n for n, p in task.model.named_parameters()}
+    applied = []
+    state.optimizer.optimizer.register_step_pre_hook(lambda o, a, k: applied.append(
+        {names[id(p)]: p.grad.clone() for g in o.param_groups for p in g["params"]
+         if p.grad is not None}))
+    state, m = task.train_step(state, local(inputs["dice_batch"], grid))
+    return {"loss": float(m["loss"]), "grads": applied[0],
+            "trainable": {n: p.detach().clone()
+                          for n, p in task.model.named_parameters()
+                          if p.requires_grad}}
 
 
 def check_trainer_mesh(inputs, workdir, grid):

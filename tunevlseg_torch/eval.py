@@ -17,6 +17,9 @@ train CLI's (k / tp, tp) grid: the checkpoint's whole tensors, the frozen
 ones included, load on every rank, the towers are sliced after, each data
 rank evaluates its shard of the test set, the metric sums are added over
 the data axis, and model rank 0 of each data rank writes its masks.
+`export_dir` exports on any grid: global rank 0 traces a whole model built
+again from the config, the checkpoint's tensors gathered into it
+(`train.export_task`).
 """
 from __future__ import annotations
 
@@ -73,10 +76,6 @@ def _run_rank(cfg: dict, device) -> dict:
             "deliberately")
     grid = make_mesh(model_parallel(cfg))
     check_batch(cfg, grid.data_size, grid.model_size)
-    if cfg.get("export_dir") and grid.model_size > 1:
-        raise NotImplementedError(
-            "export_dir with trainer.model_parallel > 1: export in a run "
-            "without model_parallel (the export traces the whole weights)")
     tokenizer = load_default_tokenizer(cfg.get("vocab_path"),
                                        family=cfg.get("tokenizer_family", "clip"))
     datasets = build_datasets(cfg, tokenizer)
@@ -110,9 +109,12 @@ def _run_rank(cfg: dict, device) -> dict:
         trainer.predict(state, test_loader, save_dir=out_dir, use_best=False)
         result["output_masks_dir"] = str(out_dir)
     if cfg.get("export_dir"):
-        # the (checkpoint-restored) inference step, for serving
-        result["export_dir"] = export_serving(cfg, task, state, test_loader,
-                                              device)
+        # the (checkpoint-restored) inference step, for serving; every rank
+        # takes part, global rank 0 writes it
+        graph = export_serving(cfg, task, state, test_loader, device,
+                               tokenizer, pretrained)
+        if graph is not None:
+            result["export_dir"] = graph
     log.info(f"done: {result}")
     return result
 

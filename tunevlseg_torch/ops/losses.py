@@ -13,11 +13,23 @@ argument) builds the same loss on either package:
   the CE part for the single-channel binary case is BCE-with-logits (mean,
   `weight` -> pos_weight); total = lambda_dice * dice + lambda_ce * bce.
   `focal_loss` is the sigmoid focal loss (mean) of SOLOv2's objective.
+
+Under data parallel over several ranks (`parallel/`), `batch=True` sums
+over the global batch, as the JAX dice does under `jit` on its mesh: the
+three sums are added over the data group before the ratio, by an
+all-reduce whose backward sums the gradients over the group too
+(`data_parallel.summed_over_ranks`). Every rank's loss is then the global
+dice, and each rank's gradient of it is the data size times its own rows'
+share, so DDP's mean (FSDP's reduce-scatter mean) of the ranks' gradients
+is the gradient of the global dice. The model group is not summed over: its
+ranks hold the same rows. With one data rank no collective runs.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from tunevlseg_torch.parallel import data_parallel, distributed
 
 
 def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -35,7 +47,8 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor, sigmoid: bool = True,
               squared_pred: bool = False, jaccard: bool = False,
               smooth_nr: float = 1e-5, smooth_dr: float = 1e-5,
               batch: bool = False) -> torch.Tensor:
-    """`monai.losses.DiceLoss` on (B, C, *spatial), averaged."""
+    """`monai.losses.DiceLoss` on (B, C, *spatial), averaged; with `batch`
+    over the global batch of every data rank."""
     x = logits.float()
     g = targets.float()
     p = torch.sigmoid(x) if sigmoid else x
@@ -44,9 +57,13 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor, sigmoid: bool = True,
         dims = (0,) + dims
     intersection = (g * p).sum(dim=dims)
     if squared_pred:
-        denominator = (g * g).sum(dim=dims) + (p * p).sum(dim=dims)
+        ground, pred = (g * g).sum(dim=dims), (p * p).sum(dim=dims)
     else:
-        denominator = g.sum(dim=dims) + p.sum(dim=dims)
+        ground, pred = g.sum(dim=dims), p.sum(dim=dims)
+    if batch and distributed.data_size() > 1:
+        intersection, ground, pred = data_parallel.summed_over_ranks(
+            torch.stack([intersection, ground, pred])).unbind(0)
+    denominator = ground + pred
     if jaccard:
         denominator = 2.0 * (denominator - intersection)
     f = 1.0 - (2.0 * intersection + smooth_nr) / (denominator + smooth_dr)

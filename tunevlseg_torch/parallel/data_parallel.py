@@ -20,8 +20,9 @@ what the optimizer, the checkpoints and the BatchNorms need around them.
     the clip's norm over DTensor shards);
   * `full_tensor` / `to_placement`: a checkpoint holds full tensors whatever
     wrote it, and a restore lays them out as the live parameter is laid out;
-  * `synced_batch_norm`: batch statistics over the global batch, as the JAX
-    package's BatchNorm computes them on a batch sharded over the mesh.
+  * `summed_over_ranks`, `synced_batch_norm`: sums and batch statistics
+    over the global batch, as the JAX package computes them on a batch
+    sharded over the mesh (the batch dice's sums, the BatchNorms).
 
 Under a rank grid with a model axis (`parallel/mesh.py`) all of it runs over
 the data group (`distributed.data_group()`): DDP keeps the ranks of one
@@ -217,6 +218,13 @@ class _AllReduceSum(torch.autograd.Function):
         return grad
 
 
+def summed_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The sum of `x` over the data group, differentiable: its backward is
+    the sum over the data group of the ranks' gradients, for a sum that
+    every rank's loss reads (the batch dice's sums, `ops/losses.py`)."""
+    return _AllReduceSum.apply(x)
+
+
 def synced_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                       running_mean: torch.Tensor, running_var: torch.Tensor,
                       momentum: float, epsilon: float
@@ -224,12 +232,12 @@ def synced_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """BatchNorm over channel axis 1 with the statistics of the GLOBAL batch
     (every rank's rows): the mean, then the biased variance, each one
     all-reduce of per-channel sums in f32 that autograd runs back through
-    (`_AllReduceSum`), so every rank's input gets the gradient of all
+    (`summed_over_ranks`), so every rank's input gets the gradient of all
     ranks' losses through the shared statistics; the row count is summed
     with the first. Returns (output in x's dtype, new running mean, new
     running variance with the unbiased variance), as one device's BatchNorm
     over the concatenated batch."""
-    all_reduce = _AllReduceSum.apply
+    all_reduce = summed_over_ranks
     dims = [0, *range(2, x.dim())]
     shape = (1, -1) + (1,) * (x.dim() - 2)
     x32 = x.float()

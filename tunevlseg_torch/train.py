@@ -47,8 +47,9 @@ each rank's heads) and takes one data shard, `data.batch_size / (k / tp)`
 rows. `trainer.seq_shard=true` also shards the towers' residual stream
 over the sequence (a no-op at tp = 1). `trainer.fsdp=true` composes: the
 rest of the model is sharded over the data axis. A checkpoint holds whole
-tensors whatever the grid. `export_dir` needs a run without
-`model_parallel` (the export traces whole weights).
+tensors whatever the grid, and so does the program `export_dir` writes on
+any grid (`export_task`): global rank 0 traces a whole model built again
+from the config, with the run's tensors gathered into it.
 """
 from __future__ import annotations
 
@@ -607,11 +608,6 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
     if t.get("fsdp") and not fsdp:
         log.info("trainer.fsdp over a data axis of one rank: nothing to shard, "
                  "the plain path runs")
-    if cfg.get("export_dir") and grid.model_size > 1:
-        raise NotImplementedError(
-            "export_dir with trainer.model_parallel > 1: export from the run's "
-            "checkpoint in a run without model_parallel (the export traces the "
-            "whole weights)")
     es_cfg = t.get("early_stopping") or {}
     trainer = Trainer(
         task=task, output_dir=cfg["paths"]["output_dir"],
@@ -670,33 +666,80 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
         out_dir = Path(cfg["paths"]["output_dir"]) / "output_masks"
         trainer.predict(state, loaders["test"], save_dir=out_dir)
         result["output_masks_dir"] = str(out_dir)
-    if cfg.get("export_dir") and fsdp:
-        raise NotImplementedError(
-            "export_dir with trainer.fsdp: export from the run's checkpoint in "
-            "a run without fsdp (the export traces the whole weights)")
-    if cfg.get("export_dir") and lead:
-        result["export_dir"] = export_serving(cfg, task, state, loaders["test"],
-                                              device)
+    if cfg.get("export_dir"):
+        graph = export_serving(cfg, task, state, loaders["test"], device,
+                               tokenizer, pretrained)
+        if graph is not None:
+            result["export_dir"] = graph
     log.info(f"done: {result}")
     return result
 
 
 def export_serving(cfg: dict, task: SegmentationTask, state, loader,
-                   device: torch.device) -> str:
+                   device: torch.device, tokenizer=None,
+                   pretrained=None) -> Optional[str]:
     """`export_dir`: the inference step exported for serving
-    (`serving.export_task_predict`) at the shapes of the loader's first
-    batch, for `export_platforms` (default: the run's device). The program
-    takes the weights as arguments and holds none, so the checkpoint the run
-    wrote serves with it (`Trainer.test` restoring the best weights into the
-    model first changes nothing in it). Returns the directory."""
-    from tunevlseg_torch import serving
+    (`export_task`) at the shapes of the loader's first batch, for
+    `export_platforms` (default: the run's device). The program takes the
+    weights as arguments and holds none, so the checkpoint the run wrote
+    serves with it (`Trainer.test` restoring the best weights into the
+    model first changes nothing in it). Every rank calls it; where the
+    run's model is sharded, the task is built again from the config, the
+    tokenizer and `load_pretrained`'s result as the run built it. Returns
+    the directory on global rank 0, None on the other ranks."""
     from tunevlseg_torch.data.pipeline import device_batch
-    sample = device_batch(next(iter(loader)), device)
-    graph = serving.export_task_predict(
+    sample = (device_batch(next(iter(loader)), device)
+              if distributed.rank() == 0 else None)
+    graph = export_task(
         task, state, sample, cfg["export_dir"],
-        platforms=tuple(cfg.get("export_platforms") or ()) or (device.type,))
+        platforms=tuple(cfg.get("export_platforms") or ()) or (device.type,),
+        rebuild=lambda: build_model_and_task(cfg, tokenizer, pretrained=pretrained,
+                                             device=device)[1])
+    if graph is None:
+        return None
     log.info(f"exported serving program: {graph}")
     return str(graph.parent)
+
+
+def export_task(task: SegmentationTask, state, sample: Optional[dict], out_dir,
+                platforms: tuple, rebuild=None) -> Optional[Path]:
+    """`serving.export_task_predict` of the run's task on any rank grid, at
+    the shapes of `sample` (global rank 0's; the other ranks may pass None).
+    Returns the first program's path on global rank 0, None elsewhere.
+
+    The program is traced on the whole, unsharded model. On one process and
+    under DDP the run's model is that model: rank 0 exports it and the other
+    ranks return at once. Under tensor parallelism or FSDP it is sliced and
+    sharded, and every rank must call: the run's whole tensors are gathered
+    (`checkpoint.whole_tensors`, collectives over the model and the data
+    group; the BatchNorm statistics of `state.model_state` over the
+    model's), global rank 0 builds the task again through `rebuild()`
+    (nothing sharded, on its own device), loads them into its model, which
+    checks every name and shape against the run's, and exports that; every
+    rank then waits at a barrier until the program is written."""
+    from tunevlseg_torch import serving
+    from tunevlseg_torch.parallel import data_parallel
+    from tunevlseg_torch.training.checkpoint import whole_tensors
+    from tunevlseg_torch.training.task import load_partial_state
+    lead = distributed.rank() == 0
+    sharded = (bool(getattr(task.model, "tp_plan", None))
+               or data_parallel.is_sharded(task.model))
+    if not sharded:
+        return (serving.export_task_predict(task, state, sample, out_dir,
+                                            platforms=platforms)
+                if lead else None)
+    whole = whole_tensors(task.model, dict(task.model.state_dict()))
+    whole.update(state.model_state)
+    try:
+        if not lead:
+            return None
+        fresh = rebuild()
+        load_partial_state(fresh.model, whole)
+        del whole
+        return serving.export_task_predict(fresh, dict(fresh.model.state_dict()),
+                                           sample, out_dir, platforms=platforms)
+    finally:
+        distributed.barrier()
 
 
 if __name__ == "__main__":

@@ -83,6 +83,14 @@ def full(obj: Any) -> Any:
     return obj
 
 
+def whole_tensors(model: nn.Module, tensors: dict) -> dict:
+    """`tensors` (by the model's `state_dict` names) as whole tensors: FSDP's
+    DTensor shards gathered over the data group and the tensor-parallel
+    slices of `model.tp_plan` over the model group (collectives: every rank
+    calls it with the same names)."""
+    return tensor_parallel.full_tensors(model, full(tensors))
+
+
 def copy_into(target: torch.Tensor, value: torch.Tensor) -> None:
     """Copy the full tensor `value` into `target` in place, laid out as
     `target` is (a DTensor shard under FSDP)."""
@@ -231,8 +239,7 @@ class CheckpointManager:
         distributed.barrier()
         if exists:
             return
-        frozen = tensor_parallel.full_tensors(self.model,
-                                              full(self.frozen_state()))
+        frozen = whole_tensors(self.model, self.frozen_state())
         if distributed.rank() == 0:
             staging = self.dir / ".staging-frozen"
             if staging.exists():

@@ -40,7 +40,10 @@ steps take each rank's own rows: a train step's forward goes through the
 wrapper, its metrics are those of every rank's rows, and each rank draws
 its own dropout masks, from (seed, step, rank). With accumulation the
 micro-steps run under DDP's `no_sync` and the window's mean is all-reduced
-once, at the update (`bind_reductions`).
+once, at the update (`bind_reductions`). A dice over the batch
+(`loss_kwargs={"batch": True}`) sums over every rank's rows
+(`ops/losses.py`), in a micro-step over the global micro-batch, so every
+rank's loss and, after DDP's mean, its gradient are the global batch's.
 
 `accumulate_grad_batches = k` makes each `train_step` a micro-step:
 `TrainState.step` counts micro-steps, as the JAX task does, so each draws
@@ -343,12 +346,6 @@ class SegmentationTask:
         shards). The steps stay eager; each rank passes its own rows. Under a
         rank grid with a model axis (`parallel/mesh.py`) both run over the
         data group, and the ranks of one model group pass the same rows."""
-        if self.loss_kwargs.get("batch") and distributed.data_size() > 1:
-            # a rank's dice over its own rows is not the global batch's, and
-            # their mean is not either
-            raise NotImplementedError(
-                "loss_fn.batch=true (the dice over the whole batch) under data "
-                "parallel over several ranks: use the per-sample dice")
         if fsdp:
             data_parallel.shard(self.model)
         elif self.ddp is None and not data_parallel.is_sharded(self.model):
