@@ -15,8 +15,10 @@ under per-layer remat, whose recompute restores the generator inside the
 capture) and tiny
 DenseCLIP `bn_train` with the poly schedule (a learning rate a step). Also
 the optimizer every step on the card now runs, AdamW with `capturable=True`
-over a learning-rate tensor, against optax's formula. These tests need the
-card and skip elsewhere; they import no JAX (the JAX parity
+over a learning-rate tensor, against optax's formula, and the spans of a
+captured group (`utils/profiling.py`): its steps' device spans against the
+group's own begin and end events, read after the program is deleted. These
+tests need the card and skip elsewhere; they import no JAX (the JAX parity
 of the program: tests/test_torch_multistep.py). On the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_multistep_gpu.py
@@ -220,6 +222,53 @@ def test_captured_group_matches_the_eager_steps(cuda, case):
         assert state.optimizer.mini_step == 0 and eager["window"] == {}
     if case in ("cris_flat_e2e", "denseclip_poly"):
         assert captured["statistics"]
+
+
+def test_captured_group_spans_time_the_group_on_the_card(cuda):
+    """The device spans of a captured CoOp group (`utils/profiling.py`): the
+    three spans of a step, times k, come within 2% of the group's device
+    time from its begin and end events (the graph's tail: the metrics'
+    mean and copy), with the card busy when the group's begin event is
+    recorded, as in a loop whose host runs ahead. `snapshot()` still reads
+    them once the program and its task are deleted; each replay but the
+    first has a gap at or above 0, and the counters count the calls. The
+    events leave the losses bit-identical to the eager steps'."""
+    import gc
+
+    from tunevlseg_torch.utils import profiling
+
+    task, batches = _coop(cuda)
+    start = {n: p.detach().clone() for n, p in task.model.named_parameters()}
+    eager = _run(task, batches, start, captured=False)[0]
+    profiling.reset()
+    captured, state, multi = _run(task, batches, start, captured=True)
+    for key, want in eager["metrics"].items():
+        assert torch.equal(captured["metrics"][key], want), key
+    group = {k: torch.stack([b[k] for b in batches[:K]]) for k in batches[0]}
+    torch.cuda._sleep(100_000_000)
+    multi(state, group)
+    calls = profiling.counter(graphs.REPLAYS)
+    del multi, state, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    snap = profiling.snapshot()
+    assert calls == GROUPS + 1 and snap["counters"][graphs.CAPTURES] == 1
+    spans = snap["last_replay"]["spans"]
+    assert snap["last_replay"]["group"] == GROUPS and not snap["last_replay"]["profiled"]
+    assert snap["unprofiled"] == {"group": GROUPS, "spans": spans}
+    assert {n: len(v) for n, v in spans.items()} == {
+        "step.forward": K, "step.backward": K, "step.update": K}
+    assert all(ms > 0 for v in spans.values() for ms in v)
+    steps_ms = sum(sum(v) for v in spans.values())
+    group_ms = [r["ms"] for r in snap["records"]
+                if r["name"] == profiling.GROUP and r["group"] == GROUPS]
+    assert len(group_ms) == 1
+    assert abs(steps_ms - group_ms[0]) <= 0.02 * group_ms[0], (steps_ms, group_ms)
+    gaps = [r for r in snap["records"] if r["name"] == profiling.GAP]
+    assert sorted(r["group"] for r in gaps) == list(range(1, GROUPS + 1))
+    assert all(r["ms"] >= 0 for r in gaps)
+    launches = [r for r in snap["records"] if r["name"] == "captured.launch"]
+    assert len(launches) == GROUPS + 1
 
 
 def _optax_adamw(params: dict, grads: list, decays: set, kw: dict, lrs: list) -> dict:

@@ -47,35 +47,33 @@ import torch
 import torch.nn.functional as F
 
 from tunevlseg_torch.ops import build
+from tunevlseg_torch.utils import profiling
+
+# the launch counters, in the registry of `utils/profiling.py`
+K4, K4_DX, K4_DY = "k4.launches", "k4.dx_launches", "k4.dy_launches"
 
 _lib: Optional[ctypes.CDLL] = None
-_launches = 0
-_dx_launches = 0
-_dy_launches = 0
 
 
 def launch_count() -> int:
     """Number of K4 launches for a forward since the last reset."""
-    return _launches
+    return profiling.counter(K4)
 
 
 def dx_launch_count() -> int:
     """Number of K4 launches for an input gradient since the last reset."""
-    return _dx_launches
+    return profiling.counter(K4_DX)
 
 
 def dy_launch_count() -> int:
     """Number of launches of the backward's prologue kernel since the last
     reset."""
-    return _dy_launches
+    return profiling.counter(K4_DY)
 
 
 def reset_launch_count() -> None:
     """Set the K4 launch counts (forward, dx, prologue) to 0."""
-    global _launches, _dx_launches, _dy_launches
-    _launches = 0
-    _dx_launches = 0
-    _dy_launches = 0
+    profiling.zero(K4, K4_DX, K4_DY)
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +328,6 @@ def k4_cuda(x: torch.Tensor, w_b: torch.Tensor, scale: Optional[torch.Tensor],
     inputs `_launch` took; (B, rows, Cout) out, every row written (guard and
     ring rows as zeros). A forward launch counts in `launch_count`, an
     input gradient's (`for_dx`) in `dx_launch_count`."""
-    global _launches, _dx_launches
     for name, t in (("x", x), ("weight", w_b), ("scale", scale),
                     ("offset", offset), ("residual", residual)):
         if t is not None and t.data_ptr() % 16:
@@ -347,10 +344,7 @@ def k4_cuda(x: torch.Tensor, w_b: torch.Tensor, scale: Optional[torch.Tensor],
             mb, int(relu), int(for_dx), block_n, stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
-    if for_dx:
-        _dx_launches += 1
-    else:
-        _launches += 1
+    profiling.count(K4_DX if for_dx else K4)
     return out
 
 
@@ -408,7 +402,6 @@ def _dy_prologue(spec, relu, g, out, scale, want_scaled, want_plain,
                  want_offset):
     """The prologue kernel on a bf16 CUDA cotangent (or raise). The per-block
     sums of dy are added over the blocks by one `sum` in a fixed order."""
-    global _dy_launches
     g = g.contiguous()
     b, rows, cout = g.shape
     _check_cuda(g, [("g", g, torch.bfloat16), ("out", out, torch.bfloat16),
@@ -432,7 +425,7 @@ def _dy_prologue(spec, relu, g, out, scale, want_scaled, want_plain,
             int(relu), per_block, stream)
     if err != 0:
         raise RuntimeError(f"K4 prologue launch failed: cudaError {err}")
-    _dy_launches += 1
+    profiling.count(K4_DY)
     return dys, dyb, None if part is None else part.sum(0)
 
 

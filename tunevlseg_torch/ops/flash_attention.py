@@ -40,36 +40,34 @@ from typing import Optional
 import torch
 
 from tunevlseg_torch.ops import build
+from tunevlseg_torch.utils import profiling
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96)
 
+# the launch counters, in the registry of `utils/profiling.py`
+K1, K2, K3 = "k1.launches", "k2.launches", "k3.launches"
+
 _libs: Optional[dict[str, ctypes.CDLL]] = None
-_launches = 0
-_bwd_launches = 0
-_bias_launches = 0
 
 
 def launch_count() -> int:
     """Number of K1 launches since the last `reset_launch_count`."""
-    return _launches
+    return profiling.counter(K1)
 
 
 def bwd_launch_count() -> int:
     """Number of K2 launches since the last `reset_launch_count`."""
-    return _bwd_launches
+    return profiling.counter(K2)
 
 
 def bias_launch_count() -> int:
     """Number of K3 launches since the last `reset_launch_count`."""
-    return _bias_launches
+    return profiling.counter(K3)
 
 
 def reset_launch_count() -> None:
     """Set the K1, K2 and K3 launch counts to 0."""
-    global _launches, _bwd_launches, _bias_launches
-    _launches = 0
-    _bwd_launches = 0
-    _bias_launches = 0
+    profiling.zero(K1, K2, K3)
 
 
 def load_library() -> dict[str, ctypes.CDLL]:
@@ -238,7 +236,6 @@ def k1_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_valid: int,
     on inputs `_check_kernel_inputs` took. Returns (o, lse): lse the f32
     (B, H, S) log2-domain log-sum-exp with `with_lse`, else an empty f32
     tensor (an op returns tensors only)."""
-    global _launches
     _check_aligned("K1", q=q, k=k, v=v)
     lib = load_library()["fwd"]
     o = torch.empty_like(q)
@@ -252,7 +249,7 @@ def k1_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_valid: int,
                                      b, s, h, d, t_valid, _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {err}")
-    _launches += 1
+    profiling.count(K1)
     return o, lse
 
 
@@ -275,7 +272,6 @@ STATS_ROWS = 384
 
 
 def _launch_bwd(q, k, v, g, t_valid, lse):
-    global _bwd_launches
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"K2: gradient {tuple(g.shape)} on {g.device} does not "
                          f"match q {tuple(q.shape)} on {q.device}")
@@ -302,7 +298,7 @@ def _launch_bwd(q, k, v, g, t_valid, lse):
     if err != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {err} (q {tuple(q.shape)}, "
                            f"g strides {g.stride()}, kv_valid {t_valid})")
-    _bwd_launches += 1
+    profiling.count(K2)
     return dq, dk, dv
 
 
@@ -397,7 +393,6 @@ def k3_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: Optional[torch.Tensor], t_valid: int) -> torch.Tensor:
     """One K3 launch: the CUDA implementation of `tunevlseg::biased_attn_fwd`
     on inputs `_launch_biased` took."""
-    global _bias_launches
     _check_aligned("K3", q=q, k=k, v=v)
     bias_strides = None if bias is None else _bias_strides(bias)
     lib = load_library()["bias"]
@@ -415,7 +410,7 @@ def k3_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             t_valid, _seq_strides(q, k, v, o), bias_strides, stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {err}")
-    _bias_launches += 1
+    profiling.count(K3)
     return o
 
 

@@ -33,6 +33,7 @@ import torch
 from tunevlseg_torch.ops import build
 from tunevlseg_torch.ops.flash_attention import (_check_aligned, _check_kernel_inputs,
                                                  _seq_strides)
+from tunevlseg_torch.utils import profiling
 
 HEAD_DIM = 64          # the only head dim the variants are instantiated for
 KEY_TILE = 64          # keys per ring stage of S3's kernel; its mask row is padded to it
@@ -41,18 +42,19 @@ MASKED = -1e30         # S3's additive mask on a key that is not attended
 BLOCK_ORDERS = ("query", "head")   # which index of a block moves fastest
 
 _lib: Optional[ctypes.CDLL] = None
-_launches = {"variant": 0, "ones_column": 0}
+# the launch counters, in the registry of `utils/profiling.py`
+COUNTERS = {"variant": "variants.variant.launches",
+            "ones_column": "variants.ones_column.launches"}
 
 
 def launch_count(kernel: str) -> int:
     """Launches of "variant" (S1, S2, S4) or "ones_column" (S3) since the
     last `reset_launch_count`."""
-    return _launches[kernel]
+    return profiling.counter(COUNTERS[kernel])
 
 
 def reset_launch_count() -> None:
-    for kernel in _launches:
-        _launches[kernel] = 0
+    profiling.zero(*COUNTERS.values())
 
 
 def load_library() -> ctypes.CDLL:
@@ -195,7 +197,7 @@ def attention_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"attention variant launch failed: cudaError {err}")
-    _launches["variant"] += 1
+    profiling.count(COUNTERS["variant"])
     return o
 
 
@@ -228,5 +230,5 @@ def attention_ones_column(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _seq_strides(q, k, v, o), stream)
     if err != 0:
         raise RuntimeError(f"S3 launch failed: cudaError {err}")
-    _launches["ones_column"] += 1
+    profiling.count(COUNTERS["ones_column"])
     return o

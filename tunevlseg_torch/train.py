@@ -54,6 +54,7 @@ from the config, with the run's tensors gathered into it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import shutil
 import sys
@@ -77,6 +78,7 @@ from tunevlseg_torch.parallel.mesh import make_mesh
 from tunevlseg_torch.training.loop import EarlyStopping, Trainer
 from tunevlseg_torch.training.optim import ReduceLROnPlateau, count_params
 from tunevlseg_torch.training.task import SegmentationTask
+from tunevlseg_torch.utils import profiling
 from tunevlseg_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -651,6 +653,9 @@ def _run_rank(cfg: dict, device: torch.device) -> dict:
             trace = trainer.output_dir / "profile" / "trace.json"
             trace.parent.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(trace))
+            # the program's spans and counters beside the trace
+            (trace.parent / "spans.json").write_text(
+                json.dumps(profiling.snapshot()))
         else:
             state = trainer.fit(state, loaders["train"], loaders["val"],
                                 resume_from=resume_from)

@@ -74,6 +74,7 @@ from tunevlseg_torch.training import optim as optim_lib
 from tunevlseg_torch.training.task import (TrainState, bind_reductions,
                                            forward_with_state, grad_sync,
                                            load_partial_state, step_generator)
+from tunevlseg_torch.utils import profiling
 
 
 def poly_warmup_schedule(base_lr: float, total_iters: int, power: float = 0.9,
@@ -269,23 +270,26 @@ class DenseCLIPTask:
         `step_seed`) and `learning_rates`, a device row of the groups'
         rates that it fills before each replay."""
         opt = state.optimizer
-        if learning_rates is None:
-            self.set_learning_rate(opt, state.step)
-        else:
-            for j, group in enumerate(opt.param_groups):
-                group["lr"].copy_(learning_rates[j])
-        opt.zero_grad()
-        bind_reductions(opt, self.ddp, self.model)
         updates = {}
         with grad_sync(self.ddp, self.accumulate_grad_batches):
-            with torch.enable_grad():
-                losses, logits = self._loss(batch, state.step, state.model_state,
-                                            updates, generator)
-            losses["loss"].backward()
-        opt.step()
-        with torch.no_grad():
-            metrics = mean_over_ranks({k: v.detach() for k, v in losses.items()})
-            metrics["acc"] = pixel_accuracy(logits.detach(), batch["label"])
+            with profiling.span("step.forward"):
+                if learning_rates is None:
+                    self.set_learning_rate(opt, state.step)
+                else:
+                    for j, group in enumerate(opt.param_groups):
+                        group["lr"].copy_(learning_rates[j])
+                opt.zero_grad()
+                bind_reductions(opt, self.ddp, self.model)
+                with torch.enable_grad():
+                    losses, logits = self._loss(batch, state.step, state.model_state,
+                                                updates, generator)
+            with profiling.span("step.backward"):
+                losses["loss"].backward()
+        with profiling.span("step.update"):
+            opt.step()
+            with torch.no_grad():
+                metrics = mean_over_ranks({k: v.detach() for k, v in losses.items()})
+                metrics["acc"] = pixel_accuracy(logits.detach(), batch["label"])
         model_state = ({**state.model_state, **updates}
                        if self.mutable_collections else state.model_state)
         return TrainState(state.step + 1, opt, model_state), metrics

@@ -39,7 +39,15 @@ How a replay keeps the eager steps' semantics:
     poly schedule) takes step i's rates from row i of a (k, groups) buffer
     filled before each replay;
   * the metrics of the k steps are averaged on the device under the keys
-    of the eager steps and handed back as a copy.
+    of the eager steps and handed back as a copy;
+  * the steps' spans (`step.forward`, `step.backward`, `step.update`)
+    become pairs of timing events inside the graph, and each replay is
+    bracketed by two plain events, its begin just before the launch and
+    its end after the metrics' copy (`utils/profiling.py`): the device time
+    of each phase of a replayed step, of the group, and of the card's wait
+    between two groups. The host spans `captured.call` (with `.capture`,
+    `.warm_up`, `.load`, `.launch`, `.metrics`) and the counters
+    `captured.captures` and `captured.replays` time and count the calls.
 
 The state passed in is consumed, as the JAX program donates its state: the
 returned state's `model_state` holds the graph's buffers, which the next
@@ -56,9 +64,12 @@ from typing import Callable
 import torch
 
 from tunevlseg_torch.parallel import data_parallel, distributed
+from tunevlseg_torch.utils import profiling
 from tunevlseg_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+CAPTURES, REPLAYS = "captured.captures", "captured.replays"
 
 
 def mean_metrics(per_step: list[dict]) -> dict:
@@ -158,6 +169,7 @@ class _Graph:
     end_window: list
     moments: dict          # {parameter: {name: tensor}} of AdamW's state
     lrs: list              # each group's learning-rate tensor
+    spans: profiling.DeviceSpans   # the steps' spans, as events in the graph
 
 
 class CapturedSteps:
@@ -181,20 +193,32 @@ class CapturedSteps:
         self.lr_rows = None
 
     def __call__(self, state, batches: dict):
-        opt = state.optimizer
-        if opt is not self.optimizer:     # the graphs hold another optimizer's tensors
-            self.graphs, self.window, self.lr_rows = {}, {}, None
-            self.optimizer = opt
-        signature = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batches.items()))
-        key = (signature, opt.mini_step)
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(state, batches, signature)
-        self._load(entry, state, batches)
-        entry.graph.replay()
-        opt.mini_step = entry.end_mini_step
-        opt.accumulated = {i: self.window[i] for i in entry.end_window}
-        metrics = entry.metrics.clone()
+        index = profiling.counter(REPLAYS)
+        profiling.set_group(index)
+        with profiling.span("captured.call"):
+            opt = state.optimizer
+            if opt is not self.optimizer:     # the graphs hold another optimizer's tensors
+                self.graphs, self.window, self.lr_rows = {}, {}, None
+                self.optimizer = opt
+            signature = tuple((k, tuple(v.shape), v.dtype)
+                              for k, v in sorted(batches.items()))
+            key = (signature, opt.mini_step)
+            entry = self.graphs.get(key)
+            if entry is None:
+                with profiling.span("captured.capture"):
+                    entry = self.graphs[key] = self._capture(state, batches, signature)
+            with profiling.span("captured.load"):
+                self._load(entry, state, batches)
+            with profiling.span("captured.launch"):
+                profiling.group_begin(index)
+                entry.graph.replay()
+                profiling.count(REPLAYS)
+                profiling.replayed(entry.spans, index)
+            opt.mini_step = entry.end_mini_step
+            opt.accumulated = {i: self.window[i] for i in entry.end_window}
+            with profiling.span("captured.metrics"):
+                metrics = entry.metrics.clone()
+            profiling.group_end()
         return (dataclasses.replace(state, step=state.step + self.num_steps,
                                     model_state=dict(self.model_state)),
                 {k: metrics[j] for j, k in enumerate(entry.keys)})
@@ -205,7 +229,7 @@ class CapturedSteps:
         snapshot = _Snapshot(state.optimizer)
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
+        with profiling.span("captured.warm_up"), torch.cuda.stream(self.stream):
             for batch in per_step:
                 state, _ = self.task.train_step(state, batch)
         current.wait_stream(self.stream)
@@ -246,7 +270,8 @@ class CapturedSteps:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=self.stream):
+        profiling.count(CAPTURES)
+        with profiling.capturing() as spans, torch.cuda.graph(graph, stream=self.stream):
             st = dataclasses.replace(state, model_state=dict(self.model_state))
             per_step = []
             for i, batch in enumerate(step_batches(inputs, k)):
@@ -269,7 +294,7 @@ class CapturedSteps:
                       end_window,
                       {p: dict(opt.optimizer.state[p]) for p in opt.params()
                        if p in opt.optimizer.state},
-                      [g["lr"] for g in opt.param_groups])
+                      [g["lr"] for g in opt.param_groups], spans)
 
     # -- replay ---------------------------------------------------------------
 

@@ -46,6 +46,7 @@ JAX loop.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from pathlib import Path
 from typing import Any, Optional
@@ -64,9 +65,12 @@ from tunevlseg_torch.training.optim import (ReduceLROnPlateau,
                                             get_learning_rate,
                                             set_learning_rate)
 from tunevlseg_torch.training.task import SegmentationTask, TrainState
+from tunevlseg_torch.utils import profiling
 from tunevlseg_torch.utils.logging import MultiLogger, get_logger
 
 log = get_logger(__name__)
+
+_END = object()    # what `next` gives at the loader's end
 
 
 @dataclasses.dataclass
@@ -292,10 +296,16 @@ class Trainer:
 
     def _train_groups(self, loader):
         """Yield single batches, or lists of `steps_per_execution` batches
-        (only full groups; stragglers run one step at a time)."""
+        (only full groups; stragglers run one step at a time). The wait for
+        each batch from the loader is the span `fit.batch`."""
         k = self.steps_per_execution
         pending = []
-        for i, batch in enumerate(loader):
+        batches = iter(loader)
+        for i in itertools.count():
+            with profiling.span("fit.batch"):
+                batch = next(batches, _END)
+            if batch is _END:
+                break
             if self.limit_batches is not None and i >= self.limit_batches:
                 break
             if k <= 1:

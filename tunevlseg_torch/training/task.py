@@ -71,6 +71,7 @@ from tunevlseg_torch.ops import metrics as metrics_lib
 from tunevlseg_torch.parallel import data_parallel, distributed
 from tunevlseg_torch.training import graphs
 from tunevlseg_torch.training import optim as optim_lib
+from tunevlseg_torch.utils import profiling
 
 
 def load_partial_state(model: nn.Module, params: dict,
@@ -315,23 +316,26 @@ class SegmentationTask:
         internals in the backward. `generator` (a captured group's, seeded
         with `step_seed`) stands in for the step's own."""
         opt = state.optimizer
-        opt.zero_grad()
-        bind_reductions(opt, self.ddp, self.model)
         updates = {}
         with grad_sync(self.ddp, self.accumulate_grad_batches):
-            with torch.enable_grad():
-                loss, logits = self._loss(batch, state.step, state.model_state,
-                                          updates, generator)
-            loss.backward()
-        opt.step()
-        with torch.no_grad():
-            # padded samples have zeroed logits -> sigmoid 0.5; `valid`
-            # excludes them from the step metrics
-            probs = torch.sigmoid(logits.detach().float())
-            step_metrics = global_step_metrics(
-                loss.detach(), metrics_lib.update_state(
-                    metrics_lib.SegMetricState.zeros(probs.device), probs,
-                    batch["mask"], self.threshold, valid=batch.get("valid")))
+            with profiling.span("step.forward"):
+                opt.zero_grad()
+                bind_reductions(opt, self.ddp, self.model)
+                with torch.enable_grad():
+                    loss, logits = self._loss(batch, state.step, state.model_state,
+                                              updates, generator)
+            with profiling.span("step.backward"):
+                loss.backward()
+        with profiling.span("step.update"):
+            opt.step()
+            with torch.no_grad():
+                # padded samples have zeroed logits -> sigmoid 0.5; `valid`
+                # excludes them from the step metrics
+                probs = torch.sigmoid(logits.detach().float())
+                step_metrics = global_step_metrics(
+                    loss.detach(), metrics_lib.update_state(
+                        metrics_lib.SegMetricState.zeros(probs.device), probs,
+                        batch["mask"], self.threshold, valid=batch.get("valid")))
         model_state = ({**state.model_state, **updates}
                        if self.mutable_collections else state.model_state)
         return TrainState(state.step + 1, opt, model_state), step_metrics
