@@ -357,6 +357,16 @@ Phases, each printing its numbers on lines of its own:
      Then K1 (with and without the lse), K2 and K3 against their plain
      versions at every local shape those runs launched them at, as the
      ranks recorded them through the wrappers' launchers.
+ 32. N1 (`phase_kernel_n1`, run after phase 10's K4 checks): the one-pass
+     LayerNorm (`csrc/layer_norm.cu`) forward and backward at the ViT's
+     31,040 x 768, the CLIPSeg decoder's 31,040 x 64 and CRIS's 43,264 x 512
+     rows, bf16, against the plain chain it replaces (y within one bf16 ulp,
+     dx, dw and db held, two backward calls bit-identical), each kernel's
+     device time (L2 flushed) and events time beside its bytes bound and
+     beside the chain's time. N1's launches (forward, backward, and the
+     LayerNorm calls left on the chain) are read on every path beside the
+     other kernels' and printed a line a path; the plain paths the kernel
+     paths are held against run every LayerNorm on the chain.
 `--profile` adds a breakdown of the train steps (forward / backward /
 optimizer spans, device busy share under torch.profiler) and of the CRIS
 b64 and b1 forwards, on both layouts, of the TransformerSegmentor's b32
@@ -537,22 +547,39 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def counts(fa) -> tuple:
+class Counts(tuple):
+    """The launch counts `counts` returns, with N1's beside them as `n1`:
+    (forward launches, backward launches, LayerNorm calls on the plain
+    chain). Equal to the plain tuple of the same counts, so every path's
+    expected tuple holds the kernels it held before N1; pickled as that plain
+    tuple (a rank's counts reach the parent without `n1`)."""
+    n1 = None
+
+    def __reduce__(self):
+        return tuple, (tuple(self),)
+
+
+def counts(fa) -> Counts:
     """(K1, K2, K3, K4 forward, K4 dx, K4 dy prologue, S1/S2/S4, S3)
-    launches since the last reset."""
+    launches since the last reset, N1's as `.n1`."""
     from tunevlseg_torch.ops import conv_flat as cf
     from tunevlseg_torch.ops import flash_attention_variants as fav
-    return (fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count(),
-            cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count(),
-            fav.launch_count("variant"), fav.launch_count("ones_column"))
+    from tunevlseg_torch.ops import layer_norm as n1
+    c = Counts((fa.launch_count(), fa.bwd_launch_count(), fa.bias_launch_count(),
+                cf.launch_count(), cf.dx_launch_count(), cf.dy_launch_count(),
+                fav.launch_count("variant"), fav.launch_count("ones_column")))
+    c.n1 = (n1.launch_count(), n1.bwd_launch_count(), n1.plain_count())
+    return c
 
 
 def reset_counts(fa) -> None:
     from tunevlseg_torch.ops import conv_flat as cf
     from tunevlseg_torch.ops import flash_attention_variants as fav
+    from tunevlseg_torch.ops import layer_norm as n1
     fa.reset_launch_count()
     cf.reset_launch_count()
     fav.reset_launch_count()
+    n1.reset_launch_count()
 
 
 def load_script(name: str):
@@ -567,8 +594,12 @@ def load_script(name: str):
     return module
 
 
-def minus(after: tuple, before: tuple) -> tuple:
-    return tuple(a - b for a, b in zip(after, before))
+def minus(after: tuple, before: tuple) -> Counts:
+    grew = Counts(a - b for a, b in zip(after, before))
+    n1_after, n1_before = getattr(after, "n1", None), getattr(before, "n1", None)
+    if n1_after is not None and n1_before is not None:
+        grew.n1 = tuple(a - b for a, b in zip(n1_after, n1_before))
+    return grew
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -609,11 +640,11 @@ def phase_device():
 def phase_build():
     from tunevlseg_torch.ops import build
     kernels = (("fwd", "K1"), ("bwd", "K2"), ("bias", "K3"), ("conv", "K4"),
-               ("variants", "S1-S4"))
+               ("layer_norm", "N1"), ("variants", "S1-S4"))
     t0 = time.perf_counter()
     build.load_libraries(sweeps=True)
     secs = time.perf_counter() - t0
-    print(f"build: K1, K2, K3, K4 and S1-S4 (five sources side by side) {secs:.2f} s -> "
+    print(f"build: K1, K2, K3, K4, N1 and S1-S4 (six sources side by side) {secs:.2f} s -> "
           + ", ".join(build.library_path(k).name for k, _ in kernels))
     for kernel, label in kernels:
         log = build.library_path(kernel).with_suffix(".log").read_text()
@@ -1123,16 +1154,19 @@ def check_probs(label: str, probs, batch: int, img, classes: int = 1) -> None:
 
 def plain_path(f32_scores: bool = False):
     """A context in which every attention of the models takes
-    `plain_attention`: the reference the kernel paths are compared with. With
-    `f32_scores` it takes the kernels' plain version instead, which keeps its
+    `plain_attention` and every LayerNorm the plain chain N1 replaces: the
+    reference the kernel paths are compared with. With `f32_scores` the
+    attentions take the kernels' plain version instead, which keeps its
     scores in f32 as the kernels do: a second path without a kernel."""
     import contextlib
     from unittest import mock
     from tunevlseg_torch.nn import attention
     from tunevlseg_torch.ops import flash_attention as fa
+    from tunevlseg_torch.ops import layer_norm as n1
     stack = contextlib.ExitStack()
     stack.enter_context(
         mock.patch.object(attention, "_kernel_eligible", lambda *a: ""))
+    stack.enter_context(mock.patch.object(n1, "engages", lambda *a: False))
     if f32_scores:
         stack.enter_context(mock.patch.object(attention, "plain_attention",
                                               fa.biased_attention_ref))
@@ -2126,6 +2160,108 @@ def phase_kernels_k4(cf, cases=K4_CASES, batch=BATCH, device_time=False):
                           "weight_copy_ms": copy_ms, **device}
         del out, x, res, x_nchw
     return results
+
+
+# N1 at the flagship's shapes: the ViT's 21 calls a step (b64 x 485 rows of
+# 768), the CLIPSeg decoder's (485 rows of 64) and CRIS's text-to-pixel rows
+# (b64 x 676 rows of 512), bf16 in and out
+N1_SHAPES = (("vit", BATCH * 485, 768), ("decoder", BATCH * 485, 64),
+             ("cris", BATCH * 676, 512))
+# N1 against the plain chain: y within one bf16 ulp, or 1e-5 where |y| is
+# tiny (the f32 statistics are summed in another order: the mean differs by
+# a few f32 ulps); dx within one bf16 ulp of its largest magnitude and 1e-5
+# more; dw and db within 1e-5 of the sum of their terms' magnitudes
+N1_NOISE = 1e-5
+
+
+def phase_kernel_n1() -> dict:
+    """N1 (`csrc/layer_norm.cu`) forward and backward against the plain
+    chain it replaces (x to f32, f32 `F.layer_norm`, y to bf16; its
+    backward through autograd) at `N1_SHAPES`: y, dx, dw and db held, two
+    backward calls bit-identical; the device time of each kernel (L2
+    flushed, torch.profiler) and by CUDA events, beside its bytes bound (the
+    forward reads x and writes y, the backward reads dy and x and writes dx,
+    and 8 bytes of statistics a row) and beside the chain's time by events.
+    Returns {shape: numbers}."""
+    import torch
+
+    from tunevlseg_torch.ops import layer_norm as n1
+    from tunevlseg_torch.ops import library
+    bf16, eps = torch.bfloat16, 1e-5
+    numbers = {}
+    for label, rows, d in N1_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(rows + d)
+        x = (torch.randn(rows, d, generator=gen, device="cuda") * 2 + 1).to(bf16)
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        dy = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+
+        def fwd():
+            return library.layer_norm(x, w, b, eps, bf16)
+
+        y, mean, rstd = fwd()
+
+        def bwd():
+            return n1._launch_bwd(dy, x, w, mean, rstd, True, True, True)
+
+        dx, dw, db = bwd()
+        again = bwd()
+        xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        y_chain = n1.layer_norm_ref(xr, wr, br, eps, bf16)
+
+        def chain_fwd():
+            return n1.layer_norm_ref(x, w, b, eps, bf16)
+
+        def chain_bwd():
+            return torch.autograd.grad(y_chain, (xr, wr, br), dy, retain_graph=True)
+
+        gx, gw, gb = chain_bwd()
+        torch.cuda.synchronize()
+        y_gap = (y.float() - y_chain.float()).abs()
+        _, exp = torch.frexp(torch.maximum(y.float().abs(), y_chain.float().abs()))
+        y_ulp = torch.ldexp(torch.ones_like(y_gap), exp - 8).clamp(min=N1_NOISE)
+        y_ulps = (y_gap / y_ulp).max().item()
+        dx_gap = (dx.float() - gx.float()).abs().max().item() / gx.float().abs().max().item()
+        xh = (x.float() - mean[:, None]) * rstd[:, None]
+        dw_gap = ((dw - gw).abs() / (dy.float() * xh).abs().sum(0)).max().item()
+        db_gap = ((db - gb).abs() / dy.float().abs().sum(0)).max().item()
+        same = all(torch.equal(p, q) for p, q in zip((dx, dw, db), again))
+        row_bytes = rows * d * 2
+        bound_f = (2 * row_bytes + 8 * rows) / HBM_BYTES_PER_S * 1e3
+        bound_b = (3 * row_bytes + 8 * rows) / HBM_BYTES_PER_S * 1e3
+        dev_f, _ = kernel_device_ms(f"N1 {label} forward", fwd,
+                                    {"layer_norm_fwd_kernel": 1}, bound_f)
+        dev_b, _ = kernel_device_ms(f"N1 {label} backward", bwd,
+                                    {"layer_norm_bwd_kernel": 1,
+                                     "layer_norm_bwd_sum_kernel": 1}, bound_b)
+        r = {"fwd_device_ms": dev_f["layer_norm_fwd_kernel"],
+             "bwd_device_ms": dev_b["layer_norm_bwd_kernel"],
+             "bwd_sum_device_ms": dev_b["layer_norm_bwd_sum_kernel"],
+             "fwd_ms": cuda_time_ms(fwd, 50), "bwd_ms": cuda_time_ms(bwd, 50),
+             "chain_fwd_ms": cuda_time_ms(chain_fwd, 50),
+             "chain_bwd_ms": cuda_time_ms(chain_bwd, 50),
+             "fwd_bound_ms": bound_f, "bwd_bound_ms": bound_b,
+             "y_ulps": y_ulps, "dx_gap": dx_gap, "dw_gap": dw_gap, "db_gap": db_gap,
+             "deterministic": same}
+        r["fwd_roofline"] = 100 * bound_f / r["fwd_device_ms"]
+        r["bwd_roofline"] = 100 * bound_b / (r["bwd_device_ms"] + r["bwd_sum_device_ms"])
+        numbers[label] = r
+        print(f"N1 {label} {rows} x {d} bf16: forward device {r['fwd_device_ms']:.4f} ms "
+              f"(events {r['fwd_ms']:.4f}), bound {bound_f:.4f} ms by bytes "
+              f"({r['fwd_roofline']:.1f}%), the chain {r['chain_fwd_ms']:.4f} ms "
+              f"({r['chain_fwd_ms'] / r['fwd_ms']:.2f}x); backward device "
+              f"{r['bwd_device_ms']:.4f} + sum {r['bwd_sum_device_ms']:.4f} ms (events "
+              f"{r['bwd_ms']:.4f}), bound {bound_b:.4f} ms ({r['bwd_roofline']:.1f}%), "
+              f"the chain's autograd {r['chain_bwd_ms']:.4f} ms "
+              f"({r['chain_bwd_ms'] / r['bwd_ms']:.2f}x); y against the chain at most "
+              f"{y_ulps:.2f} bf16 ulp (or 1e-5), dx {dx_gap:.3g} of its largest, dw {dw_gap:.3g} "
+              f"and db {db_gap:.3g} of their terms' magnitudes; two backward calls "
+              f"bit-identical: {same}")
+        if not (y_ulps <= 1 and dx_gap <= 2 ** -8 + N1_NOISE and dw_gap <= N1_NOISE
+                and db_gap <= N1_NOISE and same):
+            fail(f"N1 {label}: against the chain y {y_ulps} ulp, dx {dx_gap}, dw "
+                 f"{dw_gap}, db {db_gap}; deterministic {same}")
+    return numbers
 
 
 def phase_kernel_k4_backward(cf):
@@ -4177,11 +4313,11 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
     requests = three_requests(80, IMG, 49407)
     by_path["export_clipseg_coop"], numbers["clipseg coop b64"] = exported_vs_eager(
         fa, "export clipseg coop b64 dedup", task, params, requests[0][1],
-        CLIPSEG_SERVE, ("biased_attn_fwd", "flash_attn_fwd"), root / "clipseg_b64",
-        profile=profile)
+        CLIPSEG_SERVE, ("biased_attn_fwd", "flash_attn_fwd", "layer_norm"),
+        root / "clipseg_b64", profile=profile)
     _, numbers["clipseg coop b1"] = exported_vs_eager(
         fa, "export clipseg coop b1", task, params, requests[2][1], CLIPSEG_SERVE,
-        ("biased_attn_fwd", "flash_attn_fwd"), root / "clipseg_b1",
+        ("biased_attn_fwd", "flash_attn_fwd", "layer_norm"), root / "clipseg_b1",
         platforms=("cuda", "cpu"), profile=profile)
     meta = serving.read_meta(root / "clipseg_b1")
     if meta["platforms"] != ["cuda", "cpu"] or meta["tunevlseg_ops"]["cpu"]:
@@ -4216,7 +4352,8 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
     by_path["export_cris_flat_coop"], numbers["cris coop flat b64"] = \
         exported_vs_eager(fa, "export cris coop flat b64 dedup", task, params,
                           request, CRIS_FLAT_SERVE,
-                          ("biased_attn_fwd", "conv_flat", "flash_attn_fwd"),
+                          ("biased_attn_fwd", "conv_flat", "flash_attn_fwd",
+                           "layer_norm"),
                           root / "cris_flat_b64")
     del task, params, model
 
@@ -4230,14 +4367,15 @@ def phase_export(fa, tss_task, tss_request, profile: bool = False) -> tuple:
     request = make_request(torch.Generator().manual_seed(82), TS_BATCH, TS_BATCH, IMG)
     by_path["export_trans_seg"], numbers["trans_seg b32"] = exported_vs_eager(
         fa, "export trans_seg b32", task, params, request, TS_EXPORT_SERVE,
-        ("biased_attn_fwd", "flash_attn_fwd"), root / "ts_b32")
+        ("biased_attn_fwd", "flash_attn_fwd", "layer_norm"), root / "ts_b32")
     del task, params, model
 
     params = dict(tss_task.model.state_dict())
     by_path["export_trans_seg_siglip"], numbers["trans_seg_siglip b32"] = \
         exported_vs_eager(fa, "export trans_seg_siglip b32", tss_task, params,
                           tss_request, TSS_SERVE,
-                          ("biased_attn_fwd", "flash_attn_fwd"), root / "tss_b32",
+                          ("biased_attn_fwd", "flash_attn_fwd", "layer_norm"),
+                          root / "tss_b32",
                           profile=profile)
     shutil.rmtree(root)
     return by_path, numbers
@@ -6220,7 +6358,7 @@ def tp_export_hold(fa, run: dict, one: tuple) -> tuple:
     shutil.rmtree(tp_dir, ignore_errors=True)
     shutil.rmtree(one_dir, ignore_errors=True)
     if not same or ops[0] != ops[1] or \
-            ops[0] != {"cuda": ["biased_attn_fwd", "flash_attn_fwd"]}:
+            ops[0] != {"cuda": ["biased_attn_fwd", "flash_attn_fwd", "layer_norm"]}:
         fail("tp2 export: the tp = 2 program is not the one-process program")
     if launches != CLIPSEG_SERVE:
         fail(f"tp2 export: the program launched {launches}")
@@ -6666,6 +6804,8 @@ def main() -> None:
     k4.update(zs_k4_cases(cf))
     k4_backward, k4_prologue = phase_kernel_k4_backward(cf)
     clock("K4 checked")
+    n1_numbers = phase_kernel_n1()
+    clock("N1 checked")
     library = phase_yardstick()
     library.update(phase_yardstick(D96_SHAPES))
     by_path = {"serve": phase_serve(fa),
@@ -6768,6 +6908,23 @@ def main() -> None:
         "launches": sum(c[5] for c in by_path.values()),
         "launches_by_path": {p: c[5] for p, c in by_path.items()},
         **k4_prologue})
+    # N1 runs in the LayerNorms of the bf16 blocks on the card: (forward,
+    # backward launches, calls on the plain chain) by path, from each path's
+    # own run; None where a path's counts came from other processes (ranks)
+    n1_by_path = {p: getattr(c, "n1", None) for p, c in by_path.items()}
+    for path, c in n1_by_path.items():
+        print(f"N1 on the {path} path: " + ("counted in other processes" if c is None
+              else f"{c[0]} forward launches, {c[1]} backward, {c[2]} calls on "
+                   "the plain chain"))
+    kernels.append({
+        "name": "N1 layer_norm (one pass over a row held in registers: f32 "
+                "statistics, bf16 in and out; its backward with deterministic "
+                "partial sums of dw and db)",
+        "route": "cuda", "source": "tunevlseg_torch/csrc/layer_norm.cu",
+        "replaces": "none: XLA fuses the JAX package's LayerNorm",
+        "launches": sum(c[0] for c in n1_by_path.values() if c is not None),
+        "launches_by_path": n1_by_path,
+        **n1_numbers["vit"], "by_shape": n1_numbers})
     # S1-S4 are on no model's path: their main path is the sweeps' entry
     # point, and their launches are those it made while timing. Their counts
     # were read beside the other kernels' on every model path

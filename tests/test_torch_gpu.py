@@ -16,6 +16,7 @@ from tunevlseg_torch.ops import build
 from tunevlseg_torch.ops import conv_flat as cf
 from tunevlseg_torch.ops import flash_attention as fa
 from tunevlseg_torch.ops import flash_attention_variants as fav
+from tunevlseg_torch.ops import layer_norm as ln
 
 pytestmark = pytest.mark.gpu
 
@@ -659,7 +660,8 @@ def test_small_cris_kernel_path_matches_plain_path(cuda):
 
 
 @pytest.mark.parametrize("op,d", [("K1", 96), ("K1 lse", 64), ("K3", 96),
-                                  ("K3 no bias", 32), ("K4", 0), ("K4 dx", 0)])
+                                  ("K3 no bias", 32), ("K4", 0), ("K4 dx", 0),
+                                  ("N1", 768), ("N1 no bias", 64)])
 def test_op_fake_implementation_matches_the_launch(cuda, op, d):
     """Each `tunevlseg::` op's fake implementation (what a torch.export
     trace reads) gives the shapes and dtypes of its CUDA launch's outputs;
@@ -667,7 +669,13 @@ def test_op_fake_implementation_matches_the_launch(cuda, op, d):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from tunevlseg_torch.ops import library
-    if op.startswith("K4"):
+    if op.startswith("N1"):
+        x = torch.randn(2, 77, d, device=cuda).bfloat16()
+        w = torch.randn(d, device=cuda)
+        args = (x, w, None if op == "N1 no bias" else torch.randn(d, device=cuda),
+                1e-5, torch.bfloat16)
+        fn, count = library.layer_norm, ln.launch_count
+    elif op.startswith("K4"):
         spec = cf.make_flat_spec(12, 12, 1)
         x = torch.randn(2, spec.rows, 16, device=cuda).bfloat16()
         w = torch.randn(24, 9, 16, device=cuda).bfloat16()

@@ -15,7 +15,8 @@ import torch
 
 from tunevlseg_torch.models.clip.config import CLIPSegConfig
 from tunevlseg_torch.models.presets import build_clipseg
-from tunevlseg_torch.ops import conv_flat, flash_attention, flash_attention_variants
+from tunevlseg_torch.ops import (conv_flat, flash_attention, flash_attention_variants,
+                                 layer_norm)
 from tunevlseg_torch.training.task import SegmentationTask
 from tunevlseg_torch.utils import profiling
 
@@ -157,10 +158,12 @@ def test_cpu_program_of_compile_train_multistep_counts_its_steps_spans():
       flash_attention.bias_launch_count)),
     (conv_flat, (conv_flat.K4, conv_flat.K4_DX, conv_flat.K4_DY),
      (conv_flat.launch_count, conv_flat.dx_launch_count, conv_flat.dy_launch_count)),
+    (layer_norm, (layer_norm.N1, layer_norm.N1_BWD, layer_norm.N1_PLAIN),
+     (layer_norm.launch_count, layer_norm.bwd_launch_count, layer_norm.plain_count)),
     (flash_attention_variants, tuple(flash_attention_variants.COUNTERS.values()),
      tuple(lambda kernel=kernel: flash_attention_variants.launch_count(kernel)
            for kernel in flash_attention_variants.COUNTERS)),
-], ids=["k1_k2_k3", "k4", "variants"])
+], ids=["k1_k2_k3", "k4", "n1", "variants"])
 def test_launch_count_functions_read_and_reset_the_registrys_counters(
         module, counters, readers):
     profiling.count("other.counter", 5)

@@ -278,7 +278,7 @@ def test_ops_have_fake_implementations():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from tunevlseg_torch.ops import library
-    assert set(library.OPS) == {"K1", "K3", "K4"}
+    assert set(library.OPS) == {"K1", "K3", "K4", "N1"}
     with FakeTensorMode():
         q = torch.empty(2, 10, 3, 96, dtype=torch.bfloat16)
         kv = torch.empty(2, 7, 3, 96, dtype=torch.bfloat16)
@@ -294,6 +294,12 @@ def test_ops_have_fake_implementations():
         out = library.conv_flat(x, w, None, None, None, 384, 3, 10, 10, 1, 128,
                                 True, False, 0)
         assert (out.shape, out.dtype) == ((2, 384, 24), torch.bfloat16)
+        x = torch.empty(2, 485, 768, dtype=torch.bfloat16)
+        y, mean, rstd = library.layer_norm(x, torch.empty(768), None, 1e-5,
+                                           torch.float32)
+        assert [(t.shape, t.dtype) for t in (y, mean, rstd)] == [
+            (x.shape, torch.float32), ((2, 485), torch.float32),
+            ((2, 485), torch.float32)]
     # a CPU tensor has no implementation: the wrappers take the plain
     # versions before any op
     with pytest.raises(NotImplementedError):

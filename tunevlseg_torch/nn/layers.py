@@ -29,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tunevlseg_torch.nn.attention import dot_product_attention, head_slice
+from tunevlseg_torch.ops import layer_norm as n1
 from tunevlseg_torch.parallel import tensor_parallel as tp_lib
+from tunevlseg_torch.utils import profiling
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +105,12 @@ class LayerNorm(nn.Module):
     """Flax `nn.LayerNorm(dtype=..., use_bias=bias)`: f32 statistics and
     affine, output in the compute dtype. A tuple `dim` normalises over that
     many trailing axes with an affine of that shape (torch's
-    `nn.LayerNorm((C, H, W))`)."""
+    `nn.LayerNorm((C, H, W))`).
+
+    A call `ops/layer_norm.engages` takes (the last axis alone, on CUDA,
+    bfloat16 in and out, D % 8 == 0 and D <= 4096) runs N1, one pass each
+    way; every other call runs the plain chain (x to f32, f32 layer_norm, y
+    to the compute dtype), counted as `n1.plain`."""
 
     def __init__(self, dim: int | tuple[int, ...], eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
@@ -119,10 +126,10 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         None if self.bias is None else self.bias.float(),
-                         self.eps)
-        return y.to(self.dtype)
+        if n1.engages(self.weight.shape, x.dtype, self.dtype, x.device):
+            return n1.layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+        profiling.count(n1.N1_PLAIN)
+        return n1.layer_norm_ref(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class GroupNorm(nn.Module):

@@ -1,7 +1,7 @@
 """Building and loading the port's CUDA kernels.
 
 Every kernel is one CUDA C++ source under `tunevlseg_torch/csrc/` with a plain
-C entry point. At first use of any of the models' kernels (K1-K4), every
+C entry point. At first use of any of the models' kernels (K1-K4, N1), every
 source of theirs whose library is missing is compiled with `nvcc` for `sm_90a`
 (one compiler process per source, all started together) into
 `tunevlseg_torch/_build/`, under a name keyed by a hash of the source, every
@@ -12,8 +12,9 @@ first sweep: a process that only serves or trains never builds it;
 go. A failed build raises; there is no fallback. Each compiler's output (with
 the register and spill counts of `ptxas -v`) is kept beside its library as
 `<name>.log`. The wrappers (`ops/flash_attention.py`,
-`ops/flash_attention_variants.py`, `ops/conv_flat.py`) set the argument types
-of their entry points and launch on PyTorch's current stream.
+`ops/flash_attention_variants.py`, `ops/conv_flat.py`, `ops/layer_norm.py`)
+set the argument types of their entry points and launch on PyTorch's current
+stream.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {"fwd": _PKG / "csrc" / "flash_attn_fwd.cu",          # K1
            "bwd": _PKG / "csrc" / "flash_attn_bwd.cu",          # K2
            "bias": _PKG / "csrc" / "flash_attn_bias_fwd.cu",    # K3
-           "conv": _PKG / "csrc" / "conv_flat.cu"}              # K4
+           "conv": _PKG / "csrc" / "conv_flat.cu",              # K4
+           "layer_norm": _PKG / "csrc" / "layer_norm.cu"}       # N1
 SWEEP_SOURCES = {"variants": _PKG / "csrc" / "flash_attn_fwd_variants.cu"}  # S1-S4
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))   # shared by the sources
 BUILD_DIR = _PKG / "_build"
@@ -48,7 +50,8 @@ def _nvcc() -> str:
 
 def library_path(kernel: str) -> Path:
     """Where the built library of a kernel ("fwd" is K1, "bwd" K2, "bias" K3,
-    "conv" K4, "variants" S1-S4) lives for its current source and flags."""
+    "conv" K4, "layer_norm" N1, "variants" S1-S4) lives for its current
+    source and flags."""
     source = {**SOURCES, **SWEEP_SOURCES}[kernel]
     digest = hashlib.sha256(source.read_bytes()
                             + b"".join(h.read_bytes() for h in HEADERS)
