@@ -18,6 +18,13 @@ Counterpart of `tunevlseg_tpu/models/cris/model.py`:
     (no bias) -> bilinear resize to img_size -> conv k5 with replicate
     padding, blended by `residual_ratio`.
 
+Spans (`utils/profiling.py`): the forward times its five stages as
+`cris.visual` (the ResNet and its attention pool), `cris.text` (the prompt
+learner, the text tower and the `text_index` gather), `cris.neck`,
+`cris.decoder` and `cris.head` (the projector, the bicubic upsample and the
+additive head): host spans when eager, pairs of timing events inside a
+captured train step.
+
 `text_index` deduplicates prompts as in the CLIPSeg model. Dropout (the
 decoder's) is applied only with `deterministic=False` and draws its masks
 from the `generator` it is given.
@@ -48,6 +55,7 @@ from tunevlseg_torch.nn.attention import causal_bias, padding_bias
 from tunevlseg_torch.nn.conv import Conv2d
 from tunevlseg_torch.nn.layers import Embed, LayerNorm, PreNormEncoderLayer
 from tunevlseg_torch.ops.image import resize_2d
+from tunevlseg_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,32 +233,37 @@ class CRISForSegmentation(nn.Module):
         pad_mask = pad.bool()
 
         # vision first: CoCoOp's meta-net reads the pooled last feature
-        vis = self.visual(pixel_values)
-        text_ctx = None
-        if learner is not None:
-            image_features = vis[-1].mean(dim=(2, 3)) if need_pooled else None
-            text_ctx = learner(image_features=image_features,
-                               deterministic=deterministic,
-                               generator=generator).text
-        tokens, state = self.text(input_ids, pad_mask=pad_mask, text_ctx=text_ctx,
-                                  prompt_depth=prompt_depth,
-                                  max_length=c.context_length)
-        if text_index is not None:
-            idx = text_index.long()
-            tokens, state, pad_mask = tokens[idx], state[idx], pad_mask[idx]
+        with profiling.span("cris.visual"):
+            vis = self.visual(pixel_values)
+        with profiling.span("cris.text"):
+            text_ctx = None
+            if learner is not None:
+                image_features = vis[-1].mean(dim=(2, 3)) if need_pooled else None
+                text_ctx = learner(image_features=image_features,
+                                   deterministic=deterministic,
+                                   generator=generator).text
+            tokens, state = self.text(input_ids, pad_mask=pad_mask, text_ctx=text_ctx,
+                                      prompt_depth=prompt_depth,
+                                      max_length=c.context_length)
+            if text_index is not None:
+                idx = text_index.long()
+                tokens, state, pad_mask = tokens[idx], state[idx], pad_mask[idx]
 
-        fq = self.neck(vis, state, use_running_average=bn_ura, updates=updates)
-        fq = self.decoder(fq, tokens, pad_mask, deterministic=deterministic,
-                          generator=generator)
-        pred = self.proj(fq, state, use_running_average=bn_ura, updates=updates)
-        if updates:
-            name_stats_updates(self, updates, stats_updates)
-        logits = resize_2d(pred, (c.img_size, c.img_size), "bicubic",
-                           align_corners=True)
-        if self.additive_mode == "residual":
-            head = resize_2d(self.additive_conv1(fq), (c.img_size, c.img_size),
-                             "bilinear")
-            head = self.additive_conv2(head)
-            r = self.residual_ratio.to(logits.dtype)
-            logits = (1 - r) * logits + r * head
+        with profiling.span("cris.neck"):
+            fq = self.neck(vis, state, use_running_average=bn_ura, updates=updates)
+        with profiling.span("cris.decoder"):
+            fq = self.decoder(fq, tokens, pad_mask, deterministic=deterministic,
+                              generator=generator)
+        with profiling.span("cris.head"):
+            pred = self.proj(fq, state, use_running_average=bn_ura, updates=updates)
+            if updates:
+                name_stats_updates(self, updates, stats_updates)
+            logits = resize_2d(pred, (c.img_size, c.img_size), "bicubic",
+                               align_corners=True)
+            if self.additive_mode == "residual":
+                head = resize_2d(self.additive_conv1(fq), (c.img_size, c.img_size),
+                                 "bilinear")
+                head = self.additive_conv2(head)
+                r = self.residual_ratio.to(logits.dtype)
+                logits = (1 - r) * logits + r * head
         return logits
